@@ -232,7 +232,7 @@ class StagedBlock:
 
 
 def stage_block(sd, loader, views, block, bbox, compute_block, blend,
-                anisotropy, inside_offset, patch_quantum=32):
+                anisotropy, inside_offset):
     """Plan one compute block and read its source patches on the host.
     None when no view overlaps it (the block is left empty)."""
     bshape = tuple(int(s) for s in compute_block)
@@ -248,7 +248,7 @@ def stage_block(sd, loader, views, block, bbox, compute_block, blend,
         raise NotYetPorted("per-block fusion of diagonal (anisotropic) views "
                            "(fuse_block_sep)")
     pshape = F.bucket_shape(
-        np.max([p.patch_interval.shape for p in plans], axis=0), patch_quantum)
+        np.max([p.patch_interval.shape for p in plans], axis=0))
     return StagedBlock(block, "gather", bshape, _gather_inputs(
         loader, plans, pshape, vb, blend, inside_offset))
 
@@ -276,17 +276,15 @@ def run_staged_block(staged: StagedBlock, fusion_type: str,
 
 
 def fuse_grid_block(sd, loader, views, block, bbox, fusion_type="AVG_BLEND",
-                    blend=None, anisotropy=None, patch_quantum=32,
-                    compute_block_shape=None, inside_offset=(0.0, 0.0, 0.0),
-                    device=None):
+                    blend=None, anisotropy=None, compute_block_shape=None,
+                    inside_offset=(0.0, 0.0, 0.0), device=None):
     """Fuse one grid block. Returns (fused, wsum) float32 tensors of
     ``block.size`` on ``device`` (default ``cuda``), or None when no view
     overlaps the block."""
     dev = resolve_device(device)
     staged = stage_block(sd, loader, views, block, bbox,
                          compute_block_shape or block.size,
-                         blend or BlendParams(), anisotropy, inside_offset,
-                         patch_quantum)
+                         blend or BlendParams(), anisotropy, inside_offset)
     if staged is None:
         return None
     fused, wsum = run_staged_block(staged, fusion_type, dev)
@@ -527,15 +525,15 @@ def fuse_volume(
     mask_offset: tuple[float, float, float] = (0.0, 0.0, 0.0),
     zarr_ct: tuple[int, int] | None = None,
     io_threads: int = 4,
-    device_resident: bool | None = None,
     device: str | torch.device | None = None,
 ) -> FusionStats:
     """Fuse ``views`` into ``out_ds`` over ``bbox`` on one device.
 
     ``zarr_ct``: (channel, timepoint) indices when out_ds is a 5-D OME-ZARR
     dataset. ``device``: ``cuda`` (the default; raises without a card) or
-    ``cpu`` (the plain-torch twins). The composite route is tried first
-    unless ``device_resident=False``."""
+    ``cpu`` (the plain-torch twins). The composite route is taken when
+    the tiles and the volume fit ``BST_DEVICE_TILE_BUDGET``, else the
+    per-block route."""
     dev = resolve_device(device)
     stats = FusionStats()
     t0 = time.time()
@@ -549,8 +547,8 @@ def fuse_volume(
                 out_dtype, (0.0, 1.0))
     threads = config.get("BST_WRITE_THREADS") or 1
 
-    cp = None if device_resident is False else plan_composite_volume(
-        sd, loader, views, bbox, aniso, blend, masks, mask_offset)
+    cp = plan_composite_volume(sd, loader, views, bbox, aniso, blend, masks,
+                               mask_offset)
     if cp is not None:
         stats.path = "composite"
         tiles = upload_composite_tiles(loader, cp, dev, stats.timings)

@@ -192,15 +192,6 @@ convert_intensity.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _axis_tables(base, mul, add, dim, border, blend_range, inside_off):
-    """Blend weights and inside masks at positions ``base * mul + add``,
-    every argument broadcast elementwise (one pass however many views and
-    axes are packed side by side; elementwise ops give each element the
-    value a per-axis evaluation would)."""
-    return _axis_blend_at(base * mul + add, dim, border, blend_range,
-                          inside_off)
-
-
 def shift_axis_tables(lpos0, img_dims, borders, blend_ranges, inside_offs,
                       block_shape) -> torch.Tensor:
     """Per-view 1-D blend weights and inside masks of a translation block,
@@ -212,9 +203,10 @@ def shift_axis_tables(lpos0, img_dims, borders, blend_ranges, inside_offs,
     ax = (idx >= bx).long() + (idx >= bx + by).long()  # axis of each entry
     step = (idx - torch.where(ax == 0, 0, torch.where(ax == 1, bx, bx + by))
             ).to(torch.float32)[None, :]
-    w, ins = _axis_tables(step, 1.0, lpos0[:, ax], img_dims[:, ax],
-                          borders[:, ax], blend_ranges[:, ax],
-                          inside_offs[:, ax])
+    # elementwise, so each entry gets the value a per-axis pass would
+    w, ins = _axis_blend_at(step + lpos0[:, ax], img_dims[:, ax],
+                            borders[:, ax], blend_ranges[:, ax],
+                            inside_offs[:, ax])
     return torch.stack([w, ins], 1).contiguous()
 
 
@@ -355,17 +347,6 @@ def _trilinear_sample(patch: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return c000 + c100 + c010 + c110 + c001 + c101 + c011 + c111
 
 
-def _blend_weight(lpos, img_dim, border, blend_range):
-    """Cosine border-ramp weight at level coords lpos (N,3), product over
-    axes (mvrecon BlendingRealRandomAccess semantics)."""
-    hi = img_dim - 1.0 - border
-    d = torch.minimum(lpos - border, hi - lpos)
-    r = torch.clamp(blend_range, min=1e-6)
-    ramp = 0.5 * (torch.cos((1.0 - d / r) * math.pi) + 1.0)
-    w = torch.where(d < 0, 0.0, torch.where(d < r, ramp, 1.0))
-    return w[:, 0] * w[:, 1] * w[:, 2]
-
-
 def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
                      blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
                      inside_offs=None):
@@ -385,12 +366,12 @@ def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
         # ulp of sample position is a visible step on a steep image
         p = ((x * A[:, 0] + y * A[:, 1]) + z * A[:, 2]) + A[:, 3]
         vals.append(_trilinear_sample(patches[v], p))
-        lpos = p + patch_offsets[v]
-        io = inside_offs[v]
-        insides.append(torch.all((lpos >= -io) & (lpos <= img_dims[v] - 1.0 + io),
-                                 dim=-1).to(torch.float32))
-        blends.append(_blend_weight(lpos, img_dims[v], borders[v],
-                                    blend_ranges[v]))
+        # cosine border ramp and inside test per axis at the level coords,
+        # product over axes (ops/fusion.py _blend_weight)
+        w, ins = _axis_blend_at(p + patch_offsets[v], img_dims[v], borders[v],
+                                blend_ranges[v], inside_offs[v])
+        insides.append(ins[:, 0] * ins[:, 1] * ins[:, 2])
+        blends.append(w[:, 0] * w[:, 1] * w[:, 2])
     fused, wsum = _combine_views(torch.stack(vals), torch.stack(insides),
                                  torch.stack(blends), valid, fusion_type)
     return fused.reshape(tuple(block_shape)), wsum.reshape(tuple(block_shape))
@@ -484,8 +465,8 @@ def composite_axis_tables(windows, n_offs, kinds, fracs, diags, offs,
         return torch.zeros(1, dtype=torch.float32, device=device), starts
     # one upload, one elementwise pass; then regroup per view as
     # blend x, y, z, inside x, y, z
-    packed = torch.from_numpy(np.concatenate(cols, 1)).to(device)
-    w, ins = _axis_tables(*packed)
+    base, mul, add, *axis = torch.from_numpy(np.concatenate(cols, 1)).to(device)
+    w, ins = _axis_blend_at(base * mul + add, *axis)
     parts, pos = [], 0
     for v, st in enumerate(starts):
         if st is None:

@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the four
          fusion kernels from csrc/ (one nvcc per source, all at once).
 Phase 1  holds each kernel (K1 composite, K2 shift, K3 gather, K4 convert)
-         against its plain-torch twin on the card at compute-block size
-         (256x256x128, 4 views, sub-pixel fractions, a rotated affine,
-         samples outside the tile), and times both with CUDA events.
+         against its plain-torch twin on the card at the per-block routes'
+         compute-block size (256x256x64, 4 views, sub-pixel fractions, a
+         rotated affine, samples outside the tile), and times both with
+         CUDA events.
 Phase 2  route A, composite: a synthetic 2x2x1 project of 1024x1024x128
          uint16 tiles (the 2x2-binned frame of a 2048^2 sCMOS light-sheet
          camera; ~10 % overlap, sub-pixel translations, N5 raw in
@@ -27,11 +28,13 @@ are held against the plain-torch twins run on the card, and the host-read,
 H2D, kernel, D2H and write times and the fused voxels/s are printed beside
 the card's name and power limit. The launch counts of every kernel are
 set to 0 just before phase 2 and read just after phase 4: a kernel of the
-path launched no time fails the run. The second-to-last line of output
+path launched no time fails the run. K1 then runs again, timed and held
+against its twin, on route A's whole volume: the one shape the main path
+gives it. The second-to-last line of output
 is the kernels' JSON record; the last is {"ok": true, "device": ...}.
 Any failure exits non-zero and prints no result.
 
-``--device cpu --scale tiny`` rehearses phases 2-4 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-4 on the CPU with the
 plain twins (no kernels, no timings); it then exits 3 without a result.
 """
 
@@ -57,13 +60,18 @@ OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
 
 SCALES = {
     "full": dict(tile=(1024, 1024, 128), overlap=102, block=(128, 128, 64),
-                 rot_tile=(1024, 1024, 64), beads=400, kshape=(256, 256, 128),
-                 per_block_budget=None),
+                 rot_tile=(1024, 1024, 64), beads=400, per_block_budget=None),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=12, block=(32, 32, 16),
-                 rot_tile=(96, 80, 16), beads=20, kshape=(32, 32, 16),
-                 per_block_budget=1),
+                 rot_tile=(96, 80, 16), beads=20, per_block_budget=1),
 }
+BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
+COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
+
+
+def compute_block_of(scale):
+    """The compute block of the per-block routes (storage block x scale)."""
+    return tuple(b * s for b, s in zip(SCALES[scale]["block"], BLOCK_SCALE))
 
 
 class SmokeFailure(Exception):
@@ -114,33 +122,6 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def assert_fused_close(what, got, ref, V, vmax):
-    """Hold K3's (fused, wsum) float32 pair against its twin's.
-
-    K3 evaluates the blend ramp per voxel with CUDA's cosf; its twin uses
-    torch.cos. Each lies within 2 ulp, so one axis weight 0.5 * (cos + 1)
-    may differ by up to 2^-23 and a view's weight (three axes) by less than
-    2^-21; normalising by wsum carries that into the fused value as at most
-    V * vmax * 2^-21 / wsum. So wsum: atol 1e-5; fused: rtol 1e-5 / atol
-    1e-3 plus that term, which matters only where every covering view sits
-    on the far tail of its blend ramp (wsum << 1) and fused = acc / wsum is
-    ill-conditioned. (K1 and K2 read their weights from the same tables as
-    their twins and keep the plain tolerance.)"""
-    import torch
-
-    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
-    d = (got[0] - ref[0]).abs()
-    plain = 1e-3 + 1e-5 * ref[0].abs()
-    cos_term = V * vmax * 2.0 ** -21 / ref[1].clamp(min=2.0 ** -21)
-    beyond = d > plain
-    n = int(beyond.sum())
-    worst_w = float(ref[1][beyond].max()) if n else 0.0
-    check(bool((d <= plain + cos_term).all()),
-          f"{what}: fused within rtol 1e-5/atol 1e-3 + cos term (max |delta| "
-          f"{float(d.max()):.4g}; {n} voxels need the cos term, all with "
-          f"wsum <= {worst_w:.3g})")
-
-
 def max_abs(a, b) -> float:
     import torch
 
@@ -163,6 +144,41 @@ def max_abs_u16(a, b, dev) -> int:
 # ---------------------------------------------------------------- phase 1
 
 
+def print_times(what, r):
+    print(f"  {what}: max|delta| {r['err']:.3g}  kernel {r['ms']} ms  "
+          f"wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  "
+          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+
+
+def composite_times(tiles, params, kw, dev, plain_reps=20):
+    """K1 alone (on prepared weight tables), its wrapper and its plain twin
+    on the same inputs with uint16 output: max |delta| of K1 against the
+    twin, the three times, and the bound worked out from these inputs."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+
+    fracs, img_dims, borders, ranges, ioffs, mn, mx, diags, offs = params
+    tables, starts = F.composite_axis_tables(
+        kw["windows"], kw["n_offs"], kw["kinds"], fracs, diags, offs,
+        img_dims, borders, ranges, ioffs, dev)
+    bare = lambda: F.launch_composite(
+        tiles, tables, starts, fracs, diags, offs, mn, mx, out_dtype="uint16",
+        masks=False, **kw)
+    run = lambda: F.composite_fuse(tiles, *params, out_dtype="uint16", **kw)
+    plain = lambda: F.composite_fuse_plain(tiles, *params, out_dtype="uint16",
+                                           **kw)
+    n = int(np.prod(kw["out_shape"]))
+    view_steps = sum(int(np.prod([b - a for a, b in zip(*w)]))
+                     for w, st in zip(kw["windows"], starts) if st is not None)
+    return dict(
+        err=max_abs(run(), plain()), ms=time_ms(bare), wrapper_ms=time_ms(run),
+        plain_ms=time_ms(plain, reps=plain_reps),
+        bound=bound(sum(t.numel() * t.element_size() for t in tiles) + n * 2,
+                    view_steps * OPS["composite_view"]
+                    + n * OPS["composite_final"]))
+
+
 def phase1_kernels(dev, scale):
     """Each kernel against its plain twin on the same card inputs."""
     import numpy as np
@@ -171,7 +187,7 @@ def phase1_kernels(dev, scale):
     from bigstitcher_spark_tpu_torch.ops import fusion as F
 
     rng = np.random.default_rng(2024)
-    bs = SCALES[scale]["kshape"]
+    bs = compute_block_of(scale)
     V = 4
     res = {}
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -218,7 +234,8 @@ def phase1_kernels(dev, scale):
     run = lambda: F.fuse_block(*gargs, bs, "AVG_BLEND", io_d)
     plain = lambda: F.fuse_block_plain(*gargs, bs, "AVG_BLEND", io_d)
     got, ref = run(), plain()
-    assert_fused_close("K3 gather", got, ref, V, 4000.0)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
     ms = time_ms(run)  # no preparation: the wrapper is the launch
     res["fuse_block"] = dict(
         err=max_abs(got[0], ref[0]), ms=ms, wrapper_ms=ms,
@@ -243,7 +260,6 @@ def phase1_kernels(dev, scale):
     dg, of = np.ones((V, 3), np.float32), np.zeros((V, 3), np.float32)
     corners = [(0, 0, 0), tuple(b - s for b, s in zip(bs, S)),
                (bs[0] - S[0], 0, 0), (0, bs[1] - S[1], 0)]
-    view_steps = 0
     for v in range(V):
         tiles.append(c(rng.integers(90, 4000, S).astype(np.uint16)))
         g = rng.uniform(-0.5, 0.5, 3) - np.array(corners[v]) - 2.0
@@ -264,7 +280,6 @@ def phase1_kernels(dev, scale):
             kinds.append("sep")
             n_offs.append((0, 0, 0))
         windows.append((a, b))
-        view_steps += int(np.prod([bb - aa for aa, bb in zip(a, b)]))
     kdims = np.tile(np.array(S, np.float32), (V, 1))
     params = (kfr, kdims, borders, ranges, ioffs, 0.0, 4000.0, dg, of)
     kw = dict(out_shape=bs, windows=tuple(windows), n_offs=tuple(n_offs),
@@ -274,33 +289,15 @@ def phase1_kernels(dev, scale):
         ref = F.composite_fuse_plain(tiles, *params, out_dtype=od, **kw)
         if od == "float32":
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
-        else:
-            err = max_abs(got, ref)
     for ft in F.FUSION_TYPES:
         e = max_abs(F.composite_fuse(tiles, *params, out_dtype="uint16",
                                      **{**kw, "fusion_type": ft}),
                     F.composite_fuse_plain(tiles, *params, out_dtype="uint16",
                                            **{**kw, "fusion_type": ft}))
         check(e <= 1, f"K1 composite {ft} |delta| {e} <= 1")
-    run = lambda: F.composite_fuse(tiles, *params, out_dtype="uint16", **kw)
-    plain = lambda: F.composite_fuse_plain(tiles, *params, out_dtype="uint16",
-                                           **kw)
-    tables, starts = F.composite_axis_tables(
-        kw["windows"], kw["n_offs"], kw["kinds"], kfr, dg, of, kdims, borders,
-        ranges, ioffs, dev)
-    bare = lambda: F.launch_composite(
-        tiles, tables, starts, kfr, dg, of, 0.0, 4000.0, out_dtype="uint16",
-        masks=False, **kw)
-    tile_bytes = sum(t.numel() * 2 for t in tiles)
-    res["composite_fuse"] = dict(
-        err=err, ms=time_ms(bare), wrapper_ms=time_ms(run),
-        plain_ms=time_ms(plain),
-        bound=bound(tile_bytes + n * 2, view_steps * OPS["composite_view"]
-                    + n * OPS["composite_final"]))
+    res["composite_fuse"] = composite_times(tiles, params, kw, dev)
     for k, r in res.items():
-        print(f"  {k}: max|delta| {r['err']:.3g}  kernel {r['ms']} ms  "
-              f"wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        print_times(k, r)
     return res
 
 
@@ -425,41 +422,67 @@ def plain_block(sd, loader, meta, block, compute_block, dev):
     return out.cpu().numpy()[sl], staged.kind
 
 
-def main_path(work, scale, dev, card):
-    import numpy as np
+def route_a_inputs(sd, loader, bbox, dev):
+    """Route A's composite plan and tiles on ``dev``, as the arguments of
+    composite_fuse (tiles, params, keywords without out_dtype)."""
     import torch
 
+    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+
+    with tile_budget(COMPOSITE_BUDGET):
+        cp = A.plan_composite_volume(sd, loader, sd.view_ids(), bbox, None,
+                                     A.BlendParams())
+    tiles = [torch.from_numpy(loader.open(p.view).read_full()).to(dev)
+             for p in cp.plans]
+    params = (cp.fracs, cp.img_dims, cp.borders, cp.ranges, cp.inside_offs,
+              0.0, 65535.0, cp.diags, cp.offs)
+    kw = dict(out_shape=cp.out_shape, windows=cp.windows, n_offs=cp.n_offs,
+              pad=cp.pad, kinds=cp.kinds, fusion_type="AVG_BLEND")
+    return tiles, params, kw
+
+
+def composite_at_route_a(xml_path, out_a, dev):
+    """K1 timed at the one shape the main path gives it (route A's whole
+    volume), after the main path's launch counts were read."""
+    from bigstitcher_spark_tpu_torch.io.chunkstore import ChunkStore
+    from bigstitcher_spark_tpu_torch.io.container import read_container_meta
     from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
     from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
-    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+
+    sd = SpimData.load(xml_path)
+    bbox = read_container_meta(ChunkStore.open(out_a)).bbox
+    tiles, params, kw = route_a_inputs(sd, ViewLoader(sd), bbox, dev)
+    r = composite_times(tiles, params, kw, dev, plain_reps=2)
+    check(r["err"] <= 1, f"K1 at route A's shape {kw['out_shape']}: |delta| "
+                         f"{r['err']} <= 1 vs the plain composite")
+    return r
+
+
+def main_path(work, scale, dev, card):
+    """Phases 2-4 through the CLI entry functions; returns route A's XML
+    and container paths."""
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
     from bigstitcher_spark_tpu_torch.ops import fusion as F
 
     cfg = SCALES[scale]
-    compute_block = tuple(b * s for b, s in zip(cfg["block"], (2, 2, 1)))
+    compute_block = compute_block_of(scale)
     print("phase 2 (route A, composite)", flush=True)
     print(f"  cut: z depth {cfg['tile'][2]} planes (scale {scale})")
     proj = make_project(os.path.join(work, "p4"), scale, (2, 2, 1),
                         cfg["tile"], False, seed=7)
     out_a = os.path.join(work, "route_a.ome.zarr")
-    composite_budget = int(40e9)
     stats_a = run_cli(proj.xml_path, out_a, scale, str(dev),
-                      budget=composite_budget)
+                      budget=COMPOSITE_BUDGET)
     report(stats_a, card, "route A")
     check(stats_a.path == "composite", "route A took the composite route")
     vol_a = read_volume(out_a)
     meta, blocks = pick_blocks(proj, out_a, compute_block)
     sd = SpimData.load(proj.xml_path)
     loader = ViewLoader(sd)
-    with tile_budget(composite_budget):
-        cp = A.plan_composite_volume(sd, loader, sd.view_ids(), meta.bbox,
-                                     None, A.BlendParams())
-    tiles = [torch.from_numpy(loader.open(p.view).read_full()).to(dev)
-             for p in cp.plans]
-    ref_a = F.composite_fuse_plain(
-        tiles, cp.fracs, cp.img_dims, cp.borders, cp.ranges, cp.inside_offs,
-        0.0, 65535.0, cp.diags, cp.offs, out_shape=cp.out_shape,
-        windows=cp.windows, n_offs=cp.n_offs, pad=cp.pad, kinds=cp.kinds,
-        out_dtype="uint16").cpu().numpy()
+    tiles, params, kw = route_a_inputs(sd, loader, meta.bbox, dev)
+    ref_a = F.composite_fuse_plain(tiles, *params, out_dtype="uint16",
+                                   **kw).cpu().numpy()
     del tiles
     check_blocks("route A", vol_a, lambda b: ref_a[tuple(
         slice(o, o + s) for o, s in zip(b.offset, b.size))], blocks)
@@ -505,7 +528,7 @@ def main_path(work, scale, dev, card):
     check_blocks("route C", vol_c, expect, blocks_c)
     check("gather" in kinds, f"route C checked blocks include a gather block "
                              f"({kinds})")
-    return [stats_a, stats_b, stats_c]
+    return proj.xml_path, out_a
 
 
 # ---------------------------------------------------------------- main
@@ -538,9 +561,11 @@ def main(argv=None) -> int:
     try:
         if args.device == "cpu":
             torch.set_num_threads(1)
+            cpu = torch.device("cpu")
             print("rehearsal on the CPU: plain twins, no kernels", flush=True)
-            phase1_kernels(torch.device("cpu"), args.scale)
-            main_path(work, args.scale, torch.device("cpu"), "cpu")
+            phase1_kernels(cpu, args.scale)
+            composite_at_route_a(*main_path(work, args.scale, cpu, "cpu"),
+                                 cpu)
             print("rehearsal finished; no result on the CPU", file=sys.stderr)
             return 3
         dev = torch.device("cuda", 0)
@@ -558,11 +583,19 @@ def main(argv=None) -> int:
         res = phase1_kernels(dev, args.scale)
 
         F.reset_launch_counts()
-        main_path(work, args.scale, dev, card)
+        route_a = main_path(work, args.scale, dev, card)
         launches = F.launch_counts()
         print(f"main path launches: {launches}", flush=True)
         for k, n in launches.items():
             check(n > 0, f"kernel {k} launched {n} times on the main path")
+        # K1 runs once per run of route A, on the whole volume: its line
+        # reports that shape, with the compute-block numbers beside it
+        block = res["composite_fuse"]
+        res["composite_fuse"] = {
+            **composite_at_route_a(*route_a, dev),
+            **{f"block_{k}": v for k, v in block.items()}}
+        print_times("composite_fuse at route A's shape",
+                    res["composite_fuse"])
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -585,6 +618,12 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
+            **({"block_ms": r["block_ms"],
+                "block_wrapper_ms": r["block_wrapper_ms"],
+                "block_plain_ms": r["block_plain_ms"],
+                "block_bound_ms": r["block_bound"][0],
+                "block_max_abs_err": r["block_err"]}
+               if "block_ms" in r else {}),
         })
     print(card)
     print(json.dumps({"kernels": kernels}))
