@@ -12,8 +12,10 @@ Layout mirrors the JAX package (``io/``, ``utils/``, ``ops/``, ``models/``,
 ``device="cpu"`` (CLI: ``--device cpu``). Importing the package starts
 nothing and compiles nothing: kernels are built at first launch.
 
-Ported so far: ``create-fusion-container`` and single-device
-``affine-fusion``. Everything else raises :class:`NotYetPorted`.
+Ported so far: ``create-fusion-container`` (with pyramids),
+single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
+downsample stage) and ``downsample``. Everything else raises
+:class:`NotYetPorted`.
 """
 
 __version__ = "0.1.0"

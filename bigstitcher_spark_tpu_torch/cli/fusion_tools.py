@@ -16,7 +16,12 @@ import numpy as np
 
 from .. import NotYetPorted
 from ..io.chunkstore import StorageFormat
-from ..io.container import create_fusion_container, open_container, read_container_meta
+from ..io.container import (
+    create_fusion_container,
+    estimate_multires_pyramid,
+    open_container,
+    read_container_meta,
+)
 from ..io.dataset_io import ViewLoader
 from ..io.spimdata import SpimData
 from ..ops.fusion import FUSION_TYPES
@@ -59,10 +64,11 @@ def add_create_fusion_container(sub) -> argparse.ArgumentParser:
     p.add_argument("-xo", "--xmlout", dest="xml_out", default=None,
                    help="output XML path for --bdv (not yet ported)")
     p.add_argument("--multiRes", dest="multi_res", action="store_true",
-                   help="multiresolution pyramid (not yet ported)")
+                   help="automatically estimate a multiresolution pyramid")
     p.add_argument("-ds", "--downsampling", dest="downsampling",
                    action="append", default=None,
-                   help="pyramid steps (only 1,1,1 until the pyramid is ported)")
+                   help="absolute pyramid steps, e.g. -ds 1,1,1 -ds 2,2,1 "
+                        "(repeatable; overrides --multiRes)")
     p.add_argument("--preserveAnisotropy", dest="preserve_anisotropy",
                    action="store_true")
     p.add_argument("--anisotropyFactor", dest="anisotropy_factor", type=float,
@@ -92,11 +98,6 @@ def create_fusion_container_cmd(args: argparse.Namespace):
         raise NotYetPorted(f"-c {args.compression}")
     if args.bdv:
         raise NotYetPorted("--bdv")
-    if args.multi_res:
-        raise NotYetPorted("--multiRes")
-    ds = [parse_csv_ints(d, 3) for d in (args.downsampling or ["1,1,1"])]
-    if ds != [[1, 1, 1]]:
-        raise NotYetPorted("-ds pyramid levels")
     xml = check_xml(args.xml)
     sd = SpimData.load(xml)
     views = select_views_from_args(sd, args)
@@ -139,6 +140,14 @@ def create_fusion_container_cmd(args: argparse.Namespace):
         bbox = maximal_bounding_box(sd, views, aniso)
 
     bs = parse_csv_ints(args.block_size, 3)
+    if args.downsampling:
+        ds = [parse_csv_ints(d, 3) for d in args.downsampling]
+    elif args.multi_res:
+        ds = estimate_multires_pyramid(
+            bbox.shape, anisotropy_factor if args.preserve_anisotropy
+            else float("nan"))
+    else:
+        ds = [[1, 1, 1]]
     print(f"BoundingBox: {bbox.min} -> {bbox.max} dims={bbox.shape}")
     print(f"numChannels={num_channels} numTimepoints={num_timepoints}")
     print(f"pyramid: {ds}")
@@ -198,7 +207,11 @@ def add_affine_fusion(sub) -> argparse.ArgumentParser:
                    help="devices to use; only 1 until the sharded route is "
                         "ported")
     p.add_argument("--pyramid", dest="pyramid_epilogue", action="store_true",
-                   default=False, help="pyramid epilogue (not yet ported)")
+                   default=False,
+                   help="compute the container's downsample pyramid on the "
+                        "device from the fused volume and write it in the "
+                        "same drain (composite route; bit-identical to the "
+                        "downsample stage, which then skips those levels)")
     p.add_argument("--no-pyramid", dest="pyramid_epilogue",
                    action="store_false")
     p.set_defaults(func=affine_fusion_cmd)
@@ -208,14 +221,16 @@ def add_affine_fusion(sub) -> argparse.ArgumentParser:
 def affine_fusion_cmd(args: argparse.Namespace):
     """Fuse all views into the prepared container. Returns the list of
     :class:`FusionStats`, one per fused (channel, timepoint) slot."""
-    from ..models.affine_fusion import BlendParams, fuse_volume
+    from ..models.affine_fusion import (
+        BlendParams,
+        fuse_volume,
+        pyramid_from_mr,
+    )
     from ..utils.device import resolve_device
 
     check_infrastructure(args)
     if args.intensity_n5 is not None:
         raise NotYetPorted("--intensityN5")
-    if args.pyramid_epilogue:
-        raise NotYetPorted("--pyramid")
     if args.devices is not None and args.devices != 1:
         raise NotYetPorted(f"--devices {args.devices} (the sharded route)")
     device = resolve_device(args.device)
@@ -257,13 +272,13 @@ def affine_fusion_cmd(args: argparse.Namespace):
             if not views:
                 continue
             mr = meta.mr_infos[ci + ti * meta.num_channels]
-            if len(mr) > 1:
-                raise NotYetPorted("containers with pyramid levels")
             ds = store.open_dataset(mr[0].dataset.strip("/"))
             print(f"fusing channel {c} timepoint {t}: {len(views)} views "
                   f"-> {mr[0].dataset}")
             if args.dry_run:
                 continue
+            pyr = (pyramid_from_mr(store, mr)
+                   if args.pyramid_epilogue and len(mr) > 1 else None)
             stats = fuse_volume(
                 sd, loader, views, ds, meta.bbox,
                 block_size=tuple(meta.block_size), block_scale=tuple(bscale),
@@ -278,6 +293,7 @@ def affine_fusion_cmd(args: argparse.Namespace):
                 zarr_ct=(ci, ti) if is_zarr5d else None,
                 io_threads=4 if args.prefetch else 1,
                 device=device,
+                pyramid=pyr,
             )
             total_vox += stats.voxels
             results.append(stats)
@@ -286,5 +302,33 @@ def affine_fusion_cmd(args: argparse.Namespace):
                   f"{stats.voxels} voxels in {stats.seconds:.2f}s "
                   f"({stats.voxels / max(stats.seconds, 1e-9):,.0f} vox/s; "
                   f"{stats.skipped_empty} empty blocks skipped) {tm}")
+            if stats.pyramid_levels:
+                rate = ((stats.voxels + stats.pyramid_voxels)
+                        / max(stats.seconds, 1e-9))
+                print(f"  epilogue: {stats.pyramid_levels} pyramid level(s), "
+                      f"{stats.pyramid_voxels} voxels written in the fusion "
+                      f"drain ({rate:,.0f} vox/s incl. pyramid)")
+            if len(mr) > 1:
+                _write_pyramid(store, mr, is_zarr5d, (ci, ti), device,
+                               epilogue_levels=stats.pyramid_levels)
     print(f"done, {total_vox} voxels, took {time.time() - t_start:.1f}s")
     return results
+
+
+def _write_pyramid(store, mr_levels, is_zarr5d, ct, device,
+                   epilogue_levels=0):
+    """Downsample s0 into the remaining pyramid levels
+    (SparkAffineFusion.java:703-782). ``epilogue_levels``: how many leading
+    levels the fusion epilogue already wrote this run; their container
+    markers are set (and stale ones from earlier runs revoked) first, then
+    ``downsample_pyramid_level(skip_existing=True)`` skips exactly those."""
+    from ..io.container import set_epilogue_written
+    from ..models.downsample_driver import downsample_pyramid_level
+
+    for lvl in range(1, len(mr_levels)):
+        set_epilogue_written(store, mr_levels[lvl].dataset, ct,
+                             lvl <= epilogue_levels)
+    for lvl in range(1, len(mr_levels)):
+        downsample_pyramid_level(store, mr_levels[lvl - 1], mr_levels[lvl],
+                                 is_zarr5d, ct, device=device,
+                                 skip_existing=True)

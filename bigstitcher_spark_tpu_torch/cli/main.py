@@ -10,7 +10,7 @@ import argparse
 import sys
 
 from .. import NotYetPorted
-from . import fusion_tools
+from . import fusion_tools, resave_tools
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -20,6 +20,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="tool", required=True)
     fusion_tools.add_create_fusion_container(sub)
     fusion_tools.add_affine_fusion(sub)
+    resave_tools.add_downsample(sub)
     return parser
 
 

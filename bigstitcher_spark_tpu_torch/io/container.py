@@ -34,6 +34,32 @@ from .chunkstore import ChunkStore, StorageFormat
 ATTR_PREFIX = "Bigstitcher-Spark"
 
 
+def _epilogue_attr_key(dataset: str, ct) -> str:
+    """Root-attribute key recording that the fusion epilogue materialized
+    ``dataset`` for container slot (channel index, timepoint index). One
+    FLAT key per (level, slot) — dataset path separators are folded so the
+    key nests exactly one map under ``Bigstitcher-Spark/epilogue``."""
+    c, t = ct
+    return (f"{ATTR_PREFIX}/epilogue/"
+            f"{dataset.strip('/').replace('/', '.')}-c{c}t{t}")
+
+
+def set_epilogue_written(store, dataset: str, ct, written: bool) -> None:
+    """Record (or revoke) the fused-multiscale-epilogue marker for one
+    pyramid level dataset and (channel, timepoint) slot. The downsample
+    stage consults it (``downsample_pyramid_level(skip_existing=True)``)
+    to skip levels the fusion drain already wrote — revoking on every
+    non-epilogue fusion keeps a rerun from trusting stale levels."""
+    store.set_attribute("", _epilogue_attr_key(dataset, ct), bool(written))
+
+
+def epilogue_written(store, dataset: str, ct) -> bool:
+    """Whether the fusion epilogue materialized ``dataset`` for this
+    (channel, timepoint) slot."""
+    return bool(store.get_attribute("", _epilogue_attr_key(dataset, ct),
+                                    False))
+
+
 @dataclass
 class MultiResolutionLevelInfo:
     """Per-level dataset metadata (mvrecon ``MultiResolutionLevelInfo``)."""
@@ -78,6 +104,34 @@ class FusionContainerMeta:
     max_intensity: float | None = None
     # [channel + t*numChannels][level]
     mr_infos: list[list[MultiResolutionLevelInfo]] = field(default_factory=list)
+
+
+def estimate_multires_pyramid(
+    dims: Sequence[int], anisotropy_factor: float = float("nan"),
+    min_size: int = 64, max_levels: int = 8,
+) -> list[list[int]]:
+    """Propose absolute downsampling steps (role of
+    ExportN5Api.estimateMultiResPyramid, CreateFusionContainer.java:263).
+    Halve every axis still larger than ``min_size``; with preserved
+    anisotropy (z thinner by ``anisotropy_factor``) z starts halving only
+    once xy have caught up."""
+    dims = [int(d) for d in dims]
+    out = [[1, 1, 1]]
+    cur = [1, 1, 1]
+    aniso = anisotropy_factor if np.isfinite(anisotropy_factor) else 1.0
+    for _ in range(max_levels - 1):
+        step = [1, 1, 1]
+        for d in range(3):
+            eff = dims[d] // cur[d]
+            if d == 2 and cur[2] * aniso > cur[0]:
+                continue  # z is already coarser in world units
+            if eff > min_size:
+                step[d] = 2
+        if step == [1, 1, 1]:
+            break
+        cur = [c * s for c, s in zip(cur, step)]
+        out.append(list(cur))
+    return out
 
 
 def _relative_steps(absolute: list[list[int]]) -> list[list[int]]:

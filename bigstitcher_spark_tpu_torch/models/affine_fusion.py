@@ -11,14 +11,21 @@ takes one of two routes, as the JAX driver does with one device:
   volume; x-slabs then drain to host and a thread pool writes them.
 * **per-block**: otherwise, per compute block the host stages the source
   patches (a thread pool reads ahead), and K2
-  (:func:`..ops.fusion.fuse_block_shift`, all views translations) or K3
-  (:func:`..ops.fusion.fuse_block`, general affine) fuses them; K4
-  (:func:`..ops.fusion.convert_intensity`) converts on the device and a
-  thread pool writes the block.
+  (:func:`..ops.fusion.fuse_block_shift`, all views translations), K5
+  (:func:`..ops.fusion.fuse_block_sep`, all views diagonal affines, e.g.
+  under ``--preserveAnisotropy``) or K3 (:func:`..ops.fusion.fuse_block`,
+  general affine) fuses them; K4 (:func:`..ops.fusion.convert_intensity`)
+  converts on the device and a thread pool writes the block.
 
-Per-block fusion of diagonal (anisotropic) views (the JAX
-``fuse_block_sep``), intensity coefficients, the pyramid epilogue, the
-sharded multi-device route and the device tile cache are not yet ported.
+With a ``pyramid``, the composite route also computes the container's
+downsample levels on the device from the converted volume (K6,
+:func:`..ops.downsample.downsample_level`) and drains them with it; on the
+per-block route the downsample stage
+(:func:`.downsample_driver.downsample_pyramid_level`) makes every level.
+
+Intensity coefficients, the sharded multi-device route (and its per-block
+epilogue, ``eligible_epilogue_levels``) and the device tile cache are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..io.chunkstore import Dataset
 from ..io.dataset_io import ViewLoader, best_mipmap_level
 from ..io.spimdata import SpimData, ViewId
 from ..ops import fusion as F
+from ..ops.downsample import downsample_level
 from ..utils.device import resolve_device
 from ..utils.geometry import (
     Interval,
@@ -46,6 +54,7 @@ from ..utils.geometry import (
     transformed_interval,
 )
 from ..utils.grid import GridBlock, create_grid
+from ..utils.writer import WriterPool
 
 
 @dataclass
@@ -61,7 +70,10 @@ class FusionStats:
     """What one :func:`fuse_volume` call did. ``path`` is the route
     ("composite" or "per-block"); ``kernel_blocks`` counts per-block
     kernels by kind; ``timings`` holds seconds per phase (host read, H2D,
-    kernel, D2H, write), summed over worker threads where they overlap."""
+    kernel, D2H, write), summed over worker threads where they overlap.
+    Pyramid levels made by the composite epilogue are counted apart from
+    ``voxels`` (``pyramid_levels``, ``pyramid_voxels``), so full-res and
+    pyramid-inclusive rates stay distinguishable."""
 
     voxels: int = 0
     blocks: int = 0
@@ -69,9 +81,37 @@ class FusionStats:
     seconds: float = 0.0
     path: str = ""
     kernel_blocks: dict = field(default_factory=lambda: {"shift": 0,
+                                                         "sep": 0,
                                                          "gather": 0})
     timings: dict = field(default_factory=lambda: dict.fromkeys(
         ("read", "h2d", "kernel", "d2h", "write"), 0.0))
+    pyramid_voxels: int = 0
+    pyramid_levels: int = 0
+
+
+@dataclass(frozen=True)
+class PyramidLevel:
+    """One downsample pyramid level the composite route may compute on the
+    device from the fused volume instead of the downsample stage rereading
+    the full-res container. ``rel`` is the factor from the PREVIOUS level,
+    ``abs_factor`` from full resolution, ``dims`` the 3-D level extent, all
+    from the container's ``MultiResolutionLevelInfo``."""
+
+    ds: Dataset
+    rel: tuple[int, int, int]
+    abs_factor: tuple[int, int, int]
+    dims: tuple[int, int, int]
+
+
+def pyramid_from_mr(store, mr_levels) -> list[PyramidLevel]:
+    """The epilogue levels of a container slot's ``MultiResolutionLevelInfo``
+    list (levels 1..n; level 0 is the fusion target itself)."""
+    return [PyramidLevel(
+        ds=store.open_dataset(m.dataset.strip("/")),
+        rel=tuple(int(v) for v in m.relativeDownsampling[:3]),
+        abs_factor=tuple(int(v) for v in m.absoluteDownsampling[:3]),
+        dims=tuple(int(v) for v in m.dimensions[:3]),
+    ) for m in mr_levels[1:]]
 
 
 def anisotropy_transform(factor: float) -> np.ndarray | None:
@@ -99,7 +139,8 @@ class _ViewPlan:
 
     @property
     def is_diagonal(self) -> bool:
-        """The linear part is axis-aligned: separable sampling (K1 "sep")."""
+        """The linear part is axis-aligned: separable sampling (K1 "sep",
+        K5)."""
         lin = self.inv_total[:, :3]
         return bool(np.allclose(lin, np.diag(np.diagonal(lin)), atol=1e-7))
 
@@ -193,6 +234,17 @@ def _gather_inputs(loader, plans, pshape, vb, blend, inside_offset):
     return patches, affines, offsets, img_dims, borders, ranges, valid, ioffs
 
 
+def _sep_inputs(loader, plans, pshape, vb, blend, inside_offset):
+    """Host staging for K5: the gather route's clipped patches, plus the
+    diagonal and translation of each view's block->patch affine."""
+    (patches, affines, offsets, img_dims, borders, ranges, valid,
+     ioffs) = _gather_inputs(loader, plans, pshape, vb, blend, inside_offset)
+    diags = np.ascontiguousarray(
+        np.stack([np.diagonal(affines[i, :, :3]) for i in range(vb)]))
+    ts = np.ascontiguousarray(affines[:, :, 3])
+    return patches, diags, ts, offsets, img_dims, borders, ranges, valid, ioffs
+
+
 def _shift_inputs(loader, plans, block_global, bshape, vb, blend,
                   inside_offset):
     """Host staging for K2: (bx+1, by+1, bz+1) patches at the floor of each
@@ -226,7 +278,7 @@ class StagedBlock:
     """One compute block's host-staged kernel inputs."""
 
     block: GridBlock
-    kind: str          # "shift" (K2) or "gather" (K3)
+    kind: str          # "shift" (K2), "sep" (K5) or "gather" (K3)
     shape: tuple       # compute block shape the kernel fuses
     arrays: tuple      # numpy kernel inputs, in the wrapper's order
 
@@ -244,18 +296,22 @@ def stage_block(sd, loader, views, block, bbox, compute_block, blend,
     if all(p.is_translation for p in plans):
         return StagedBlock(block, "shift", bshape, _shift_inputs(
             loader, plans, block_global, bshape, vb, blend, inside_offset))
-    if all(p.is_diagonal for p in plans):
-        raise NotYetPorted("per-block fusion of diagonal (anisotropic) views "
-                           "(fuse_block_sep)")
     pshape = F.bucket_shape(
         np.max([p.patch_interval.shape for p in plans], axis=0))
+    if all(p.is_diagonal for p in plans):
+        return StagedBlock(block, "sep", bshape, _sep_inputs(
+            loader, plans, pshape, vb, blend, inside_offset))
     return StagedBlock(block, "gather", bshape, _gather_inputs(
         loader, plans, pshape, vb, blend, inside_offset))
 
 
+_BLOCK_KERNELS = {"shift": F.fuse_block_shift, "sep": F.fuse_block_sep,
+                  "gather": F.fuse_block}
+
+
 def run_staged_block(staged: StagedBlock, fusion_type: str,
                      device: torch.device, timings: dict | None = None):
-    """Upload a staged block and fuse it with K2 or K3 (or their plain
+    """Upload a staged block and fuse it with K2, K5 or K3 (or their plain
     twins on the CPU). Returns device (fused, wsum) of the compute shape."""
     t0 = time.perf_counter()
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -264,9 +320,9 @@ def run_staged_block(staged: StagedBlock, fusion_type: str,
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     *inputs, ioffs = args
-    kernel = F.fuse_block_shift if staged.kind == "shift" else F.fuse_block
-    fused, wsum = kernel(*inputs, block_shape=staged.shape,
-                         fusion_type=fusion_type, inside_offs=ioffs)
+    fused, wsum = _BLOCK_KERNELS[staged.kind](
+        *inputs, block_shape=staged.shape, fusion_type=fusion_type,
+        inside_offs=ioffs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
@@ -426,6 +482,32 @@ def composite_plan_from_reference(fields) -> CompositePlan | list[_ViewPlan]:
     )
 
 
+def staged_from_reference(block: GridBlock, block_shape, arrays,
+                          kind: str) -> StagedBlock:
+    """A port :class:`StagedBlock` of ``kind`` from the numpy kernel inputs
+    the JAX per-block staging returns (``_sep_inputs``, ``_shift_inputs``
+    or ``_gather_inputs`` without its coefficient arrays), which are in the
+    order the port's wrappers take."""
+    return StagedBlock(
+        GridBlock(tuple(block.offset), tuple(block.size),
+                  tuple(block.grid_pos)), kind,
+        tuple(int(s) for s in block_shape),
+        tuple(np.ascontiguousarray(a) for a in arrays))
+
+
+def pyramid_from_reference(levels) -> list[PyramidLevel]:
+    """The port's epilogue levels from a JAX ``PyramidLevel`` list: the same
+    factors and dims, each dataset opened by the port's own store."""
+    from ..io.chunkstore import ChunkStore
+
+    return [PyramidLevel(
+        ds=ChunkStore.open(lv.ds.store.root).open_dataset(lv.ds.path),
+        rel=tuple(int(v) for v in lv.rel),
+        abs_factor=tuple(int(v) for v in lv.abs_factor),
+        dims=tuple(int(v) for v in lv.dims),
+    ) for lv in levels]
+
+
 def upload_composite_tiles(loader, cp: CompositePlan, device, timings=None):
     """Read every planned tile in full on the host and copy it to the device."""
     tiles = []
@@ -461,50 +543,60 @@ def _write(out_ds: Dataset, data: np.ndarray, offset, zarr_ct) -> None:
         out_ds.write(data, offset)
 
 
-class _Writer:
-    """Thread pool for container writes; every future is read, so a failed
-    write raises in the caller. ``timings['write']`` sums thread time."""
+def _epilogue_pyramid_device(vol: torch.Tensor, pyramid, out_dtype):
+    """The downsample pyramid chained on the device from the converted
+    full-res volume: each level is K6's float32 mean of the previous one,
+    converted back to the storage type between steps, which is what the
+    container-reread path sees when it reads the stored previous level; so
+    the levels equal ``downsample_pyramid_level`` output bit for bit.
+    Returns [(PyramidLevel, device tensor), ...]."""
+    levels = []
+    prev = vol
+    for lv in pyramid:
+        prev = downsample_level(prev, lv.rel, lv.dims, str(out_dtype))
+        levels.append((lv, prev))
+    return levels
 
-    def __init__(self, out_ds, zarr_ct, threads, timings):
-        self._ds, self._ct, self._timings = out_ds, zarr_ct, timings
-        self._pool = ThreadPoolExecutor(max_workers=max(1, threads),
-                                        thread_name_prefix="bst-write")
-        self._futures = []
 
-    def _one(self, data, offset):
-        t0 = time.perf_counter()
-        _write(self._ds, data, offset, self._ct)
-        return time.perf_counter() - t0
-
-    def submit(self, data, offset):
-        self._futures.append(self._pool.submit(self._one, data, offset))
-
-    def close(self):
-        try:
-            for f in self._futures:
-                self._timings["write"] += f.result()
-        finally:
-            self._pool.shutdown(wait=True)
+def _slab_step(vol: torch.Tensor, ds: Dataset) -> int:
+    """x-slab thickness: whole storage chunks, about 8 MB or more."""
+    step = max(int(ds.block_size[0]), 1)
+    row_bytes = int(np.prod(vol.shape[1:])) * vol.element_size()
+    if row_bytes * step < (8 << 20):
+        step *= int(np.ceil((8 << 20) / max(row_bytes * step, 1)))
+    return step
 
 
 def _drain_device_volume(out: torch.Tensor, out_ds: Dataset, zarr_ct,
-                         threads: int, timings: dict) -> None:
-    """Copy the fused volume to host in x-slabs (whole storage chunks, about
-    8 MB or more each) and write them from a thread pool while later slabs
-    copy."""
-    step = max(int(out_ds.block_size[0]), 1)
-    row_bytes = int(np.prod(out.shape[1:])) * out.element_size()
-    if row_bytes * step < (8 << 20):
-        step *= int(np.ceil((8 << 20) / max(row_bytes * step, 1)))
-    writer = _Writer(out_ds, zarr_ct, threads, timings)
-    try:
-        for x0 in range(0, out.shape[0], step):
+                         threads: int, timings: dict, pyramid=(),
+                         out_dtype: str = "float32") -> list:
+    """Copy the fused volume to host in x-slabs and write them from a
+    thread pool while later slabs copy; then compute the ``pyramid``
+    levels on the device (queued behind the full-res copies on the same
+    stream, so s0 lands first and the reductions overlap its writes) and
+    drain them the same way. Returns [(PyramidLevel, device tensor), ...]."""
+    writer = WriterPool(threads, timings)
+
+    def drain(vol, ds):
+        step = _slab_step(vol, ds)
+        for x0 in range(0, vol.shape[0], step):
             t0 = time.perf_counter()
-            data = out[x0:x0 + step].cpu().numpy()
+            data = vol[x0:x0 + step].cpu().numpy()
             timings["d2h"] += time.perf_counter() - t0
-            writer.submit(data, (x0, 0, 0))
+            writer.submit(_write, ds, data, (x0, 0, 0), zarr_ct)
+
+    try:
+        drain(out, out_ds)
+        tk = time.perf_counter()
+        levels = _epilogue_pyramid_device(out, pyramid, out_dtype)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        timings["kernel"] += time.perf_counter() - tk
+        for lv, lvol in levels:
+            drain(lvol, lv.ds)
     finally:
         writer.close()
+    return levels
 
 
 def fuse_volume(
@@ -526,6 +618,7 @@ def fuse_volume(
     zarr_ct: tuple[int, int] | None = None,
     io_threads: int = 4,
     device: str | torch.device | None = None,
+    pyramid: list[PyramidLevel] | None = None,
 ) -> FusionStats:
     """Fuse ``views`` into ``out_ds`` over ``bbox`` on one device.
 
@@ -533,7 +626,11 @@ def fuse_volume(
     dataset. ``device``: ``cuda`` (the default; raises without a card) or
     ``cpu`` (the plain-torch twins). The composite route is taken when
     the tiles and the volume fit ``BST_DEVICE_TILE_BUDGET``, else the
-    per-block route."""
+    per-block route. ``pyramid``: downsample levels the composite route
+    computes on the device and drains with the volume (bit-identical to
+    the downsample stage); the per-block route makes none.
+    ``stats.pyramid_levels`` says how many were made: the rest are the
+    downsample stage's job."""
     dev = resolve_device(device)
     stats = FusionStats()
     t0 = time.time()
@@ -559,9 +656,13 @@ def fuse_volume(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         stats.timings["kernel"] += time.perf_counter() - tk
-        _drain_device_volume(vol, out_ds, zarr_ct, threads, stats.timings)
+        levels = _drain_device_volume(vol, out_ds, zarr_ct, threads,
+                                      stats.timings, pyramid or (),
+                                      out_dtype)
         stats.blocks = len(grid)
         stats.voxels = bbox.num_elements
+        stats.pyramid_levels = len(levels)
+        stats.pyramid_voxels = sum(int(np.prod(lv.dims)) for lv, _ in levels)
         stats.seconds = time.time() - t0
         return stats
 
@@ -578,7 +679,7 @@ def fuse_volume(
 
     readers = ThreadPoolExecutor(max_workers=max(1, io_threads),
                                  thread_name_prefix="bst-read")
-    writer = _Writer(out_ds, zarr_ct, threads, stats.timings)
+    writer = WriterPool(threads, stats.timings)
     pending: deque = deque()
     blocks = iter(grid)
     try:
@@ -588,11 +689,11 @@ def fuse_volume(
                 continue
             _finish_block(pending.popleft().result(), stats, fusion_type,
                           dev, masks, imax, out_dtype, min_intensity,
-                          max_intensity, writer)
+                          max_intensity, writer, out_ds, zarr_ct)
         while pending:
             _finish_block(pending.popleft().result(), stats, fusion_type,
                           dev, masks, imax, out_dtype, min_intensity,
-                          max_intensity, writer)
+                          max_intensity, writer, out_ds, zarr_ct)
     finally:
         for f in pending:
             f.cancel()
@@ -603,7 +704,8 @@ def fuse_volume(
 
 
 def _finish_block(result, stats, fusion_type, dev, masks, imax, out_dtype,
-                  min_intensity, max_intensity, writer) -> None:
+                  min_intensity, max_intensity, writer, out_ds,
+                  zarr_ct) -> None:
     staged, read_s = result
     stats.timings["read"] += read_s
     stats.blocks += 1
@@ -628,5 +730,6 @@ def _finish_block(result, stats, fusion_type, dev, masks, imax, out_dtype,
         stats.timings["kernel"] += t0 - tk
         data = conv.cpu().numpy()[sl]
     stats.timings["d2h"] += time.perf_counter() - t0
-    writer.submit(np.ascontiguousarray(data), block.offset)
+    writer.submit(_write, out_ds, np.ascontiguousarray(data), block.offset,
+                  zarr_ct)
     stats.voxels += int(np.prod(block.size))

@@ -26,7 +26,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("composite", "shift", "gather", "convert")
+SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample")
 HEADERS = ("fusion_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,6 +63,13 @@ _SIGNATURES = {
     "convert": {
         "bst_convert_intensity": [_VP, _I64, _F, _F, _I, _VP, _VP],
     },
+    "sep": {
+        "bst_fuse_block_sep": [_VP, _I, _I, _I, _I] + [_VP] * 4 + [_I] * 5
+                              + [_VP, _VP, _VP],
+    },
+    "downsample": {
+        "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP, _VP],
+    },
 }
 
 
@@ -74,7 +81,7 @@ def nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                       "fusion kernels are built from csrc/ at first use")
+                       "kernels are built from csrc/ at first use")
 
 
 def _digest(name: str) -> str:

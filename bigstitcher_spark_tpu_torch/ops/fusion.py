@@ -1,4 +1,4 @@
-"""Affine-fusion device programs: four CUDA kernels and their plain-torch twins.
+"""Affine-fusion device programs: five CUDA kernels and their plain-torch twins.
 
 Port of ``bigstitcher_spark_tpu/ops/fusion.py``. Each JAX device program
 of the fusion path is a hand-written CUDA kernel for ``sm_90a`` (sources in
@@ -12,6 +12,7 @@ wrapper                   kernel (csrc/)               JAX program
 :func:`fuse_block_shift`  ``shift.cu`` (K2)            fuse_block_shift
 :func:`fuse_block`        ``gather.cu`` (K3)           fuse_block
 :func:`convert_intensity` ``convert.cu`` (K4)          convert_intensity
+:func:`fuse_block_sep`    ``sep.cu`` (K5)              fuse_block_sep
 ========================  ===========================  ====================
 
 A wrapper takes the plain version only because its tensors lie on the
@@ -192,22 +193,33 @@ convert_intensity.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _block_axes(block_shape, device):
+    """For the bx+by+bz entries of a per-block axis table: the axis of each
+    entry and its float32 index along that axis, (1, bx+by+bz)."""
+    bx, by, bz = (int(n) for n in block_shape)
+    idx = torch.arange(bx + by + bz, device=device)
+    ax = (idx >= bx).long() + (idx >= bx + by).long()
+    step = (idx - torch.where(ax == 0, 0, torch.where(ax == 1, bx, bx + by))
+            ).to(torch.float32)[None, :]
+    return ax, step
+
+
+def _block_tables(pos, ax, img_dims, borders, blend_ranges, inside_offs):
+    # elementwise, so each entry gets the value a per-axis pass would
+    w, ins = _axis_blend_at(pos, img_dims[:, ax], borders[:, ax],
+                            blend_ranges[:, ax], inside_offs[:, ax])
+    return torch.stack([w, ins], 1).contiguous()
+
+
 def shift_axis_tables(lpos0, img_dims, borders, blend_ranges, inside_offs,
                       block_shape) -> torch.Tensor:
     """Per-view 1-D blend weights and inside masks of a translation block,
     (V, 2, bx+by+bz) float32: [v, 0] blend, [v, 1] inside, x then y then z
     (ops/fusion.py _axis_blend, evaluated at lpos0 + [0..n)). K2 and its
     plain twin both read this one tensor, so they weight views identically."""
-    bx, by, bz = (int(n) for n in block_shape)
-    idx = torch.arange(bx + by + bz, device=lpos0.device)
-    ax = (idx >= bx).long() + (idx >= bx + by).long()  # axis of each entry
-    step = (idx - torch.where(ax == 0, 0, torch.where(ax == 1, bx, bx + by))
-            ).to(torch.float32)[None, :]
-    # elementwise, so each entry gets the value a per-axis pass would
-    w, ins = _axis_blend_at(step + lpos0[:, ax], img_dims[:, ax],
-                            borders[:, ax], blend_ranges[:, ax],
-                            inside_offs[:, ax])
-    return torch.stack([w, ins], 1).contiguous()
+    ax, step = _block_axes(block_shape, lpos0.device)
+    return _block_tables(step + lpos0[:, ax], ax, img_dims, borders,
+                         blend_ranges, inside_offs)
 
 
 def _split3(t, lengths):
@@ -417,6 +429,132 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
 
 
 fuse_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: fuse_block_sep (diagonal block->patch affines, per block)
+# ---------------------------------------------------------------------------
+
+
+def sep_axis_tables(diags, ts, patch_offsets, img_dims, borders, blend_ranges,
+                    inside_offs, block_shape) -> torch.Tensor:
+    """Per-view 1-D blend weights and inside masks of a diagonal-affine
+    block, (V, 2, bx+by+bz) float32 in :func:`shift_axis_tables`' layout,
+    evaluated at the level position ``(diag * i + t) + patch_offset`` of each
+    index i (ops/fusion.py _one_view_sep; ``diag * i + t`` rounded once, see
+    :func:`_fma`). K5 and its plain twin both read this one tensor."""
+    ax, step = _block_axes(block_shape, diags.device)
+    pos = _fma(diags[:, ax], step, ts[:, ax]) + patch_offsets[:, ax]
+    return _block_tables(pos, ax, img_dims, borders, blend_ranges, inside_offs)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 operands rounded once to float32: one fused
+    multiply-add, as K5's ``fmaf`` and XLA's contraction of the JAX
+    expression ``diag * i + t`` round it (evaluated in float64, where the
+    product of a float32 and a block index and its sum with a float32 are
+    exact)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _interp_taps(pos, c: int):
+    """The two taps and weight of each row of _separable_interp_matrix over
+    an extent ``c``, as K5's interp_row computes them: (lo, hi, f)."""
+    p = torch.clamp(pos, 0.0, float(c - 1))
+    lo = torch.clamp(torch.floor(p), 0, max(c - 2, 0))
+    f = p - lo
+    lo = lo.to(torch.int64)
+    return lo, torch.clamp(lo + 1, max=c - 1), f
+
+
+def fuse_block_sep_plain(patches, diags, ts, patch_offsets, img_dims, borders,
+                         blend_ranges, valid, block_shape,
+                         fusion_type="AVG_BLEND", inside_offs=None):
+    """Plain-torch ``fuse_block_sep``: per view, linear interpolation along
+    x, then y, then z at ``diag * i + t`` (one rounding, see
+    :func:`_fma`; edge-clamped taps of
+    _separable_interp_matrix, evaluated elementwise in K5's order, not as
+    a matmul, which the card would reorder), the separable blend; then the
+    per-type combine. Returns (fused, wsum) float32 of ``block_shape``."""
+    if inside_offs is None:
+        inside_offs = torch.zeros_like(borders)
+    block_shape = tuple(int(s) for s in block_shape)
+    tables = sep_axis_tables(diags, ts, patch_offsets, img_dims, borders,
+                             blend_ranges, inside_offs, block_shape)
+    patches = patches.to(torch.float32)
+    vals, insides, blends = [], [], []
+    for v in range(patches.shape[0]):
+        so = patches[v]
+        for d in range(3):
+            i = torch.arange(block_shape[d], device=patches.device)
+            lo, hi, f = _interp_taps(_fma(diags[v, d], i, ts[v, d]),
+                                     so.shape[d])
+            shape = [1, 1, 1]
+            shape[d] = -1
+            f = f.reshape(shape)
+            so = (so.index_select(d, lo) * (1.0 - f)
+                  + so.index_select(d, hi) * f)
+        vals.append(so)
+        blends.append(_outer3(_split3(tables[v, 0], block_shape)))
+        insides.append(_outer3(_split3(tables[v, 1], block_shape)))
+    return _combine_views(torch.stack(vals), torch.stack(insides),
+                          torch.stack(blends), valid, fusion_type)
+
+
+def fuse_block_sep(patches, diags, ts, patch_offsets, img_dims, borders,
+                   blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
+                   inside_offs=None):
+    """K5 (``csrc/sep.cu``) on CUDA, the plain version on the CPU.
+
+    patches (V, Px, Py, Pz) uint8/uint16/int16/float32; diags, ts (the
+    diagonal and translation of each block->patch affine), patch_offsets,
+    img_dims, borders, blend_ranges, inside_offs (V, 3) float32; valid (V,)
+    float32. Returns (fused, wsum), both ``block_shape`` float32."""
+    if patches.device.type == "cpu":
+        return fuse_block_sep_plain(patches, diags, ts, patch_offsets,
+                                    img_dims, borders, blend_ranges, valid,
+                                    block_shape, fusion_type, inside_offs)
+    dev = patches.device
+    V = patches.shape[0]
+    bs = tuple(int(s) for s in block_shape)
+    if inside_offs is None:
+        inside_offs = torch.zeros_like(borders)
+    _require(patches, "patches", dev, _IN_CODE)
+    if patches.dim() != 4:
+        raise ValueError("patches must be (V, Px, Py, Pz)")
+    for name, t in (("diags", diags), ("ts", ts),
+                    ("patch_offsets", patch_offsets), ("img_dims", img_dims),
+                    ("borders", borders), ("blend_ranges", blend_ranges),
+                    ("inside_offs", inside_offs)):
+        _require(t, name, dev, _F32, (V, 3))
+    _require(valid, "valid", dev, _F32, (V,))
+    tables = sep_axis_tables(diags, ts, patch_offsets, img_dims, borders,
+                             blend_ranges, inside_offs, bs)
+    return launch_fuse_block_sep(patches, diags, ts, tables, valid, bs,
+                                 fusion_type)
+
+
+def launch_fuse_block_sep(patches, diags, ts, tables, valid, block_shape,
+                          fusion_type):
+    """K5 alone, on inputs :func:`fuse_block_sep` has checked and on the
+    weight tables it built (chip_smoke times this and the wrapper apart)."""
+    bx, by, bz = block_shape
+    dev = patches.device
+    V, px, py, pz = (int(s) for s in patches.shape)
+    fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
+    wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
+    lib = _cuda.load("sep")
+    ret = lib.bst_fuse_block_sep(
+        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
+        diags.data_ptr(), ts.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+        V, bx, by, bz, _ft_code(fusion_type), fused.data_ptr(),
+        wsum.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "fuse_block_sep")
+    fuse_block_sep.launches += 1
+    return fused, wsum
+
+
+fuse_block_sep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -659,16 +797,8 @@ KERNEL_WRAPPERS = {
     "fuse_block_shift": fuse_block_shift,
     "fuse_block": fuse_block,
     "convert_intensity": convert_intensity,
+    "fuse_block_sep": fuse_block_sep,
 }
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def bucket_shape(shape: Sequence[int], quantum: int = 32) -> tuple[int, ...]:

@@ -3,38 +3,58 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phase 0  prints the card (nvidia-smi name, power limit) and builds the four
-         fusion kernels from csrc/ (one nvcc per source, all at once).
-Phase 1  holds each kernel (K1 composite, K2 shift, K3 gather, K4 convert)
-         against its plain-torch twin on the card at the per-block routes'
-         compute-block size (256x256x64, 4 views, sub-pixel fractions, a
-         rotated affine, samples outside the tile), and times both with
-         CUDA events.
-Phase 2  route A, composite: a synthetic 2x2x1 project of 1024x1024x128
-         uint16 tiles (the 2x2-binned frame of a 2048^2 sCMOS light-sheet
-         camera; ~10 % overlap, sub-pixel translations, N5 raw in
-         128x128x64 blocks) goes through the port's own CLI entry functions,
-         create-fusion-container (OME-ZARR, UINT16, raw) then affine-fusion,
-         with the device budget raised so the composite route runs.
-         The one cut is z depth: 128 planes instead of hundreds.
-Phase 3  route B, per-block shift: the same project at the default budget,
-         which the composite route does not fit (1 GiB + 12 B x 485 M
-         voxels > 4e9). Its output must equal route A within |delta| <= 1.
+Phase 0  prints the card (nvidia-smi name, power limit) and builds the six
+         kernels from csrc/ (one nvcc per source, all at once).
+Phase 1  holds each kernel against its plain-torch twin on the card and
+         times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
+         composite and K5 separable at the per-block routes' compute block
+         (256x256x64, 4 views; K5 on 288x288x128 patches with route D's
+         diagonal (1,1,3), one view mirrored on x and one at (1,1,1/3));
+         K6 downsample at route A's first pyramid step (1952x1952x132
+         uint16 -> 976x976x66) and on a batch of the downsample stage (4 x
+         256x256x128 uint16 boxes), beside torch's avg_pool3d on the same
+         float32 input as the library yardstick; K6 also at route D's stage
+         batch (4 x 256x256x45 uint16, factors 2,2,1: z takes the f == 1
+         path), bitwise.
+Phase 2  route A, composite + pyramid epilogue: a synthetic 2x2x1 project
+         of 1024x1024x128 uint16 tiles (the 2x2-binned frame of a 2048^2
+         sCMOS light-sheet camera; ~10 % overlap, sub-pixel translations,
+         N5 raw in 128x128x64 blocks) goes through the port's own CLI entry
+         functions, create-fusion-container --multiRes (OME-ZARR, UINT16,
+         raw: 6 levels) then affine-fusion --pyramid, with the device
+         budget raised so the composite route runs and K6 computes the 5
+         levels on the device. Every level must equal K6's plain twin run
+         on the card on the stored level below, and the container-reread
+         path (downsample_pyramid_level), bitwise. The one cut is z depth:
+         128 planes, not hundreds.
+Phase 3  route B, per-block shift + downsample stage: the same project at
+         the default budget (1 GiB + 12 B x 503 M voxels > 4e9),
+         --multiRes without --pyramid. s0 must equal route A within
+         |delta| <= 1; three level-1 blocks must equal the plain twin.
 Phase 4  route C, gather: a 2x1x1 project (1024x1024x64) with one view
          rotated 3 degrees about z.
+Phase 5  route D, per-block anisotropic: route A's project into an N5
+         container with --preserveAnisotropy --anisotropyFactor 3
+         --multiRes (1952x1952x45), the per-block route forced (device
+         budget 1 byte): every compute block goes through K5 + K4, the
+         downsample stage makes the levels (three blocks of each held
+         bitwise against K6's plain twin on the card), and the standalone
+         downsample tool run on s0 into separate datasets must equal them
+         bitwise.
 
-In phases 2-4 three written compute blocks (one at the four-tile corner)
+In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
-H2D, kernel, D2H and write times and the fused voxels/s are printed beside
-the card's name and power limit. The launch counts of every kernel are
-set to 0 just before phase 2 and read just after phase 4: a kernel of the
-path launched no time fails the run. K1 then runs again, timed and held
-against its twin, on route A's whole volume: the one shape the main path
-gives it. The second-to-last line of output
-is the kernels' JSON record; the last is {"ok": true, "device": ...}.
-Any failure exits non-zero and prints no result.
+H2D, kernel, D2H and write times and the fused voxels/s (and the rate
+counting pyramid voxels, apart) are printed beside the card's name and
+power limit. Each route runs with every launch count set to 0 just before
+it and read just after it: a kernel of that route launched no time fails
+the run. K1 then runs again, timed and held against its twin, on route A's
+whole volume: the one shape the main path gives it. The second-to-last line
+of output is the kernels' JSON record; the last is
+{"ok": true, "device": ...}. Any failure exits non-zero and prints no
+result.
 
-``--device cpu --scale tiny`` rehearses phases 1-4 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-5 on the CPU with the
 plain twins (no kernels, no timings); it then exits 3 without a result.
 """
 
@@ -42,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -52,21 +73,47 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
-JAX_FUSION = "bigstitcher_spark_tpu/ops/fusion.py"
+# kernel wrapper -> (its source under csrc/, the JAX device program it
+# replaces, file:line under bigstitcher_spark_tpu/)
+KERNELS = {
+    "composite_fuse": ("composite.cu", "ops/fusion.py:524"),
+    "fuse_block_shift": ("shift.cu", "ops/fusion.py:337"),
+    "fuse_block": ("gather.cu", "ops/fusion.py:154"),
+    "convert_intensity": ("convert.cu", "ops/fusion.py:648"),
+    "fuse_block_sep": ("sep.cu", "ops/fusion.py:276"),
+    "downsample_level": ("downsample.cu", "ops/downsample.py:50"),
+    "downsample_batch": ("downsample.cu", "models/downsample_driver.py:92"),
+}
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
-# a cosf counts as one operation
+# a cosf, floorf or rintf counts as one operation. K6 does one add per
+# input voxel and ~10 operations per output voxel (divides, round, clamp).
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
-       "gather": 92, "convert": 5}
+       "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
+       "downsample_out": 10}
 
 SCALES = {
     "full": dict(tile=(1024, 1024, 128), overlap=102, block=(128, 128, 64),
-                 rot_tile=(1024, 1024, 64), beads=400, per_block_budget=None),
+                 rot_tile=(1024, 1024, 64), beads=400, per_block_budget=None,
+                 level_shape=(1952, 1952, 132), batch_box=(256, 256, 128),
+                 sep_patch=(288, 288, 128), levels_a=5,
+                 batch_box_d=(256, 256, 45)),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=12, block=(32, 32, 16),
-                 rot_tile=(96, 80, 16), beads=20, per_block_budget=1),
+                 rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
+                 level_shape=(180, 148, 26), batch_box=(64, 64, 32),
+                 sep_patch=(96, 96, 24), levels_a=2,
+                 batch_box_d=(64, 64, 9)),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
+ANISO = 3.0                   # route D's --anisotropyFactor
+# the kernels each route must launch (route C's shift blocks are optional)
+ROUTE_KERNELS = {
+    "A": ("composite_fuse", "downsample_level"),
+    "B": ("fuse_block_shift", "convert_intensity", "downsample_batch"),
+    "C": ("fuse_block", "convert_intensity"),
+    "D": ("fuse_block_sep", "convert_intensity", "downsample_batch"),
+}
 
 
 def compute_block_of(scale):
@@ -144,10 +191,12 @@ def max_abs_u16(a, b, dev) -> int:
 # ---------------------------------------------------------------- phase 1
 
 
-def print_times(what, r):
-    print(f"  {what}: max|delta| {r['err']:.3g}  kernel {r['ms']} ms  "
-          f"wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  "
-          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+def print_times(what, r, card):
+    lib = (f"  library {r['library_ms']} ms" if r.get("library_ms")
+           is not None else "")
+    print(f"  {what} [{card}]: max|delta| {r['err']:.3g}  kernel {r['ms']} ms"
+          f"  wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){lib}", flush=True)
 
 
 def composite_times(tiles, params, kw, dev, plain_reps=20):
@@ -179,14 +228,121 @@ def composite_times(tiles, params, kw, dev, plain_reps=20):
                     + n * OPS["composite_final"]))
 
 
-def phase1_kernels(dev, scale):
-    """Each kernel against its plain twin on the same card inputs."""
+def sep_tap_bytes(patch, diags, ts, bs, itemsize, sector=32):
+    """Bytes of the patches that K5's taps touch: per view and axis, the
+    indices from the smallest lo to the largest hi over the block's sample
+    positions (interp_row's clamp, pad 0), the z range (contiguous in
+    memory; rows start on sector boundaries) rounded out to whole
+    ``sector``-byte sectors."""
+    import numpy as np
+
+    total = 0
+    for d, t in zip(diags, ts):
+        ext = []
+        for ax in range(3):
+            c = patch[ax]
+            pos = np.clip(np.float64(d[ax]) * np.arange(bs[ax])
+                          + np.float64(t[ax]), 0, c - 1)
+            lo = np.clip(np.floor(pos), 0, max(c - 2, 0))
+            hi = np.minimum(lo + 1, c - 1)
+            ext.append((int(lo.min()), int(hi.max()) + 1))
+        (x0, x1), (y0, y1), (z0, z1) = ext
+        zb = (-(-z1 * itemsize // sector) - z0 * itemsize // sector) * sector
+        total += (x1 - x0) * (y1 - y0) * zb
+    return total
+
+
+def sep_times(rng, c, bs, patch, V, per_view, dev):
+    """K5 on 4 views at route D's compute block and patch shape, against
+    its plain twin (fused float32 rtol 1e-5 / atol 1e-3, the tolerance K3
+    is held to; wsum atol 1e-5)."""
     import numpy as np
     import torch
 
     from bigstitcher_spark_tpu_torch.ops import fusion as F
 
+    patches = c(rng.integers(90, 4000, (V, *patch)).astype(np.uint16))
+    diags = np.tile(np.array([1.0, 1.0, ANISO], np.float32), (V, 1))
+    ts = rng.uniform(0, 16, (V, 3)).astype(np.float32)
+    ts[:, 2] = rng.uniform(-8, 4, V)
+    diags[2, 0] = -1.0                   # mirrored on x
+    ts[2, 0] += patch[0] - 8
+    diags[3, 2] = np.float32(1 / ANISO)  # z upsampled instead
+    dims = np.tile(np.array(patch, np.float32) + 40, (V, 1))
+    args = [patches] + [c(a) for a in (
+        diags, ts, per_view(0, 30), dims, per_view(0, 3), per_view(10, 40),
+        np.ones(V, np.float32))]
+    io_d = c(np.zeros((V, 3), np.float32))
+    run = lambda: F.fuse_block_sep(*args, bs, "AVG_BLEND", io_d)
+    plain = lambda: F.fuse_block_sep_plain(*args, bs, "AVG_BLEND", io_d)
+    got, ref = run(), plain()
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    check(float((ref[1] > 0).float().mean()) > 0.5,
+          "K5 case: most block voxels covered")
+    for ft in F.FUSION_TYPES:
+        g = F.fuse_block_sep(*args, bs, ft, io_d)
+        r = F.fuse_block_sep_plain(*args, bs, ft, io_d)
+        torch.testing.assert_close(g[0], r[0], rtol=1e-5, atol=1e-3)
+    tables = F.sep_axis_tables(*args[1:7], io_d, bs)
+    bare = lambda: F.launch_fuse_block_sep(patches, args[1], args[2], tables,
+                                           args[7], bs, "AVG_BLEND")
+    n = int(np.prod(bs))
+    return dict(err=max_abs(got[0], ref[0]), ms=time_ms(bare),
+                wrapper_ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=None,
+                bound=bound(sep_tap_bytes(patch, diags, ts, bs, 2)
+                            + 2 * n * 4, V * n * OPS["sep"]))
+
+
+def downsample_times(x, factors, dev, level: bool):
+    """K6 against its plain twin (bitwise) and torch's avg_pool3d on the
+    float32 input (the library yardstick, used nowhere in the port):
+    ``level`` True times downsample_level (uint16 out), else
+    downsample_batch (float32 out) on the (B, X, Y, Z) batch ``x``."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
+
+    dims = tuple(int(s) // f for s, f in zip(x.shape[-3:], factors))
+    if level:
+        run = lambda: D.downsample_level(x, factors, dims, "uint16")
+        plain = lambda: D.downsample_level_plain(x, factors, dims, "uint16")
+    else:
+        run = lambda: D.downsample_batch(x, factors)
+        plain = lambda: D.downsample_block_plain(x, factors)
+    got, ref = run(), plain()
+    check(got.dtype == ref.dtype and tuple(got.shape) == tuple(ref.shape)
+          and torch.equal(got, ref),
+          f"K6 {'level' if level else 'batch'} {tuple(x.shape)} / {factors}"
+          f" -> {tuple(got.shape)} {got.dtype}: bitwise equal to the twin")
+    xf = x.to(torch.float32).reshape(-1, 1, *x.shape[-3:])
+    lib = lambda: torch.nn.functional.avg_pool3d(xf, factors, factors)
+    pooled = lib().reshape(ref.shape)
+    e = max_abs(pooled, ref.to(torch.float32))
+    print(f"  avg_pool3d vs K6 twin: max|delta| {e:.3g} "
+          f"(uint16 rounding for levels)", flush=True)
+    ms = time_ms(run)
+    n_out = int(np.prod(got.shape))
+    return dict(err=max_abs(got, ref), ms=ms, wrapper_ms=ms,
+                plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+                bound=bound(x.numel() * x.element_size()
+                            + n_out * got.element_size(),
+                            x.numel() * OPS["downsample_in"]
+                            + n_out * OPS["downsample_out"]))
+
+
+def phase1_kernels(dev, scale, card):
+    """Each kernel against its plain twin on the same card inputs."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+
     rng = np.random.default_rng(2024)
+    cfg = SCALES[scale]
     bs = compute_block_of(scale)
     V = 4
     res = {}
@@ -296,12 +452,34 @@ def phase1_kernels(dev, scale):
                                            **{**kw, "fusion_type": ft}))
         check(e <= 1, f"K1 composite {ft} |delta| {e} <= 1")
     res["composite_fuse"] = composite_times(tiles, params, kw, dev)
+    del tiles
+
+    # K5: route D's compute block and bucketed patch
+    res["fuse_block_sep"] = sep_times(rng, c, bs, cfg["sep_patch"], V,
+                                      per_view, dev)
+
+    # K6: route A's first pyramid step, and one batch of the downsample
+    # stage (4 level blocks of 128x128x64 x rel (2,2,2))
+    vol = c(rng.integers(0, 65536, cfg["level_shape"]).astype(np.uint16))
+    res["downsample_level"] = downsample_times(vol, (2, 2, 2), dev, True)
+    del vol
+    boxes = c(rng.integers(0, 65536, (4, *cfg["batch_box"])).astype(np.uint16))
+    res["downsample_batch"] = downsample_times(boxes, (2, 2, 2), dev, False)
+    del boxes
+    dboxes = c(rng.integers(0, 65536, (4, *cfg["batch_box_d"]))
+               .astype(np.uint16))
+    got = D.downsample_batch(dboxes, (2, 2, 1))
+    ref = D.downsample_block_plain(dboxes, (2, 2, 1))
+    check(got.dtype == ref.dtype and torch.equal(got, ref),
+          f"K6 batch at route D's boxes {tuple(dboxes.shape)} / (2, 2, 1) -> "
+          f"{tuple(got.shape)}: bitwise equal to the twin")
+    del dboxes
     for k, r in res.items():
-        print_times(k, r)
+        print_times(k, r, card)
     return res
 
 
-# ---------------------------------------------------------------- phases 2-4
+# ---------------------------------------------------------------- phases 2-5
 
 
 def make_project(root, scale, n_tiles, tile, rotate, seed):
@@ -343,32 +521,69 @@ def tile_budget(budget):
             os.environ["BST_DEVICE_TILE_BUDGET"] = old
 
 
-def run_cli(xml, out, scale, device, budget=None):
+def run_cli(xml, out, scale, device, budget=None, storage="ZARR",
+            container_args=(), fusion_args=()):
+    """create-fusion-container + affine-fusion through the CLI entry
+    function; returns (FusionStats, affine-fusion wall seconds including
+    its downsample stage)."""
     from bigstitcher_spark_tpu_torch.cli.main import main
 
     cfg = SCALES[scale]
-    main(["create-fusion-container", "-x", xml, "-o", out, "-s", "ZARR",
+    main(["create-fusion-container", "-x", xml, "-o", out, "-s", storage,
           "-d", "UINT16", "-c", "raw", "--blockSize",
-          ",".join(str(b) for b in cfg["block"])])
+          ",".join(str(b) for b in cfg["block"]), *container_args])
     with tile_budget(budget):
-        (stats,) = main(["affine-fusion", "-o", out, "--device", device])
-    return stats
+        t0 = time.perf_counter()
+        (stats,) = main(["affine-fusion", "-o", out, "--device", device,
+                         *fusion_args])
+        wall = time.perf_counter() - t0
+    return stats, wall
+
+
+def container_levels(out):
+    """(store, level infos of slot 0, 3-D reader of each level)."""
+    from bigstitcher_spark_tpu_torch.io.chunkstore import ChunkStore
+    from bigstitcher_spark_tpu_torch.io.container import read_container_meta
+
+    store = ChunkStore.open(out)
+    mr = read_container_meta(store).mr_infos[0]
+
+    def read(lvl):
+        a = store.open_dataset(mr[lvl].dataset.strip("/")).read_full()
+        return a[..., 0, 0] if a.ndim == 5 else a
+
+    return store, mr, read
 
 
 def read_volume(out):
-    from bigstitcher_spark_tpu_torch.io.chunkstore import ChunkStore
-
-    return ChunkStore.open(out).open_dataset("0").read_full()[..., 0, 0]
+    return container_levels(out)[2](0)
 
 
-def report(stats, card, label):
+def report(stats, wall, card, label, levels=()):
+    """A route's phase times and rates; ``levels``: the level infos the
+    downsample stage filled after fuse_volume (counted apart)."""
+    import numpy as np
+
     t = stats.timings
+    lvl_vox = (0 if stats.pyramid_levels else
+               sum(int(np.prod(m.dimensions[:3])) for m in levels))
     print(f"  [{label}] {card}: path={stats.path} kernels={stats.kernel_blocks}"
           f" host-read {t['read']:.3f}s h2d {t['h2d']:.3f}s kernel "
           f"{t['kernel']:.3f}s d2h {t['d2h']:.3f}s write {t['write']:.3f}s "
           f"total {stats.seconds:.3f}s -> "
           f"{stats.voxels / max(stats.seconds, 1e-9):,.0f} fused voxels/s",
           flush=True)
+    if stats.pyramid_levels:
+        rate = (stats.voxels + stats.pyramid_voxels) / max(stats.seconds, 1e-9)
+        print(f"  [{label}] {card}: epilogue {stats.pyramid_levels} levels, "
+              f"{stats.pyramid_voxels} voxels -> {rate:,.0f} voxels/s incl. "
+              f"pyramid (fuse_volume); affine-fusion wall {wall:.3f}s",
+              flush=True)
+    elif lvl_vox:
+        print(f"  [{label}] {card}: downsample stage made {lvl_vox} level "
+              f"voxels; affine-fusion wall {wall:.3f}s -> "
+              f"{(stats.voxels + lvl_vox) / max(wall, 1e-9):,.0f} voxels/s "
+              "incl. pyramid", flush=True)
 
 
 def check_blocks(name, vol, expect_fn, blocks):
@@ -399,12 +614,12 @@ def pick_blocks(proj, out, compute_block):
                for s in sd.setups]
     c = np.mean(centers, axis=0) - np.asarray(meta.bbox.min)
     corner = min(grid, key=lambda b: np.abs(
-        np.asarray(b.offset) + np.asarray(b.size) / 2 - c).sum())
+        (np.asarray(b.offset) + np.asarray(b.size) / 2 - c)[:2]).sum())
     return meta, [("first", grid[0]), ("tile corner", corner),
                   ("last", grid[-1])]
 
 
-def plain_block(sd, loader, meta, block, compute_block, dev):
+def plain_block(sd, loader, meta, block, compute_block, dev, aniso=None):
     """A compute block through the plain twins on ``dev`` (no kernels)."""
     import torch
 
@@ -412,14 +627,42 @@ def plain_block(sd, loader, meta, block, compute_block, dev):
     from bigstitcher_spark_tpu_torch.ops import fusion as F
 
     staged = A.stage_block(sd, loader, sd.view_ids(), block, meta.bbox,
-                           compute_block, A.BlendParams(), None, (0.0,) * 3)
+                           compute_block, A.BlendParams(), aniso, (0.0,) * 3)
     *ins, ioffs = [torch.from_numpy(a).to(dev) for a in staged.arrays]
-    fn = (F.fuse_block_shift_plain if staged.kind == "shift"
-          else F.fuse_block_plain)
+    fn = {"shift": F.fuse_block_shift_plain, "sep": F.fuse_block_sep_plain,
+          "gather": F.fuse_block_plain}[staged.kind]
     fused, _w = fn(*ins, staged.shape, "AVG_BLEND", ioffs)
     out = F.convert_intensity_plain(fused, 0.0, 65535.0, "uint16")
     sl = tuple(slice(0, s) for s in block.size)
     return out.cpu().numpy()[sl], staged.kind
+
+
+def check_level_blocks(name, mr, read, dev, lvl=1):
+    """Three blocks of pyramid level ``lvl`` (first, middle, last) against
+    K6's plain twin on the device, run on the stored level below: bitwise.
+    ``mr``, ``read``: the level infos and level reader of the container."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.models.downsample_driver import read_padded
+    from bigstitcher_spark_tpu_torch.ops.downsample import (
+        convert_storage, downsample_block_plain)
+    from bigstitcher_spark_tpu_torch.utils.grid import create_grid
+
+    src, dst = read(lvl - 1), read(lvl)
+    rel = [int(v) for v in mr[lvl].relativeDownsampling[:3]]
+    grid = create_grid(mr[lvl].dimensions[:3], mr[lvl].blockSize[:3])
+    for tag, b in (("first", grid[0]), ("middle", grid[len(grid) // 2]),
+                   ("last", grid[-1])):
+        box = read_padded(
+            lambda off, size: src[tuple(slice(o, o + s)
+                                        for o, s in zip(off, size))],
+            src.shape, [o * f for o, f in zip(b.offset, rel)],
+            [s * f for s, f in zip(b.size, rel)])
+        want = convert_storage(downsample_block_plain(
+            torch.from_numpy(box).to(dev), rel), "uint16").cpu().numpy()
+        got = dst[tuple(slice(o, o + s) for o, s in zip(b.offset, b.size))]
+        check((got == want).all(), f"{name} level {lvl} block {tag} at "
+              f"{b.offset}: bitwise equal to K6's plain twin on the device")
 
 
 def route_a_inputs(sd, loader, bbox, dev):
@@ -458,25 +701,59 @@ def composite_at_route_a(xml_path, out_a, dev):
     return r
 
 
-def main_path(work, scale, dev, card):
-    """Phases 2-4 through the CLI entry functions; returns route A's XML
-    and container paths."""
+def counted(route, launches, dev, fn):
+    """Run ``fn`` (one route's main path) with every launch count set to 0
+    just before it and read just after it; on the card the route's kernels
+    must each have launched. Adds the counts to ``launches``."""
+    from bigstitcher_spark_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    got = ops.launch_counts()
+    print(f"  route {route} launches: {got}", flush=True)
+    for k in ROUTE_KERNELS[route] if dev.type == "cuda" else ():
+        check(got[k] > 0, f"route {route}: kernel {k} launched {got[k]} "
+                          "times")
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    return out
+
+
+def route_a(work, scale, dev, card, launches):
+    """Phase 2: composite route with the pyramid epilogue; the levels must
+    equal K6's plain twin and the container-reread path bit for bit."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.io.container import (
+        estimate_multires_pyramid)
     from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
     from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models.downsample_driver import (
+        downsample_pyramid_level)
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
     from bigstitcher_spark_tpu_torch.ops import fusion as F
 
     cfg = SCALES[scale]
     compute_block = compute_block_of(scale)
-    print("phase 2 (route A, composite)", flush=True)
+    print("phase 2 (route A, composite + pyramid epilogue)", flush=True)
     print(f"  cut: z depth {cfg['tile'][2]} planes (scale {scale})")
     proj = make_project(os.path.join(work, "p4"), scale, (2, 2, 1),
                         cfg["tile"], False, seed=7)
     out_a = os.path.join(work, "route_a.ome.zarr")
-    stats_a = run_cli(proj.xml_path, out_a, scale, str(dev),
-                      budget=COMPOSITE_BUDGET)
-    report(stats_a, card, "route A")
+    stats_a, wall = counted("A", launches, dev, lambda: run_cli(
+        proj.xml_path, out_a, scale, str(dev), budget=COMPOSITE_BUDGET,
+        container_args=["--multiRes"], fusion_args=["--pyramid"]))
+    report(stats_a, wall, card, "route A")
     check(stats_a.path == "composite", "route A took the composite route")
-    vol_a = read_volume(out_a)
+    store, mr, read = container_levels(out_a)
+    steps = [list(m.absoluteDownsampling[:3]) for m in mr]
+    print(f"  pyramid {steps}", flush=True)
+    check(steps == estimate_multires_pyramid(mr[0].dimensions[:3])
+          and len(steps) == cfg["levels_a"] + 1
+          and stats_a.pyramid_levels == cfg["levels_a"],
+          f"route A: --multiRes gave {len(steps)} levels and the epilogue "
+          f"made {stats_a.pyramid_levels}")
+    vol_a = read(0)
     meta, blocks = pick_blocks(proj, out_a, compute_block)
     sd = SpimData.load(proj.xml_path)
     loader = ViewLoader(sd)
@@ -490,28 +767,69 @@ def main_path(work, scale, dev, card):
     check(err <= 1, f"route A whole volume {vol_a.shape}: |delta| {err} <= 1 "
                     "vs the plain composite on the device")
     del ref_a
+    epi = [read(lvl) for lvl in range(1, len(mr))]
+    for lvl, a in enumerate(epi, start=1):
+        below = torch.from_numpy(epi[lvl - 2] if lvl > 1 else vol_a).to(dev)
+        want = D.downsample_level_plain(
+            below, [int(v) for v in mr[lvl].relativeDownsampling[:3]],
+            [int(v) for v in mr[lvl].dimensions[:3]], "uint16").cpu().numpy()
+        del below
+        check(a.shape == want.shape and (a == want).all(),
+              f"route A level {lvl} {a.shape}: epilogue bitwise equal to "
+              "K6's plain twin on the device, run on the stored level below")
+    t0 = time.perf_counter()
+    for lvl in range(1, len(mr)):
+        downsample_pyramid_level(store, mr[lvl - 1], mr[lvl], True, (0, 0),
+                                 device=dev)
+    print(f"  reread path over {len(mr) - 1} levels: "
+          f"{time.perf_counter() - t0:.3f}s [{card}]", flush=True)
+    for lvl, a in enumerate(epi, start=1):
+        b = read(lvl)
+        check(a.shape == b.shape and (a == b).all() and a.std() > 0,
+              f"route A level {lvl} {a.shape}: epilogue bitwise equal to "
+              "the reread path")
+    return proj, out_a, vol_a, meta, blocks, sd, loader
 
-    print("phase 3 (route B, per-block shift)", flush=True)
+
+def route_b(work, scale, dev, card, launches, a):
+    """Phase 3: per-block shift route, the downsample stage makes the
+    levels."""
+    proj, _out_a, vol_a, meta, blocks, sd, loader = a
+    cfg = SCALES[scale]
+    compute_block = compute_block_of(scale)
+    print("phase 3 (route B, per-block shift + downsample stage)", flush=True)
     out_b = os.path.join(work, "route_b.ome.zarr")
-    stats_b = run_cli(proj.xml_path, out_b, scale, str(dev),
-                      budget=cfg["per_block_budget"])
-    report(stats_b, card, "route B")
-    check(stats_b.path == "per-block" and stats_b.kernel_blocks["shift"] > 0,
-          "route B took the per-block shift route")
+    stats_b, wall = counted("B", launches, dev, lambda: run_cli(
+        proj.xml_path, out_b, scale, str(dev),
+        budget=cfg["per_block_budget"], container_args=["--multiRes"]))
+    _store, mr, read = container_levels(out_b)
+    report(stats_b, wall, card, "route B", mr[1:])
+    check(stats_b.path == "per-block" and stats_b.kernel_blocks["shift"] > 0
+          and stats_b.pyramid_levels == 0,
+          "route B took the per-block shift route, no epilogue")
     vol_b = read_volume(out_b)
     err = max_abs_u16(vol_a, vol_b, dev)
     check(err <= 1, f"route B equals route A within |delta| {err} <= 1")
     check_blocks("route B", vol_b, lambda b: plain_block(
         sd, loader, meta, b, compute_block, dev)[0], blocks)
-    del vol_a, vol_b
+    check_level_blocks("route B", mr, read, dev)
 
+
+def route_c(work, scale, dev, card, launches):
+    """Phase 4: the gather route."""
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+
+    cfg = SCALES[scale]
+    compute_block = compute_block_of(scale)
     print("phase 4 (route C, gather)", flush=True)
     proj_c = make_project(os.path.join(work, "p2"), scale, (2, 1, 1),
                           cfg["rot_tile"], True, seed=11)
     out_c = os.path.join(work, "route_c.ome.zarr")
-    stats_c = run_cli(proj_c.xml_path, out_c, scale, str(dev),
-                      budget=cfg["per_block_budget"])
-    report(stats_c, card, "route C")
+    stats_c, wall = counted("C", launches, dev, lambda: run_cli(
+        proj_c.xml_path, out_c, scale, str(dev),
+        budget=cfg["per_block_budget"]))
+    report(stats_c, wall, card, "route C")
     check(stats_c.path == "per-block" and stats_c.kernel_blocks["gather"] > 0,
           "route C took the per-block route with gather blocks")
     vol_c = read_volume(out_c)
@@ -528,7 +846,76 @@ def main_path(work, scale, dev, card):
     check_blocks("route C", vol_c, expect, blocks_c)
     check("gather" in kinds, f"route C checked blocks include a gather block "
                              f"({kinds})")
-    return proj.xml_path, out_a
+
+
+def route_d(work, scale, dev, card, launches, a):
+    """Phase 5: the per-block anisotropic route (K5), its downsample stage,
+    and the standalone downsample tool on its s0."""
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.models.affine_fusion import (
+        anisotropy_transform)
+
+    proj, _out_a, _vol_a, _meta, _blocks, sd, loader = a
+    compute_block = compute_block_of(scale)
+    print("phase 5 (route D, per-block anisotropic)", flush=True)
+    out_d = os.path.join(work, "route_d.n5")
+
+    def path():
+        stats, wall = run_cli(
+            proj.xml_path, out_d, scale, str(dev), budget=1, storage="N5",
+            container_args=["--preserveAnisotropy", "--anisotropyFactor",
+                            str(ANISO), "--multiRes"])
+        _store, mr, _read = container_levels(out_d)
+        rels = ";".join(",".join(str(int(v)) for v in m.relativeDownsampling)
+                        for m in mr[1:])
+        outs = ";".join(f"tool/s{i}" for i in range(1, len(mr)))
+        t0 = time.perf_counter()
+        main(["downsample", "-i", out_d, "-di", "ch0tp0/s0", "-do", outs,
+              "-ds", rels, "--device", str(dev)])
+        return stats, wall, mr, time.perf_counter() - t0
+
+    stats_d, wall, mr, tool_s = counted("D", launches, dev, path)
+    report(stats_d, wall, card, "route D", mr[1:])
+    print(f"  [route D] {card}: downsample tool {len(mr) - 1} levels in "
+          f"{tool_s:.3f}s", flush=True)
+    check(stats_d.path == "per-block" and stats_d.kernel_blocks["sep"] > 0
+          and stats_d.kernel_blocks["shift"] == 0
+          and stats_d.kernel_blocks["gather"] == 0,
+          f"route D fused every block through K5 ({stats_d.kernel_blocks})")
+    store, _mr, read = container_levels(out_d)
+    read = functools.lru_cache(maxsize=2)(read)
+    vol_d = read(0)
+    print(f"  route D volume {vol_d.shape}, pyramid "
+          f"{[list(m.absoluteDownsampling) for m in mr]}", flush=True)
+    meta_d, blocks_d = pick_blocks(proj, out_d, compute_block)
+    aniso = anisotropy_transform(ANISO)
+    kinds = []
+
+    def expect(b):
+        data, kind = plain_block(sd, loader, meta_d, b, compute_block, dev,
+                                 aniso)
+        kinds.append(kind)
+        return data
+
+    check_blocks("route D", vol_d, expect, blocks_d)
+    check(set(kinds) == {"sep"}, f"route D checked blocks are sep ({kinds})")
+    for lvl in range(1, len(mr)):
+        check_level_blocks("route D", mr, read, dev, lvl)
+        a_ = read(lvl)
+        b_ = store.open_dataset(f"tool/s{lvl}").read_full()
+        check(a_.shape == b_.shape and (a_ == b_).all() and a_.std() > 0,
+              f"route D level {lvl} {a_.shape}: downsample tool bitwise "
+              "equal to the fusion stage's level")
+
+
+def main_path(work, scale, dev, card, launches):
+    """Phases 2-5 through the CLI entry functions; returns route A's XML
+    and container paths."""
+    a = route_a(work, scale, dev, card, launches)
+    route_b(work, scale, dev, card, launches, a)
+    route_c(work, scale, dev, card, launches)
+    route_d(work, scale, dev, card, launches, a)
+    return a[0].xml_path, a[1]
 
 
 # ---------------------------------------------------------------- main
@@ -551,21 +938,21 @@ def main(argv=None) -> int:
         return 2
     try:
         from bigstitcher_spark_tpu_torch.ops import _cuda
-        from bigstitcher_spark_tpu_torch.ops import fusion as F
     except ImportError as e:
         print(f"error: the port is not importable next to chip_smoke.py "
               f"({e})", file=sys.stderr)
         return 2
 
     os.makedirs(work, exist_ok=True)
+    launches: dict = {}
     try:
         if args.device == "cpu":
             torch.set_num_threads(1)
             cpu = torch.device("cpu")
             print("rehearsal on the CPU: plain twins, no kernels", flush=True)
-            phase1_kernels(cpu, args.scale)
-            composite_at_route_a(*main_path(work, args.scale, cpu, "cpu"),
-                                 cpu)
+            phase1_kernels(cpu, args.scale, "cpu")
+            composite_at_route_a(*main_path(work, args.scale, cpu, "cpu",
+                                            launches), cpu)
             print("rehearsal finished; no result on the CPU", file=sys.stderr)
             return 3
         dev = torch.device("cuda", 0)
@@ -580,44 +967,36 @@ def main(argv=None) -> int:
                     if "registers" in ln]
             print(f"  {name}: {'; '.join(regs)[:300]}")
         print(f"phase 1: kernels vs plain twins [{card}]", flush=True)
-        res = phase1_kernels(dev, args.scale)
+        res = phase1_kernels(dev, args.scale, card)
 
-        F.reset_launch_counts()
-        route_a = main_path(work, args.scale, dev, card)
-        launches = F.launch_counts()
-        print(f"main path launches: {launches}", flush=True)
-        for k, n in launches.items():
-            check(n > 0, f"kernel {k} launched {n} times on the main path")
+        route = main_path(work, args.scale, dev, card, launches)
+        print(f"main path launches (routes A-D): {launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
         block = res["composite_fuse"]
         res["composite_fuse"] = {
-            **composite_at_route_a(*route_a, dev),
+            **composite_at_route_a(*route, dev),
             **{f"block_{k}": v for k, v in block.items()}}
         print_times("composite_fuse at route A's shape",
-                    res["composite_fuse"])
+                    res["composite_fuse"], card)
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    src = {"composite_fuse": ("composite.cu", 524),
-           "fuse_block_shift": ("shift.cu", 337),
-           "fuse_block": ("gather.cu", 154),
-           "convert_intensity": ("convert.cu", 648)}
     kernels = []
-    for name, (cu, line) in src.items():
+    for name, (cu, jax_line) in KERNELS.items():
         r = res[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bigstitcher_spark_tpu_torch/csrc/{cu}",
-            "replaces": f"{JAX_FUSION}:{line}",
+            "replaces": f"bigstitcher_spark_tpu/{jax_line}",
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
             **({"block_ms": r["block_ms"],
                 "block_wrapper_ms": r["block_wrapper_ms"],
                 "block_plain_ms": r["block_plain_ms"],

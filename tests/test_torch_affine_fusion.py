@@ -23,13 +23,12 @@ from bigstitcher_spark_tpu.io.dataset_io import ViewLoader as JViewLoader
 from bigstitcher_spark_tpu.io.spimdata import SpimData as JSpimData
 from bigstitcher_spark_tpu.utils.geometry import Interval as JInterval
 from bigstitcher_spark_tpu.utils.testdata import make_synthetic_project
-from bigstitcher_spark_tpu_torch import NotYetPorted
 from bigstitcher_spark_tpu_torch.cli.main import main as torch_main
 from bigstitcher_spark_tpu_torch.io.chunkstore import ChunkStore as TStore
 from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
 from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+from bigstitcher_spark_tpu_torch import ops as TOps
 from bigstitcher_spark_tpu_torch.models import affine_fusion as taf
-from bigstitcher_spark_tpu_torch.ops import fusion as TF
 from bigstitcher_spark_tpu_torch.utils.geometry import Interval, translation_affine
 from bigstitcher_spark_tpu_torch.utils.testdata import (
     append_view_transforms,
@@ -160,14 +159,20 @@ def test_anisotropic_composite_matches_jax(shifted_xml, tmp_path, jax_paths):
     _assert_match(a, b)
 
 
-def test_diagonal_per_block_is_refused(shifted_xml, tmp_path, monkeypatch):
+def test_diagonal_per_block_is_refused(shifted_xml, tmp_path, jax_paths,
+                                      monkeypatch):
+    """Per-block fusion of diagonal views was refused until the separable
+    kernel (K5) was ported; it now fuses every block through it and
+    matches the JAX per-block route."""
     monkeypatch.setenv("BST_DEVICE_TILE_BUDGET", "1")
-    out = str(tmp_path / "aniso.n5")
-    torch_main(["create-fusion-container", "-x", shifted_xml, "-o", out,
-                "-s", "N5", "-d", "UINT16", "--blockSize", "32,32,16",
-                "--preserveAnisotropy", "--anisotropyFactor", "2"])
-    with pytest.raises(NotYetPorted, match="fuse_block_sep"):
-        torch_main(["affine-fusion", "-o", out, "--device", "cpu"])
+    a, b, stats = _run_both(
+        shifted_xml, tmp_path, "N5", "UINT16", [],
+        container_args=["--preserveAnisotropy", "--anisotropyFactor", "2"])
+    assert jax_paths == ["per-block"]
+    assert [s.path for s in stats] == ["per-block"]
+    assert stats[0].kernel_blocks["sep"] > 1
+    assert stats[0].kernel_blocks["shift"] == 0
+    _assert_match(a, b)
 
 
 def _jax_and_torch_loaders(xml):
@@ -225,4 +230,4 @@ def test_fuse_grid_block_returns_device_tensors(shifted_xml):
                                       bbox, device="cpu")
     assert fused.dtype == torch.float32 and tuple(fused.shape) == (32, 32, 16)
     assert (wsum > 0).float().mean() > 0.5
-    assert TF.launch_counts() == dict.fromkeys(TF.KERNEL_WRAPPERS, 0)
+    assert TOps.launch_counts() == dict.fromkeys(TOps.kernel_wrappers(), 0)

@@ -1,4 +1,4 @@
-"""The port's plain-torch fusion programs (K1-K4) against the JAX package.
+"""The port's plain-torch fusion programs (K1-K5) against the JAX package.
 
 Same inputs, drawn from ``np.random.default_rng(seed)``, go through the
 JAX function (jitted on the CPU, as the JAX package's own tests run it)
@@ -89,6 +89,66 @@ def test_fuse_block_gather_matches_jax(fusion_type):
     got = TF.fuse_block(*_t(*args), bs, fusion_type, *_t(ioffs))
     _close_f32(got[0], ref[0])
     np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+def _sep_case(rng, mirrored: bool):
+    """4 views with diagonal block->patch affines (steps above and below
+    1, e.g. a z scale of 1/3 under --preserveAnisotropy), uint16 patches;
+    taps reach past the patch (clamped edge). ``mirrored`` flips y of
+    view 0 and x of view 2 (tests/test_fusion.py's mirrored case)."""
+    V, P = 4, (36, 32, 20)
+    patches = rng.integers(0, 4000, (V, *P)).astype(np.uint16)
+    diags = rng.uniform(0.6, 1.7, (V, 3)).astype(np.float32)
+    diags[1, 2] = np.float32(1 / 3)
+    ts = rng.uniform(-3, 6, (V, 3)).astype(np.float32)
+    if mirrored:
+        diags[0, 1] *= -1.0
+        diags[2, 0] *= -1.0
+        ts[0, 1] += P[1]
+        ts[2, 0] += P[0]
+    offsets = _per_view(rng, V, 0, 4)
+    dims = np.tile(np.array(P, np.float32) * 1.4, (V, 1))
+    borders, ranges = _per_view(rng, V, 0, 3), _per_view(rng, V, 4, 12)
+    valid = np.array([1, 1, 1, 0], np.float32)
+    ioffs = _per_view(rng, V, 0, 2)
+    return (patches, diags, ts, offsets, dims, borders, ranges, valid), ioffs
+
+
+@pytest.mark.parametrize("mirrored", [False, True], ids=["pos", "mirrored"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_sep_matches_jax(fusion_type, mirrored):
+    rng = np.random.default_rng(4)
+    bs = (20, 18, 12)
+    args, ioffs = _sep_case(rng, mirrored)
+    ref = JF.fuse_block_sep(*args, block_shape=bs, fusion_type=fusion_type,
+                            inside_offs=ioffs)
+    got = TF.fuse_block_sep(*_t(*args), bs, fusion_type, *_t(ioffs))
+    assert tuple(got[0].shape) == bs
+    _close_f32(got[0], np.asarray(ref[0]).reshape(bs))
+    np.testing.assert_allclose(got[1], np.asarray(ref[1]).reshape(bs),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mirrored", [False, True], ids=["pos", "mirrored"])
+def test_fuse_block_sep_matches_gather_twin(mirrored):
+    """The separable twin reproduces the port's gather twin on diagonal
+    affines (tests/test_fusion.py:269-342 holds the JAX pair so), inside
+    the patch where both sample the same clamped taps."""
+    rng = np.random.default_rng(6)
+    bs = (16, 14, 10)
+    (patches, diags, ts, offsets, dims, borders, ranges,
+     valid), ioffs = _sep_case(rng, mirrored)
+    aff = np.zeros((len(diags), 3, 4), np.float32)
+    for d in range(3):
+        aff[:, d, d] = diags[:, d]
+    aff[:, :, 3] = ts
+    for ft in ("AVG_BLEND", "MAX_INTENSITY", "FIRST_WINS"):
+        s = TF.fuse_block_sep(*_t(patches, diags, ts, offsets, dims, borders,
+                                  ranges, valid), bs, ft, *_t(ioffs))
+        g = TF.fuse_block(*_t(patches, aff, offsets, dims, borders, ranges,
+                              valid), bs, ft, *_t(ioffs))
+        np.testing.assert_allclose(s[0], g[0], rtol=1e-5, atol=2e-3)
+        np.testing.assert_allclose(s[1], g[1], rtol=0, atol=2e-4)
 
 
 @pytest.mark.parametrize("out_dtype", ["uint8", "uint16", "float32"])

@@ -3,9 +3,9 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the two JAX click
-  commands; the options not yet ported are refused with a pointer to
-  ROADMAP.md instead of doing something else.
+* The port's argparse accepts every option spelling of the three JAX click
+  commands it ports; the options not yet ported are refused with a pointer
+  to ROADMAP.md instead of doing something else.
 """
 
 import ast
@@ -19,6 +19,7 @@ from bigstitcher_spark_tpu.cli.fusion_tools import (
     affine_fusion_cmd as jax_affine_fusion,
     create_fusion_container_cmd as jax_create_container,
 )
+from bigstitcher_spark_tpu.cli.resave_tools import downsample_cmd as jax_downsample
 from bigstitcher_spark_tpu_torch import NotYetPorted
 from bigstitcher_spark_tpu_torch.cli.main import main as torch_main
 from bigstitcher_spark_tpu_torch.cli.main import tool_parser
@@ -86,6 +87,7 @@ def _click_spellings(cmd):
 @pytest.mark.parametrize("tool,cmd", [
     ("create-fusion-container", jax_create_container),
     ("affine-fusion", jax_affine_fusion),
+    ("downsample", jax_downsample),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -95,20 +97,23 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
 
 @pytest.mark.parametrize("tool,args,what", [
     ("create-fusion-container", ["-s", "HDF5"], "-s HDF5"),
-    ("create-fusion-container", ["--multiRes"], "--multiRes"),
-    ("create-fusion-container", ["-ds", "1,1,1", "-ds", "2,2,1"], "-ds"),
+    ("create-fusion-container", ["-s", "HDF5", "--multiRes"], "-s HDF5"),
     ("create-fusion-container", ["-c", "blosc"], "blosc"),
     ("create-fusion-container", ["-c", "lz4"], "lz4"),
     ("create-fusion-container", ["--bdv"], "--bdv"),
     ("create-fusion-container", ["--s3Region", "us-east-1"], "--s3Region"),
     ("affine-fusion", ["--intensityN5"], "--intensityN5"),
-    ("affine-fusion", ["--pyramid"], "--pyramid"),
     ("affine-fusion", ["--devices", "4"], "--devices"),
     ("affine-fusion", ["--trace"], "--trace"),
+    ("downsample", ["-s", "HDF5"], "-s HDF5"),
+    ("downsample", ["--telemetry-dir", "t"], "--telemetry-dir"),
 ])
 def test_not_yet_ported_options_are_refused(tool, args, what):
-    base = (["-x", "unused.xml", "-o", "unused.zarr"]
-            if tool == "create-fusion-container" else ["-o", "unused.zarr"])
+    base = {"create-fusion-container": ["-x", "unused.xml", "-o",
+                                        "unused.zarr"],
+            "affine-fusion": ["-o", "unused.zarr"],
+            "downsample": ["-i", "unused.n5", "-di", "s0", "-ds", "2,2,1"]
+            }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])
     assert what in str(e.value)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K6) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -9,12 +9,16 @@ Every test here needs an NVIDIA GPU and nvcc; on a host without
 card machine does not have.) Tolerances: fused float32 rtol 1e-5 / atol
 1e-3 and wsum atol 1e-5 (both sides round every float op; cosf and the
 CPU/GPU cos differ in the last bits); converted integers |delta| <= 1.
+K6 (downsample) takes the same sums in the same order on both sides, so
+its outputs must be bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from bigstitcher_spark_tpu_torch import ops
+from bigstitcher_spark_tpu_torch.ops import downsample as D
 from bigstitcher_spark_tpu_torch.ops import fusion as F
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +83,67 @@ def test_fuse_block_gather_kernel(dev, fusion_type):
                        args[7].to(dev))
     torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mirrored", [False, True], ids=["pos", "mirrored"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_sep_kernel(dev, fusion_type, mirrored):
+    rng = np.random.default_rng(15)
+    V, bs, ps = 4, (32, 28, 16), (44, 40, 24)
+    patches = torch.from_numpy(rng.integers(0, 4000, (V, *ps)).astype(
+        np.uint16))
+    diags = rng.uniform(0.6, 1.7, (V, 3)).astype(np.float32)
+    diags[1, 2] = np.float32(1 / 3)
+    ts = rng.uniform(-3, 6, (V, 3)).astype(np.float32)
+    if mirrored:
+        diags[0, 1] *= -1.0
+        ts[0, 1] += ps[1]
+    args = (patches, torch.from_numpy(diags), torch.from_numpy(ts),
+            _per_view(rng, V, 0, 4),
+            torch.from_numpy(np.tile(np.array(ps, np.float32) * 1.3, (V, 1))),
+            _per_view(rng, V, 0, 3), _per_view(rng, V, 5, 20),
+            torch.from_numpy((np.arange(V) < V - 1).astype(np.float32)),
+            _per_view(rng, V, 0, 2))
+    # the twin runs on the card too: its blend tables then come from the
+    # card's cos, as the kernel's do (where every covering view sits on the
+    # far tail of its ramp, a 1-ulp cos difference between the CPU and the
+    # card moves acc / wsum past the tolerance)
+    args = [a.to(dev) for a in args]
+    ref = F.fuse_block_sep_plain(*args[:8], bs, fusion_type, args[8])
+    got = F.fuse_block_sep(*args[:8], bs, fusion_type, args[8])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,factors,dims", [
+    ((25, 19, 11), (2, 2, 2), (12, 9, 5)),   # odd extents: crop
+    ((56, 32, 6), (2, 2, 8), (28, 16, 1)),   # thin axis: edge pad
+    ((20, 17, 9), (3, 1, 2), (6, 17, 4)),
+], ids=str)
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_downsample_level_kernel(dev, dtype, shape, factors, dims):
+    rng = np.random.default_rng(16)
+    prev = (rng.uniform(0, 4000, shape).astype(np.float32)
+            if dtype == "float32" else
+            rng.integers(0, 256 if dtype == "uint8" else 65536,
+                         shape).astype(dtype))
+    ref = D.downsample_level_plain(torch.from_numpy(prev), factors, dims, dtype)
+    got = D.downsample_level(torch.from_numpy(prev).to(dev), factors, dims,
+                             dtype).cpu()
+    assert got.dtype == ref.dtype
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("factors", [(2, 2, 2), (2, 2, 1), (3, 1, 2)], ids=str)
+def test_downsample_batch_kernel(dev, factors):
+    rng = np.random.default_rng(17)
+    raws = torch.from_numpy(rng.integers(0, 65536, (3, 24, 20, 16)).astype(
+        np.uint16))
+    ref = D.downsample_block_plain(raws, factors)
+    got = D.downsample_batch(raws.to(dev), factors).cpu()
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert torch.equal(D.downsample_block(raws[1].to(dev), factors).cpu(),
+                       ref[1])
 
 
 @pytest.mark.parametrize("out_dtype", ["uint8", "uint16", "float32"])
@@ -155,9 +220,9 @@ def test_composite_kernel(dev, fusion_type, out_dtype, masks):
 
 
 def test_launch_counts_and_no_cpu_fallback(dev):
-    F.reset_launch_counts()
+    ops.reset_launch_counts()
     x = torch.zeros(10, device=dev)
     F.convert_intensity(x, 0.0, 1.0, "uint8")
-    assert F.launch_counts()["convert_intensity"] == 1
+    assert ops.launch_counts()["convert_intensity"] == 1
     with pytest.raises(ValueError):
         F.convert_intensity(x.to(torch.float64), 0.0, 1.0, "uint8")
