@@ -14,8 +14,8 @@ nothing and compiles nothing: kernels are built at first launch.
 
 Ported so far: ``create-fusion-container`` (with pyramids),
 single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
-downsample stage) and ``downsample``. Everything else raises
-:class:`NotYetPorted`.
+downsample stage), ``downsample`` and single-device ``stitching``.
+Everything else raises :class:`NotYetPorted`.
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,11 @@ KNOBS = {
         "Device-residency budget for the whole-volume composite fusion "
         "path (tiles + f32 accumulators must fit or the driver falls back "
         "to the per-block path)."),
+    "BST_PAIR_INFLIGHT_BYTES": (
+        "bytes", None,
+        "Byte budget for a pair stage's dispatched-but-undrained device "
+        "work (the stitching phase correlation; utils/devicemem.py). "
+        "Default: 60% of the card's free memory, 2e9 on the CPU."),
     "BST_WRITE_THREADS": (
         "int", 8,
         "Concurrent writer threads for the fused-volume drain and the "

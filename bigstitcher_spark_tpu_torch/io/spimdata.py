@@ -26,7 +26,7 @@ import copy
 import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -123,6 +123,17 @@ class PairwiseStitchingResult:
     @property
     def pair_key(self) -> tuple:
         return (self.views_a, self.views_b)
+
+
+def registration_hash(transforms_a: Sequence[np.ndarray],
+                      transforms_b: Sequence[np.ndarray]) -> float:
+    """Stable scalar fingerprint of the registrations a stitching result was
+    computed under (role of ``PairwiseStitchingResult.getHash()``)."""
+    h = 0.0
+    for m in list(transforms_a) + list(transforms_b):
+        h += float(np.sum(np.asarray(m, dtype=np.float64)
+                          * np.arange(1, 13).reshape(3, 4)))
+    return h
 
 
 class SpimData:

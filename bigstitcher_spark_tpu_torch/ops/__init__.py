@@ -8,9 +8,10 @@ reset them all at once.
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name."""
-    from . import downsample, fusion
+    from . import downsample, fusion, phasecorr
 
-    return {**fusion.KERNEL_WRAPPERS, **downsample.KERNEL_WRAPPERS}
+    return {**fusion.KERNEL_WRAPPERS, **downsample.KERNEL_WRAPPERS,
+            **phasecorr.KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:

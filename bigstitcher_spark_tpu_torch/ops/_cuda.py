@@ -26,7 +26,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample")
+SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
+           "pcm", "fft")
 HEADERS = ("fusion_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,6 +70,14 @@ _SIGNATURES = {
     },
     "downsample": {
         "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP, _VP],
+    },
+    "pcm": {
+        "bst_pcm_window": [_VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _VP],
+        "bst_pcm_cross_power": [_VP, _VP, _I, _I64, _I, _VP, _VP, _VP],
+        "bst_pcm_peaks_topk": [_VP] + [_I] * 6 + [_VP, _VP, _VP],
+    },
+    "fft": {
+        "bst_fft_pow2": [_VP, _VP, _VP, _I, _I, _I64, _I64, _I, _F, _VP],
     },
 }
 

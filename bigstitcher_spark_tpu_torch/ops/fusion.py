@@ -574,9 +574,10 @@ def composite_axis_tables(windows, n_offs, kinds, fracs, diags, offs,
     ``starts[v]``, blend x, y, z then inside x, y, z. ``starts[v]`` is None
     for an empty window. K1 and its plain twin both read this one tensor.
 
-    Positions are ``base * mul + add``: "shift" has base = a + n + i,
-    mul = 1 (exact), add = frac; "sep" has base = a + i, mul = diag,
-    add = off, as in the JAX program."""
+    Positions are ``base * mul + add`` rounded once (:func:`_fma`):
+    "shift" has base = a + n + i, mul = 1 (exact), add = frac; "sep" has
+    base = a + i, mul = diag, add = off, as XLA contracts the JAX
+    expression."""
     host = lambda x: np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(),
                                 np.float32)
     fracs, diags, offs, img_dims, borders, ranges, inside_offs = (
@@ -604,7 +605,7 @@ def composite_axis_tables(windows, n_offs, kinds, fracs, diags, offs,
     # one upload, one elementwise pass; then regroup per view as
     # blend x, y, z, inside x, y, z
     base, mul, add, *axis = torch.from_numpy(np.concatenate(cols, 1)).to(device)
-    w, ins = _axis_blend_at(base * mul + add, *axis)
+    w, ins = _axis_blend_at(_fma(base, mul, add), *axis)
     parts, pos = [], 0
     for v, st in enumerate(starts):
         if st is None:
@@ -637,8 +638,8 @@ def _composite_one_view_sep(P, diag, off, a, L, pad):
     interpolation contractions over the padded tile, x then y then z."""
     so = P
     for d in range(3):
-        pos = diag[d] * (a[d] + torch.arange(L[d], dtype=torch.float32,
-                                             device=P.device)) + off[d]
+        i = a[d] + torch.arange(L[d], dtype=torch.float32, device=P.device)
+        pos = _fma(diag[d], i, off[d])
         m = _separable_interp_matrix(pos + pad[d], P.shape[d])
         so = torch.tensordot(so, m, dims=([0], [1]))
     return so

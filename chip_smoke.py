@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phase 0  prints the card (nvidia-smi name, power limit) and builds the six
-         kernels from csrc/ (one nvcc per source, all at once).
+Phase 0  prints the card (nvidia-smi name, power limit) and builds the
+         kernels from csrc/ (one nvcc per source, all eight at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -15,7 +15,12 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          256x256x128 uint16 boxes), beside torch's avg_pool3d on the same
          float32 input as the library yardstick; K6 also at route D's stage
          batch (4 x 256x256x45 uint16, factors 2,2,1: z takes the f == 1
-         path), bitwise.
+         path), bitwise. The phase-correlation kernels at route A's x-edge
+         bucket at -ds 2,2,1 (2 pairs of 64x512x128 uint16 crops): K7
+         window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
+         (max|delta| <= 2e-5 x max|X| per pair against torch.fft, whose
+         rfftn + irfftn is its library yardstick), K10 top-k (indices
+         equal).
 Phase 2  route A, composite + pyramid epilogue: a synthetic 2x2x1 project
          of 1024x1024x128 uint16 tiles (the 2x2-binned frame of a 2048^2
          sCMOS light-sheet camera; ~10 % overlap, sub-pixel translations,
@@ -41,6 +46,26 @@ Phase 5  route D, per-block anisotropic: route A's project into an N5
          bitwise against K6's plain twin on the card), and the standalone
          downsample tool run on s0 into separate datasets must equal them
          bitwise.
+Phase 6  stitching through the port's CLI entry function: route A's
+         project (a copy of its XML) at -ds 2,2,1 (the reference default;
+         crops downsampled by K6) and at -ds 1,1,1 (the longest FFT lines),
+         then route C's rotated project at -ds 2,2,1, whose unequal views
+         render through fuse_grid_block (K2/K3/K5) before the PCM. Every
+         bucket the run sent to the PCM (each shape the main path gives
+         K7-K10) is held stage by stage on its own stacks, at phase 1's
+         tolerances: K7 against its twin, K8's rfftn / irfftn against
+         torch.fft, K9 against its twin, K10 on the twins' PCM with
+         indices equal to the twin's top-k. The kernels' peaks must equal
+         the twins' peaks computed on the card from the same stacks (or be
+         a near tie of the twins' PCM values), and the stored shifts and r
+         must equal those refined from the twins' peaks; on route A every
+         pair with r > 0.5 must recover the true correction (jitter and
+         the appended sub-pixel translations) within 1.5 px at 2,2,1 and
+         0.75 px at 1,1,1; the saved XML must hold one StitchingResults
+         entry with a nonzero hash per kept pair. Wall seconds, pairs/s,
+         padded FFT voxels/s, the host split (extract / stage / launch /
+         wait / refine), the card's busy seconds (CUDA events) and its
+         idle share are printed beside the card.
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -48,13 +73,13 @@ H2D, kernel, D2H and write times and the fused voxels/s (and the rate
 counting pyramid voxels, apart) are printed beside the card's name and
 power limit. Each route runs with every launch count set to 0 just before
 it and read just after it: a kernel of that route launched no time fails
-the run. K1 then runs again, timed and held against its twin, on route A's
+the run (phase 6 counts each stitching run so). K1 then runs again, timed and held against its twin, on route A's
 whole volume: the one shape the main path gives it. The second-to-last line
 of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-5 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-6 on the CPU with the
 plain twins (no kernels, no timings); it then exits 3 without a result.
 """
 
@@ -83,26 +108,35 @@ KERNELS = {
     "fuse_block_sep": ("sep.cu", "ops/fusion.py:276"),
     "downsample_level": ("downsample.cu", "ops/downsample.py:50"),
     "downsample_batch": ("downsample.cu", "models/downsample_driver.py:92"),
+    "pcm_window": ("pcm.cu", "ops/phasecorr.py:68"),
+    "fft_pow2": ("fft.cu", "ops/phasecorr.py:68"),
+    "pcm_cross_power": ("pcm.cu", "ops/phasecorr.py:68"),
+    "pcm_peaks_topk": ("pcm.cu", "ops/phasecorr.py:68"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
 # input voxel and ~10 operations per output voxel (divides, round, clamp).
+# K7: a sum and 4 operations per voxel; K8: 2.5 N log2 N per real 3-D
+# transform of N voxels; K9: 12 per complex bin (cross product, hypot,
+# compare, 2 divides); K10: 27 comparisons per voxel (the sorts are the
+# kernel's choice, not the function's work).
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
-       "downsample_out": 10}
+       "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
+       "topk": 27}
 
 SCALES = {
     "full": dict(tile=(1024, 1024, 128), overlap=102, block=(128, 128, 64),
                  rot_tile=(1024, 1024, 64), beads=400, per_block_budget=None,
                  level_shape=(1952, 1952, 132), batch_box=(256, 256, 128),
                  sep_patch=(288, 288, 128), levels_a=5,
-                 batch_box_d=(256, 256, 45)),
+                 batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128)),
     # the default budget fits tiny volumes: force the per-block routes
-    "tiny": dict(tile=(96, 80, 24), overlap=12, block=(32, 32, 16),
+    "tiny": dict(tile=(96, 80, 24), overlap=24, block=(32, 32, 16),
                  rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
                  level_shape=(180, 148, 26), batch_box=(64, 64, 32),
                  sep_patch=(96, 96, 24), levels_a=2,
-                 batch_box_d=(64, 64, 9)),
+                 batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32)),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
@@ -114,6 +148,12 @@ ROUTE_KERNELS = {
     "C": ("fuse_block", "convert_intensity"),
     "D": ("fuse_block_sep", "convert_intensity", "downsample_batch"),
 }
+PCM_KERNELS = ("pcm_window", "fft_pow2", "pcm_cross_power", "pcm_peaks_topk")
+ROUTE_KERNELS.update({
+    "S 2,2,1": PCM_KERNELS + ("downsample_batch",),
+    "S 1,1,1": PCM_KERNELS,
+    "S rendered": PCM_KERNELS + ("fuse_block",),
+})
 
 
 def compute_block_of(scale):
@@ -172,6 +212,8 @@ def bound(nbytes, ops):
 def max_abs(a, b) -> float:
     import torch
 
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
@@ -333,6 +375,99 @@ def downsample_times(x, factors, dev, level: bool):
                             + n_out * OPS["downsample_out"]))
 
 
+def fft_plain_roundtrip(w):
+    """rfftn then irfftn of ``w`` through K8's plain twin, pass by pass."""
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    _, X, Y, Z = (int(s) for s in w.shape)
+    f = P.fft_pow2_plain(w, 3, "r2c")
+    f = P.fft_pow2_plain(P.fft_pow2_plain(f, 2, "c2c"), 1, "c2c")
+    g = P.fft_pow2_plain(P.fft_pow2_plain(f, 1, "c2c", True), 2, "c2c", True)
+    return P.fft_pow2_plain(g, 3, "c2r", True, 1.0 / (X * Y * Z), n=Z)
+
+
+def check_fft(got, ref, what):
+    """K8's tolerance: max|delta| <= 2e-5 x max|ref| for every pair."""
+    for k in range(int(ref.shape[0])):
+        e, m = max_abs(got[k], ref[k]), float(ref[k].abs().max())
+        check(e <= 2e-5 * m, f"K8 {what} pair {k}: max|delta| {e:.3g} <= "
+                             f"2e-5 x {m:.4g}")
+
+
+def pcm_times(rng, c, bucket):
+    """K7-K10 at one stitching bucket (B pairs of X x Y x Z uint16 crops,
+    each b a shifted copy of its a) against their twins, with times and
+    bounds; returns {wrapper name: result}."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    B, X, Y, Z = bucket
+    ext = np.array([[X - X // 5 - k, Y - 2 - k, Z] for k in range(B)],
+                   np.int32)
+    a = np.zeros(bucket, np.uint16)
+    for k in range(B):
+        e = ext[k]
+        a[k, :e[0], :e[1], :e[2]] = rng.integers(90, 4000, tuple(e))
+    b = np.roll(a, (2, -3, 1), axis=(1, 2, 3))
+    a, b, ext = c(a), c(b), c(ext)
+    n, m = B * X * Y * Z, B * X * Y * (Z // 2 + 1)
+    res = {}
+
+    w = P.pcm_window(a, ext)
+    torch.testing.assert_close(w, P.pcm_window_plain(a, ext), rtol=1e-5,
+                               atol=1e-6)
+    masks = P.fade_masks(ext, (X, Y, Z), 0.25)
+    res["pcm_window"] = dict(
+        err=max_abs(w, P.pcm_window_plain(a, ext)),
+        ms=time_ms(lambda: P.launch_pcm_window(a, ext, masks)),
+        wrapper_ms=time_ms(lambda: P.pcm_window(a, ext)),
+        plain_ms=time_ms(lambda: P.pcm_window_plain(a, ext)),
+        library_ms=None, bound=bound(n * 2 + n * 4, n * OPS["window"]))
+
+    fa = P.rfftn3(w)
+    ref = torch.fft.rfftn(w, dim=(1, 2, 3))
+    check_fft(fa, ref, f"rfftn {tuple(w.shape)}")
+    fb = P.rfftn3(P.pcm_window(b, ext))
+    norm = P.pcm_cross_power(fa, fb)
+    norm_ref = P.pcm_cross_power_plain(fa, fb)
+    torch.testing.assert_close(norm, norm_ref, rtol=1e-5, atol=1e-6)
+    pcm = P.irfftn3(norm.clone(), Z)
+    pcm_ref = torch.fft.irfftn(norm, s=(X, Y, Z), dim=(1, 2, 3))
+    check_fft(pcm, pcm_ref, f"irfftn {tuple(pcm.shape)}")
+    err8 = max(max_abs(fa, ref), max_abs(pcm, pcm_ref))
+    lib = lambda: torch.fft.irfftn(torch.fft.rfftn(w, dim=(1, 2, 3)),
+                                   s=(X, Y, Z), dim=(1, 2, 3))
+    ms8 = time_ms(lambda: P.irfftn3(P.rfftn3(w), Z))
+    res["fft_pow2"] = dict(
+        err=err8, ms=ms8, wrapper_ms=ms8,
+        plain_ms=time_ms(lambda: fft_plain_roundtrip(w)),
+        library_ms=time_ms(lib),
+        bound=bound(2 * (n * 4 + m * 8),
+                    2 * B * OPS["fft"] * (n // B) * np.log2(n // B)))
+    ms9 = time_ms(lambda: P.pcm_cross_power(fa, fb))
+    res["pcm_cross_power"] = dict(
+        err=max_abs(norm, norm_ref),
+        ms=ms9, wrapper_ms=ms9,
+        plain_ms=time_ms(lambda: P.pcm_cross_power_plain(fa, fb)),
+        library_ms=None, bound=bound(3 * m * 8, m * OPS["cross"]))
+
+    peaks = P.pcm_peaks_topk(pcm, 5)
+    peaks_ref = P.pcm_peaks_topk_plain(pcm, 5)
+    check(torch.equal(peaks, peaks_ref),
+          f"K10 top-5 of {tuple(pcm.shape)}: indices equal to the twin's")
+    want = [(-2) % X, 3 % Y, (-1) % Z]
+    check(all(peaks[k, 0].tolist() == want for k in range(B)),
+          f"K7-K10: every pair's first peak names the shift {want}")
+    ms10 = time_ms(lambda: P.pcm_peaks_topk(pcm, 5))
+    res["pcm_peaks_topk"] = dict(
+        err=0.0, ms=ms10, wrapper_ms=ms10,
+        plain_ms=time_ms(lambda: P.pcm_peaks_topk_plain(pcm, 5), reps=5),
+        library_ms=None, bound=bound(n * 4, n * OPS["topk"]))
+    return res
+
+
 def phase1_kernels(dev, scale, card):
     """Each kernel against its plain twin on the same card inputs."""
     import numpy as np
@@ -474,6 +609,9 @@ def phase1_kernels(dev, scale, card):
           f"K6 batch at route D's boxes {tuple(dboxes.shape)} / (2, 2, 1) -> "
           f"{tuple(got.shape)}: bitwise equal to the twin")
     del dboxes
+
+    # K7-K10: route A's x-edge bucket at -ds 2,2,1
+    res.update(pcm_times(rng, c, cfg["pcm_bucket"]))
     for k, r in res.items():
         print_times(k, r, card)
     return res
@@ -502,6 +640,7 @@ def make_project(root, scale, n_tiles, tile, rotate, seed):
         center = np.asarray(proj.true_offsets[1]) + np.asarray(tile) / 2
         tr[1] = rotation_about_z(3.0, center) @ np.vstack([tr[1], [0, 0, 0, 1]])
     append_view_transforms(proj.xml_path, tr)
+    proj.appended = tr
     print(f"  synthesized {ntot} tiles of {tile} uint16 in "
           f"{time.time() - t0:.1f}s (host)", flush=True)
     return proj
@@ -846,6 +985,7 @@ def route_c(work, scale, dev, card, launches):
     check_blocks("route C", vol_c, expect, blocks_c)
     check("gather" in kinds, f"route C checked blocks include a gather block "
                              f"({kinds})")
+    return proj_c
 
 
 def route_d(work, scale, dev, card, launches, a):
@@ -908,13 +1048,178 @@ def route_d(work, scale, dev, card, launches, a):
               "equal to the fusion stage's level")
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def check_close(got, ref, what, rtol=1e-5, atol=1e-6):
+    """K7's and K9's tolerance: |got - ref| <= atol + rtol |ref| for every
+    element (real and imaginary parts apart)."""
+    import torch
+
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    bad = int(((got - ref).abs() > atol + rtol * ref.abs()).sum())
+    check(got.shape == ref.shape and bad == 0,
+          f"{what}: within rtol {rtol:g} / atol {atol:g} of the twin "
+          f"(max|delta| {max_abs(got, ref):.3g}, {bad} outside)")
+
+
+def check_bucket(what, a, b, ea, eb, n_peaks):
+    """One stitching bucket's stacks through K7-K10 stage by stage, each
+    held against its plain twin (K8 against torch.fft) at phase 1's
+    tolerances; returns the twins' peaks and PCM."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    _, X, Y, Z = (int(s) for s in a.shape)
+    spectra = []
+    for side, x, e in (("a", a, ea), ("b", b, eb)):
+        w = P.pcm_window(x, e)
+        check_close(w, P.pcm_window_plain(x, e), f"{what} K7 window {side}")
+        f = P.rfftn3(w)
+        check_fft(f, torch.fft.rfftn(w, dim=(1, 2, 3)),
+                  f"{what} rfftn {side}")
+        spectra.append(f)
+        del w
+    norm = P.pcm_cross_power(*spectra)
+    check_close(norm, P.pcm_cross_power_plain(*spectra),
+                f"{what} K9 cross power")
+    del spectra
+    pcm_ref = torch.fft.irfftn(norm, s=(X, Y, Z), dim=(1, 2, 3))
+    check_fft(P.irfftn3(norm, Z), pcm_ref, f"{what} irfftn")
+    del norm, pcm_ref
+    peaks, pcm = P.pcm_peaks_plain(a, b, ea, eb, n_peaks, 0.25,
+                                   return_pcm=True)
+    check(torch.equal(P.pcm_peaks_topk(pcm, n_peaks), peaks),
+          f"{what} K10 top-{n_peaks} of the twins' PCM: indices equal to "
+          "the twin's")
+    return peaks, pcm
+
+
+def stitch_run(proj, ds, route, dev, card, launches, truth_px=None):
+    """One ``stitching`` run through the CLI entry function on a copy of
+    ``proj``'s XML; spies on the driver's stage and PCM calls keep every
+    bucket's stacks, which are then held stage by stage against the plain
+    twins on the card. With ``truth_px``, every pair with r > 0.5 must
+    recover the true correction within that many pixels."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import stitching as TS
+
+    xml = os.path.join(os.path.dirname(proj.xml_path),
+                       f"stitch_{ds.replace(',', '')}.xml")
+    shutil.copy(proj.xml_path, xml)
+    staged, buckets = [], []
+    stage, peaks_batch = TS._stage_bucket, TS.pcm_peaks_batch
+
+    def stage_spy(jobs, shp, device):
+        staged.append((shp, jobs))
+        return stage(jobs, shp, device)
+
+    def peaks_spy(a, b, ea, eb, n_peaks, fade_frac):
+        peaks = peaks_batch(a, b, ea, eb, n_peaks, fade_frac)
+        buckets.append((*staged[-1], a, b, ea, eb, peaks))
+        return peaks
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    TS._stage_bucket, TS.pcm_peaks_batch = stage_spy, peaks_spy
+    try:
+        run = counted(route, launches, dev, lambda: main(
+            ["stitching", "-x", xml, "-ds", ds, "--device", str(dev)]))
+    finally:
+        TS._stage_bucket, TS.pcm_peaks_batch = stage, peaks_batch
+    st, t = run.stats, run.stats.timings
+    print(f"  [stitching {route}] {card}: {st.pairs} pairs in {st.buckets} "
+          f"buckets, wall {st.seconds:.3f}s -> {st.pairs / st.seconds:.3f} "
+          f"pairs/s, {st.fft_voxels / st.seconds:,.0f} padded FFT voxels/s; "
+          f"host extract {t['extract']:.3f}s stage {t['stage']:.3f}s launch "
+          f"{t['launch']:.3f}s wait {t['wait']:.3f}s refine "
+          f"{t['refine']:.3f}s; card busy {t['device']:.4f}s, idle share "
+          f"{1 - t['device'] / st.seconds:.4f}", flush=True)
+    check(st.pairs == len(run.results) > 0 and len(buckets) == st.buckets,
+          f"stitching {route}: {len(run.results)} pairs computed in "
+          f"{len(buckets)} buckets")
+    if dev.type == "cuda":
+        # the in-flight window charges a bucket 4x its float32 a+b stacks
+        peak = torch.cuda.max_memory_allocated() - base
+        held = sum(a.numel() * a.element_size() * 2 for _s, _j, a, *_r
+                   in buckets)
+        charge = max(2 * a.numel() * 4 * TS._FFT_WORKSPACE_MULT
+                     for _s, _j, a, *_r in buckets)
+        print(f"  [stitching {route}] {card}: device memory peak "
+              f"{peak / 1e6:.1f} MB over the run's start ({held / 1e6:.1f} "
+              f"MB of it the stacks kept for the checks); largest bucket "
+              f"charge {charge / 1e6:.1f} MB", flush=True)
+
+    params = TS.StitchingParams(downsampling=tuple(
+        int(v) for v in ds.split(",")))
+    by_key = {r.pair_key: r for r in run.results}
+    for shp, jobs, a, b, ea, eb, peaks in buckets:
+        what = f"stitching {route} bucket {shp} x {len(jobs)}"
+        check(tuple(a.shape[1:]) == tuple(shp),
+              f"{what}: the stacks are the staged bucket's")
+        ref, pcm = check_bucket(what, a, b, ea, eb, params.peaks_to_check)
+        got, ref = peaks.cpu().numpy(), ref.cpu().numpy()
+        ties = []
+        for k, i in zip(*np.nonzero((got != ref).any(axis=2))):
+            vg = float(pcm[k][tuple(int(v) for v in got[k, i])])
+            vr = float(pcm[k][tuple(int(v) for v in ref[k, i])])
+            ties.append(abs(vg - vr) <= 1e-4 * max(abs(vg), abs(vr)))
+        check(all(ties), f"{what}: kernel peaks equal the twins' on the "
+              f"card ({len(ties)} near-tie swaps)")
+        del pcm
+        for tw in TS._refine_bucket(None, jobs, shp, ref, params):
+            m = by_key[tw.pair_key]
+            check(np.array_equal(m.transform, tw.transform)
+                  and m.correlation == tw.correlation,
+                  f"stitching {route} {tw.views_a[0]}<->{tw.views_b[0]}: "
+                  f"shift {np.round(m.transform[:, 3], 3)} r "
+                  f"{m.correlation:.4f} equal to the twins' refinement")
+    if truth_px is not None:
+        def corr(s):
+            return (np.asarray(proj.true_offsets[s])
+                    - np.asarray(proj.nominal_offsets[s])
+                    - np.asarray(proj.appended[s])[:, 3])
+        good = 0
+        for r in run.results:
+            if r.correlation > 0.5:
+                want = corr(r.views_a[0].setup) - corr(r.views_b[0].setup)
+                e = float(np.abs(r.transform[:, 3] - want).max())
+                check(e <= truth_px, f"stitching {route} {r.views_a[0]}<->"
+                      f"{r.views_b[0]} r {r.correlation:.3f}: |shift - "
+                      f"truth| {e:.3f} <= {truth_px} px")
+                good += 1
+        check(good >= 4, f"stitching {route}: {good} pairs with r > 0.5")
+    saved = SpimData.load(xml).stitching_results
+    check(len(saved) == len(run.kept) and (truth_px is None or saved)
+          and all(r.hash != 0.0 for r in saved.values()),
+          f"stitching {route}: the XML reloads with {len(saved)} results "
+          f"(kept {len(run.kept)}), nonzero hashes")
+    return run
+
+
+def phase6_stitching(proj_a, proj_c, dev, card, launches):
+    print("phase 6 (stitching)", flush=True)
+    stitch_run(proj_a, "2,2,1", "S 2,2,1", dev, card, launches, 1.5)
+    stitch_run(proj_a, "1,1,1", "S 1,1,1", dev, card, launches, 0.75)
+    stitch_run(proj_c, "2,2,1", "S rendered", dev, card, launches)
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-5 through the CLI entry functions; returns route A's XML
+    """Phases 2-6 through the CLI entry functions; returns route A's XML
     and container paths."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
-    route_c(work, scale, dev, card, launches)
+    proj_c = route_c(work, scale, dev, card, launches)
     route_d(work, scale, dev, card, launches, a)
+    phase6_stitching(a[0], proj_c, dev, card, launches)
     return a[0].xml_path, a[1]
 
 
@@ -970,7 +1275,8 @@ def main(argv=None) -> int:
         res = phase1_kernels(dev, args.scale, card)
 
         route = main_path(work, args.scale, dev, card, launches)
-        print(f"main path launches (routes A-D): {launches}", flush=True)
+        print(f"main path launches (routes A-D, stitching): {launches}",
+              flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
         block = res["composite_fuse"]

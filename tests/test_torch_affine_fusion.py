@@ -159,7 +159,7 @@ def test_anisotropic_composite_matches_jax(shifted_xml, tmp_path, jax_paths):
     _assert_match(a, b)
 
 
-def test_diagonal_per_block_is_refused(shifted_xml, tmp_path, jax_paths,
+def test_diagonal_per_block_fuses_through_sep_like_jax(shifted_xml, tmp_path, jax_paths,
                                       monkeypatch):
     """Per-block fusion of diagonal views was refused until the separable
     kernel (K5) was ported; it now fuses every block through it and

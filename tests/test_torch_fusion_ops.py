@@ -235,6 +235,32 @@ def test_composite_matches_jax(fusion_type, out_dtype, masks):
     assert (got > 0).mean() > 0.5  # the windows cover most of the volume
 
 
+@pytest.mark.parametrize("fusion_type",
+                         ["AVG", "MAX_INTENSITY", "FIRST_WINS", "LAST_WINS"])
+def test_composite_sep_positions_round_once_like_jax(fusion_type):
+    """K1's "sep" sample positions ``diag * (a + i) + off`` round once, as
+    XLA contracts the JAX expression into one fused multiply-add. Over
+    steep data (voxels 0 or 65535) one ulp of position moves a sample by
+    ~0.25, far past rtol 1e-5 / atol 1e-3 where the sample is small, so
+    float32 output at that tolerance shows every position that rounds
+    twice. AVG_BLEND is held by test_composite_matches_jax on gentler data:
+    its acc / wsum amplifies last-bit cos differences where wsum is tiny."""
+    for seed in range(3):
+        rng = np.random.default_rng(40 + seed)
+        tiles, params, (dg, of), st = _composite_case(rng, False)
+        tiles = [rng.choice(np.array([0, 65535], np.uint16), t.shape)
+                 for t in tiles]
+        fn = JF.make_translation_composite(
+            st["out_shape"], st["windows"], st["n_offs"], pad=st["pad"],
+            fusion_type=fusion_type, out_dtype="float32", kinds=st["kinds"])
+        ref = np.asarray(fn(tiles, *params, np.float32(0.0),
+                            np.float32(1.0), dg, of))
+        got = TF.composite_fuse(_t(*tiles), *params, 0.0, 1.0, dg, of,
+                                fusion_type=fusion_type,
+                                out_dtype="float32", **st).numpy()
+        _close_f32(got, ref)
+
+
 def test_bucketing_matches_jax():
     for s in [(1, 1, 1), (31, 32, 33), (100, 7, 64)]:
         assert TF.bucket_shape(s) == JF.bucket_shape(s)

@@ -3,7 +3,7 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the three JAX click
+* The port's argparse accepts every option spelling of the four JAX click
   commands it ports; the options not yet ported are refused with a pointer
   to ROADMAP.md instead of doing something else.
 """
@@ -20,10 +20,14 @@ from bigstitcher_spark_tpu.cli.fusion_tools import (
     create_fusion_container_cmd as jax_create_container,
 )
 from bigstitcher_spark_tpu.cli.resave_tools import downsample_cmd as jax_downsample
+from bigstitcher_spark_tpu.cli.stitching_tools import (
+    stitching_cmd as jax_stitching,
+)
 from bigstitcher_spark_tpu_torch import NotYetPorted
 from bigstitcher_spark_tpu_torch.cli.main import main as torch_main
 from bigstitcher_spark_tpu_torch.cli.main import tool_parser
 from bigstitcher_spark_tpu_torch.models.affine_fusion import fuse_volume
+from bigstitcher_spark_tpu_torch.models.stitching import stitch_all_pairs
 from bigstitcher_spark_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,6 +79,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         torch_main(["affine-fusion", "-o", str(tmp_path / "missing.zarr")])
     assert tool_parser("affine-fusion").parse_args(
         ["-o", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stitch_all_pairs(None, None, [])
+    assert tool_parser("stitching").parse_args(["-x", "x"]).device == "cuda"
 
 
 def _click_spellings(cmd):
@@ -88,6 +95,7 @@ def _click_spellings(cmd):
     ("create-fusion-container", jax_create_container),
     ("affine-fusion", jax_affine_fusion),
     ("downsample", jax_downsample),
+    ("stitching", jax_stitching),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -107,12 +115,15 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("affine-fusion", ["--trace"], "--trace"),
     ("downsample", ["-s", "HDF5"], "-s HDF5"),
     ("downsample", ["--telemetry-dir", "t"], "--telemetry-dir"),
+    ("stitching", ["--profile"], "--profile"),
+    ("stitching", ["--s3Region", "us-east-1"], "--s3Region"),
 ])
 def test_not_yet_ported_options_are_refused(tool, args, what):
     base = {"create-fusion-container": ["-x", "unused.xml", "-o",
                                         "unused.zarr"],
             "affine-fusion": ["-o", "unused.zarr"],
-            "downsample": ["-i", "unused.n5", "-di", "s0", "-ds", "2,2,1"]
+            "downsample": ["-i", "unused.n5", "-di", "s0", "-ds", "2,2,1"],
+            "stitching": ["-x", "unused.xml"],
             }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K10) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -10,7 +10,11 @@ card machine does not have.) Tolerances: fused float32 rtol 1e-5 / atol
 1e-3 and wsum atol 1e-5 (both sides round every float op; cosf and the
 CPU/GPU cos differ in the last bits); converted integers |delta| <= 1.
 K6 (downsample) takes the same sums in the same order on both sides, so
-its outputs must be bitwise equal.
+its outputs must be bitwise equal. K7 (window) and K9 (cross power):
+rtol 1e-5 / atol 1e-6 (the same float32 operations in the same order; the
+mean's float64 sum is taken in another order). K8 (FFT) against
+torch.fft: max|delta| <= 2e-5 x max|X| per pair (float32 round-off grows
+with log2 N). K10 (top-k): indices equal.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from bigstitcher_spark_tpu_torch import ops
 from bigstitcher_spark_tpu_torch.ops import downsample as D
 from bigstitcher_spark_tpu_torch.ops import fusion as F
+from bigstitcher_spark_tpu_torch.ops import phasecorr as P
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +231,114 @@ def test_launch_counts_and_no_cpu_fallback(dev):
     assert ops.launch_counts()["convert_intensity"] == 1
     with pytest.raises(ValueError):
         F.convert_intensity(x.to(torch.float64), 0.0, 1.0, "uint8")
+
+
+def test_composite_sep_steep_kernel(dev):
+    """K1's "sep" positions round once in the kernel as in its twin: over
+    voxels of 0 or 65535, float32 output at rtol 1e-5 / atol 1e-3."""
+    rng = np.random.default_rng(18)
+    tiles, params, kw = _composite_case(rng, "AVG", "float32", False)
+    tiles = [torch.from_numpy(rng.choice(np.array([0, 65535], np.uint16),
+                                         tuple(t.shape))) for t in tiles]
+    ref = F.composite_fuse_plain([t.to(dev) for t in tiles], *params, **kw)
+    got = F.composite_fuse([t.to(dev) for t in tiles], *params, **kw)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+
+
+def _crops(rng, B, shape, dtype):
+    ext = np.array([[max(1, s - int(rng.integers(0, 4))) for s in shape]
+                    for _ in range(B)], np.int32)
+    x = np.zeros((B, *shape), np.float32)
+    for k in range(B):
+        e = ext[k]
+        x[k, :e[0], :e[1], :e[2]] = rng.uniform(0, 4000, tuple(e))
+    if dtype == "uint16":
+        x = np.round(x).astype(np.uint16)
+    return torch.from_numpy(x), torch.from_numpy(ext)
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 8), (8, 8, 1), (64, 4, 16)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", ["uint16", "float32"])
+def test_pcm_window_kernel(dev, shape, dtype):
+    x, ext = _crops(np.random.default_rng(19), 3, shape, dtype)
+    x, ext = x.to(dev), ext.to(dev)
+    torch.testing.assert_close(P.pcm_window(x, ext),
+                               P.pcm_window_plain(x, ext), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _fft_close(got, ref):
+    for k in range(got.shape[0]):
+        bound = 2e-5 * float(ref[k].abs().max())
+        assert float((got[k] - ref[k]).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 8), (1, 8, 8, 1),
+                                   (1, 2, 1, 8192), (1, 8192, 1, 2),
+                                   (3, 4, 1024, 2)], ids=str)
+def test_fft_pow2_kernel(dev, shape):
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    f = P.rfftn3(x)
+    _fft_close(f, torch.fft.rfftn(x, dim=(1, 2, 3)))
+    # a Hermitian spectrum: cuFFT's multi-dimensional c2r, unlike numpy's
+    # (matched on the CPU), is not defined for others
+    y = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    h = torch.fft.rfftn(y, dim=(1, 2, 3))
+    ref = torch.fft.irfftn(h, s=shape[1:], dim=(1, 2, 3))
+    _fft_close(P.irfftn3(h.clone(), shape[3]), ref)
+
+
+def test_fft_pow2_refuses_longer_lines(dev):
+    with pytest.raises(ValueError, match="8192"):
+        P.fft_pow2(torch.zeros(1, 16384, dtype=torch.complex64, device=dev),
+                   1, "c2c")
+
+
+def test_pcm_cross_power_kernel(dev):
+    rng = np.random.default_rng(21)
+    shape = (2, 16, 8, 5)
+    c = lambda: torch.from_numpy((rng.normal(size=shape) * 1e9 + 1j
+                                  * rng.normal(size=shape) * 1e9).astype(
+        np.complex64)).to(dev)
+    fa, fb = c(), c()
+    fa[0, :3] *= 1e-7
+    got, ref = P.pcm_cross_power(fa, fb), P.pcm_cross_power_plain(fa, fb)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert int((ref == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape,n", [((16, 32, 8), 5), ((8, 8, 1), 9),
+                                     ((64, 64, 32), 256), ((4, 4, 4), 64)],
+                         ids=str)
+def test_pcm_peaks_topk_kernel(dev, shape, n):
+    rng = np.random.default_rng(22)
+    pcm = torch.from_numpy(rng.integers(0, 50, (2, *shape)).astype(
+        np.float32)).to(dev)  # integer values: many ties
+    assert torch.equal(P.pcm_peaks_topk(pcm, n),
+                       P.pcm_peaks_topk_plain(pcm, n))
+
+
+def test_pcm_peaks_batch_kernels(dev):
+    """The composition: K7, K8, K9, K10 against the plain twins on the same
+    stacks. The peaks are equal index by index, except where the two
+    candidates' twin PCM values are within 1e-4 relative (a near tie that
+    the FFTs' round-off may order either way); the first is the shift."""
+    rng = np.random.default_rng(23)
+    a, ext = _crops(rng, 2, (32, 64, 16), "uint16")
+    b = torch.roll(a, (2, -3, 1), dims=(1, 2, 3))
+    a, b, ext = a.to(dev), b.to(dev), ext.to(dev)
+    ops.reset_launch_counts()
+    got = P.pcm_peaks_batch(a, b, ext, ext, 5)
+    counts = ops.launch_counts()
+    ref, pcm = P.pcm_peaks_plain(a, b, ext, ext, 5, return_pcm=True)
+    got, ref, pcm = got.cpu().numpy(), ref.cpu().numpy(), pcm.cpu().numpy()
+    for k in range(2):
+        assert tuple(got[k, 0]) == (30, 3, 15)
+        for i in range(5):
+            vg, vr = pcm[k][tuple(got[k, i])], pcm[k][tuple(ref[k, i])]
+            assert (got[k, i] == ref[k, i]).all() or abs(vg - vr) <= 1e-4 * max(
+                abs(vg), abs(vr))
+    assert counts["pcm_window"] == 2 and counts["fft_pow2"] == 9
+    assert counts["pcm_cross_power"] == 1 and counts["pcm_peaks_topk"] == 1
