@@ -14,7 +14,8 @@ nothing and compiles nothing: kernels are built at first launch.
 
 Ported so far: ``create-fusion-container`` (with pyramids),
 single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
-downsample stage), ``downsample`` and single-device ``stitching``.
+downsample stage), ``downsample``, single-device ``stitching`` and the
+single-device ``solver`` (stitching and interest-point sources).
 Everything else raises :class:`NotYetPorted`.
 """
 

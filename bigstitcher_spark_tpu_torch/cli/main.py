@@ -10,7 +10,7 @@ import argparse
 import sys
 
 from .. import NotYetPorted
-from . import fusion_tools, resave_tools, stitching_tools
+from . import fusion_tools, resave_tools, solver_tools, stitching_tools
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -22,6 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     fusion_tools.add_affine_fusion(sub)
     resave_tools.add_downsample(sub)
     stitching_tools.add_stitching(sub)
+    solver_tools.add_solver(sub)
     return parser
 
 

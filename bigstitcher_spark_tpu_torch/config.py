@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import os
 
+_FALSY = frozenset({"0", "false", "no", "off"})
+
 # name -> (kind, default, doc)
 KNOBS = {
     "BST_DEVICE_TILE_BUDGET": (
@@ -21,6 +23,12 @@ KNOBS = {
         "Byte budget for a pair stage's dispatched-but-undrained device "
         "work (the stitching phase correlation; utils/devicemem.py). "
         "Default: 60% of the card's free memory, 2e9 on the CPU."),
+    "BST_SOLVE_DEVICE": (
+        "bool", True,
+        "Run the global registration relaxation on the torch device (the "
+        "relax kernels K11-K14 on the card, their plain twins on the CPU); "
+        "0 selects the host numpy reference path. An explicit "
+        "--solverBackend wins."),
     "BST_WRITE_THREADS": (
         "int", 8,
         "Concurrent writer threads for the fused-volume drain and the "
@@ -34,6 +42,8 @@ def get(name: str):
     if raw is None or raw == "":
         return default
     try:
+        if kind == "bool":
+            return raw.strip().lower() not in _FALSY
         if kind == "bytes":
             return max(0, int(float(raw)))
         return int(raw)

@@ -1,0 +1,544 @@
+// K11-K14: the tile relaxation of the global solver, in float64
+// (bigstitcher_spark_tpu/ops/solve.py:308 _relax_core, jitted at :410; the
+// JAX program is one lax.while_loop). One iteration is K11 -> K12 -> K13 ->
+// K14 on one stream; the host launches iterations in chunks and reads the
+// state (iteration count, done flag) once per chunk, so nothing crosses to
+// the host per iteration. Every kernel returns at once when the state's done
+// flag is set.
+//
+// Rows (one per point match and side, ops/solve.py prepare_relax) are
+// grouped by owner tile, in their flattened order within each tile:
+// tile_ptr (T+1) is the CSR of the groups. A tile is reduced by `wpt` warps
+// (1, 2, 4 or 8; the wrapper picks it from the rows per tile), each lane
+// striding over the tile's rows, then warp shuffles, then the wpt warps'
+// partial sums added in warp order: every sum has one fixed order, no
+// atomics, so a run repeats bit for bit (the convergence thresholds compare
+// differences of 1e-9 and the iteration counts must not move).
+//
+// K11 relax_moments: per tile, under the current models `cur` (T, 3, 4):
+//   w_eff = w * link_w[link_id], tw = M_other [q; 1] - o, ph = [p - o; 1]
+//   with o the tile's origin (the mean of its active rows' p, computed
+//   once a solve by ops/solve.py tile_origin),
+//   and the 36 sums sw, swp (4), swq (3), spp (4x4), spq (4x3) of w_eff,
+//   w_eff ph, w_eff tw, (w_eff ph) ph^T, (w_eff ph) tw^T -> moments (T,
+//   36). About the world origin (as the JAX program sums) the AFFINE normal
+//   equations of 2048-px tiles ~30,000 px out reach condition numbers of
+//   1e11-1e13; about o they are well conditioned. Bound: bytes (64 B a
+//   row: p, q, other, w, link_id; the gathered models stay in L2).
+// K12 relax_fit: one thread per tile. The model from the moments
+//   (_fit_from_moments_jnp, ops/solve.py:273), then the regulariser's, then
+//   (1 - lam) m + lam r, shifted back from o to world coordinates (t = (t'
+//   + o) - A o); identity where sw <= 0 or the tile is fixed; then cur =
+//   (1 - damping) cur + damping new, in place. TRANSLATION in closed
+//   form; AFFINE by Gaussian elimination with partial pivoting on the 4x4
+//   spp + 1e-9 I (that ridge carried to o) with 3 right-hand sides; RIGID
+//   the weighted Kabsch fit from
+//   the 3x3 H through a one-sided Jacobi SVD, singular values sorted in
+//   descending order (the JAX code flips the LAST singular vector, which in
+//   LAPACK's order is the smallest). Bound: operations (a few hundred
+//   float64 flops a tile).
+// K13 relax_error: per segment, sum ||M_own p - M_other q|| w_eff and
+//   sum w_eff. Segments are tiles (rows contiguous, for the mean error of
+//   K14), or links (rows listed by index: the A-side rows of each link, for
+//   the per-link errors under the final models, :387-395). Bound: bytes.
+// K14 relax_converge: one block. err = sum(num) / max(sum(den), 1e-12) over
+//   the tiles (each thread a strided share in tile order, then a tree), then
+//   _relax_core's rules (:360-373): hist[i] = err; the stall count (prev -
+//   err < 1e-9 max(err, 1), 5 in a row); the plateau (it > pw, err <
+//   max_error, and hist[it - pw - 1] - min(hist[it - pw : it]) < 1e-4
+//   max(err, 1e-12) or err < 1e-9); the max_iter cap. state = {iterations,
+//   stall, done, 0} (int32).
+//
+// Built with -fmad=false: every product and sum rounds on its own, as in the
+// plain-torch twins (ops/solve.py), which evaluate in the same order.
+#include "fusion_common.cuh"
+
+namespace {
+
+constexpr int kM = 36;          // moments per tile
+constexpr int kWarps = bst::kThreads / 32;
+constexpr double kEpsFit = 1e-9;
+
+enum Model : int { NONE = -1, IDENTITY = 0, TRANSLATION = 1, RIGID = 2,
+                   AFFINE = 3 };
+
+__device__ __forceinline__ bool finished(const int* state) {
+  return state != nullptr && state[2] != 0;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// m (3x4 row-major) applied to x: ((m0 x0 + m1 x1) + m2 x2) + m3 per row
+__device__ __forceinline__ void apply(const double* m, const double* x,
+                                      double* y) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    y[j] = ((m[4 * j] * x[0] + m[4 * j + 1] * x[1]) + m[4 * j + 2] * x[2]) +
+           m[4 * j + 3];
+}
+
+// ----------------------------------------------------------------- K11
+
+__global__ void moments_kernel(const double* __restrict__ local,
+                               const double* __restrict__ target,
+                               const int* __restrict__ other,
+                               const double* __restrict__ w,
+                               const int* __restrict__ link_id,
+                               const double* __restrict__ link_w,
+                               const int* __restrict__ tile_ptr,
+                               const double* __restrict__ origin, int T,
+                               int wpt, const double* __restrict__ cur,
+                               const int* __restrict__ state,
+                               double* __restrict__ moments) {
+  if (finished(state)) return;
+  __shared__ double sh[kWarps][kM];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tpb = kWarps / wpt;
+  const int tile = blockIdx.x * tpb + warp / wpt;
+  double acc[kM];
+#pragma unroll
+  for (int v = 0; v < kM; ++v) acc[v] = 0.0;
+  if (tile < T) {
+    const int hi = tile_ptr[tile + 1];
+    const double o[3] = {origin[3 * tile], origin[3 * tile + 1],
+                         origin[3 * tile + 2]};
+    for (int r = tile_ptr[tile] + (warp % wpt) * 32 + lane; r < hi;
+         r += wpt * 32) {
+      const double we = w[r] * link_w[link_id[r]];
+      double tw[3];
+      apply(cur + 12 * static_cast<int64_t>(other[r]), target + 3 * (int64_t)r,
+            tw);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) tw[j] -= o[j];
+      const double ph[4] = {local[3 * (int64_t)r] - o[0],
+                            local[3 * (int64_t)r + 1] - o[1],
+                            local[3 * (int64_t)r + 2] - o[2], 1.0};
+      acc[0] += we;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const double wp = we * ph[k];
+        acc[1 + k] += wp;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) acc[8 + 4 * k + l] += wp * ph[l];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc[24 + 3 * k + j] += wp * tw[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) acc[5 + j] += we * tw[j];
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kM; ++v) {
+    const double s = warp_sum(acc[v]);
+    if (lane == 0) sh[warp][v] = s;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tpb * kM; i += blockDim.x) {
+    const int t = i / kM, v = i % kM;
+    const int tt = blockIdx.x * tpb + t;
+    if (tt >= T) continue;
+    double s = sh[t * wpt][v];
+    for (int k = 1; k < wpt; ++k) s += sh[t * wpt + k][v];
+    moments[static_cast<int64_t>(tt) * kM + v] = s;
+  }
+}
+
+// ----------------------------------------------------------------- K12
+
+__device__ void set_identity(double* m) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) m[i] = (i % 5 == 0) ? 1.0 : 0.0;
+}
+
+// The JAX program's (spp + eps I) X = spq about the world origin, taken
+// about the tile's origin o: (spp' + eps C C^T) X' = spq' + eps D with C C^T
+// = [[I + o o^T, -o], [-o^T, 1]] and D = [[o o^T], [-o^T]] (ops/solve.py
+// ridge_terms). Gaussian elimination with partial pivoting (the first
+// largest |pivot|, as LAPACK's idamax); model row j = X'[:, j].
+__device__ void fit_affine(const double* mo, const double* o, double* out) {
+  double a[4][4], b[4][3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      double cc;
+      if (k < 3 && l < 3) cc = (k == l ? 1.0 : 0.0) + o[k] * o[l];
+      else if (k < 3) cc = -o[k];
+      else if (l < 3) cc = -o[l];
+      else cc = 1.0;
+      a[k][l] = mo[8 + 4 * k + l] + kEpsFit * cc;
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      b[k][j] = mo[24 + 3 * k + j] + kEpsFit * (k < 3 ? o[k] * o[j] : -o[j]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int p = c;
+#pragma unroll
+    for (int r = c + 1; r < 4; ++r)
+      if (fabs(a[r][c]) > fabs(a[p][c])) p = r;
+    if (p != c) {
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const double t = a[c][l]; a[c][l] = a[p][l]; a[p][l] = t;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const double t = b[c][j]; b[c][j] = b[p][j]; b[p][j] = t;
+      }
+    }
+#pragma unroll
+    for (int r = c + 1; r < 4; ++r) {
+      const double f = a[r][c] / a[c][c];
+#pragma unroll
+      for (int l = c + 1; l < 4; ++l) a[r][l] -= f * a[c][l];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) b[r][j] -= f * b[c][j];
+    }
+  }
+  double x[4][3];
+#pragma unroll
+  for (int c = 3; c >= 0; --c) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      double s = b[c][j];
+#pragma unroll
+      for (int l = c + 1; l < 4; ++l) s -= a[c][l] * x[l][j];
+      x[c][j] = s / a[c][c];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[4 * j + k] = x[k][j];
+}
+
+// Weighted Kabsch from the moments. H = U S V^T by one-sided Jacobi on the
+// columns of H (H V = U S); the singular pairs sorted by descending S. With
+// s = (1, 1, det(V U^T)), R = sum_k s_k v_k u_k^T, where only u1, u2 need
+// S > 0: u3 = u1 x u2 (det U = 1) gives the same R as any orthonormal u3,
+// because flipping u3 flips det(V U^T) too.
+__device__ void fit_rigid(const double* mo, double* out) {
+  const double sw = fmax(mo[0], kEpsFit);
+  double pc[3], qc[3], a[3][3], v[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pc[i] = mo[1 + i] / sw;
+    qc[i] = mo[5 + i] / sw;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      a[i][j] = ((mo[24 + 3 * i + j] - pc[i] * mo[5 + j]) - mo[1 + i] * qc[j]) +
+                (sw * pc[i]) * qc[j];
+      v[i][j] = (i == j) ? 1.0 : 0.0;
+    }
+  for (int sweep = 0; sweep < 60; ++sweep) {
+    bool rotated = false;
+#pragma unroll
+    for (int pair = 0; pair < 3; ++pair) {
+      const int p = pair == 2 ? 1 : 0, q = pair == 0 ? 1 : 2;
+      double alpha = 0.0, beta = 0.0, gamma = 0.0;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        alpha += a[i][p] * a[i][p];
+        beta += a[i][q] * a[i][q];
+        gamma += a[i][p] * a[i][q];
+      }
+      if (!(fabs(gamma) > 1e-15 * sqrt(alpha * beta))) continue;
+      rotated = true;
+      const double zeta = (beta - alpha) / (2.0 * gamma);
+      const double t = copysign(1.0, zeta) / (fabs(zeta) + sqrt(1.0 + zeta * zeta));
+      const double c = 1.0 / sqrt(1.0 + t * t), s = c * t;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const double ap = a[i][p], aq = a[i][q];
+        a[i][p] = c * ap - s * aq;
+        a[i][q] = s * ap + c * aq;
+        const double vp = v[i][p], vq = v[i][q];
+        v[i][p] = c * vp - s * vq;
+        v[i][q] = s * vp + c * vq;
+      }
+    }
+    if (!rotated) break;
+  }
+  double sig[3];
+  int ord[3] = {0, 1, 2};
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    sig[k] = sqrt((a[0][k] * a[0][k] + a[1][k] * a[1][k]) + a[2][k] * a[2][k]);
+  // descending, stable
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && sig[ord[j]] > sig[ord[j - 1]]; --j) {
+      const int t = ord[j]; ord[j] = ord[j - 1]; ord[j - 1] = t;
+    }
+  double u[3][3], vs[3][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) vs[i][k] = v[i][ord[k]];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const double s = sig[ord[k]];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) u[i][k] = s > 0.0 ? a[i][ord[k]] / s : 0.0;
+  }
+  u[0][2] = u[1][0] * u[2][1] - u[2][0] * u[1][1];
+  u[1][2] = u[2][0] * u[0][1] - u[0][0] * u[2][1];
+  u[2][2] = u[0][0] * u[1][1] - u[1][0] * u[0][1];
+  const double d =
+      (vs[0][0] * (vs[1][1] * vs[2][2] - vs[1][2] * vs[2][1]) -
+       vs[0][1] * (vs[1][0] * vs[2][2] - vs[1][2] * vs[2][0])) +
+      vs[0][2] * (vs[1][0] * vs[2][1] - vs[1][1] * vs[2][0]);
+  double r[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      r[i][j] = (vs[i][0] * u[j][0] + vs[i][1] * u[j][1]) + vs[i][2] * (d * u[j][2]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[4 * i + j] = r[i][j];
+    out[4 * i + 3] = qc[i] - ((r[i][0] * pc[0] + r[i][1] * pc[1]) + r[i][2] * pc[2]);
+  }
+}
+
+__device__ void fit_kind(int kind, const double* mo, const double* o,
+                         double* out) {
+  set_identity(out);
+  if (kind == TRANSLATION) {
+    const double sw = fmax(mo[0], kEpsFit);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[4 * j + 3] = (mo[5 + j] - mo[1 + j]) / sw;
+  } else if (kind == AFFINE) {
+    fit_affine(mo, o, out);
+  } else if (kind == RIGID) {
+    fit_rigid(mo, out);
+  }
+}
+
+__global__ void fit_kernel(const double* __restrict__ moments,
+                           const uint8_t* __restrict__ fixed,
+                           const double* __restrict__ origin, int T, int model,
+                           int reg, double lam, double damping,
+                           const int* __restrict__ state,
+                           double* __restrict__ cur) {
+  if (finished(state)) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  double mo[kM];
+#pragma unroll
+  for (int v = 0; v < kM; ++v) mo[v] = moments[static_cast<int64_t>(t) * kM + v];
+  const double* o = origin + 3 * static_cast<int64_t>(t);
+  double m[12];
+  fit_kind(model, mo, o, m);
+  if (reg != NONE) {
+    double rm[12];
+    fit_kind(reg, mo, o, rm);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) m[i] = (1.0 - lam) * m[i] + lam * rm[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    m[4 * j + 3] = (m[4 * j + 3] + o[j]) -
+                   ((m[4 * j] * o[0] + m[4 * j + 1] * o[1]) + m[4 * j + 2] * o[2]);
+  if (mo[0] <= 0.0 || fixed[t]) set_identity(m);
+  double* c = cur + 12 * static_cast<int64_t>(t);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) c[i] = (1.0 - damping) * c[i] + damping * m[i];
+}
+
+// ----------------------------------------------------------------- K13
+
+// rows of segment s: idx[ptr[s] .. ptr[s+1]) (idx == nullptr: the rows
+// themselves); the owner model is seg_own[s] (nullptr: s)
+__global__ void error_kernel(const double* __restrict__ local,
+                             const double* __restrict__ target,
+                             const int* __restrict__ other,
+                             const double* __restrict__ w,
+                             const int* __restrict__ link_id,
+                             const double* __restrict__ link_w,
+                             const int* __restrict__ ptr,
+                             const int* __restrict__ idx,
+                             const int* __restrict__ seg_own, int S, int wpt,
+                             const double* __restrict__ cur,
+                             const int* __restrict__ state,
+                             double* __restrict__ num,
+                             double* __restrict__ den) {
+  if (finished(state)) return;
+  __shared__ double sh[kWarps][2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tpb = kWarps / wpt;
+  const int seg = blockIdx.x * tpb + warp / wpt;
+  double sn = 0.0, sd = 0.0;
+  if (seg < S) {
+    const double* mown =
+        cur + 12 * static_cast<int64_t>(seg_own ? seg_own[seg] : seg);
+    const int hi = ptr[seg + 1];
+    for (int j = ptr[seg] + (warp % wpt) * 32 + lane; j < hi; j += wpt * 32) {
+      const int64_t r = idx ? idx[j] : j;
+      const double we = w[r] * link_w[link_id[r]];
+      double a[3], b[3];
+      apply(mown, local + 3 * r, a);
+      apply(cur + 12 * static_cast<int64_t>(other[r]), target + 3 * r, b);
+      const double dx = a[0] - b[0], dy = a[1] - b[1], dz = a[2] - b[2];
+      sn += sqrt((dx * dx + dy * dy) + dz * dz) * we;
+      sd += we;
+    }
+  }
+  sn = warp_sum(sn);
+  sd = warp_sum(sd);
+  if (lane == 0) {
+    sh[warp][0] = sn;
+    sh[warp][1] = sd;
+  }
+  __syncthreads();
+  if (threadIdx.x < tpb) {
+    const int t = threadIdx.x, ss = blockIdx.x * tpb + t;
+    if (ss < S) {
+      double a = sh[t * wpt][0], b = sh[t * wpt][1];
+      for (int k = 1; k < wpt; ++k) {
+        a += sh[t * wpt + k][0];
+        b += sh[t * wpt + k][1];
+      }
+      num[ss] = a;
+      den[ss] = b;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- K14
+
+__device__ double block_reduce(double v, double* sh, bool is_min) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = bst::kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      const double o = sh[threadIdx.x + s];
+      sh[threadIdx.x] = is_min ? fmin(sh[threadIdx.x], o) : sh[threadIdx.x] + o;
+    }
+    __syncthreads();
+  }
+  const double r = sh[0];
+  __syncthreads();
+  return r;
+}
+
+__global__ void converge_kernel(const double* __restrict__ num,
+                                const double* __restrict__ den, int T,
+                                double* __restrict__ hist, int pw,
+                                double max_error, int max_iter,
+                                int* __restrict__ state) {
+  __shared__ double sh[bst::kThreads];
+  if (finished(state)) return;
+  double a = 0.0, b = 0.0;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    a += num[t];
+    b += den[t];
+  }
+  const double sn = block_reduce(a, sh, false);
+  const double sd = block_reduce(b, sh, false);
+  const int i = state[0];
+  const int it = i + 1;
+  const double err = sn / fmax(sd, 1e-12);
+  // min over the plateau window hist[it - pw : it] (hist[i] is err)
+  double lo = INFINITY;
+  if (it > pw)
+    for (int k = it - pw + threadIdx.x; k < it; k += blockDim.x)
+      lo = fmin(lo, k == i ? err : hist[k]);
+  lo = block_reduce(lo, sh, true);
+  if (threadIdx.x != 0) return;
+  hist[i] = err;
+  int stall = state[1];
+  if (i > 0) stall = (hist[i - 1] - err < 1e-9 * fmax(err, 1.0)) ? stall + 1 : 0;
+  bool plateau = false;
+  if (it > pw && err < max_error) {
+    const double improvement = hist[it - pw - 1] - lo;
+    plateau = improvement < 1e-4 * fmax(err, 1e-12) || err < 1e-9;
+  }
+  state[0] = it;
+  state[1] = stall;
+  state[2] = (stall >= 5 || plateau || it >= max_iter) ? 1 : 0;
+}
+
+inline unsigned int blocks_for(int n, int per_block) {
+  return static_cast<unsigned int>((n + per_block - 1) / per_block);
+}
+
+bool bad_wpt(int wpt) {
+  return wpt != 1 && wpt != 2 && wpt != 4 && wpt != 8;
+}
+
+}  // namespace
+
+extern "C" int bst_relax_moments(const void* local, const void* target,
+                                 const void* other, const void* w,
+                                 const void* link_id, const void* link_w,
+                                 const void* tile_ptr, const void* origin,
+                                 int T, int wpt,
+                                 const void* cur, const void* state,
+                                 void* moments, void* stream) {
+  if (T <= 0 || bad_wpt(wpt)) return cudaErrorInvalidValue;
+  moments_kernel<<<blocks_for(T, kWarps / wpt), bst::kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(local), static_cast<const double*>(target),
+      static_cast<const int*>(other), static_cast<const double*>(w),
+      static_cast<const int*>(link_id), static_cast<const double*>(link_w),
+      static_cast<const int*>(tile_ptr), static_cast<const double*>(origin),
+      T, wpt, static_cast<const double*>(cur),
+      static_cast<const int*>(state), static_cast<double*>(moments));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_relax_fit(const void* moments, const void* fixed,
+                             const void* origin, int T, int model, int reg,
+                             double lam, double damping, const void* state,
+                             void* cur, void* stream) {
+  if (T <= 0 || model < IDENTITY || model > AFFINE || reg < NONE ||
+      reg > AFFINE)
+    return cudaErrorInvalidValue;
+  fit_kernel<<<blocks_for(T, 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(moments), static_cast<const uint8_t*>(fixed),
+      static_cast<const double*>(origin), T, model, reg, lam, damping,
+      static_cast<const int*>(state), static_cast<double*>(cur));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_relax_error(const void* local, const void* target,
+                               const void* other, const void* w,
+                               const void* link_id, const void* link_w,
+                               const void* ptr, const void* idx,
+                               const void* seg_own, int S, int wpt,
+                               const void* cur, const void* state, void* num,
+                               void* den, void* stream) {
+  if (S <= 0 || bad_wpt(wpt)) return cudaErrorInvalidValue;
+  error_kernel<<<blocks_for(S, kWarps / wpt), bst::kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(local), static_cast<const double*>(target),
+      static_cast<const int*>(other), static_cast<const double*>(w),
+      static_cast<const int*>(link_id), static_cast<const double*>(link_w),
+      static_cast<const int*>(ptr), static_cast<const int*>(idx),
+      static_cast<const int*>(seg_own), S, wpt,
+      static_cast<const double*>(cur), static_cast<const int*>(state),
+      static_cast<double*>(num), static_cast<double*>(den));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_relax_converge(const void* num, const void* den, int T,
+                                  void* hist, int pw, double max_error,
+                                  int max_iter, void* state, void* stream) {
+  if (T <= 0 || pw < 1 || max_iter < 1) return cudaErrorInvalidValue;
+  converge_kernel<<<1, bst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(num), static_cast<const double*>(den), T,
+      static_cast<double*>(hist), pw, max_error, max_iter,
+      static_cast<int*>(state));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -471,6 +471,16 @@ class ChunkStore:
             return raw is not None and "dimensions" in json.loads(raw)
         return self._read_obj(f"{p}/.zarray" if p else ".zarray") is not None
 
+    def exists(self, path: str) -> bool:
+        """Whether a group, dataset or object lies at ``path``."""
+        return os.path.exists(self._kvpath(path))
+
+    def remove(self, path: str = "") -> None:
+        """Delete ``path`` and everything under it (the whole store for "")."""
+        p = self._kvpath(path) if path else self.root
+        if os.path.exists(p):
+            shutil.rmtree(p)
+
 
 def _json_default(o):
     if isinstance(o, (np.integer,)):

@@ -27,12 +27,13 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
-           "pcm", "fft")
+           "pcm", "fft", "solve")
 HEADERS = ("fusion_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_D = ctypes.c_double
 
 
 class BstCompositeView(ctypes.Structure):
@@ -78,6 +79,12 @@ _SIGNATURES = {
     },
     "fft": {
         "bst_fft_pow2": [_VP, _VP, _VP, _I, _I, _I64, _I64, _I, _F, _VP],
+    },
+    "solve": {
+        "bst_relax_moments": [_VP] * 8 + [_I, _I, _VP, _VP, _VP, _VP],
+        "bst_relax_fit": [_VP, _VP, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP],
+        "bst_relax_error": [_VP] * 9 + [_I, _I] + [_VP] * 5,
+        "bst_relax_converge": [_VP, _VP, _I, _VP, _I, _D, _I, _VP, _VP],
     },
 }
 

@@ -1,0 +1,668 @@
+"""Global tile relaxation on the device: four CUDA kernels, their plain-torch
+twins, and the loop that drives them.
+
+Port of the relax part of ``bigstitcher_spark_tpu/ops/solve.py``: the JAX
+program ``_relax_core`` (one ``lax.while_loop``, jitted at :410) becomes four
+hand-written ``sm_90a`` kernels in float64 (``csrc/solve.cu``), one
+iteration being K11 -> K12 -> K13 -> K14:
+
+=========================  =======================  ==============================
+wrapper                    kernel (csrc/solve.cu)   step of ``_relax_core``
+=========================  =======================  ==============================
+:func:`relax_moments`      K11                      ``apply_batch`` + segment moments
+:func:`relax_fit`          K12                      ``_fit_from_moments_jnp``, blend,
+                                                    fixed / empty tiles, damping
+:func:`relax_error`        K13                      ``mean_error`` partial sums; the
+                                                    per-link errors (``by_link``)
+:func:`relax_converge`     K14                      error history, stall / plateau /
+                                                    max-iterations rules
+=========================  =======================  ==============================
+
+:func:`relax_on_device` launches iterations in chunks and reads 16 bytes of
+state once per chunk, so there is no per-iteration host transfer, as in the
+``while_loop``. :func:`relax_plain` runs the same loop through the twins. A
+wrapper takes its plain version only because its tensors lie on the CPU; on
+CUDA tensors it launches its kernel or raises. Each wrapper counts its
+kernel launches in its ``launches`` attribute.
+
+Rows are grouped by owner tile (``prepare_relax``), so each tile's sums have
+one fixed order on the card (no atomics): a rerun repeats bit for bit. The
+twins sum with ``torch.segment_reduce`` over the same groups, which is
+deterministic on the card too.
+
+One change of formulation against the JAX program: each tile's moments are
+taken about the tile's own origin (:func:`tile_origin`, the mean of its
+active rows' points, fixed for a solve), and the fit is shifted back to
+world coordinates. The JAX program sums about the world origin: at a grid of
+2048-pixel tiles the points lie ~30,000 px out, and the 4x4 normal
+equations of an AFFINE fit reach condition numbers of 1e11-1e13, so a
+different summation order alone moves a fitted translation by ~1e-4
+relative (the JAX package's own numpy and device paths disagree there by
+the same amount). About the tile's origin the same fits are exact in real
+arithmetic (the AFFINE fit's 1e-9 ridge is carried to the tile's origin
+with it, :func:`ridge_terms`) and well conditioned.
+
+Not here yet (ROADMAP.md): the sharded layout over several devices, the
+compile-bucket telemetry, and the intensity solve's conjugate gradients.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import config
+from . import _cuda
+from . import models as M
+from .fusion import _require, _stream
+
+_EPS_FIT = 1e-9
+N_MOMENTS = 36
+# csrc/solve.cu's Model codes; NONE only as a regulariser
+_KIND = {M.NONE: -1, M.IDENTITY: 0, M.TRANSLATION: 1, M.RIGID: 2,
+         M.AFFINE: 3}
+_F64 = (torch.float64,)
+_I32 = (torch.int32,)
+# iterations per chunk between two reads of the state: 8, doubling to 64
+FIRST_CHUNK, MAX_CHUNK = 8, 64
+
+
+def resolve_backend(explicit: str | None = None) -> str:
+    """``device`` (the relax kernels on the torch device, the default) or
+    ``numpy`` (the host reference path): an explicit request wins, else the
+    ``BST_SOLVE_DEVICE`` knob."""
+    if explicit:
+        return explicit.lower()
+    return "device" if config.get("BST_SOLVE_DEVICE") else "numpy"
+
+
+# ---------------------------------------------------------------------------
+# problem layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RelaxProblem:
+    """The flattened link graph on one device, built once per link list;
+    every solve, masked re-solves included, reuses it.
+
+    Every point match appears twice (once per side, like the numpy
+    ``_flatten``); rows are grouped by owner tile, in flattened order within
+    each tile."""
+
+    n_tiles: int              # T
+    n_links: int              # L
+    n_rows: int               # N (both sides)
+    local: torch.Tensor       # (N, 3) f64
+    target: torch.Tensor      # (N, 3) f64
+    own: torch.Tensor         # (N,) int32 owner tile (non-decreasing)
+    other: torch.Tensor       # (N,) int32 counterpart tile
+    w: torch.Tensor           # (N,) f64 row weight
+    link_id: torch.Tensor     # (N,) int32
+    tile_ptr: torch.Tensor    # (T + 1,) int32 CSR of the tile groups
+    tile_len: torch.Tensor    # (T,) int64 rows per tile
+    link_rows: torch.Tensor   # (N / 2,) int32 A-side rows, grouped by link
+    link_ptr: torch.Tensor    # (L + 1,) int32
+    link_len: torch.Tensor    # (L,) int64
+    link_own: torch.Tensor    # (L,) int32 the A tile of each link
+    wpt_tile: int             # warps a K11 / K13 tile segment takes
+    wpt_link: int             # warps a K13 link segment takes
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+
+def _warps_per_segment(rows: int, segments: int) -> int:
+    """1, 2, 4 or 8 warps: about 256 rows a warp on average."""
+    avg = rows / max(segments, 1)
+    wpt = 1
+    while wpt < 8 and avg >= 256 * 2 * wpt:
+        wpt *= 2
+    return wpt
+
+
+def prepare_relax(
+    link_rows: list[tuple[int, int, np.ndarray, np.ndarray, np.ndarray]],
+    n_tiles: int,
+    device: torch.device | str,
+) -> RelaxProblem:
+    """Flatten ``(ia, ib, p, q, w)`` links into device arrays grouped by
+    owner tile (a stable sort of the flattened rows)."""
+    loc, tgt, own, other, w, lid, side = [], [], [], [], [], [], []
+    for l, (ia, ib, p, q, wl) in enumerate(link_rows):
+        n = len(p)
+        loc.append(p); tgt.append(q)
+        own.append(np.full(n, ia)); other.append(np.full(n, ib))
+        w.append(wl); lid.append(np.full(n, l)); side.append(np.ones(n, bool))
+        loc.append(q); tgt.append(p)
+        own.append(np.full(n, ib)); other.append(np.full(n, ia))
+        w.append(wl); lid.append(np.full(n, l)); side.append(np.zeros(n, bool))
+    return _layout(*(np.concatenate(a) for a in (loc, tgt, own, other, w, lid,
+                                                 side)),
+                   n_tiles, len(link_rows), device)
+
+
+def relax_problem_from_reference(fields: dict, device: torch.device | str
+                                 ) -> RelaxProblem:
+    """The port's problem from the JAX package's ``RelaxProblem`` arrays
+    (a single-device layout, as numpy: ``n_tiles``, ``n_links``,
+    ``n_rows``, ``local``, ``target``, ``own``, ``other``, ``w``,
+    ``link_id``, ``side_a``; the bucket padding past ``n_rows`` is
+    dropped), so one graph feeds both packages."""
+    n = int(fields["n_rows"])
+    rows = [np.asarray(fields[k])[:n] for k in ("local", "target", "own",
+                                               "other", "w", "link_id")]
+    side = np.asarray(fields["side_a"])[:n] > 0
+    return _layout(*rows, side, int(fields["n_tiles"]),
+                   int(fields["n_links"]), device)
+
+
+def _layout(local, target, own, other, w, link_id, side, n_tiles: int,
+            n_links: int, device) -> RelaxProblem:
+    """Rows in flattened order -> the device layout: grouped by owner tile
+    (stable), the tile CSR, and the CSR of each link's A-side rows."""
+    own_a = np.asarray(own).astype(np.int32)
+    order = np.argsort(own_a, kind="stable")
+    local = np.asarray(local, np.float64)[order]
+    target = np.asarray(target, np.float64)[order]
+    other_a = np.asarray(other).astype(np.int32)[order]
+    w_a = np.asarray(w, np.float64)[order]
+    lid_a = np.asarray(link_id).astype(np.int32)[order]
+    side_a = np.asarray(side, bool)[order]
+    own_a = own_a[order]
+    n_rows = len(local)
+    if n_rows >= 2 ** 31:
+        raise ValueError(f"{n_rows} rows: the relax kernels index rows "
+                         "with int32")
+    tile_len = np.bincount(own_a, minlength=n_tiles)
+    a_rows = np.flatnonzero(side_a)
+    a_rows = a_rows[np.argsort(lid_a[a_rows], kind="stable")]
+    link_len = np.bincount(lid_a[a_rows], minlength=n_links)
+    link_own = np.zeros(n_links, np.int32)
+    link_own[lid_a[a_rows]] = own_a[a_rows]
+
+    def ptr(lengths):
+        return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return RelaxProblem(
+        n_tiles, n_links, n_rows, dev(local), dev(target), dev(own_a),
+        dev(other_a), dev(w_a), dev(lid_a), dev(ptr(tile_len)),
+        dev(tile_len.astype(np.int64)), dev(a_rows.astype(np.int32)),
+        dev(ptr(link_len)), dev(link_len.astype(np.int64)), dev(link_own),
+        _warps_per_segment(n_rows, n_tiles),
+        _warps_per_segment(len(a_rows), n_links))
+
+
+def _finished(state: torch.Tensor | None) -> bool:
+    return state is not None and bool(state[2])
+
+
+def _apply_rows(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-row models (R, 3, 4) applied to points (R, 3), in the kernels'
+    order: ((m0 x0 + m1 x1) + m2 x2) + m3."""
+    return (((m[:, :, 0] * x[:, 0:1] + m[:, :, 1] * x[:, 1:2])
+             + m[:, :, 2] * x[:, 2:3]) + m[:, :, 3])
+
+
+def _w_eff(pr: RelaxProblem, link_w: torch.Tensor) -> torch.Tensor:
+    return pr.w * link_w[pr.link_id.long()]
+
+
+def tile_origin(pr: RelaxProblem, link_w: torch.Tensor) -> torch.Tensor:
+    """Each tile's moment origin (T, 3): the mean of the local points of its
+    rows whose link weight is nonzero (0 for a tile without any). Masked
+    rows add exact zeros, so a masked solve and a solve of the rebuilt link
+    list take the same origin. Plain torch, once per solve."""
+    act = (link_w[pr.link_id.long()] != 0).to(pr.local.dtype)
+    s = torch.segment_reduce(pr.local * act[:, None], "sum",
+                             lengths=pr.tile_len, axis=0)
+    n = torch.segment_reduce(act, "sum", lengths=pr.tile_len, axis=0)
+    return (s / torch.clamp(n, min=1.0)[:, None]).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K11: per-tile moments
+# ---------------------------------------------------------------------------
+
+
+def relax_moments_plain(pr: RelaxProblem, cur: torch.Tensor,
+                        link_w: torch.Tensor, origin: torch.Tensor,
+                        state: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-tile moments (T, 36) under the models ``cur`` (T, 3, 4): sw, swp
+    (4), swq (3), spp (4x4 row-major), spq (4x3) of w_eff, w_eff [p;1],
+    w_eff tw, (w_eff [p;1]) [p;1]^T and (w_eff [p;1]) tw^T, with tw =
+    M_other [q;1] - o and p the local point - o, o the tile's ``origin``.
+    Returns ``out`` untouched once ``state`` says done."""
+    if _finished(state):
+        return out
+    we = _w_eff(pr, link_w)
+    o = origin[pr.own.long()]
+    tw = _apply_rows(cur[pr.other.long()], pr.target) - o
+    ph = torch.cat([pr.local - o, torch.ones_like(pr.local[:, :1])], dim=1)
+    wp = we[:, None] * ph
+    n = pr.n_rows
+    rows = torch.cat([we[:, None], wp, we[:, None] * tw,
+                      (wp[:, :, None] * ph[:, None, :]).reshape(n, 16),
+                      (wp[:, :, None] * tw[:, None, :]).reshape(n, 12)], dim=1)
+    mom = torch.segment_reduce(rows, "sum", lengths=pr.tile_len, axis=0)
+    if out is None:
+        return mom
+    return out.copy_(mom)
+
+
+def moment_scale(pr: RelaxProblem, cur: torch.Tensor, link_w: torch.Tensor,
+                 origin: torch.Tensor) -> torch.Tensor:
+    """The sum of the absolute values of the terms of each moment (T, 36):
+    the scale a summation error is measured against. Moments about a
+    tile's origin cancel (the first moments are ~0 by construction), so an
+    elementwise relative tolerance would measure the rounding of terms of
+    1e6 against a result of 1e-3."""
+    we = _w_eff(pr, link_w)
+    o = origin[pr.own.long()]
+    tw = (_apply_rows(cur[pr.other.long()], pr.target) - o).abs()
+    ph = torch.cat([(pr.local - o).abs(), torch.ones_like(pr.local[:, :1])],
+                   dim=1)
+    wp = we[:, None] * ph
+    n = pr.n_rows
+    rows = torch.cat([we[:, None], wp, we[:, None] * tw,
+                      (wp[:, :, None] * ph[:, None, :]).reshape(n, 16),
+                      (wp[:, :, None] * tw[:, None, :]).reshape(n, 12)], dim=1)
+    return torch.segment_reduce(rows, "sum", lengths=pr.tile_len, axis=0)
+
+
+def fit_scale(models: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+    """The magnitude of the terms of each world-frame model entry (T, 3, 4):
+    |entry| for the linear part; for the translation, t = (t' + o) - A o
+    also sums |o| and |A| |o| (at 30,000 px from the world origin a
+    1e-14 change of A moves t by 3e-10)."""
+    a = models[:, :, :3].abs()
+    lever = origin.abs() + (a * origin.abs()[:, None, :]).sum(dim=2)
+    return torch.cat([a, (models[:, :, 3].abs() + lever)[:, :, None]], dim=2)
+
+
+def relax_moments(pr: RelaxProblem, cur: torch.Tensor, link_w: torch.Tensor,
+                  origin: torch.Tensor, state: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """K11 (``csrc/solve.cu``) on CUDA, :func:`relax_moments_plain` on the
+    CPU."""
+    if cur.device.type == "cpu":
+        return relax_moments_plain(pr, cur, link_w, origin, state, out)
+    dev, T = cur.device, pr.n_tiles
+    _require(cur, "cur", dev, _F64, (T, 3, 4))
+    _require(link_w, "link_w", dev, _F64, (pr.n_links,))
+    _require(origin, "origin", dev, _F64, (T, 3))
+    if out is None:
+        out = torch.empty((T, N_MOMENTS), dtype=torch.float64, device=dev)
+    _require(out, "out", dev, _F64, (T, N_MOMENTS))
+    lib = _cuda.load("solve")
+    ret = lib.bst_relax_moments(
+        pr.local.data_ptr(), pr.target.data_ptr(), pr.other.data_ptr(),
+        pr.w.data_ptr(), pr.link_id.data_ptr(), link_w.data_ptr(),
+        pr.tile_ptr.data_ptr(), origin.data_ptr(), T, pr.wpt_tile,
+        cur.data_ptr(), _ptr(state), out.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "relax_moments")
+    relax_moments.launches += 1
+    return out
+
+
+relax_moments.launches = 0
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K12: per-tile fits, blend, damped update
+# ---------------------------------------------------------------------------
+
+
+def ridge_terms(origin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The AFFINE fit's ``eps`` ridge about each tile's origin o: the JAX
+    program solves (spp + eps I) X = spq about the world origin; about o
+    (ph' = C ph, C = [[I, -o], [0, 1]]) the same solution solves
+    (spp' + eps C C^T) X' = spq' + eps D, D = [[o o^T], [-o^T]]. Returns
+    (C C^T (T, 4, 4), D (T, 4, 3)); o = 0 gives (I, 0)."""
+    T = origin.shape[0]
+    oo = origin[:, :, None] * origin[:, None, :]
+    cc = torch.zeros((T, 4, 4), dtype=origin.dtype, device=origin.device)
+    cc[:, :3, :3] = torch.eye(3, dtype=origin.dtype, device=origin.device) + oo
+    cc[:, :3, 3] = -origin
+    cc[:, 3, :3] = -origin
+    cc[:, 3, 3] = 1.0
+    return cc, torch.cat([oo, -origin[:, None, :]], dim=1)
+
+
+def fit_from_moments_plain(kind: str, mom: torch.Tensor,
+                           eps: float = _EPS_FIT,
+                           origin: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Batched per-tile model fit (T, 3, 4) from moments (T, 36): the torch
+    form of the JAX package's ``_fit_from_moments_jnp``. With ``origin``
+    (moments taken about each tile's o), the AFFINE ridge is the JAX
+    program's carried to o (:func:`ridge_terms`); the fit stays about o."""
+    T = mom.shape[0]
+    sw, swp, swq = mom[:, 0], mom[:, 1:5], mom[:, 5:8]
+    spp = mom[:, 8:24].reshape(T, 4, 4)
+    spq = mom[:, 24:36].reshape(T, 4, 3)
+    sw_safe = torch.clamp(sw, min=eps)
+    identity = torch.zeros((T, 3, 4), dtype=mom.dtype, device=mom.device)
+    identity[:, :, :3] = torch.eye(3, dtype=mom.dtype, device=mom.device)
+    if kind == M.IDENTITY:
+        return identity
+    if kind == M.TRANSLATION:
+        identity[:, :, 3] = (swq - swp[:, :3]) / sw_safe[:, None]
+        return identity
+    if kind == M.AFFINE:
+        if origin is None:
+            a = spp + eps * torch.eye(4, dtype=mom.dtype, device=mom.device)
+            return torch.linalg.solve(a, spq).transpose(1, 2)
+        cc, d = ridge_terms(origin)
+        return torch.linalg.solve(spp + eps * cc,
+                                  spq + eps * d).transpose(1, 2)
+    if kind == M.RIGID:
+        pc = swp[:, :3] / sw_safe[:, None]
+        qc = swq / sw_safe[:, None]
+        h = (spq[:, :3, :]
+             - pc[:, :, None] * swq[:, None, :]
+             - swp[:, :3, None] * qc[:, None, :]
+             + sw_safe[:, None, None] * pc[:, :, None] * qc[:, None, :])
+        u, _, vt = torch.linalg.svd(h)
+        d = torch.linalg.det(vt.transpose(1, 2) @ u.transpose(1, 2))
+        sign = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=1)
+        r = vt.transpose(1, 2) @ (sign[:, :, None] * u.transpose(1, 2))
+        t = qc - torch.einsum("nij,nj->ni", r, pc)
+        return torch.cat([r, t[:, :, None]], dim=2)
+    raise ValueError(kind)
+
+
+def unshift_plain(m: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+    """Models fitted about each tile's origin o -> world coordinates:
+    t = (t' + o) - A o, in K12's order."""
+    a = m[:, :, :3]
+    ao = ((a[:, :, 0] * origin[:, 0:1] + a[:, :, 1] * origin[:, 1:2])
+          + a[:, :, 2] * origin[:, 2:3])
+    return torch.cat([a, ((m[:, :, 3] + origin) - ao)[:, :, None]], dim=2)
+
+
+def relax_fit_plain(mom: torch.Tensor, fixed: torch.Tensor,
+                    origin: torch.Tensor, model: str, reg: str, lam: float,
+                    damping: float, state: torch.Tensor | None,
+                    cur: torch.Tensor) -> torch.Tensor:
+    """The models fitted to the moments (taken about ``origin`` (T, 3)),
+    blended with the regulariser's ((1 - lam) m + lam r unless ``reg`` is
+    NONE) and shifted back to world coordinates; identity where sw <= 0 or
+    ``fixed`` (T,) uint8 is set; then ``cur = (1 - damping) cur + damping
+    new`` in place."""
+    if _finished(state):
+        return cur
+    new = fit_from_moments_plain(model, mom, origin=origin)
+    if reg != M.NONE:
+        new = ((1 - lam) * new
+               + lam * fit_from_moments_plain(reg, mom, origin=origin))
+    new = unshift_plain(new, origin)
+    keep = (mom[:, 0] <= 0) | fixed.bool()
+    new = torch.where(keep[:, None, None],
+                      fit_from_moments_plain(M.IDENTITY, mom), new)
+    return cur.copy_((1 - damping) * cur + damping * new)
+
+
+def relax_fit(mom: torch.Tensor, fixed: torch.Tensor, origin: torch.Tensor,
+              model: str, reg: str, lam: float, damping: float,
+              state: torch.Tensor | None, cur: torch.Tensor) -> torch.Tensor:
+    """K12 (``csrc/solve.cu``) on CUDA, :func:`relax_fit_plain` on the CPU;
+    updates ``cur`` in place."""
+    if cur.device.type == "cpu":
+        return relax_fit_plain(mom, fixed, origin, model, reg, lam, damping,
+                               state, cur)
+    dev, T = cur.device, int(cur.shape[0])
+    if model == M.NONE:
+        raise ValueError("NONE is a regulariser, not a model")
+    _require(mom, "moments", dev, _F64, (T, N_MOMENTS))
+    _require(fixed, "fixed", dev, (torch.uint8,), (T,))
+    _require(origin, "origin", dev, _F64, (T, 3))
+    _require(cur, "cur", dev, _F64, (T, 3, 4))
+    lib = _cuda.load("solve")
+    ret = lib.bst_relax_fit(mom.data_ptr(), fixed.data_ptr(),
+                            origin.data_ptr(), T, _KIND[model],
+                            _KIND[reg], float(lam), float(damping),
+                            _ptr(state), cur.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "relax_fit")
+    relax_fit.launches += 1
+    return cur
+
+
+relax_fit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: weighted displacement sums per tile, or per link
+# ---------------------------------------------------------------------------
+
+
+def relax_error_plain(pr: RelaxProblem, cur: torch.Tensor,
+                      link_w: torch.Tensor,
+                      state: torch.Tensor | None = None,
+                      by_link: bool = False, out=None):
+    """(num, den): sums of ||M_own p - M_other q|| w_eff and of w_eff over
+    each tile's rows, or with ``by_link`` over each link's A-side rows.
+    Returns ``out`` untouched once ``state`` says done."""
+    if _finished(state):
+        return out
+    if by_link:
+        rows, lengths = pr.link_rows.long(), pr.link_len
+        own = pr.own.long()[rows]
+    else:
+        rows, own, lengths = None, pr.own.long(), pr.tile_len
+
+    def pick(t):
+        return t if rows is None else t[rows]
+
+    we = _w_eff(pr, link_w)
+    a = _apply_rows(cur[own], pick(pr.local))
+    b = _apply_rows(cur[pick(pr.other).long()], pick(pr.target))
+    dd = a - b
+    d = torch.sqrt((dd[:, 0] * dd[:, 0] + dd[:, 1] * dd[:, 1])
+                   + dd[:, 2] * dd[:, 2])
+    we = pick(we)
+    sums = torch.segment_reduce(torch.stack([d * we, we], dim=1), "sum",
+                                lengths=lengths, axis=0)
+    num, den = sums[:, 0].contiguous(), sums[:, 1].contiguous()
+    if out is None:
+        return num, den
+    out[0].copy_(num)
+    out[1].copy_(den)
+    return out
+
+
+def relax_error(pr: RelaxProblem, cur: torch.Tensor, link_w: torch.Tensor,
+                state: torch.Tensor | None = None, by_link: bool = False,
+                out=None):
+    """K13 (``csrc/solve.cu``) on CUDA, :func:`relax_error_plain` on the
+    CPU; ``out`` an optional (num, den) pair to write."""
+    if cur.device.type == "cpu":
+        return relax_error_plain(pr, cur, link_w, state, by_link, out)
+    dev = cur.device
+    _require(cur, "cur", dev, _F64, (pr.n_tiles, 3, 4))
+    _require(link_w, "link_w", dev, _F64, (pr.n_links,))
+    S = pr.n_links if by_link else pr.n_tiles
+    if out is None:
+        out = (torch.empty(S, dtype=torch.float64, device=dev),
+               torch.empty(S, dtype=torch.float64, device=dev))
+    for t, name in zip(out, ("num", "den")):
+        _require(t, name, dev, _F64, (S,))
+    if by_link:
+        ptr, idx, seg_own, wpt = (pr.link_ptr, pr.link_rows.data_ptr(),
+                                  pr.link_own.data_ptr(), pr.wpt_link)
+    else:
+        ptr, idx, seg_own, wpt = pr.tile_ptr, None, None, pr.wpt_tile
+    lib = _cuda.load("solve")
+    ret = lib.bst_relax_error(
+        pr.local.data_ptr(), pr.target.data_ptr(), pr.other.data_ptr(),
+        pr.w.data_ptr(), pr.link_id.data_ptr(), link_w.data_ptr(),
+        ptr.data_ptr(), idx, seg_own, S, wpt, cur.data_ptr(), _ptr(state),
+        out[0].data_ptr(), out[1].data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "relax_error")
+    relax_error.launches += 1
+    return out
+
+
+relax_error.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K14: error history and the convergence rules
+# ---------------------------------------------------------------------------
+
+
+def relax_converge_plain(num: torch.Tensor, den: torch.Tensor,
+                         hist: torch.Tensor, state: torch.Tensor, pw: int,
+                         max_error: float, max_iter: int) -> torch.Tensor:
+    """err = sum(num) / max(sum(den), 1e-12) into ``hist[i]``, then
+    ``_relax_core``'s stall, plateau and max-iterations rules on ``state``
+    (int32: iterations, stall count, done, 0), in place."""
+    if _finished(state):
+        return state
+    i = int(state[0])
+    it = i + 1
+    err_t = num.sum() / torch.clamp(den.sum(), min=1e-12)
+    hist[i] = err_t
+    err = float(err_t)
+    stall = int(state[1])
+    if i > 0:
+        stall = stall + 1 if float(hist[i - 1]) - err < 1e-9 * max(err, 1.0) \
+            else 0
+    plateau = False
+    if it > pw and err < max_error:
+        improvement = float(hist[it - pw - 1]) - float(hist[it - pw:it].min())
+        plateau = improvement < 1e-4 * max(err, 1e-12) or err < 1e-9
+    done = stall >= 5 or plateau or it >= max_iter
+    state.copy_(torch.tensor([it, stall, int(done), 0], dtype=torch.int32))
+    return state
+
+
+def relax_converge(num: torch.Tensor, den: torch.Tensor, hist: torch.Tensor,
+                   state: torch.Tensor, pw: int, max_error: float,
+                   max_iter: int) -> torch.Tensor:
+    """K14 (``csrc/solve.cu``) on CUDA, :func:`relax_converge_plain` on the
+    CPU."""
+    if num.device.type == "cpu":
+        return relax_converge_plain(num, den, hist, state, pw, max_error,
+                                    max_iter)
+    dev, T = num.device, int(num.shape[0])
+    _require(num, "num", dev, _F64, (T,))
+    _require(den, "den", dev, _F64, (T,))
+    _require(hist, "hist", dev, _F64)
+    _require(state, "state", dev, _I32, (4,))
+    if int(hist.shape[0]) < max_iter:
+        raise ValueError(f"hist holds {int(hist.shape[0])} < {max_iter} "
+                         "iterations")
+    lib = _cuda.load("solve")
+    ret = lib.bst_relax_converge(num.data_ptr(), den.data_ptr(), T,
+                                 hist.data_ptr(), int(pw), float(max_error),
+                                 int(max_iter), state.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "relax_converge")
+    relax_converge.launches += 1
+    return state
+
+
+relax_converge.launches = 0
+
+
+KERNEL_WRAPPERS = {
+    "relax_moments": relax_moments,
+    "relax_fit": relax_fit,
+    "relax_error": relax_error,
+    "relax_converge": relax_converge,
+}
+_PLAIN = (relax_moments_plain, relax_fit_plain, relax_error_plain,
+          relax_converge_plain)
+_KERNELS = (relax_moments, relax_fit, relax_error, relax_converge)
+
+
+# ---------------------------------------------------------------------------
+# the loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RelaxOutput:
+    models: np.ndarray        # (T, 3, 4)
+    history: np.ndarray       # (iterations,)
+    iterations: int
+    link_errors: np.ndarray   # (L,) under the final models (0 where masked)
+
+
+def relax_on_device(
+    problem: RelaxProblem,
+    link_mask: np.ndarray,
+    fixed_mask: np.ndarray,
+    warm_t: np.ndarray,
+    lam: float,
+    damping: float,
+    max_error: float,
+    max_iterations: int,
+    model: str,
+    reg: str,
+    plateau_width: int,
+) -> RelaxOutput:
+    """Run the relaxation from identity models with translations ``warm_t``
+    (T, 3): K11-K14 per iteration (their twins where the problem lies on
+    the CPU), until K14 sets done. Iterations go in chunks of 8 doubling to
+    64 between two reads of the state; kernels launched after done return
+    at once."""
+    return _relax(_KERNELS, problem, link_mask, fixed_mask, warm_t, lam,
+                  damping, max_error, max_iterations, model, reg,
+                  plateau_width)
+
+
+def relax_plain(*args) -> RelaxOutput:
+    """:func:`relax_on_device` through the plain twins, on any device."""
+    return _relax(_PLAIN, *args)
+
+
+def _relax(fns, problem, link_mask, fixed_mask, warm_t, lam, damping,
+           max_error, max_iterations, model, reg, plateau_width
+           ) -> RelaxOutput:
+    if model == M.NONE:
+        raise ValueError("NONE is a regulariser, not a model")
+    if plateau_width < 1:
+        raise ValueError(f"--maxPlateauwidth {plateau_width}: must be >= 1")
+    dev, T = problem.device, problem.n_tiles
+    f64 = dict(dtype=torch.float64, device=dev)
+    link_w = torch.as_tensor(np.asarray(link_mask, np.float64), **f64)
+    fixed = torch.as_tensor(np.asarray(fixed_mask, bool).astype(np.uint8),
+                            device=dev)
+    cur = torch.zeros((T, 3, 4), **f64)
+    cur[:, :, :3] = torch.eye(3, **f64)
+    cur[:, :, 3] = torch.as_tensor(np.asarray(warm_t, np.float64), **f64)
+    hist = torch.zeros(max(int(max_iterations), 1), **f64)
+    state = torch.zeros(4, dtype=torch.int32, device=dev)
+    mom = torch.empty((T, N_MOMENTS), **f64)
+    nd = (torch.empty(T, **f64), torch.empty(T, **f64))
+    moments_fn, fit_fn, error_fn, converge_fn = fns
+    origin = tile_origin(problem, link_w)
+    iters, chunk = 0, FIRST_CHUNK
+    while max_iterations > 0:
+        for _ in range(min(chunk, max_iterations - iters)):
+            moments_fn(problem, cur, link_w, origin, state, out=mom)
+            fit_fn(mom, fixed, origin, model, reg, lam, damping, state, cur)
+            error_fn(problem, cur, link_w, state, out=nd)
+            converge_fn(*nd, hist, state, plateau_width, max_error,
+                        max_iterations)
+        iters, _stall, done, _ = state.tolist()
+        if done:
+            break
+        chunk = min(2 * chunk, MAX_CHUNK)
+    num, den = error_fn(problem, cur, link_w, None, by_link=True)
+    link_err = num / torch.clamp(den, min=1e-12)
+    return RelaxOutput(cur.cpu().numpy(), hist[:iters].cpu().numpy(), iters,
+                       link_err.cpu().numpy())
+

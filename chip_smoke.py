@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all eight at once).
+         kernels from csrc/ (one nvcc per source, all nine at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -66,6 +66,27 @@ Phase 6  stitching through the port's CLI entry function: route A's
          padded FFT voxels/s, the host split (extract / stage / launch /
          wait / refine), the card's busy seconds (CUDA events) and its
          idle share are printed beside the card.
+Phase 7  the solver through the port's CLI entry function. 7a: solver -s
+         STITCHING on a copy of the XML phase 6's -ds 2,2,1 run wrote
+         (4 tiles, 6 links): every tile within 1.5 px of the truth, up to
+         the fixed tile. 7b, grid G (utils/solverdata.py, no image data):
+         32x32x4 tiles of 2048x2048x512, 11,008 stitching links (176,128
+         rows), 8 of them 25 px wrong, --method ONE_ROUND_ITERATIVE:
+         exactly the 8 dropped, every tile within 0.05 px; then the same
+         iterative solve through the twins on the card, every solve under
+         the JAX package's device-vs-numpy contract (iterations equal,
+         history rtol 1e-9 / atol 1e-9, models and link errors rtol 1e-7
+         / atol 1e-9) and the same drop sequence. 7c, the IP cell: 16x16x2
+         views with rigid truth, 500 bead correspondences a 6-neighbour
+         pair (1,216,000 rows) in interestpoints.n5, -s IP -l beads -tm
+         AFFINE -rm RIGID --lambda 0.1: the final error below --maxError
+         and below the pre-solve error; the kernels against the twins at
+         --maxIterations 100 under the same contract; 10 sweeps of
+         --solverBackend numpy on the host. K11-K14 alone against their
+         twin stages at 7b's and 7c's shapes (rtol 1e-10 / atol 1e-12, the
+         rtol of the terms' magnitude where sums cancel), timed with CUDA
+         events; each cell's wall split (match assembly, warm start,
+         relax, store) and row-iterations/s.
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -73,13 +94,13 @@ H2D, kernel, D2H and write times and the fused voxels/s (and the rate
 counting pyramid voxels, apart) are printed beside the card's name and
 power limit. Each route runs with every launch count set to 0 just before
 it and read just after it: a kernel of that route launched no time fails
-the run (phase 6 counts each stitching run so). K1 then runs again, timed and held against its twin, on route A's
+the run (phases 6 and 7 count each stitching and solver run so). K1 then runs again, timed and held against its twin, on route A's
 whole volume: the one shape the main path gives it. The second-to-last line
 of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-6 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-7 on the CPU with the
 plain twins (no kernels, no timings); it then exits 3 without a result.
 """
 
@@ -97,6 +118,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12         # H100 SXM float64 vector (not tensor core)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # kernel wrapper -> (its source under csrc/, the JAX device program it
 # replaces, file:line under bigstitcher_spark_tpu/)
@@ -112,6 +134,10 @@ KERNELS = {
     "fft_pow2": ("fft.cu", "ops/phasecorr.py:68"),
     "pcm_cross_power": ("pcm.cu", "ops/phasecorr.py:68"),
     "pcm_peaks_topk": ("pcm.cu", "ops/phasecorr.py:68"),
+    "relax_moments": ("solve.cu", "ops/solve.py:308"),
+    "relax_fit": ("solve.cu", "ops/solve.py:308"),
+    "relax_error": ("solve.cu", "ops/solve.py:308"),
+    "relax_converge": ("solve.cu", "ops/solve.py:308"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -120,23 +146,40 @@ KERNELS = {
 # transform of N voxels; K9: 12 per complex bin (cross product, hypot,
 # compare, 2 divides); K10: 27 comparisons per voxel (the sorts are the
 # kernel's choice, not the function's work).
+# K11: per row 1 multiply for w_eff, 15 for tw = M [q; 1], 35 products
+# and 36 sums of the moments; K13: per row 2 x 15 for the two applies, 3
+# differences, 5 for the squared norm, a sqrt, 3 for the weighted sums.
+# K12 per tile (float64): the fit of each kind, plus 36 for the blend and
+# 36 for the damped update; the rigid fit counts 6 Jacobi sweeps of 3
+# rotations (~40 each) and the rest of the Kabsch fit, the affine one the
+# 4x4 elimination with 3 right-hand sides and the back substitution. K14:
+# two sums per tile.
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
        "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
-       "topk": 27}
+       "topk": 27, "relax_moments": 87, "relax_error": 42,
+       "relax_converge": 2,
+       "fit": {"IDENTITY": 0, "TRANSLATION": 6, "AFFINE": 110,
+               "RIGID": 900, "NONE": 0}, "fit_blend": 72}
+# bytes a relax row holds: p, q (2 x 24), other, link_id (2 x 4), w (8)
+RELAX_ROW_BYTES = 64
 
 SCALES = {
     "full": dict(tile=(1024, 1024, 128), overlap=102, block=(128, 128, 64),
                  rot_tile=(1024, 1024, 64), beads=400, per_block_budget=None,
                  level_shape=(1952, 1952, 132), batch_box=(256, 256, 128),
                  sep_patch=(288, 288, 128), levels_a=5,
-                 batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128)),
+                 batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128),
+                 grid_g=(32, 32, 4), grid_bad=8, ip_grid=(16, 16, 2),
+                 ip_pairs=500, solve_tile=(2048, 2048, 512)),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=24, block=(32, 32, 16),
                  rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
                  level_shape=(180, 148, 26), batch_box=(64, 64, 32),
                  sep_patch=(96, 96, 24), levels_a=2,
-                 batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32)),
+                 batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32),
+                 grid_g=(8, 8, 2), grid_bad=2, ip_grid=(3, 3, 2),
+                 ip_pairs=30, solve_tile=(256, 256, 64)),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
@@ -149,10 +192,13 @@ ROUTE_KERNELS = {
     "D": ("fuse_block_sep", "convert_intensity", "downsample_batch"),
 }
 PCM_KERNELS = ("pcm_window", "fft_pow2", "pcm_cross_power", "pcm_peaks_topk")
+RELAX_KERNELS = ("relax_moments", "relax_fit", "relax_error",
+                 "relax_converge")
 ROUTE_KERNELS.update({
     "S 2,2,1": PCM_KERNELS + ("downsample_batch",),
     "S 1,1,1": PCM_KERNELS,
     "S rendered": PCM_KERNELS + ("fuse_block",),
+    "7a": RELAX_KERNELS, "7b": RELAX_KERNELS, "7c": RELAX_KERNELS,
 })
 
 
@@ -204,9 +250,32 @@ def time_ms(fn, reps=20, rounds=3):
     return sorted(out)[len(out) // 2]
 
 
-def bound(nbytes, ops):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def time_each(fn, reset, reps=50):
+    """Milliseconds of one call of ``fn`` on the card, each call alone
+    between two CUDA events with ``reset()`` run before it, outside the
+    events (for kernels that change their own inputs); the median. None
+    in a CPU rehearsal."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    out = []
+    for _ in range(reps + 1):
+        reset()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    out = sorted(out[1:])
+    return out[len(out) // 2]
 
 
 def max_abs(a, b) -> float:
@@ -1212,15 +1281,355 @@ def phase6_stitching(proj_a, proj_c, dev, card, launches):
     stitch_run(proj_c, "2,2,1", "S rendered", dev, card, launches)
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def check_relax_close(got, ref, what):
+    """The JAX package's device-vs-numpy contract for two relaxations:
+    iterations equal, history rtol 1e-9 / atol 1e-9, models and link
+    errors rtol 1e-7 / atol 1e-9."""
+    import numpy as np
+
+    ok = got.iterations == ref.iterations
+    if ok:
+        ok = (np.allclose(got.history, ref.history, rtol=1e-9, atol=1e-9)
+              and np.allclose(got.models, ref.models, rtol=1e-7, atol=1e-9)
+              and np.allclose(got.link_errors, ref.link_errors, rtol=1e-7,
+                              atol=1e-9))
+    dm = (float(np.abs(got.models - ref.models).max())
+          if got.models.shape == ref.models.shape else float("nan"))
+    dh = (float(np.abs(got.history - ref.history).max())
+          if got.history.shape == ref.history.shape and len(got.history)
+          else 0.0)
+    check(ok, f"{what}: kernels {got.iterations} / twin {ref.iterations} "
+              f"iterations, history max|delta| {dh:.3g}, models max|delta| "
+              f"{dm:.3g}, within the device-vs-numpy contract")
+
+
+def relax_spy():
+    """Swap ``ops.solve.relax_on_device`` for a recorder; returns (calls,
+    undo). Each call is kept as (args, kwargs, output)."""
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    real, calls = R.relax_on_device, []
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    R.relax_on_device = spy
+
+    def undo():
+        R.relax_on_device = real
+
+    return calls, undo
+
+
+def solver_cli(xml, args, route, dev, card, launches):
+    """``solver`` through the CLI entry function, its launches counted as
+    ``route``; returns (SolverRun, the relaxations it ran)."""
+    from bigstitcher_spark_tpu_torch.cli.main import main
+
+    calls, undo = relax_spy()
+    try:
+        run = counted(route, launches, dev, lambda: main(
+            ["solver", "-x", xml, *args, "--device", str(dev)]))
+    finally:
+        undo()
+    t = run.timings
+    rows = calls[0][0][0].n_rows if calls else 0
+    iters = sum(out.iterations for _a, _k, out in calls)
+    print(f"  [solver {route}] {card}: {len(calls)} solve(s), {rows} rows, "
+          f"{iters} iterations, error {run.result.error:.6g} px; wall "
+          f"{t['total']:.3f}s: match assembly {t['matches']:.3f}s, warm "
+          f"start {t.get('warm_start', 0.0):.3f}s, relax "
+          f"{t.get('relax', 0.0):.3f}s, store {t.get('store', 0.0):.3f}s; "
+          f"{rows * iters / max(t.get('relax', 0.0), 1e-9):,.0f} "
+          "row-iterations/s", flush=True)
+    return run, calls
+
+
+def phase7a(proj, scale, dev, card, launches):
+    """7a: the registration chain on route A's project: solver on a copy of
+    the XML phase 6's -ds 2,2,1 run wrote."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+
+    base = os.path.dirname(proj.xml_path)
+    xml = os.path.join(base, "solve_221.xml")
+    shutil.copy(os.path.join(base, "stitch_221.xml"), xml)
+    kept = len(SpimData.load(xml).stitching_results)
+    run, calls = solver_cli(xml, ["-s", "STITCHING"], "7a", dev, card,
+                            launches)
+    pr = calls[0][0][0]
+    check(pr.n_tiles == 4 and pr.n_links == kept
+          and (scale == "tiny" or kept == 6),
+          f"7a: {pr.n_tiles} tiles, {pr.n_links} links (phase 6 kept {kept})")
+    sd = SpimData.load(xml)
+    resid = {v.setup: sd.model(v)[:, 3] - np.asarray(proj.true_offsets[v.setup])
+             for v in sd.view_ids()}
+    for s, r in sorted(resid.items()):
+        e = float(np.abs(r - resid[0]).max())
+        check(e <= 1.5, f"7a tile {s}: solved position within {e:.3f} <= 1.5 "
+                        "px of the truth (up to the fixed tile 0)")
+
+
+def phase7b(work, scale, dev, card, launches):
+    """7b: grid G, ONE_ROUND_ITERATIVE over stitching links with 8 wrong
+    shifts; then the same iterative solve through the twins on the card."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import solver as S
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+    from bigstitcher_spark_tpu_torch.utils.solverdata import (
+        make_stitching_grid)
+
+    cfg = SCALES[scale]
+    t0 = time.perf_counter()
+    g = make_stitching_grid(os.path.join(work, "grid_g"), grid=cfg["grid_g"],
+                            tile=cfg["solve_tile"], n_bad=cfg["grid_bad"],
+                            seed=41)
+    print(f"  synthesized grid G {cfg['grid_g']} ({len(g.pairs)} links, "
+          f"{len(g.bad_pairs)} wrong) in {time.perf_counter() - t0:.1f}s "
+          "(host)", flush=True)
+    xml = os.path.join(work, "grid_g", "solve.xml")
+    shutil.copy(g.xml_path, xml)
+    run, calls = solver_cli(xml, ["-s", "STITCHING", "--method",
+                                  "ONE_ROUND_ITERATIVE"], "7b", dev, card,
+                            launches)
+    removed = sorted((a[0].setup, b[0].setup)
+                     for a, b in run.result.removed_links)
+    check(removed == sorted(g.bad_pairs),
+          f"7b: dropped exactly the {len(g.bad_pairs)} wrong links {removed}")
+    sd = SpimData.load(xml)
+    worst = max(float(np.abs(sd.model(v)[:, 3] - g.true_offsets[v.setup]).max())
+                for v in sd.view_ids())
+    check(worst <= 0.05, f"7b: every tile within {worst:.2e} <= 0.05 px of "
+                         "the truth (tile 0 fixed)")
+    # the twins' own iterative solve on the same links
+    sd = SpimData.load(g.xml_path)
+    tiles = S.build_tiles(sd, sd.view_ids(), run.params)
+    links = S.matches_from_stitching(sd, tiles, verbose=False)
+    real = R.relax_on_device
+    R.relax_on_device = R.relax_plain
+    twin_calls, undo = relax_spy()
+    try:
+        twin = S.solve_iterative(links, tiles, S.pick_fixed(tiles, run.params),
+                                 run.params, verbose=False)
+    finally:
+        undo()
+        R.relax_on_device = real
+    check(twin.removed_links == run.result.removed_links
+          and len(twin_calls) == len(calls),
+          f"7b: the twins drop the same link sequence in {len(twin_calls)} "
+          "solves")
+    for i, ((_a, _k, got), (_b, _l, ref)) in enumerate(zip(calls, twin_calls)):
+        check_relax_close(got, ref, f"7b solve {i}")
+    return calls
+
+
+def relax_kernel_times(pr, args, what, card):
+    """K11-K14 alone on one iteration of a recorded relaxation's inputs,
+    each against its twin stage on the same inputs (rtol 1e-10 / atol
+    1e-12), with times and bounds; returns {wrapper name: result}."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    _p, link_mask, fixed_mask, warm_t, lam, damping, max_error, _mi, \
+        model, reg, pw = args
+    dev, T, L, N = pr.device, pr.n_tiles, pr.n_links, pr.n_rows
+    f64 = dict(dtype=torch.float64, device=dev)
+    link_w = torch.as_tensor(np.asarray(link_mask, np.float64), **f64)
+    fixed = torch.as_tensor(np.asarray(fixed_mask, bool).astype(np.uint8),
+                            device=dev)
+    cur = torch.zeros((T, 3, 4), **f64)
+    cur[:, :, :3] = torch.eye(3, **f64)
+    cur[:, :, 3] = torch.as_tensor(np.asarray(warm_t), **f64)
+
+    def close(got, ref, name, scale=None):
+        """rtol 1e-10 / atol 1e-12, the rtol against ``scale`` (the
+        magnitude of the terms summed) where given, else against |ref|."""
+        against = "|ref|" if scale is None else "the terms' magnitude"
+        scale = ref.abs() if scale is None else scale
+        bad = int(((got - ref).abs() > 1e-12 + 1e-10 * scale).sum())
+        err = float((got - ref).abs().max())
+        check(bad == 0, f"{what} {name}: within rtol 1e-10 (of {against}) / "
+                        f"atol 1e-12 of the twin (max|delta| {err:.3g})")
+        return err
+
+    res = {}
+    o = R.tile_origin(pr, link_w)
+    mom = R.relax_moments_plain(pr, cur, link_w, o)
+    buf = torch.empty_like(mom)
+    err = close(R.relax_moments(pr, cur, link_w, o, out=buf), mom,
+                "K11 moments", R.moment_scale(pr, cur, link_w, o))
+    res["relax_moments"] = dict(
+        err=err, ms=time_ms(lambda: R.relax_moments(pr, cur, link_w, o,
+                                                    out=buf)),
+        plain_ms=time_ms(lambda: R.relax_moments_plain(pr, cur, link_w, o),
+                         reps=5),
+        bound=bound(N * RELAX_ROW_BYTES + L * 8 + T * (96 + 24 + 288),
+                    N * OPS["relax_moments"], F64_OPS_PER_S))
+    new_p = R.relax_fit_plain(mom, fixed, o, model, reg, lam,
+                              damping, None, cur.clone())
+    scratch = cur.clone()
+    err = close(R.relax_fit(mom, fixed, o, model, reg, lam, damping,
+                            None, scratch), new_p, "K12 models",
+                R.fit_scale(new_p, o))
+    fit_ops = (OPS["fit"][model] + OPS["fit"].get(reg, 0)
+               + OPS["fit_blend"])
+    res["relax_fit"] = dict(
+        # K12 reads only the moments: rerunning it on its own output
+        # costs what the first call does
+        err=err, ms=time_ms(lambda: R.relax_fit(
+            mom, fixed, o, model, reg, lam, damping, None, scratch)),
+        plain_ms=time_ms(lambda: R.relax_fit_plain(
+            mom, fixed, o, model, reg, lam, damping, None,
+            cur.clone()), reps=5),
+        bound=bound(T * (288 + 24 + 2 * 96 + 1), T * fit_ops, F64_OPS_PER_S))
+    nd_p = R.relax_error_plain(pr, new_p, link_w)
+    nd = (torch.empty(T, **f64), torch.empty(T, **f64))
+    R.relax_error(pr, new_p, link_w, out=nd)
+    err = max(close(nd[0], nd_p[0], "K13 displacement sums"),
+              close(nd[1], nd_p[1], "K13 weight sums"))
+    res["relax_error"] = dict(
+        err=err, ms=time_ms(lambda: R.relax_error(pr, new_p, link_w, out=nd)),
+        plain_ms=time_ms(lambda: R.relax_error_plain(pr, new_p, link_w),
+                         reps=5),
+        bound=bound(N * RELAX_ROW_BYTES + L * 8 + T * (96 + 16),
+                    N * OPS["relax_error"], F64_OPS_PER_S))
+    sides = []
+    cap = max(pw + 2, 64)  # iterations K14 may count (hist's length)
+    for fn in (R.relax_converge, R.relax_converge_plain):
+        hist = torch.zeros(cap, **f64)
+        st = torch.zeros(4, dtype=torch.int32, device=dev)
+        fn(*nd_p, hist, st, pw, max_error, cap)
+        sides.append((hist, st))
+    err = close(sides[0][0][:1], sides[1][0][:1], "K14 err")
+    check(torch.equal(sides[0][1], sides[1][1]),
+          f"{what} K14 state {sides[0][1].tolist()} equal to the twin's")
+    hist, st = sides[0]
+    # K14 advances its state (done after 5 stalls): time it back to back
+    # behind a reset of the 16-byte state, less the reset alone
+    both = time_ms(lambda: (st.zero_(), R.relax_converge(
+        *nd_p, hist, st, pw, max_error, cap)))
+    reset = time_ms(st.zero_)
+    res["relax_converge"] = dict(
+        err=err, ms=None if both is None else both - reset,
+        plain_ms=time_each(lambda: R.relax_converge_plain(
+            *nd_p, hist, st, pw, max_error, cap), lambda: st.zero_(),
+            reps=10),
+        bound=bound(T * 16 + pw * 8, T * OPS["relax_converge"],
+                    F64_OPS_PER_S))
+    for name, r in res.items():
+        r["wrapper_ms"] = r["ms"]
+        r["library_ms"] = None
+        print_times(f"{name} at {what}", r, card)
+    return res
+
+
+def phase7c(work, scale, dev, card, launches):
+    """7c: the IP cell, AFFINE regularised by RIGID; then the kernels
+    against the twins at --maxIterations 100 and 10 iterations of the numpy
+    backend on the host."""
+    import dataclasses
+
+    import torch
+
+    from bigstitcher_spark_tpu_torch.models import solver as S
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+    from bigstitcher_spark_tpu_torch.utils.solverdata import make_ip_grid
+
+    cfg = SCALES[scale]
+    t0 = time.perf_counter()
+    ip = make_ip_grid(os.path.join(work, "ip"), grid=cfg["ip_grid"],
+                      tile=cfg["solve_tile"], n_per_pair=cfg["ip_pairs"],
+                      seed=43)
+    print(f"  synthesized IP grid {cfg['ip_grid']} ({ip.n_links} links, "
+          f"{ip.n_correspondences} correspondences) into interestpoints.n5 "
+          f"in {time.perf_counter() - t0:.1f}s (host)", flush=True)
+    assembled = []
+    real_matches = S.matches_from_interest_points
+
+    def matches_spy(sd, tiles, *a, **k):
+        links = real_matches(sd, tiles, *a, **k)
+        assembled.append((tiles, links))
+        return links
+
+    S.matches_from_interest_points = matches_spy
+    try:
+        run, calls = solver_cli(ip.xml_path, [
+            "-s", "IP", "-l", "beads", "-tm", "AFFINE", "-rm", "RIGID",
+            "--lambda", "0.1"], "7c", dev, card, launches)
+    finally:
+        S.matches_from_interest_points = real_matches
+    (args, _kwargs, out), = calls
+    pr = args[0]
+    check(pr.n_links == ip.n_links and pr.n_rows == 2 * ip.n_correspondences,
+          f"7c: {pr.n_tiles} tiles, {pr.n_links} links, {pr.n_rows} rows")
+    ones = torch.ones(pr.n_links, dtype=torch.float64, device=pr.device)
+    ident = torch.zeros((pr.n_tiles, 3, 4), dtype=torch.float64,
+                        device=pr.device)
+    ident[:, :, :3] = torch.eye(3, dtype=torch.float64, device=pr.device)
+    num, den = R.relax_error(pr, ident, ones)
+    pre = float(num.sum() / den.sum())
+    err = run.result.error
+    check(err < 5.0 and err < pre,
+          f"7c: final error {err:.6f} px after {out.iterations} iterations "
+          f"< --maxError 5 and < the pre-solve {pre:.6f} px (noise floor "
+          "~0.23 px)")
+    # kernels against twins, capped at 100 iterations
+    a100 = list(args)
+    a100[7] = 100
+    torch.cuda.synchronize() if pr.device.type == "cuda" else None
+    t0 = time.perf_counter()
+    got = R.relax_on_device(*a100)
+    k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = R.relax_plain(*a100)
+    p_s = time.perf_counter() - t0
+    check_relax_close(got, ref, "7c at --maxIterations 100")
+    print(f"  [solver 7c] {card}: 100 iterations kernels {k_s * 10:.3f} "
+          f"ms/iteration (host clock, with the link errors), twin "
+          f"{p_s * 10:.3f} ms/iteration", flush=True)
+    tiles, links = assembled[0]
+    p10 = dataclasses.replace(run.params, backend="numpy", max_iterations=10)
+    t0 = time.perf_counter()
+    r10 = S._relax_numpy(links, tiles, S.pick_fixed(tiles, p10), p10)
+    print(f"  [solver 7c] host: --solverBackend numpy {r10.iterations} "
+          f"iterations in {r10.timings['relax']:.3f}s -> "
+          f"{r10.timings['relax'] / max(r10.iterations, 1) * 1e3:.1f} "
+          f"ms/iteration (wall {time.perf_counter() - t0:.3f}s)", flush=True)
+    return calls
+
+
+def phase7_solver(work, scale, proj_a, dev, card, launches):
+    """Phase 7: the solver; returns K11-K14's results at 7c's shape."""
+    print("phase 7 (solver)", flush=True)
+    phase7a(proj_a, scale, dev, card, launches)
+    calls_b = phase7b(work, scale, dev, card, launches)
+    calls_c = phase7c(work, scale, dev, card, launches)
+    a, _k, _o = calls_b[0]
+    relax_kernel_times(a[0], a, "7b's shape", card)
+    a, _k, _o = calls_c[0]
+    return relax_kernel_times(a[0], a, "7c's shape", card)
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-6 through the CLI entry functions; returns route A's XML
-    and container paths."""
+    """Phases 2-7 through the CLI entry functions; returns route A's XML
+    and container paths and phase 7's kernel results."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
     route_d(work, scale, dev, card, launches, a)
     phase6_stitching(a[0], proj_c, dev, card, launches)
-    return a[0].xml_path, a[1]
+    relax = phase7_solver(work, scale, a[0], dev, card, launches)
+    return a[0].xml_path, a[1], relax
 
 
 # ---------------------------------------------------------------- main
@@ -1257,7 +1666,7 @@ def main(argv=None) -> int:
             print("rehearsal on the CPU: plain twins, no kernels", flush=True)
             phase1_kernels(cpu, args.scale, "cpu")
             composite_at_route_a(*main_path(work, args.scale, cpu, "cpu",
-                                            launches), cpu)
+                                            launches)[:2], cpu)
             print("rehearsal finished; no result on the CPU", file=sys.stderr)
             return 3
         dev = torch.device("cuda", 0)
@@ -1274,9 +1683,10 @@ def main(argv=None) -> int:
         print(f"phase 1: kernels vs plain twins [{card}]", flush=True)
         res = phase1_kernels(dev, args.scale, card)
 
-        route = main_path(work, args.scale, dev, card, launches)
-        print(f"main path launches (routes A-D, stitching): {launches}",
-              flush=True)
+        *route, relax = main_path(work, args.scale, dev, card, launches)
+        res.update(relax)
+        print(f"main path launches (routes A-D, stitching, solver): "
+              f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
         block = res["composite_fuse"]

@@ -3,7 +3,7 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the four JAX click
+* The port's argparse accepts every option spelling of the five JAX click
   commands it ports; the options not yet ported are refused with a pointer
   to ROADMAP.md instead of doing something else.
 """
@@ -20,6 +20,7 @@ from bigstitcher_spark_tpu.cli.fusion_tools import (
     create_fusion_container_cmd as jax_create_container,
 )
 from bigstitcher_spark_tpu.cli.resave_tools import downsample_cmd as jax_downsample
+from bigstitcher_spark_tpu.cli.solver_tools import solver_cmd as jax_solver
 from bigstitcher_spark_tpu.cli.stitching_tools import (
     stitching_cmd as jax_stitching,
 )
@@ -82,6 +83,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         stitch_all_pairs(None, None, [])
     assert tool_parser("stitching").parse_args(["-x", "x"]).device == "cuda"
+    assert tool_parser("solver").parse_args(
+        ["-x", "x", "-s", "IP"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_main(["solver", "-x", str(tmp_path / "missing.xml"), "-s",
+                    "STITCHING"])
 
 
 def _click_spellings(cmd):
@@ -96,6 +102,7 @@ def _click_spellings(cmd):
     ("affine-fusion", jax_affine_fusion),
     ("downsample", jax_downsample),
     ("stitching", jax_stitching),
+    ("solver", jax_solver),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -117,6 +124,7 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("downsample", ["--telemetry-dir", "t"], "--telemetry-dir"),
     ("stitching", ["--profile"], "--profile"),
     ("stitching", ["--s3Region", "us-east-1"], "--s3Region"),
+    ("solver", ["--trace"], "--trace"),
 ])
 def test_not_yet_ported_options_are_refused(tool, args, what):
     base = {"create-fusion-container": ["-x", "unused.xml", "-o",
@@ -124,6 +132,7 @@ def test_not_yet_ported_options_are_refused(tool, args, what):
             "affine-fusion": ["-o", "unused.zarr"],
             "downsample": ["-i", "unused.n5", "-di", "s0", "-ds", "2,2,1"],
             "stitching": ["-x", "unused.xml"],
+            "solver": ["-x", "unused.xml", "-s", "IP"],
             }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])

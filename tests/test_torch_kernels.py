@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K10) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K14) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -14,7 +14,14 @@ its outputs must be bitwise equal. K7 (window) and K9 (cross power):
 rtol 1e-5 / atol 1e-6 (the same float32 operations in the same order; the
 mean's float64 sum is taken in another order). K8 (FFT) against
 torch.fft: max|delta| <= 2e-5 x max|X| per pair (float32 round-off grows
-with log2 N). K10 (top-k): indices equal.
+with log2 N). K10 (top-k): indices equal. K11-K14 (relax, float64):
+each stage within rtol 1e-10 / atol 1e-12 of its twin on the same inputs
+(sums in another order, another 3x3 SVD and 4x4 solve), the rtol taken
+against the magnitude of the terms summed (``ops.solve.moment_scale``,
+``fit_scale``) where they cancel: K11's moments about a tile's origin and
+K12's world-frame translations; whole relaxations under the
+JAX package's device-vs-numpy contract (iterations equal, history rtol 1e-9
+/ atol 1e-9, models and link errors rtol 1e-7 / atol 1e-9).
 """
 
 import numpy as np
@@ -25,6 +32,7 @@ from bigstitcher_spark_tpu_torch import ops
 from bigstitcher_spark_tpu_torch.ops import downsample as D
 from bigstitcher_spark_tpu_torch.ops import fusion as F
 from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+from bigstitcher_spark_tpu_torch.ops import solve as R
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +350,182 @@ def test_pcm_peaks_batch_kernels(dev):
                 abs(vg), abs(vr))
     assert counts["pcm_window"] == 2 and counts["fft_pow2"] == 9
     assert counts["pcm_cross_power"] == 1 and counts["pcm_peaks_topk"] == 1
+
+
+# ---------------------------------------------------------------- K11-K14
+
+
+def _relax_graph(tmp_path, per_pair, grid=(3, 3, 2), seed=31):
+    """An interest-point graph with rigid truth: (tiles, links, rows)."""
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import solver as S
+    from bigstitcher_spark_tpu_torch.utils.solverdata import make_ip_grid
+
+    ip = make_ip_grid(str(tmp_path / "ip"), grid=grid, tile=(400, 400, 100),
+                      n_per_pair=per_pair, max_deg=1.0, seed=seed)
+    sd = SpimData.load(ip.xml_path)
+    tiles = S.build_tiles(sd, sd.view_ids(), S.SolverParams(source="IP"))
+    links = S.matches_from_interest_points(
+        sd, tiles, InterestPointStore.for_project(sd), ["beads"],
+        verbose=False)
+    index = {k: i for i, k in enumerate(tiles)}
+    rows = [(index[lk.key_a], index[lk.key_b], lk.p, lk.q, lk.w)
+            for lk in links]
+    return tiles, links, rows
+
+
+def _relax_state(rows, T, dev, seed):
+    rng = np.random.default_rng(seed)
+    pr = R.prepare_relax(rows, T, dev)
+    cur = np.eye(3, 4)[None].repeat(T, 0) + rng.normal(0, 1e-3, (T, 3, 4))
+    cur[:, :, 3] = rng.uniform(-5, 5, (T, 3))
+    mask = np.ones(len(rows))
+    mask[1] = 0.0
+    return (pr, torch.from_numpy(cur).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def _close(got, ref, rtol=1e-10, atol=1e-12):
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+
+
+def _close_scaled(got, ref, scale, rtol=1e-10, atol=1e-12):
+    """|got - ref| <= atol + rtol * scale elementwise, ``scale`` the sum of
+    the absolute values of the terms behind each entry."""
+    bad = (got - ref).abs() > atol + rtol * scale
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} entries off; max |delta| / scale "
+        f"{float(((got - ref).abs() / scale.clamp(min=1e-300)).max()):.3g}")
+
+
+@pytest.mark.parametrize("per_pair", [20, 3000], ids=["warp", "block"])
+def test_relax_moments_kernel(dev, tmp_path, per_pair):
+    _, _, rows = _relax_graph(tmp_path, per_pair)
+    pr, cur, lw = _relax_state(rows, 18, dev, 1)
+    assert pr.wpt_tile == (1 if per_pair == 20 else 8)
+    o = R.tile_origin(pr, lw)
+    _close_scaled(R.relax_moments(pr, cur, lw, o),
+                  R.relax_moments_plain(pr, cur, lw, o),
+                  R.moment_scale(pr, cur, lw, o))
+    done = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+    out = torch.full((18, R.N_MOMENTS), 7.0, dtype=torch.float64, device=dev)
+    R.relax_moments(pr, cur, lw, o, done, out=out)
+    assert bool((out == 7.0).all()), "a kernel launched after done returns"
+
+
+@pytest.mark.parametrize("model,reg", [
+    ("TRANSLATION", "NONE"), ("RIGID", "NONE"), ("AFFINE", "NONE"),
+    ("AFFINE", "RIGID"), ("RIGID", "TRANSLATION"), ("TRANSLATION", "IDENTITY"),
+])
+def test_relax_fit_kernel(dev, tmp_path, model, reg):
+    _, _, rows = _relax_graph(tmp_path, 40)
+    pr, cur, lw = _relax_state(rows, 18, dev, 2)
+    o = R.tile_origin(pr, lw)
+    mom = R.relax_moments_plain(pr, cur, lw, o)
+    mom[3] = 0.0  # a tile without matches keeps identity
+    fixed = torch.zeros(18, dtype=torch.uint8, device=dev)
+    fixed[0] = 1
+    got = R.relax_fit(mom, fixed, o, model, reg, 0.1, 0.7, None, cur.clone())
+    ref = R.relax_fit_plain(mom, fixed, o, model, reg, 0.1, 0.7, None,
+                            cur.clone())
+    _close_scaled(got, ref, R.fit_scale(ref, o))
+
+
+def test_relax_fit_rigid_reflection_kernel(dev):
+    """Point sets whose best orthogonal map is a reflection: the kernel's
+    sorted SVD flips the smallest singular direction, as LAPACK's order
+    makes the JAX code do."""
+    rng = np.random.default_rng(33)
+    T = 64
+    mom = np.zeros((T, R.N_MOMENTS))
+    for t in range(T):
+        p = rng.uniform(0, 100, (30, 3)) * rng.uniform(0.05, 1.0, 3)
+        refl = np.diag([1.0, 1.0, -1.0]) if t % 2 else np.eye(3)
+        q = p @ (refl @ np.linalg.qr(rng.normal(size=(3, 3)))[0]).T
+        q = q + rng.normal(0, 0.5, q.shape)
+        ph = np.c_[p, np.ones(30)]
+        mom[t, 0] = 30
+        mom[t, 1:5] = ph.sum(0)
+        mom[t, 5:8] = q.sum(0)
+        mom[t, 8:24] = (ph.T @ ph).ravel()
+        mom[t, 24:36] = (ph.T @ q).ravel()
+    mom = torch.from_numpy(mom).to(dev)
+    fixed = torch.zeros(T, dtype=torch.uint8, device=dev)
+    cur = torch.zeros((T, 3, 4), dtype=torch.float64, device=dev)
+    origin = torch.zeros((T, 3), dtype=torch.float64, device=dev)
+    got = R.relax_fit(mom, fixed, origin, "RIGID", "NONE", 0.0, 1.0, None,
+                      cur.clone())
+    ref = R.relax_fit_plain(mom, fixed, origin, "RIGID", "NONE", 0.0, 1.0,
+                            None, cur.clone())
+    _close(got, ref, rtol=1e-9, atol=1e-9)
+    det = torch.linalg.det(got[:, :, :3])
+    _close(det, torch.ones_like(det), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("per_pair", [20, 3000], ids=["warp", "block"])
+def test_relax_error_kernel(dev, tmp_path, per_pair):
+    _, _, rows = _relax_graph(tmp_path, per_pair)
+    pr, cur, lw = _relax_state(rows, 18, dev, 3)
+    for by_link in (False, True):
+        got = R.relax_error(pr, cur, lw, None, by_link)
+        ref = R.relax_error_plain(pr, cur, lw, None, by_link)
+        _close(got[0], ref[0])
+        _close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("case", ["stall", "plateau", "cap"])
+def test_relax_converge_kernel(dev, case):
+    k = np.arange(400, dtype=np.float64)
+    errs = {"stall": np.minimum(10.0 / (1 + k), 10.0 / 41),
+            "plateau": 1.0 + 0.5 * np.exp(-k / 10.0),
+            "cap": 3.0 + 1e-3 * np.cos(k) - 1e-4 * k}[case]
+    T, pw, cap = 300, 20, 250
+    rng = np.random.default_rng(34)
+    share = rng.uniform(0.1, 1.0, T)
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        hist = torch.zeros(cap, dtype=torch.float64, device=d)
+        state = torch.zeros(4, dtype=torch.int32, device=d)
+        for e in errs:
+            num = torch.from_numpy(share * e).to(d)
+            den = torch.from_numpy(share.copy()).to(d)
+            R.relax_converge(num, den, hist, state, pw, 5.0, cap)
+        sides.append((state.cpu(), hist.cpu()))
+    (s_dev, h_dev), (s_cpu, h_cpu) = sides
+    assert torch.equal(s_dev, s_cpu) and int(s_dev[2]) == 1
+    _close(h_dev, h_cpu)
+
+
+@pytest.mark.parametrize("model,reg", [
+    ("TRANSLATION", "NONE"), ("AFFINE", "RIGID"), ("RIGID", "TRANSLATION"),
+])
+def test_relax_on_device_matches_plain(dev, tmp_path, model, reg):
+    tiles, links, rows = _relax_graph(tmp_path, 60)
+    T = len(tiles)
+    pr = R.prepare_relax(rows, T, dev)
+    fixed = np.zeros(T, bool)
+    fixed[0] = True
+    warm = np.random.default_rng(35).uniform(-2, 2, (T, 3))
+    warm[0] = 0.0
+    mask = np.ones(len(rows))
+    mask[2] = 0.0
+    args = (pr, mask, fixed, warm, 0.1, 1.0, 5.0, 300, model, reg, 40)
+    ops.reset_launch_counts()
+    got = R.relax_on_device(*args)
+    counts = ops.launch_counts()
+    ref = R.relax_plain(*args)
+    assert got.iterations == ref.iterations > 0
+    np.testing.assert_allclose(got.history, ref.history, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got.models, ref.models, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(got.link_errors, ref.link_errors, rtol=1e-7,
+                               atol=1e-9)
+    # chunks of 8, 16, 32, ... iterations; the last chunk may run past done
+    assert counts["relax_converge"] >= got.iterations
+    assert counts["relax_moments"] == counts["relax_fit"] == \
+        counts["relax_converge"] == counts["relax_error"] - 1
+    # a rerun repeats bit for bit (no atomics)
+    again = R.relax_on_device(*args)
+    assert np.array_equal(again.models, got.models)
+    assert np.array_equal(again.history, got.history)
