@@ -10,7 +10,13 @@ import argparse
 import sys
 
 from .. import NotYetPorted
-from . import fusion_tools, resave_tools, solver_tools, stitching_tools
+from . import (
+    detection_tools,
+    fusion_tools,
+    resave_tools,
+    solver_tools,
+    stitching_tools,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -23,6 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     resave_tools.add_downsample(sub)
     stitching_tools.add_stitching(sub)
     solver_tools.add_solver(sub)
+    detection_tools.add_detect_interestpoints(sub)
     return parser
 
 

@@ -1,0 +1,455 @@
+// K15-K18: the DoG detection program dog_block_topk_batch
+// (bigstitcher_spark_tpu/ops/dog.py:374, one vmapped dog_block_topk_impl
+// :323 per block) and the dense dog_block / dog_block_batch (:164, :235),
+// over a batch of B blocks (X, Y, Z), z contiguous, float32. K6
+// (downsample.cu) does the residual pooling before K15 when rel != 1.
+// Every float op is rounded on its own (-fmad=false): the plain twins in
+// ops/dog.py repeat the same operations in the same order, so kernel and
+// twin agree bit for bit.
+//
+// K15 dog_blur (_blur_separable :61): one 1-D pass of a normalised
+//   Gaussian of 2r+1 taps along one axis, the index mirrored as np.pad's
+//   "reflect" (i < 0 -> -i, i >= n -> 2n-2-i, repeated while out of
+//   range); acc = w[0] x[i-r], then acc = acc + w[q] x[i-r+q] for q = 1..2r.
+//   Reads uint8, uint16, int16 or float32, writes float32. A block's
+//   threads run along z and cover one (b, x) row of Y*Z outputs, so every
+//   tap's reads are coalesced; the 2r other rows a tap touches come from
+//   L2. Six passes make the two blurs. Bound: bytes (each pass reads the
+//   input once and writes the output once).
+//
+// K16 dog_extrema (dog_block :184-217, the halo core :344-352, count
+//   :361): pass 1 dog = (b1 - b2) * scale[b] (scale = (1/(k-1)) * the
+//   gated 1/(max-min), computed by the wrapper). Pass 2, per voxel: the
+//   tie-break hash of its absolute coordinates (uint32 arithmetic, the
+//   low 10 bits of JAX's wrapping int32 hash) times 2^-30; a maximum when
+//   dog > threshold and dog + tb >= every neighbour's dog + tb of the 3x3x3
+//   window inside the block (the -inf padding), a minimum when dog <
+//   -threshold and dog - tb <= every neighbour's. Only voxels past the
+//   threshold read their window. A voxel that is an extremum inside the
+//   halo core is either written to the dense mask, or appended to the
+//   block's candidate list (flat index, |dog|) through an atomic counter,
+//   whose final value is the exact count; the list holds a whole block, so
+//   it never overflows, and its order is arbitrary. Bound: bytes (b1, b2
+//   read once, dog written once; the list is sparse).
+//
+// K17 dog_topk (lax.top_k :353-359): one thread block per batch entry
+//   keeps the K smallest 64-bit keys (~order(|dog|) << 32 | flat index:
+//   |dog| descending, then the lower index first, lax.top_k's order) of
+//   its candidate list: its first K slots hold the running best, the rest
+//   of a power-of-two buffer in shared memory takes the next chunk of the
+//   list, and a bitonic sort of the whole buffer follows, until the list
+//   is done. Any count is handled; the order of the list does not matter.
+//   Rows past the count are invalid and hold flat index 0. Bound: the
+//   list read once (launch latency in practice).
+//
+// K18 dog_localize (_localize_quadratic_device :259): one thread per
+//   candidate, up to 4 rounds: gradient and Hessian by central
+//   differences from 19 gathers (indices clipped as _gather3 does),
+//   LU with partial pivoting (the first largest |pivot|), det = the
+//   signed product of U's diagonal, and where |det| > 1e-12 the offset
+//   -H^-1 g clipped to [-1, 1]; an eligible candidate (active, 1 <= p <=
+//   dims-2) takes p + offset and c + g.offset / 2, and moves one voxel
+//   along each axis where |offset| > 0.5 for the next round. Invalid rows
+//   give sub 0 and val 0. Bound: launch latency (19 gathers a round).
+#include "fusion_common.cuh"
+
+namespace {
+
+constexpr int kTopkThreads = 1024;
+
+__device__ __forceinline__ int reflect(int i, int n) {
+  if (n == 1) return 0;
+  while (i < 0 || i >= n) {
+    if (i < 0) i = -i;
+    if (i >= n) i = 2 * n - 2 - i;
+  }
+  return i;
+}
+
+// ----------------------------------------------------------------- K15
+
+template <typename T>
+__global__ void blur_kernel(const T* __restrict__ x, int X, int Y, int Z,
+                            int axis, const float* __restrict__ taps, int r,
+                            float* __restrict__ out) {
+  const int yz = Y * Z;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= yz) return;
+  const int i = blockIdx.y, b = blockIdx.z;
+  const int j = t / Z, k = t - j * Z;
+  const int64_t vol = static_cast<int64_t>(X) * yz;
+  const T* src = x + b * vol;
+  int c, n;
+  int64_t stride, base;
+  if (axis == 0) {
+    c = i; n = X; stride = yz; base = t;
+  } else if (axis == 1) {
+    c = j; n = Y; stride = Z; base = static_cast<int64_t>(i) * yz + k;
+  } else {
+    c = k; n = Z; stride = 1;
+    base = static_cast<int64_t>(i) * yz + static_cast<int64_t>(j) * Z;
+  }
+  float acc = taps[0] * static_cast<float>(src[base + reflect(c - r, n) * stride]);
+  for (int q = 1; q <= 2 * r; ++q)
+    acc = acc + taps[q] * static_cast<float>(
+                              src[base + reflect(c - r + q, n) * stride]);
+  out[b * vol + static_cast<int64_t>(i) * yz + t] = acc;
+}
+
+template <typename T>
+void launch_blur(const void* x, int B, int X, int Y, int Z, int axis,
+                 const float* taps, int r, float* out, cudaStream_t s) {
+  const dim3 grid((Y * Z + bst::kThreads - 1) / bst::kThreads, X, B);
+  blur_kernel<T><<<grid, bst::kThreads, 0, s>>>(static_cast<const T*>(x), X,
+                                                 Y, Z, axis, taps, r, out);
+}
+
+// ----------------------------------------------------------------- K16
+
+__global__ void dog_kernel(const float* __restrict__ b1,
+                           const float* __restrict__ b2, int64_t vol,
+                           const float* __restrict__ scale,
+                           float* __restrict__ dog) {
+  const int b = blockIdx.y;
+  const float sc = scale[b];
+  const int64_t off = b * vol;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < vol; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    dog[off + e] = (b1[off + e] - b2[off + e]) * sc;
+}
+
+__device__ __forceinline__ float tiebreak(int ax, int ay, int az) {
+  const uint32_t h = static_cast<uint32_t>(ax) * 73856093u +
+                     static_cast<uint32_t>(ay) * 19349663u +
+                     static_cast<uint32_t>(az) * 83492791u;
+  return static_cast<float>(h & 1023u) * 9.313225746154785e-10f;  // 2^-30
+}
+
+// the 3x3x3 window of (i, j, k) inside the block: the largest (sign 1) or
+// smallest (sign -1) of dog + sign * tb
+__device__ __forceinline__ float window_extremum(const float* __restrict__ D,
+                                                 int X, int Y, int Z, int i,
+                                                 int j, int k, int ox, int oy,
+                                                 int oz, float sign) {
+  float best = sign > 0.0f ? -INFINITY : INFINITY;
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int xi = i + dx;
+    if (xi < 0 || xi >= X) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int yi = j + dy;
+      if (yi < 0 || yi >= Y) continue;
+      const float* row = D + (static_cast<int64_t>(xi) * Y + yi) * Z;
+      for (int dz = -1; dz <= 1; ++dz) {
+        const int zi = k + dz;
+        if (zi < 0 || zi >= Z) continue;
+        const float tb = tiebreak(ox + xi, oy + yi, oz + zi);
+        if (sign > 0.0f)
+          best = fmaxf(best, row[zi] + tb);
+        else
+          best = fminf(best, row[zi] - tb);
+      }
+    }
+  }
+  return best;
+}
+
+__global__ void extrema_kernel(const float* __restrict__ dog, int X, int Y,
+                               int Z, const float* __restrict__ thr,
+                               const int* __restrict__ origins, int find_max,
+                               int find_min, int halo,
+                               uint8_t* __restrict__ mask,
+                               int* __restrict__ cand_idx,
+                               float* __restrict__ cand_score,
+                               int* __restrict__ count) {
+  const int yz = Y * Z;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= yz) return;
+  const int i = blockIdx.y, b = blockIdx.z;
+  const int j = t / Z, k = t - j * Z;
+  const int64_t vol = static_cast<int64_t>(X) * yz;
+  const float* D = dog + b * vol;
+  const int flat = i * yz + t;
+  const float v = D[flat];
+  const float th = thr[b];
+  const int ox = origins[3 * b], oy = origins[3 * b + 1],
+            oz = origins[3 * b + 2];
+  bool m = false;
+  if (find_max && v > th) {
+    const float d = v + tiebreak(ox + i, oy + j, oz + k);
+    m = d >= window_extremum(D, X, Y, Z, i, j, k, ox, oy, oz, 1.0f);
+  }
+  if (!m && find_min && v < -th) {
+    const float d = v - tiebreak(ox + i, oy + j, oz + k);
+    m = d <= window_extremum(D, X, Y, Z, i, j, k, ox, oy, oz, -1.0f);
+  }
+  m = m && i >= halo && i < X - halo && j >= halo && j < Y - halo &&
+      k >= halo && k < Z - halo;
+  if (mask != nullptr) mask[b * vol + flat] = m ? 1 : 0;
+  if (m && cand_idx != nullptr) {
+    const int slot = atomicAdd(&count[b], 1);
+    cand_idx[b * vol + slot] = flat;
+    cand_score[b * vol + slot] = fabsf(v);
+  }
+}
+
+// ----------------------------------------------------------------- K17
+
+// order-preserving map of a float to 32 bits (-0 taken as +0), inverted so
+// that ascending keys run from the largest value down (pcm.cu's K10 key)
+__device__ __forceinline__ uint64_t topk_key(float v, uint32_t idx) {
+  if (v == 0.0f) v = 0.0f;
+  const uint32_t u = __float_as_uint(v);
+  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<uint64_t>(~ord) << 32) | idx;
+}
+
+__device__ void bitonic_sort(uint64_t* s, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t a = s[i], c = s[ixj];
+          if ((a > c) == ((i & k) == 0)) {
+            s[i] = c;
+            s[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void topk_kernel(const int* __restrict__ cand_idx,
+                            const float* __restrict__ cand_score,
+                            const int* __restrict__ count, int64_t cap,
+                            int K, int S, int Y, int Z,
+                            int* __restrict__ idx_out,
+                            uint8_t* __restrict__ valid_out) {
+  extern __shared__ uint64_t s[];
+  const int b = blockIdx.x;
+  const int64_t n = count[b] < cap ? count[b] : cap;
+  const int* ci = cand_idx + b * cap;
+  const float* cs = cand_score + b * cap;
+  for (int e = threadIdx.x; e < K; e += blockDim.x) s[e] = ~0ull;
+  __syncthreads();
+  const int room = S - K;
+  for (int64_t c0 = 0; c0 < n; c0 += room) {
+    for (int e = threadIdx.x; e < room; e += blockDim.x)
+      s[K + e] = c0 + e < n ? topk_key(cs[c0 + e],
+                                       static_cast<uint32_t>(ci[c0 + e]))
+                            : ~0ull;
+    __syncthreads();
+    bitonic_sort(s, S);
+  }
+  for (int e = threadIdx.x; e < K; e += blockDim.x) {
+    const uint64_t key = s[e];
+    const bool ok = key != ~0ull;
+    const int f = ok ? static_cast<int>(key & 0xffffffffu) : 0;
+    int* o = idx_out + (static_cast<int64_t>(b) * K + e) * 3;
+    o[0] = f / (Y * Z);
+    o[1] = (f / Z) % Y;
+    o[2] = f % Z;
+    valid_out[static_cast<int64_t>(b) * K + e] = ok ? 1 : 0;
+  }
+}
+
+// ----------------------------------------------------------------- K18
+
+__device__ __forceinline__ float gather3(const float* __restrict__ D, int X,
+                                         int Y, int Z, int x, int y, int z) {
+  x = min(max(x, 0), X - 1);
+  y = min(max(y, 0), Y - 1);
+  z = min(max(z, 0), Z - 1);
+  return D[(static_cast<int64_t>(x) * Y + y) * Z + z];
+}
+
+__global__ void localize_kernel(const float* __restrict__ dog, int B, int X,
+                                int Y, int Z, const int* __restrict__ idx,
+                                const uint8_t* __restrict__ valid, int K,
+                                float* __restrict__ sub,
+                                float* __restrict__ val) {
+  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (q >= static_cast<int64_t>(B) * K) return;
+  const int b = static_cast<int>(q / K);
+  const float* D = dog + b * static_cast<int64_t>(X) * Y * Z;
+  const int dims[3] = {X, Y, Z};
+  int p[3] = {idx[3 * q], idx[3 * q + 1], idx[3 * q + 2]};
+  float res[3] = {static_cast<float>(p[0]), static_cast<float>(p[1]),
+                  static_cast<float>(p[2])};
+  float value = gather3(D, X, Y, Z, p[0], p[1], p[2]);
+  bool active = valid[q] != 0;
+  for (int round = 0; round < 4 && active; ++round) {
+    bool ok = true;
+    for (int d = 0; d < 3; ++d) ok = ok && p[d] >= 1 && p[d] <= dims[d] - 2;
+    if (!ok) break;
+    const float c = gather3(D, X, Y, Z, p[0], p[1], p[2]);
+    float g[3], h[3][3];
+    for (int d = 0; d < 3; ++d) {
+      int u[3] = {p[0], p[1], p[2]}, w[3] = {p[0], p[1], p[2]};
+      u[d] += 1;
+      w[d] -= 1;
+      const float plus = gather3(D, X, Y, Z, u[0], u[1], u[2]);
+      const float minus = gather3(D, X, Y, Z, w[0], w[1], w[2]);
+      g[d] = 0.5f * (plus - minus);
+      h[d][d] = (plus - 2.0f * c) + minus;
+    }
+    for (int d = 0; d < 3; ++d) {
+      for (int e = d + 1; e < 3; ++e) {
+        int pp[3] = {p[0], p[1], p[2]}, pm[3] = {p[0], p[1], p[2]};
+        int mp[3] = {p[0], p[1], p[2]}, mm[3] = {p[0], p[1], p[2]};
+        pp[d] += 1; pp[e] += 1;
+        pm[d] += 1; pm[e] -= 1;
+        mp[d] -= 1; mp[e] += 1;
+        mm[d] -= 1; mm[e] -= 1;
+        const float v = 0.25f * (((gather3(D, X, Y, Z, pp[0], pp[1], pp[2]) -
+                                   gather3(D, X, Y, Z, pm[0], pm[1], pm[2])) -
+                                  gather3(D, X, Y, Z, mp[0], mp[1], mp[2])) +
+                                 gather3(D, X, Y, Z, mm[0], mm[1], mm[2]));
+        h[d][e] = v;
+        h[e][d] = v;
+      }
+    }
+    // LU with partial pivoting of h, the same row swaps applied to g
+    float a[3][3], y[3];
+    for (int r = 0; r < 3; ++r) {
+      y[r] = g[r];
+      for (int cc = 0; cc < 3; ++cc) a[r][cc] = h[r][cc];
+    }
+    float sgn = 1.0f;
+    for (int j = 0; j < 3; ++j) {
+      int piv = j;
+      float best = fabsf(a[j][j]);
+      for (int r = j + 1; r < 3; ++r) {
+        if (fabsf(a[r][j]) > best) {
+          best = fabsf(a[r][j]);
+          piv = r;
+        }
+      }
+      if (piv != j) {
+        for (int cc = 0; cc < 3; ++cc) {
+          const float tmp = a[j][cc];
+          a[j][cc] = a[piv][cc];
+          a[piv][cc] = tmp;
+        }
+        const float ty = y[j];
+        y[j] = y[piv];
+        y[piv] = ty;
+        sgn = -sgn;
+      }
+      for (int r = j + 1; r < 3; ++r) {
+        const float l = a[j][j] != 0.0f ? a[r][j] / a[j][j] : 0.0f;
+        a[r][j] = l;
+        for (int cc = j + 1; cc < 3; ++cc) a[r][cc] = a[r][cc] - l * a[j][cc];
+      }
+    }
+    const float det = ((a[0][0] * a[1][1]) * a[2][2]) * sgn;
+    const bool det_ok = fabsf(det) > 1e-12f;
+    float off[3] = {0.0f, 0.0f, 0.0f};
+    if (det_ok) {
+      y[1] = y[1] - a[1][0] * y[0];
+      y[2] = (y[2] - a[2][0] * y[0]) - a[2][1] * y[1];
+      const float x2 = y[2] / a[2][2];
+      const float x1 = (y[1] - a[1][2] * x2) / a[1][1];
+      const float x0 = ((y[0] - a[0][1] * x1) - a[0][2] * x2) / a[0][0];
+      off[0] = fminf(fmaxf(-x0, -1.0f), 1.0f);
+      off[1] = fminf(fmaxf(-x1, -1.0f), 1.0f);
+      off[2] = fminf(fmaxf(-x2, -1.0f), 1.0f);
+    }
+    for (int d = 0; d < 3; ++d) res[d] = static_cast<float>(p[d]) + off[d];
+    value = c + 0.5f * ((g[0] * off[0] + g[1] * off[1]) + g[2] * off[2]);
+    bool moved = false;
+    for (int d = 0; d < 3; ++d) moved = moved || fabsf(off[d]) > 0.5f;
+    active = moved && det_ok;
+    if (active)
+      for (int d = 0; d < 3; ++d)
+        if (fabsf(off[d]) > 0.5f) p[d] += off[d] > 0.0f ? 1 : -1;
+  }
+  const bool ok = valid[q] != 0;
+  for (int d = 0; d < 3; ++d) sub[3 * q + d] = ok ? res[d] : 0.0f;
+  val[q] = ok ? value : 0.0f;
+}
+
+}  // namespace
+
+extern "C" int bst_dog_blur(const void* x, int in_dtype, int B, int X, int Y,
+                            int Z, int axis, const float* taps, int r,
+                            float* out, void* stream) {
+  if (B < 1 || B > 65535 || X < 1 || X > 65535 || Y < 1 || Z < 1 ||
+      static_cast<int64_t>(Y) * Z > 2147483647LL || axis < 0 || axis > 2 ||
+      r < 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_dtype) {
+    case bst::IN_U8:
+      launch_blur<uint8_t>(x, B, X, Y, Z, axis, taps, r, out, s);
+      break;
+    case bst::IN_U16:
+      launch_blur<uint16_t>(x, B, X, Y, Z, axis, taps, r, out, s);
+      break;
+    case bst::IN_I16:
+      launch_blur<int16_t>(x, B, X, Y, Z, axis, taps, r, out, s);
+      break;
+    case bst::IN_F32:
+      launch_blur<float>(x, B, X, Y, Z, axis, taps, r, out, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_dog_extrema(const float* b1, const float* b2, int B, int X,
+                               int Y, int Z, const float* scale,
+                               const float* thr, const int* origins,
+                               int find_max, int find_min, int halo,
+                               float* dog, uint8_t* mask, int* cand_idx,
+                               float* cand_score, int* count, void* stream) {
+  const int64_t vol = static_cast<int64_t>(X) * Y * Z;
+  if (B < 1 || B > 65535 || X < 1 || X > 65535 || Y < 1 || Z < 1 ||
+      vol > 2147483647LL || halo < 0 ||
+      (cand_idx != nullptr && (cand_score == nullptr || count == nullptr)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t nb = (vol + bst::kThreads * 4 - 1) / (bst::kThreads * 4);
+  dog_kernel<<<dim3(static_cast<unsigned int>(nb < 4096 ? nb : 4096), B),
+               bst::kThreads, 0, s>>>(b1, b2, vol, scale, dog);
+  const dim3 grid((Y * Z + bst::kThreads - 1) / bst::kThreads, X, B);
+  extrema_kernel<<<grid, bst::kThreads, 0, s>>>(
+      dog, X, Y, Z, thr, origins, find_max, find_min, halo, mask, cand_idx,
+      cand_score, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_dog_topk(const int* cand_idx, const float* cand_score,
+                            const int* count, int B, int X, int Y, int Z,
+                            int K, int S, int* idx_out, uint8_t* valid_out,
+                            void* stream) {
+  const int64_t vol = static_cast<int64_t>(X) * Y * Z;
+  if (B < 1 || B > 65535 || X < 1 || Y < 1 || Z < 1 || vol > 2147483647LL ||
+      K < 1 || K > vol || S < 2 * K || (S & (S - 1)) != 0 || S > 16384)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(S) * sizeof(uint64_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  topk_kernel<<<B, kTopkThreads, smem, s>>>(cand_idx, cand_score, count, vol,
+                                            K, S, Y, Z, idx_out, valid_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bst_dog_localize(const float* dog, int B, int X, int Y, int Z,
+                                const int* idx, const uint8_t* valid, int K,
+                                float* sub, float* val, void* stream) {
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || K < 1 ||
+      static_cast<int64_t>(X) * Y * Z > 2147483647LL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(B) * K;
+  localize_kernel<<<static_cast<unsigned int>((n + 127) / 128), 128, 0, s>>>(
+      dog, B, X, Y, Z, idx, valid, K, sub, val);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -92,6 +92,9 @@ class ViewLoader:
             ]
         return self._factors_cache[setup]
 
+    def num_levels(self, setup: int) -> int:
+        return len(self.downsampling_factors(setup))
+
     def open(self, view: ViewId, level: int = 0) -> Dataset:
         key = (view.setup, view.timepoint, level)
         if key not in self._cache:

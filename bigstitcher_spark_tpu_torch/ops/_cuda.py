@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
-           "pcm", "fft", "solve")
+           "pcm", "fft", "solve", "dog")
 HEADERS = ("fusion_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -85,6 +85,13 @@ _SIGNATURES = {
         "bst_relax_fit": [_VP, _VP, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP],
         "bst_relax_error": [_VP] * 9 + [_I, _I] + [_VP] * 5,
         "bst_relax_converge": [_VP, _VP, _I, _VP, _I, _D, _I, _VP, _VP],
+    },
+    "dog": {
+        "bst_dog_blur": [_VP] + [_I] * 6 + [_VP, _I, _VP, _VP],
+        "bst_dog_extrema": [_VP, _VP] + [_I] * 4 + [_VP] * 3 + [_I] * 3
+                           + [_VP] * 6,
+        "bst_dog_topk": [_VP] * 3 + [_I] * 6 + [_VP] * 3,
+        "bst_dog_localize": [_VP] + [_I] * 4 + [_VP, _VP, _I, _VP, _VP, _VP],
     },
 }
 

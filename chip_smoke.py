@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all nine at once).
+         kernels from csrc/ (one nvcc per source, all ten at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -87,6 +87,30 @@ Phase 7  the solver through the port's CLI entry function. 7a: solver -s
          rtol of the terms' magnitude where sums cancel), timed with CUDA
          events; each cell's wall split (match assembly, warm start,
          relax, store) and row-iterations/s.
+Phase 8  detect-interestpoints through the port's CLI entry function on
+         copies of route A's XML (4 views of 1024x1024x128 uint16, 400
+         beads a tile, level 0 only). 8a, the reference defaults -l beads
+         -s 1.8 -t 0.008 -dsxy 2 -dsz 1: rel (2,2,1), so K6 pools each
+         1056x1056x144 raw block (core 512x512x128, halo 8) on the card,
+         batches of 2. 8b, -dsxy 1 -dsz 1: 16 uint16 blocks whose halos
+         cross block boundaries, no K6. 8c, 8a with --overlappingOnly and
+         --blockSize 192,192,128 (at the default block each view's overlap
+         region is one block): uneven edge blocks, several buckets. A spy keeps the first batch
+         of every bucket, and there K6 and each of K15's six blur passes
+         must equal their twins bitwise, K16's response bitwise with equal
+         candidate sets and counts, K17's indices and flags equal to its
+         twin's and its index set equal to torch.topk's on the dense score,
+         K18 within 1e-5 px / rtol 1e-6, and the run's outputs equal the
+         twins' program. Gates from the reference's own tests: at 8b each
+         view detects at least 0.7 of the true beads 6 px inside it, and
+         more than 0.8 of those have a detection within 1 px; more than
+         0.7 of 8a's points lie within 1.5 px of an 8b point; every 8c
+         point lies in an overlap box; interestpoints.n5 read back equals
+         each run's points and the XML registers the label. Each run
+         prints its wall, det-res voxels/s (core voxels over the wall, host
+         IO included) and the split (min/max, read, H2D, kernels by CUDA
+         events, D2H, host tail, store). K15-K18 are timed at 8a's bucket
+         beside their bounds, K17 beside torch.topk on the dense score.
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -94,13 +118,14 @@ H2D, kernel, D2H and write times and the fused voxels/s (and the rate
 counting pyramid voxels, apart) are printed beside the card's name and
 power limit. Each route runs with every launch count set to 0 just before
 it and read just after it: a kernel of that route launched no time fails
-the run (phases 6 and 7 count each stitching and solver run so). K1 then runs again, timed and held against its twin, on route A's
+the run (phases 6, 7 and 8 count each stitching, solver and detection
+run so). K1 then runs again, timed and held against its twin, on route A's
 whole volume: the one shape the main path gives it. The second-to-last line
 of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-7 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-8 on the CPU with the
 plain twins (no kernels, no timings); it then exits 3 without a result.
 """
 
@@ -138,6 +163,10 @@ KERNELS = {
     "relax_fit": ("solve.cu", "ops/solve.py:308"),
     "relax_error": ("solve.cu", "ops/solve.py:308"),
     "relax_converge": ("solve.cu", "ops/solve.py:308"),
+    "dog_blur": ("dog.cu", "ops/dog.py:61"),
+    "dog_extrema": ("dog.cu", "ops/dog.py:164"),
+    "dog_topk": ("dog.cu", "ops/dog.py:353"),
+    "dog_localize": ("dog.cu", "ops/dog.py:259"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -153,14 +182,17 @@ KERNELS = {
 # 36 for the damped update; the rigid fit counts 6 Jacobi sweeps of 3
 # rotations (~40 each) and the rest of the Kabsch fit, the affine one the
 # 4x4 elimination with 3 right-hand sides and the back substitution. K14:
-# two sums per tile.
+# two sums per tile. K16: an add and a max per neighbour of the 27-voxel
+# window of each voxel past the threshold; K18: per round of a candidate
+# ~90 (gradient, Hessian, the pivoted 3x3 LU and solve, clip, value).
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
        "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
        "topk": 27, "relax_moments": 87, "relax_error": 42,
        "relax_converge": 2,
        "fit": {"IDENTITY": 0, "TRANSLATION": 6, "AFFINE": 110,
-               "RIGID": 900, "NONE": 0}, "fit_blend": 72}
+               "RIGID": 900, "NONE": 0}, "fit_blend": 72,
+       "dog_window": 54, "dog_fit": 90}
 # bytes a relax row holds: p, q (2 x 24), other, link_id (2 x 4), w (8)
 RELAX_ROW_BYTES = 64
 
@@ -171,7 +203,8 @@ SCALES = {
                  sep_patch=(288, 288, 128), levels_a=5,
                  batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128),
                  grid_g=(32, 32, 4), grid_bad=8, ip_grid=(16, 16, 2),
-                 ip_pairs=500, solve_tile=(2048, 2048, 512)),
+                 ip_pairs=500, solve_tile=(2048, 2048, 512), det_block=None,
+                 det_block_c=(192, 192, 128)),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=24, block=(32, 32, 16),
                  rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
@@ -179,7 +212,8 @@ SCALES = {
                  sep_patch=(96, 96, 24), levels_a=2,
                  batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32),
                  grid_g=(8, 8, 2), grid_bad=2, ip_grid=(3, 3, 2),
-                 ip_pairs=30, solve_tile=(256, 256, 64)),
+                 ip_pairs=30, solve_tile=(256, 256, 64),
+                 det_block=(32, 32, 16), det_block_c=(32, 32, 16)),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
@@ -194,11 +228,14 @@ ROUTE_KERNELS = {
 PCM_KERNELS = ("pcm_window", "fft_pow2", "pcm_cross_power", "pcm_peaks_topk")
 RELAX_KERNELS = ("relax_moments", "relax_fit", "relax_error",
                  "relax_converge")
+DET_KERNELS = ("dog_blur", "dog_extrema", "dog_topk", "dog_localize")
 ROUTE_KERNELS.update({
     "S 2,2,1": PCM_KERNELS + ("downsample_batch",),
     "S 1,1,1": PCM_KERNELS,
     "S rendered": PCM_KERNELS + ("fuse_block",),
     "7a": RELAX_KERNELS, "7b": RELAX_KERNELS, "7c": RELAX_KERNELS,
+    "8a": DET_KERNELS + ("downsample_batch",), "8b": DET_KERNELS,
+    "8c": DET_KERNELS + ("downsample_batch",),
 })
 
 
@@ -1620,16 +1657,320 @@ def phase7_solver(work, scale, proj_a, dev, card, launches):
     return relax_kernel_times(a[0], a, "7c's shape", card)
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def check_det_bucket(what, rec, dev):
+    """K6 and K15-K18 against their twins, run on the card from one batch
+    the detection run sent: K6 and each of the six blur passes bitwise,
+    K16's response bitwise with equal candidate sets and counts, K17's
+    indices and flags equal to its twin's from the same candidates and its
+    index set equal to torch.topk's on the dense score (unless the K-th
+    score is tied), K18 within 1e-5 px / rtol 1e-6 of its twin, and the
+    whole program against the twins' program. Returns max |delta| per
+    kernel."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
+
+    (x, lo, hi, thr, org, sigma, fmax, fmin, k, halo, rel), outs = rec
+    err = {}
+    if any(int(r) != 1 for r in rel):
+        xp = D.downsample_batch(x, rel)
+        check(torch.equal(xp, D.downsample_block_plain(x, rel)),
+              f"{what}: K6 pooling bitwise equal to its twin")
+    else:
+        xp = x
+    blurs, e = [], 0.0
+    for s in (sigma, sigma * G.DOG_K):
+        taps, b = G.gaussian_kernel_1d(s), xp
+        for ax in range(3):
+            nb = G.dog_blur(b, taps, ax)
+            e = max(e, max_abs(nb, G.blur_plain(b, taps, ax)))
+            b = nb
+        blurs.append(b)
+    err["dog_blur"] = e
+    check(e == 0.0, f"{what}: K15's six passes bitwise equal to the twin")
+    b1, b2 = blurs
+    scale = G.dog_scale(lo, hi)
+    args = (b1, b2, scale, thr, org, fmax, fmin, halo, True)
+    dog, ci, cs, cnt = G.dog_extrema(*args)
+    pdog, pci, pcs, pcnt = G.extrema_plain(*args)
+    err["dog_extrema"] = max_abs(dog, pdog)
+    same = torch.equal(cnt, pcnt)
+    for b, n in enumerate(cnt.tolist()):
+        if same:
+            o = torch.argsort(ci[b, :n])
+            same = (torch.equal(ci[b, :n][o], pci[b, :n])
+                    and torch.equal(cs[b, :n][o], pcs[b, :n]))
+    check(err["dog_extrema"] == 0.0 and same,
+          f"{what}: K16 response bitwise, candidate sets and counts "
+          f"{cnt.tolist()} equal to the twin's")
+    shape = tuple(int(s) for s in dog.shape[1:])
+    idx, valid = G.dog_topk(ci, cs, cnt, k, shape)
+    pidx, pvalid = G.topk_plain(ci, cs, cnt, k, shape)
+    check(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
+          f"{what}: K17 indices and flags equal to the twin's (k={k})")
+    err["dog_topk"] = float((idx != pidx).sum() + (valid != pvalid).sum())
+    _d, mask = G.extrema_plain(*args[:-1], False)
+    score = torch.where(mask, dog.abs(), -np.inf).reshape(dog.shape[0], -1)
+    del _d, mask
+    top = torch.topk(score, min(k + 1, score.shape[1]), dim=1)
+    for b in range(dog.shape[0]):
+        n = int(cnt[b])
+        if n > k and float(top.values[b, k - 1]) == float(top.values[b, k]):
+            print(f"  {what} block {b}: the K-th score is tied; torch.topk "
+                  "may keep another of the tied", flush=True)
+            continue
+        f = (idx[b, :, 0].long() * shape[1] + idx[b, :, 1]) * shape[2] \
+            + idx[b, :, 2]
+        lib = top.indices[b, :k][top.values[b, :k] > -np.inf]
+        check(set(f[valid[b]].tolist()) == set(lib.tolist()),
+              f"{what} block {b}: K17's index set equals torch.topk's on the "
+              f"dense score ({min(n, k)} of {n})")
+    del score, top
+    sub, val = G.dog_localize(dog, idx, valid)
+    psub, pval = G.localize_plain(dog, idx, valid)
+    err["dog_localize"] = max_abs(sub, psub)
+    torch.testing.assert_close(sub, psub, rtol=0, atol=1e-5)
+    torch.testing.assert_close(val, pval, rtol=1e-6, atol=0)
+    check(True, f"{what}: K18 sub within {err['dog_localize']:.3g} <= 1e-5 "
+                "px, val within rtol 1e-6 of the twin")
+    ref = G.dog_block_topk_batch(x, lo, hi, thr, org, sigma, fmax, fmin, k,
+                                 halo, rel, stages=G.PLAIN)
+    check(torch.equal(outs[4], ref[4]) and torch.equal(outs[0], ref[0])
+          and torch.equal(outs[3], ref[3]),
+          f"{what}: the run's candidates, flags and counts equal the twins' "
+          "program on the same batch")
+    torch.testing.assert_close(outs[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(outs[2], ref[2], rtol=1e-6, atol=0)
+    return err
+
+
+def det_kernel_times(rec, card):
+    """K15-K18 alone at one recorded batch (8a's bucket), timed with CUDA
+    events beside their twins, their bounds and, for K17, torch.topk on the
+    dense score (the library yardstick, used nowhere in the port)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
+
+    (x, lo, hi, thr, org, sigma, fmax, fmin, k, halo, rel), _outs = rec
+    xp = D.downsample_batch(x, rel) if any(r != 1 for r in rel) else x
+    B = int(xp.shape[0])
+    n = int(xp[0].numel())
+    blurs = lambda st: G._blurs(st, xp, sigma)
+    b1, b2 = blurs(G.KERNELS)
+    scale = G.dog_scale(lo, hi)
+    args = (b1, b2, scale, thr, org, fmax, fmin, halo, True)
+    dog, ci, cs, cnt = G.dog_extrema(*args)
+    shape = tuple(int(s) for s in dog.shape[1:])
+    idx, valid = G.dog_topk(ci, cs, cnt, k, shape)
+    cand = int(cnt.sum())
+    nvalid = int(valid.sum())
+    t = thr.view(B, 1, 1, 1)
+    past = (int((dog > t).sum()) if fmax else 0) + (
+        int((dog < -t).sum()) if fmin else 0)
+    _d, mask = G.extrema_plain(*args[:-1], False)
+    score = torch.where(mask, dog.abs(), -np.inf).reshape(B, -1)
+    del _d, mask
+    res = {}
+    # K15: six passes, each reads its input (float32 here) and writes float32
+    res["dog_blur"] = dict(
+        ms=time_ms(lambda: blurs(G.KERNELS), reps=5),
+        plain_ms=time_ms(lambda: blurs(G.PLAIN), reps=2), library_ms=None,
+        bound=bound(6 * B * n * (xp.element_size() + 4),
+                    2 * B * n * (len(G.gaussian_kernel_1d(sigma))
+                                 + len(G.gaussian_kernel_1d(sigma * G.DOG_K)))
+                    * 3))
+    # K16: b1, b2 read, dog written, the candidates written; 3 operations a
+    # voxel, a 27-voxel window (2 a neighbour) past the threshold
+    res["dog_extrema"] = dict(
+        ms=time_ms(lambda: G.dog_extrema(*args), reps=5),
+        plain_ms=time_ms(lambda: G.extrema_plain(*args), reps=2),
+        library_ms=None,
+        bound=bound(12 * B * n + 8 * cand, 3 * B * n + OPS["dog_window"]
+                    * past))
+    res["dog_topk"] = dict(
+        ms=time_ms(lambda: G.dog_topk(ci, cs, cnt, k, shape)),
+        plain_ms=time_ms(lambda: G.topk_plain(ci, cs, cnt, k, shape)),
+        library_ms=time_ms(lambda: torch.topk(score, k, dim=1)),
+        bound=bound(8 * cand + 13 * B * k, cand))
+    # K18: one round a valid candidate (4 B per gather, 12 + 1 in, 16 out)
+    res["dog_localize"] = dict(
+        ms=time_ms(lambda: G.dog_localize(dog, idx, valid)),
+        plain_ms=time_ms(lambda: G.localize_plain(dog, idx, valid)),
+        library_ms=None,
+        bound=bound(nvalid * (19 * 4 + 13 + 16), nvalid * OPS["dog_fit"]))
+    taps = G.gaussian_kernel_1d(sigma)
+    one = [time_ms(lambda ax=ax: G.dog_blur(xp, taps, ax), reps=10)
+           for ax in range(3)]
+    print(f"  dog_blur one {len(taps)}-tap pass along x, y, z at 8a's bucket "
+          f"[{card}]: {one} ms; bound "
+          f"{bound(B * n * (xp.element_size() + 4), 0)[0]:.4f} ms a pass",
+          flush=True)
+    for name, r in res.items():
+        r["wrapper_ms"] = r["ms"]
+        print(f"  {name} at 8a's bucket {B} x {shape} (k {k}, {cand} "
+              f"candidates, {nvalid} kept) [{card}]: kernel {r['ms']} ms  "
+              f"plain {r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})" + (f"  library {r['library_ms']} ms"
+                                      if r["library_ms"] is not None else ""),
+              flush=True)
+    return res
+
+
+def detect_run(proj, args, route, dev, card, launches):
+    """One detect-interestpoints run through the CLI entry function on a
+    copy of ``proj``'s XML; a spy on the detection module's DoG program
+    keeps the first batch of every bucket, whose kernels are then held
+    against the twins on the card. The points read back from
+    interestpoints.n5 must equal the run's, and the XML must register the
+    label."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import detection as TD
+
+    xml = os.path.join(os.path.dirname(proj.xml_path),
+                       f"det_{route.replace(' ', '')}.xml")
+    shutil.copy(proj.xml_path, xml)
+    records, program = {}, TD.dog_block_topk_batch
+
+    def spy(*a):
+        outs = program(*a)
+        key = (tuple(a[0].shape[1:]), tuple(a[10]), str(a[0].dtype))
+        if key not in records:
+            records[key] = (a, outs)
+        return outs
+
+    TD.dog_block_topk_batch = spy
+    try:
+        t0 = time.perf_counter()
+        run = counted(route, launches, dev, lambda: main(
+            ["detect-interestpoints", "-x", xml, *args, "--device",
+             str(dev)]))
+        wall = time.perf_counter() - t0
+    finally:
+        TD.dog_block_topk_batch = program
+    st, t = run.stats, run.stats.timings
+    print(f"  [detection {route}] {card}: {st.views} views, {st.blocks} "
+          f"blocks in {st.buckets} buckets / {st.batches} batches, "
+          f"{st.points} points ({st.truncated} blocks truncated); wall "
+          f"{wall:.3f}s -> {st.core_voxels / wall:,.0f} det-res voxels/s "
+          f"({st.core_voxels} core voxels); min/max {t['minmax']:.3f}s read "
+          f"{t['read']:.3f}s h2d {t['h2d']:.3f}s kernels {t['kernels']:.4f}s "
+          f"d2h {t['d2h']:.3f}s tail {t['tail']:.3f}s store "
+          f"{t['store']:.3f}s; card idle share "
+          f"{1 - t['kernels'] / wall:.4f}", flush=True)
+    check(len(records) == st.buckets,
+          f"detection {route}: {st.buckets} buckets recorded")
+    err = {}
+    for (shp, rel, dt), rec in sorted(records.items()):
+        e = check_det_bucket(f"detection {route} bucket {shp} rel {rel} "
+                             f"{dt} x {rec[0][0].shape[0]}", rec, dev)
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0.0), v)
+    sd = SpimData.load(xml)
+    store = InterestPointStore.for_project(sd)
+    for det in run.detections:
+        ids, locs = store.load_points(det.view, "beads")
+        check(det.view in sd.interest_points
+              and "beads" in sd.interest_points[det.view]
+              and len(ids) == len(det.points)
+              and np.array_equal(locs, det.points),
+              f"detection {route} {det.view}: {len(ids)} points read back "
+              "from interestpoints.n5 equal to the run's; the XML registers "
+              "'beads'")
+    return run, records, err
+
+
+def phase8_detection(proj, scale, dev, card, launches):
+    """Phase 8: detect-interestpoints on route A's project (8a reference
+    defaults, 8b full resolution, 8c overlap boxes) with the reference's
+    own gates; returns K15-K18's results."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import detection as TD
+
+    print("phase 8 (detection)", flush=True)
+    cfg = SCALES[scale]
+    block = ([] if cfg["det_block"] is None else
+             ["--blockSize", ",".join(str(b) for b in cfg["det_block"])])
+    ref = ["-l", "beads", "-s", "1.8", "-t", "0.008", *block]
+    run_a, rec_a, err_a = detect_run(
+        proj, [*ref, "-dsxy", "2", "-dsz", "1"], "8a", dev, card, launches)
+    run_b, _r, err_b = detect_run(
+        proj, [*ref, "-dsxy", "1", "-dsz", "1"], "8b", dev, card, launches)
+    # at the default block each view's overlap region is one block: a
+    # smaller one gives the overlap grid uneven edge blocks and buckets
+    run_c, _r, err_c = detect_run(
+        proj, [*ref, "-dsxy", "2", "-dsz", "1", "--overlappingOnly",
+               "--blockSize", ",".join(str(b) for b in cfg["det_block_c"])],
+        "8c", dev, card, launches)
+    tile = np.asarray(cfg["tile"])
+    for det in run_b.detections:
+        local = (np.asarray(proj.bead_positions)
+                 - np.asarray(proj.true_offsets[det.view.setup]))
+        local = local[np.all((local >= 6) & (local <= tile - 7), axis=1)]
+        near = cKDTree(det.points).query(local)[0] if len(det.points) else \
+            np.full(len(local), np.inf)
+        check(len(local) > 0 and len(det.points) >= 0.7 * len(local)
+              and (near < 1.0).mean() > 0.8,
+              f"8b {det.view}: {len(det.points)} points for {len(local)} "
+              f"true beads 6 px inside; {(near < 1.0).mean():.3f} of them "
+              "have a detection within 1 px (> 0.8)")
+    for da, db in zip(run_a.detections, run_b.detections):
+        near = cKDTree(db.points).query(da.points)[0]
+        check(len(da.points) > 0 and (near < 1.5).mean() > 0.7,
+              f"8a {da.view}: {(near < 1.5).mean():.3f} of {len(da.points)} "
+              "points within 1.5 px of an 8b point (> 0.7)")
+    sd = SpimData.load(proj.xml_path)
+    loader = ViewLoader(sd)
+    views = sorted(sd.registrations)
+    ds = np.array([2.0, 2.0, 1.0])
+    for det in run_c.detections:
+        plan = TD._ViewPlan(loader, det.view, tuple(int(d) for d in ds))
+        boxes = TD._overlap_boxes_det(sd, det.view, views, plan.det_dims,
+                                      tuple(int(d) for d in ds))
+        p = (det.points - (ds - 1) / 2) / ds
+        inside = np.zeros(len(p), bool)
+        for b in boxes:
+            inside |= np.all((p >= np.array(b.min) - 1e-9)
+                             & (p <= np.array(b.max) + 1e-9), axis=1)
+        check(len(p) > 0 and inside.all(),
+              f"8c {det.view}: all {len(p)} points inside its "
+              f"{len(boxes)} overlap boxes")
+    if dev.type != "cuda":
+        return {}
+    res = det_kernel_times(next(iter(rec_a.values())), card)
+    for name, r in res.items():
+        r["err"] = max(err_a.get(name, 0.0), err_b.get(name, 0.0),
+                       err_c.get(name, 0.0))
+    return res
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-7 through the CLI entry functions; returns route A's XML
-    and container paths and phase 7's kernel results."""
+    """Phases 2-8 through the CLI entry functions; returns route A's XML
+    and container paths and phases 7 and 8's kernel results."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
     route_d(work, scale, dev, card, launches, a)
     phase6_stitching(a[0], proj_c, dev, card, launches)
     relax = phase7_solver(work, scale, a[0], dev, card, launches)
-    return a[0].xml_path, a[1], relax
+    det = phase8_detection(a[0], scale, dev, card, launches)
+    return a[0].xml_path, a[1], {**relax, **det}
 
 
 # ---------------------------------------------------------------- main
@@ -1683,9 +2024,10 @@ def main(argv=None) -> int:
         print(f"phase 1: kernels vs plain twins [{card}]", flush=True)
         res = phase1_kernels(dev, args.scale, card)
 
-        *route, relax = main_path(work, args.scale, dev, card, launches)
-        res.update(relax)
-        print(f"main path launches (routes A-D, stitching, solver): "
+        *route, later = main_path(work, args.scale, dev, card, launches)
+        res.update(later)
+        print(f"main path launches (routes A-D, stitching, solver, "
+              f"detection): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it

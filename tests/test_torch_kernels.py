@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K14) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K18) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -21,7 +21,11 @@ against the magnitude of the terms summed (``ops.solve.moment_scale``,
 ``fit_scale``) where they cancel: K11's moments about a tile's origin and
 K12's world-frame translations; whole relaxations under the
 JAX package's device-vs-numpy contract (iterations equal, history rtol 1e-9
-/ atol 1e-9, models and link errors rtol 1e-7 / atol 1e-9).
+/ atol 1e-9, models and link errors rtol 1e-7 / atol 1e-9). K15 (blur) and
+K16 (response, extrema) take the same float32 operations in the same order
+as their twins: bitwise equal, candidate lists equal as sets with exact
+counts. K17 (top-k): indices and flags equal. K18 (subpixel fit): sub
+within 1e-5 px, val within rtol 1e-6.
 """
 
 import numpy as np
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from bigstitcher_spark_tpu_torch import ops
+from bigstitcher_spark_tpu_torch.ops import dog as G
 from bigstitcher_spark_tpu_torch.ops import downsample as D
 from bigstitcher_spark_tpu_torch.ops import fusion as F
 from bigstitcher_spark_tpu_torch.ops import phasecorr as P
@@ -529,3 +534,172 @@ def test_relax_on_device_matches_plain(dev, tmp_path, model, reg):
     again = R.relax_on_device(*args)
     assert np.array_equal(again.models, got.models)
     assert np.array_equal(again.history, got.history)
+
+
+# --------------------------------------------------------------- K15-K18
+
+
+def _beads(rng, B, shape, n=12, amp=900.0, dtype=np.float32):
+    """B volumes of Gaussian beads (sigma 1.8) on a noisy background."""
+    grid = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in shape),
+                       indexing="ij")
+    out = np.empty((B, *shape), np.float32)
+    for b in range(B):
+        v = rng.normal(100.0, 3.0, shape).astype(np.float32)
+        for p in rng.uniform(0, np.array(shape) - 1, (n, 3)):
+            r2 = sum((g - c) ** 2 for g, c in zip(grid, p))
+            v += amp * np.exp(-r2 / (2 * 1.8 ** 2)).astype(np.float32)
+        out[b] = v
+    if dtype == np.uint16:
+        out = np.round(out).astype(np.uint16)
+    return torch.from_numpy(out)
+
+
+def _cand_sets(cand_idx, cand_score, count):
+    out = []
+    for b, n in enumerate(count.tolist()):
+        i = cand_idx[b, :n].cpu().numpy()
+        s = cand_score[b, :n].cpu().numpy()
+        o = np.argsort(i)
+        out.append((i[o], s[o]))
+    return out
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32], ids=str)
+def test_dog_blur_kernel(dev, axis, dtype):
+    """K15 and its twin take the same products and sums in the same order:
+    bitwise equal, also where the mirror repeats (a 5-voxel axis under a
+    15-tap kernel)."""
+    x = _beads(np.random.default_rng(40), 2, (37, 29, 5), dtype=dtype).to(dev)
+    for sigma in (1.8, 1.8 * G.DOG_K):
+        taps = G.gaussian_kernel_1d(sigma)
+        got, ref = G.dog_blur(x, taps, axis), G.blur_plain(x, taps, axis)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("find_max,find_min", [(True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("halo", [0, 5])
+def test_dog_extrema_kernel(dev, find_max, find_min, halo):
+    """K16 against its twin: the response bitwise, the dense mask equal,
+    the candidate lists equal as sets (the kernel's order is its atomics')
+    with their exact counts; origins straddle zero (negative hashes)."""
+    rng = np.random.default_rng(41)
+    x = _beads(rng, 3, (40, 36, 28)).to(dev)
+    if find_min and not find_max:
+        x = 2000.0 - x
+    b1, b2 = G._blurs(G.KERNELS, x, 1.8)
+    scale = G.dog_scale(torch.zeros(3, device=dev),
+                        torch.tensor([1200.0, 1200.0, 5.0], device=dev))
+    thr = torch.tensor([0.005, 0.002, 0.005], device=dev)
+    org = torch.tensor([[-9, -9, -9], [512, -9, 120], [0, 0, 0]],
+                       dtype=torch.int32, device=dev)
+    args = (b1, b2, scale, thr, org, find_max, find_min, halo)
+    dog, mask = G.dog_extrema(*args)
+    pdog, pmask = G.extrema_plain(*args)
+    assert torch.equal(dog, pdog) and torch.equal(mask, pmask)
+    assert int(mask.sum()) > 3
+    got = _cand_sets(*G.dog_extrema(*args, candidates=True)[1:])
+    ref = _cand_sets(*G.extrema_plain(*args, candidates=True)[1:])
+    for (gi, gs), (ri, rs) in zip(got, ref):
+        assert np.array_equal(gi, ri) and np.array_equal(gs, rs)
+    assert [len(g[0]) for g in got] == [int(m.sum()) for m in mask]
+
+
+@pytest.mark.parametrize("n,k", [(0, 16), (7, 16), (900, 4), (50_000, 4096),
+                                 (20_000, 8192)], ids=str)
+def test_dog_topk_kernel(dev, n, k):
+    """K17 against its twin on shuffled lists: the K best by (score
+    descending, index ascending), whatever the count; block 0's scores are
+    full of ties, block 1's distinct, and there the index set equals
+    torch.topk's on the dense score."""
+    rng = np.random.default_rng(42)
+    shape = (64, 64, 32)
+    vol = int(np.prod(shape))
+    cand_idx = torch.zeros((2, vol), dtype=torch.int32)
+    cand_score = torch.zeros((2, vol), dtype=torch.float32)
+    counts = [n, n // 2]
+    for b, m in enumerate(counts):
+        cand_idx[b, :m] = torch.from_numpy(rng.permutation(vol)[:m].astype(
+            np.int32))
+        score = (rng.integers(1, 60, m) if b == 0 else rng.permutation(m) + 1)
+        cand_score[b, :m] = torch.from_numpy(score.astype(np.float32) * 0.01)
+    count = torch.tensor(counts, dtype=torch.int32)
+    args = [t.to(dev) for t in (cand_idx, cand_score, count)]
+    idx, valid = G.dog_topk(*args, k, shape)
+    pidx, pvalid = G.topk_plain(*args, k, shape)
+    assert torch.equal(idx, pidx) and torch.equal(valid, pvalid)
+    assert valid.sum(1).tolist() == [min(k, m) for m in counts]
+    dense = torch.full((vol,), -np.inf, device=dev)
+    dense[args[0][1, :counts[1]].long()] = args[1][1, :counts[1]]
+    top = torch.topk(dense, k)
+    flat = (idx[1, :, 0] * shape[1] + idx[1, :, 1]) * shape[2] + idx[1, :, 2]
+    assert set(flat[valid[1]].tolist()) == set(
+        top.indices[top.values > -np.inf].tolist())
+
+
+def test_dog_localize_kernel(dev):
+    """K18 against its twin on the K strongest extrema of bead blocks, and
+    on candidates at the border (not eligible) and invalid rows: sub within
+    1e-5 px, val within rtol 1e-6 (both sides round the same operations;
+    the tolerance covers a division or root the compiler may order
+    otherwise)."""
+    rng = np.random.default_rng(43)
+    x = _beads(rng, 2, (40, 36, 28), n=30).to(dev)
+    b1, b2 = G._blurs(G.KERNELS, x, 1.8)
+    scale = G.dog_scale(torch.zeros(2, device=dev),
+                        torch.full((2,), 1200.0, device=dev))
+    thr = torch.full((2,), 0.001, device=dev)
+    org = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    dog, ci, cs, cnt = G.dog_extrema(b1, b2, scale, thr, org, True, True, 0,
+                                     True)
+    idx, valid = G.dog_topk(ci, cs, cnt, 64, dog.shape[1:])
+    idx[:, 0] = torch.tensor([0, 5, 3], dtype=torch.int32, device=dev)
+    valid[:, -1] = False
+    sub, val = G.dog_localize(dog, idx, valid)
+    psub, pval = G.localize_plain(dog, idx, valid)
+    torch.testing.assert_close(sub, psub, rtol=0, atol=1e-5)
+    torch.testing.assert_close(val, pval, rtol=1e-6, atol=0)
+    assert int(valid.sum()) > 20 and float(sub[:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("rel,k", [((1, 1, 1), 4096), ((2, 2, 1), 4096),
+                                   ((1, 1, 1), 4)], ids=str)
+def test_dog_block_topk_batch_kernels(dev, rel, k):
+    """The whole program on the kernels (K6, K15-K18) against the twins on
+    the card: valid index sets and counts equal, sub within 1e-5 px, val
+    within rtol 1e-6; each kernel launched (six blur passes)."""
+    rng = np.random.default_rng(44)
+    blocks = _beads(rng, 2, (48 * rel[0], 40 * rel[1], 32 * rel[2]), n=25,
+                    dtype=np.uint16).to(dev)
+    args = (blocks, np.zeros(2, np.float32), np.full(2, 1000.0, np.float32),
+            np.full(2, 0.004, np.float32),
+            np.array([[-8, -8, -8], [40, -8, 24]], np.int32), 1.8, True,
+            False, k, 8, rel)
+    ops.reset_launch_counts()
+    got = G.dog_block_topk_batch(*args)
+    counts = ops.launch_counts()
+    ref = G.dog_block_topk_batch(*args, stages=G.PLAIN)
+    assert counts["dog_blur"] == 6 and counts["dog_extrema"] == 1, counts
+    assert counts["dog_topk"] == 1 and counts["dog_localize"] == 1
+    assert counts["downsample_batch"] == int(rel != (1, 1, 1))
+    assert torch.equal(got[4], ref[4]) and int(got[4].min()) > 0
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+
+
+def test_dog_block_batch_kernels(dev):
+    """The dense dog_block_batch: response bitwise, mask equal; a flat
+    block with min == max detects nothing."""
+    rng = np.random.default_rng(45)
+    blocks = _beads(rng, 2, (40, 36, 28), dtype=np.uint16).to(dev)
+    blocks[1] = 777
+    args = (blocks, np.array([0.0, 777.0], np.float32),
+            np.array([1000.0, 777.0], np.float32), 0.005, 1.8, True, True)
+    dog, mask = G.dog_block_batch(*args)
+    pdog, pmask = G.dog_block_batch(*args, stages=G.PLAIN)
+    assert torch.equal(dog, pdog) and torch.equal(mask, pmask)
+    assert int(mask[0].sum()) > 0 and int(mask[1].sum()) == 0
+    assert float(dog[1].abs().max()) == 0.0
