@@ -14,8 +14,9 @@ nothing and compiles nothing: kernels are built at first launch.
 
 Ported so far: ``create-fusion-container`` (with pyramids),
 single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
-downsample stage), ``downsample``, single-device ``stitching`` and the
-single-device ``solver`` (stitching and interest-point sources).
+downsample stage), ``downsample``, single-device ``stitching``, the
+single-device ``solver`` (stitching and interest-point sources),
+``detect-interestpoints`` and ``match-interestpoints``.
 Everything else raises :class:`NotYetPorted`.
 """
 

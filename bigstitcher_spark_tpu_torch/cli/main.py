@@ -30,6 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     stitching_tools.add_stitching(sub)
     solver_tools.add_solver(sub)
     detection_tools.add_detect_interestpoints(sub)
+    detection_tools.add_match_interestpoints(sub)
     return parser
 
 

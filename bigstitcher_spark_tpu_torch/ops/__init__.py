@@ -8,11 +8,11 @@ reset them all at once.
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name."""
-    from . import dog, downsample, fusion, phasecorr, solve
+    from . import descriptors, dog, downsample, fusion, phasecorr, solve
 
     return {**fusion.KERNEL_WRAPPERS, **downsample.KERNEL_WRAPPERS,
             **phasecorr.KERNEL_WRAPPERS, **solve.KERNEL_WRAPPERS,
-            **dog.KERNEL_WRAPPERS}
+            **dog.KERNEL_WRAPPERS, **descriptors.KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:

@@ -27,8 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
-           "pcm", "fft", "solve", "dog")
-HEADERS = ("fusion_common.cuh",)
+           "pcm", "fft", "solve", "dog", "descriptors", "ransac")
+HEADERS = ("fusion_common.cuh", "fit3d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -92,6 +92,15 @@ _SIGNATURES = {
                            + [_VP] * 6,
         "bst_dog_topk": [_VP] * 3 + [_I] * 6 + [_VP] * 3,
         "bst_dog_localize": [_VP] + [_I] * 4 + [_VP, _VP, _I, _VP, _VP, _VP],
+    },
+    "descriptors": {
+        "bst_knn_descriptors": [_VP, _VP] + [_I] * 5 + [_VP, _I] + [_VP] * 4,
+        "bst_ratio_match": [_VP, _I, _VP, _I, _I, _VP, _F] + [_VP] * 5,
+    },
+    "ransac": {
+        "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_VP] * 5,
+        "bst_ransac_refit": [_VP, _VP, _I, _VP, _D, _I, _I, _I, _D]
+                            + [_VP] * 4,
     },
 }
 

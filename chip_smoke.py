@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all ten at once).
+         kernels from csrc/ (one nvcc per source, all twelve at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -111,6 +111,31 @@ Phase 8  detect-interestpoints through the port's CLI entry function on
          IO included) and the split (min/max, read, H2D, kernels by CUDA
          events, D2H, host tail, store). K15-K18 are timed at 8a's bucket
          beside their bounds, K17 beside torch.topk on the dense score.
+Phase 9  match-interestpoints through the port's CLI entry function. 9a:
+         a copy of route A's XML with 8b's points, at the reference
+         defaults (FAST_ROTATION, -n 3 -r 1, -s 3.0, AFFINE regularised
+         by RIGID with lambda 0.1, -rit 10000 -rme 5 -rmir 0.1 -rmni 12),
+         then solver -s IP -l beads. Gates from the JAX package's tests
+         (tests/test_matching.py:141-215): every stored link joins the
+         same true bead within 5 px, median below 1 px, at least 20
+         checked, each stored on both views; the solve's error below 1 px
+         and the tiles placed within 1 px of the truth. 9b: a nucleus-
+         scale pair through models.matching.match_pair at the same
+         defaults: 100,000 points uniform in a 4,000 px cube (the JAX
+         package's soak size), B = R A + t (10 degrees about z) + N(0,
+         0.05), 10 % of each side dropped and 10 % uniform extras added;
+         the model within 0.1 px RMS of the truth on A's true points, and
+         inliers at least 0.7 of the points both sides kept. 9c on route
+         A: -m ICP --icpUseRANSAC on the XML 9a solved (K20's nearest
+         mode, K21, K22; links within -ime 2.5 px of the same bead),
+         --ransacMultiConsensus and -sr 10 (each stores links that join
+         the same bead). K19-K22 are held against their twins
+         on the card at 9a's first pair and at 9b (K19 and K20 on 8,192
+         rows of A): K19 indices, descriptors and flags, K20 owners, flags
+         and distances, K21 counts, models and best bitwise; K22 masks and
+         counts equal, models within rtol 1e-9. They are timed at 9b's
+         shapes beside their bounds; no single PyTorch call computes any
+         of them (library none).
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -125,8 +150,9 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-8 on the CPU with the
-plain twins (no kernels, no timings); it then exits 3 without a result.
+``--device cpu --scale tiny`` rehearses phases 1-9 on the CPU with the
+plain twins (no kernels, no timings; 9b at 2,000 points); it then exits 3
+without a result.
 """
 
 from __future__ import annotations
@@ -167,6 +193,10 @@ KERNELS = {
     "dog_extrema": ("dog.cu", "ops/dog.py:164"),
     "dog_topk": ("dog.cu", "ops/dog.py:353"),
     "dog_localize": ("dog.cu", "ops/dog.py:259"),
+    "knn_descriptors": ("descriptors.cu", "ops/descriptors.py:48"),
+    "ratio_match": ("descriptors.cu", "ops/descriptors.py:208"),
+    "ransac_score": ("ransac.cu", "ops/descriptors.py:380"),
+    "ransac_refit": ("ransac.cu", "ops/descriptors.py:380"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -185,6 +215,11 @@ KERNELS = {
 # two sums per tile. K16: an add and a max per neighbour of the 27-voxel
 # window of each voxel past the threshold; K18: per round of a candidate
 # ~90 (gradient, Hessian, the pivoted 3x3 LU and solve, clip, value).
+# K19: per pair of points 3 differences, 3 products, 2 sums; K20: per pair
+# of descriptors of D values, D products and D - 1 sums (dot), 2 sums, a
+# product and a max; K21: per hypothesis and candidate 18 for the apply,
+# 3 differences, 5 for the squared norm and a compare; K22 (float64): per
+# candidate the same 27 and 31 for the moments of an inlier.
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
        "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
@@ -192,7 +227,8 @@ OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "relax_converge": 2,
        "fit": {"IDENTITY": 0, "TRANSLATION": 6, "AFFINE": 110,
                "RIGID": 900, "NONE": 0}, "fit_blend": 72,
-       "dog_window": 54, "dog_fit": 90}
+       "dog_window": 54, "dog_fit": 90, "knn_pair": 8, "ransac_apply": 27,
+       "refit_row": 58}
 # bytes a relax row holds: p, q (2 x 24), other, link_id (2 x 4), w (8)
 RELAX_ROW_BYTES = 64
 
@@ -204,7 +240,8 @@ SCALES = {
                  batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128),
                  grid_g=(32, 32, 4), grid_bad=8, ip_grid=(16, 16, 2),
                  ip_pairs=500, solve_tile=(2048, 2048, 512), det_block=None,
-                 det_block_c=(192, 192, 128)),
+                 det_block_c=(192, 192, 128), cloud=100_000,
+                 cloud_extent=4000.0, twin_rows=8192),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=24, block=(32, 32, 16),
                  rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
@@ -213,7 +250,8 @@ SCALES = {
                  batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32),
                  grid_g=(8, 8, 2), grid_bad=2, ip_grid=(3, 3, 2),
                  ip_pairs=30, solve_tile=(256, 256, 64),
-                 det_block=(32, 32, 16), det_block_c=(32, 32, 16)),
+                 det_block=(32, 32, 16), det_block_c=(32, 32, 16),
+                 cloud=2000, cloud_extent=1100.0, twin_rows=512),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
@@ -229,6 +267,8 @@ PCM_KERNELS = ("pcm_window", "fft_pow2", "pcm_cross_power", "pcm_peaks_topk")
 RELAX_KERNELS = ("relax_moments", "relax_fit", "relax_error",
                  "relax_converge")
 DET_KERNELS = ("dog_blur", "dog_extrema", "dog_topk", "dog_localize")
+MATCH_KERNELS = ("knn_descriptors", "ratio_match", "ransac_score",
+                 "ransac_refit")
 ROUTE_KERNELS.update({
     "S 2,2,1": PCM_KERNELS + ("downsample_batch",),
     "S 1,1,1": PCM_KERNELS,
@@ -236,6 +276,10 @@ ROUTE_KERNELS.update({
     "7a": RELAX_KERNELS, "7b": RELAX_KERNELS, "7c": RELAX_KERNELS,
     "8a": DET_KERNELS + ("downsample_batch",), "8b": DET_KERNELS,
     "8c": DET_KERNELS + ("downsample_batch",),
+    "9a": MATCH_KERNELS, "9a solver": RELAX_KERNELS, "9b": MATCH_KERNELS,
+    "9c ICP": ("ratio_match", "ransac_score", "ransac_refit"),
+    "9c multi-consensus": MATCH_KERNELS,
+    "9c search radius": MATCH_KERNELS,
 })
 
 
@@ -1895,7 +1939,7 @@ def detect_run(proj, args, route, dev, card, launches):
 def phase8_detection(proj, scale, dev, card, launches):
     """Phase 8: detect-interestpoints on route A's project (8a reference
     defaults, 8b full resolution, 8c overlap boxes) with the reference's
-    own gates; returns K15-K18's results."""
+    own gates; returns K15-K18's results and 8b's detections."""
     import numpy as np
     from scipy.spatial import cKDTree
 
@@ -1952,25 +1996,362 @@ def phase8_detection(proj, scale, dev, card, launches):
               f"8c {det.view}: all {len(p)} points inside its "
               f"{len(boxes)} overlap boxes")
     if dev.type != "cuda":
-        return {}
+        return {}, run_b.detections
     res = det_kernel_times(next(iter(rec_a.values())), card)
     for name, r in res.items():
         r["err"] = max(err_a.get(name, 0.0), err_b.get(name, 0.0),
                        err_c.get(name, 0.0))
+    return res, run_b.detections
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def match_kernel_checks(what, wa, wb, dev, rows=None, iterations=10000,
+                        seed=17):
+    """K19-K22 against their twins on the card at one pair's shapes: the
+    clouds ``wa``, ``wb`` (world coordinates), their descriptors at the
+    reference defaults (-n 3 -r 1, FAST_ROTATION), the candidates and
+    ``iterations`` hypotheses drawn as the run draws them. ``rows`` (a
+    slice) limits the twins of K19 and K20 to those rows of A. K19: indices
+    and flags equal, descriptors bitwise; K20: owners and accept flags
+    equal, best distances bitwise; K21: counts and models bitwise, the
+    same best; K22: masks and counts equal, models within rtol 1e-9 /
+    atol 1e-9 (float64 moments summed in another order). Returns (max
+    |delta| per kernel, the inputs for timing)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    rows = rows if rows is not None else slice(0, len(wa))
+    pa = torch.from_numpy(np.ascontiguousarray(wa, np.float32)).to(dev)
+    pb = torch.from_numpy(np.ascontiguousarray(wb, np.float32)).to(dev)
+    err = {}
+    got = DS.knn_descriptors(pa[None], None, 3, 1, True)
+    ref = DS.knn_descriptors_plain(pa[None], None, 3, 1, True, rows=rows)
+    same = all(torch.equal(g[:, rows], r) for g, r in zip(got, ref))
+    err["knn_descriptors"] = max_abs(got[1][:, rows], ref[1])
+    check(same, f"{what}: K19 indices, descriptors and flags of rows "
+                f"{rows.start}-{rows.stop} of {len(wa)} equal the twin's")
+    da = got[1].reshape(-1, 9)
+    db = DS.knn_descriptors(pb[None], None, 3, 1, True)[1].reshape(-1, 9)
+    s = 4
+    ob = torch.arange(len(wb), dtype=torch.int32, device=dev
+                      ).repeat_interleave(s)
+    drows = slice(rows.start * s, rows.stop * s)
+    best, bestd, acc = DS.ratio_match(da, db, ob, 3.0)
+    pbest, pbestd, pacc = DS.ratio_match_plain(da, db, ob, 3.0, rows=drows)
+    err["ratio_match"] = max_abs(bestd[drows], pbestd)
+    check(torch.equal(best[drows], pbest) and torch.equal(acc[drows], pacc)
+          and err["ratio_match"] == 0.0,
+          f"{what}: K20 owners, accept flags and distances of descriptors "
+          f"{drows.start}-{drows.stop} of {len(da)} equal the twin's "
+          f"({len(db)} columns)")
+    oa = torch.arange(len(wa), device=dev).repeat_interleave(s)
+    cand = torch.unique(torch.stack([oa[acc], best[acc].long()], 1), dim=0)
+    ca = pa[cand[:, 0]].contiguous()
+    cb = pb[cand[:, 1]].contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    idx = DS.draw_hypotheses(len(cand), iterations, 4, gen)
+    got = DS.ransac_score(ca, cb, idx, 5.0, "AFFINE")
+    ref = DS.ransac_score_plain(ca, cb, idx, 5.0, "AFFINE")
+    # a degenerate sample fits NaN on both sides
+    fin = torch.isfinite(ref[1])
+    err["ransac_score"] = max_abs(got[1][fin], ref[1][fin])
+    check(all(torch.equal(g, r) for g, r in zip(got[::2], ref[::2]))
+          and torch.equal(got[3], ref[3]) and torch.equal(fin, torch.isfinite(
+              got[1])) and err["ransac_score"] == 0.0,
+          f"{what}: K21 counts, models and best (#{int(got[2][0])}, "
+          f"{int(got[2][1])} of {len(cand)} candidates) of {iterations} "
+          "hypotheses equal the twin's")
+    model, e = got[3], 0.0
+    for fit in (True, True, False):
+        g = DS.ransac_refit(ca, cb, model, 5.0, "AFFINE", "RIGID", 0.1, fit)
+        r = DS.ransac_refit_plain(ca, cb, model, 5.0, "AFFINE", "RIGID", 0.1,
+                                  fit)
+        check(torch.equal(g[0], r[0]) and int(g[1]) == int(r[1]),
+              f"{what}: K22 inliers ({int(g[1])}) equal the twin's")
+        if fit:
+            torch.testing.assert_close(g[2], r[2], rtol=1e-9, atol=1e-9)
+            e = max(e, max_abs(g[2], r[2]))
+            model = g[2]
+    err["ransac_refit"] = e
+    check(True, f"{what}: K22 models within {e:.3g} of the twin's "
+                "(rtol 1e-9 / atol 1e-9)")
+    return err, dict(pa=pa, pb=pb, da=da, db=db, ob=ob, ca=ca, cb=cb,
+                     idx=idx, model=got[3], rows=rows, drows=drows)
+
+
+def match_kernel_times(t, card):
+    """K19-K22 alone at 9b's shapes, timed with CUDA events beside their
+    bounds; the twins of K19 and K20 on the checked row slice of A (the
+    whole cloud's twin would take minutes), those of K21 and K22 at the
+    full shape. No single PyTorch call computes any of the four (K20's
+    owner-aware second best least of all): library "none"."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    n, nb = len(t["pa"]), len(t["pb"])
+    da, db, ob, rows, drows = t["da"], t["db"], t["ob"], t["rows"], t["drows"]
+    m, iters = len(t["ca"]), len(t["idx"])
+    nrows, ndrows = rows.stop - rows.start, drows.stop - drows.start
+    res = {}
+    res["knn_descriptors"] = dict(
+        ms=time_ms(lambda: DS.knn_descriptors(t["pa"][None], None, 3, 1,
+                                              True), reps=3),
+        plain_ms=time_ms(lambda: DS.knn_descriptors_plain(
+            t["pa"][None], None, 3, 1, True, rows=rows), reps=1, rounds=1),
+        plain_shape=f"rows {rows.start}-{rows.stop} of {n}",
+        library_ms=None,
+        bound=bound(n * (12 + 16 + 4 * 36), n * n * OPS["knn_pair"]))
+    res["ratio_match"] = dict(
+        ms=time_ms(lambda: DS.ratio_match(da, db, ob, 3.0), reps=1),
+        plain_ms=time_ms(lambda: DS.ratio_match_plain(da, db, ob, 3.0,
+                                                      rows=drows),
+                         reps=1, rounds=1),
+        plain_shape=f"rows {drows.start}-{drows.stop} of {len(da)}",
+        library_ms=None,
+        bound=bound((len(da) + len(db)) * 36 + len(db) * 4 + len(da) * 9,
+                    len(da) * len(db) * (2 * 9 + 3)))
+    res["ransac_score"] = dict(
+        ms=time_ms(lambda: DS.ransac_score(t["ca"], t["cb"], t["idx"], 5.0,
+                                           "AFFINE"), reps=5),
+        plain_ms=time_ms(lambda: DS.ransac_score_plain(
+            t["ca"], t["cb"], t["idx"], 5.0, "AFFINE"), reps=1, rounds=1),
+        plain_shape="full", library_ms=None,
+        bound=bound(m * 24 + iters * (16 + 4 + 48),
+                    iters * m * OPS["ransac_apply"]))
+    res["ransac_refit"] = dict(
+        ms=time_ms(lambda: DS.ransac_refit(t["ca"], t["cb"], t["model"], 5.0,
+                                           "AFFINE", "RIGID", 0.1)),
+        plain_ms=time_ms(lambda: DS.ransac_refit_plain(
+            t["ca"], t["cb"], t["model"], 5.0, "AFFINE", "RIGID", 0.1)),
+        plain_shape="full", library_ms=None,
+        bound=bound(m * 25, m * OPS["refit_row"], F64_OPS_PER_S))
+    shapes = {"knn_descriptors": f"{n} points (and {nb})",
+              "ratio_match": f"{len(da)} x {len(db)} descriptors of 9",
+              "ransac_score": f"{iters} hypotheses x {m} candidates",
+              "ransac_refit": f"{m} candidates"}
+    for name, r in res.items():
+        r["wrapper_ms"] = r["ms"]
+        print(f"  {name} at 9b's {shapes[name]} [{card}]: kernel {r['ms']} "
+              f"ms  plain {r['plain_ms']} ms ({r['plain_shape']})  bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
+              flush=True)
+    return res
+
+
+def match_cli(xml, args, route, dev, card, launches):
+    """``match-interestpoints`` through the CLI entry function, launches
+    counted as ``route``; prints the wall and its split."""
+    from bigstitcher_spark_tpu_torch.cli.main import main
+
+    t0 = time.perf_counter()
+    run = counted(route, launches, dev, lambda: main(
+        ["match-interestpoints", "-x", xml, *args, "--device", str(dev)]))
+    wall = time.perf_counter() - t0
+    st, t, k = run.stats, run.stats.timings, run.stats.kernels
+    print(f"  [matching {route}] {card}: {st.pairs} pairs, {st.candidates} "
+          f"candidates, {st.inliers} inliers; wall {wall:.3f}s: load "
+          f"{t['load']:.3f}s descriptors {t['descriptors']:.3f}s ratio "
+          f"{t['ratio']:.3f}s fetch {t['fetch']:.3f}s ransac "
+          f"{t['ransac']:.3f}s host {t['host']:.3f}s store {t['store']:.3f}s; "
+          "card busy descriptors "
+          f"{k['descriptors']:.4f}s ratio {k['ratio']:.4f}s ransac "
+          f"{k['ransac']:.4f}s; idle share "
+          f"{1 - sum(k.values()) / wall:.4f}", flush=True)
+    return run
+
+
+def check_links(what, proj, xml, max_px, min_checked, median_px=1.0):
+    """Every stored correspondence joins the same true bead: within
+    ``max_px``, their median below ``median_px``, at least ``min_checked``
+    checked, and stored symmetrically on the other view."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+
+    sd = SpimData.load(xml)
+    store = InterestPointStore.for_project(sd)
+    pts = {v: store.load_points(v, "beads") for v in sd.view_ids()}
+    corrs = {v: store.load_correspondences(v, "beads") for v in sd.view_ids()}
+    links = {(v, c.id, c.other_view, c.other_id)
+             for v, cs in corrs.items() for c in cs}
+    d, sym = [], True
+    for v, cs in corrs.items():
+        loc = dict(zip(pts[v][0].tolist(), pts[v][1]))
+        for c in cs:
+            oid, olocs = pts[c.other_view]
+            other = dict(zip(oid.tolist(), olocs))[c.other_id]
+            d.append(np.linalg.norm(
+                (loc[c.id] + proj.true_offsets[v.setup])
+                - (other + proj.true_offsets[c.other_view.setup])))
+            sym &= (c.other_view, c.other_id, v, c.id) in links
+    d = np.asarray(d)
+    check(len(d) >= min_checked and d.max() < max_px
+          and np.median(d) < median_px and sym,
+          f"{what}: {len(d)} stored links (>= {min_checked}) join the same "
+          f"true bead, max {d.max() if len(d) else float('nan'):.3f} < "
+          f"{max_px} px, median "
+          f"{np.median(d) if len(d) else float('nan'):.3f} < {median_px} "
+          "px; every one stored on both views")
+
+
+def make_clouds(scale, seed=61):
+    """9b's nucleus-scale pair: A uniform in a cube at the JAX package's
+    soak density, B = R A + t (10 degrees about z) + N(0, 0.05); 10 % of
+    each side dropped and 10 % uniform extras added to each. Returns (A,
+    B, the true model (3, 4), the number of true points at the head of A,
+    the number of points both sides kept)."""
+    import numpy as np
+
+    cfg = SCALES[scale]
+    n, ext = cfg["cloud"], cfg["cloud_extent"]
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, ext, (n, 3))
+    ang = np.deg2rad(10.0)
+    rot = np.array([[np.cos(ang), -np.sin(ang), 0.0],
+                    [np.sin(ang), np.cos(ang), 0.0], [0.0, 0.0, 1.0]])
+    t = np.array([35.0, -20.0, 12.0])
+    b = a @ rot.T + t + rng.normal(0, 0.05, a.shape)
+    keep_a = rng.permutation(n)[: n - n // 10]
+    keep_b = rng.permutation(n)[: n - n // 10]
+    extra = lambda: rng.uniform(0, ext, (n // 10, 3))
+    wa = np.concatenate([a[keep_a], extra()])
+    wb = np.concatenate([b[keep_b], extra() @ rot.T + t])
+    common = len(np.intersect1d(keep_a, keep_b))
+    return wa, wb, np.hstack([rot, t[:, None]]), len(keep_a), common
+
+
+def phase9_matching(work, proj, det_b, scale, dev, card, launches):
+    """Phase 9: match-interestpoints. 9a on route A with 8b's points at the
+    reference defaults, then solver -s IP; 9b a nucleus-scale pair through
+    match_pair; 9c ICP, multi-consensus and search radius on route A.
+    Returns K19-K22's results."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import detection as TD
+    from bigstitcher_spark_tpu_torch.models import matching as TM
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+    from bigstitcher_spark_tpu_torch.utils.geometry import apply_affine
+
+    print("phase 9 (matching)", flush=True)
+    tiny = scale == "tiny"
+    # the XML (its registrations) beside a store holding 8b's points
+    base = os.path.join(work, "match_8b")
+    os.makedirs(base, exist_ok=True)
+    xml0 = os.path.join(base, "dataset.xml")
+    shutil.copy(proj.xml_path, xml0)
+    sd = SpimData.load(xml0)
+    TD.save_detections(sd, InterestPointStore.for_project(sd), det_b,
+                       TD.DetectionParams())
+    sd.save(xml0)
+
+    def copy_of(name, src=base):
+        d = os.path.join(work, name)
+        shutil.copytree(src, d)
+        return os.path.join(d, "dataset.xml")
+
+    # tiny tiles share a few beads an overlap: fewer inliers suffice there
+    small = ["-rmni", "4", "-rmir", "0.0"] if tiny else []
+    xml_a = copy_of("match_9a")
+    run_a = match_cli(xml_a, ["-l", "beads", *small], "9a", dev, card,
+                      launches)
+    check_links("9a", proj, xml_a, 5.0, 4 if tiny else 20)
+    srun, _calls = solver_cli(xml_a, ["-s", "IP", "-l", "beads"], "9a solver",
+                              dev, card, launches)
+    sd = SpimData.load(xml_a)
+    delta = np.array([sd.model(v)[:, 3] - proj.true_offsets[v.setup]
+                      for v in sd.view_ids()])
+    spread = float(np.abs(delta - delta.mean(0)).max())
+    # tiny tiles share too few beads to link every view: no spread gate
+    check(srun.result.error < 1.0 and (spread < 1.0 or tiny),
+          f"9a solver -s IP: error {srun.result.error:.4f} < 1 px, tile "
+          f"placement spread {spread:.4f} < 1 px against the truth")
+    # the kernels against the twins at the shapes of the pair with the most
+    # candidates
+    first = max(run_a.results, key=lambda r: r.n_candidates)
+    sd0 = SpimData.load(xml0)
+    st0 = InterestPointStore.for_project(sd0)
+    wa, wb = (apply_affine(sd0.model(v), st0.load_points(v, "beads")[1])
+              for v in (first.view_a, first.view_b))
+    err, _t = match_kernel_checks(
+        f"9a pair {first.view_a.setup}-{first.view_b.setup}", wa, wb, dev)
+
+    # 9b: the nucleus-scale pair
+    wa, wb, truth, n_true, n_common = make_clouds(scale)
+    timer = DS.StageTimes()
+    t0 = time.perf_counter()
+    pairs, model, n_cand = counted("9b", launches, dev, lambda: TM.match_pair(
+        wa, wb, TM.MatchingParams(), seed=17, device=dev, timer=timer))
+    wall = time.perf_counter() - t0
+    timer.resolve()
+    h = timer.host
+    busy = sum(timer.device[k] for k in ("descriptors", "ratio", "ransac"))
+    print(f"  [matching 9b] {card}: {len(wa)} x {len(wb)} points, {n_cand} "
+          f"candidates, {len(pairs)} inliers; wall {wall:.3f}s: "
+          f"descriptors {h['descriptors']:.3f}s ratio {h['ratio']:.3f}s "
+          f"fetch {h['fetch']:.3f}s ransac {h['ransac']:.3f}s host "
+          f"{wall - sum(h.values()):.3f}s; card busy descriptors "
+          f"{timer.device['descriptors']:.4f}s ratio "
+          f"{timer.device['ratio']:.4f}s ransac "
+          f"{timer.device['ransac']:.4f}s; idle share "
+          f"{1 - busy / wall:.4f}", flush=True)
+    src = wa[:n_true]  # the true points of A (the extras follow)
+    rms = float(np.sqrt(((src @ model[:, :3].T + model[:, 3]
+                          - (src @ truth[:, :3].T + truth[:, 3])) ** 2)
+                        .sum(1).mean())) if model is not None else np.inf
+    check(model is not None and rms < 0.1 and len(pairs) >= 0.7 * n_common,
+          f"9b: model maps A within {rms:.4f} < 0.1 px RMS of the truth; "
+          f"{len(pairs)} inliers >= 0.7 x {n_common} common points")
+    e9b, inputs = match_kernel_checks(
+        "9b", wa, wb, dev, rows=slice(0, SCALES[scale]["twin_rows"]))
+    for k, v in e9b.items():
+        err[k] = max(err.get(k, 0.0), v)
+
+    # 9c: the other options on route A
+    xml_icp = copy_of("match_9c_icp", os.path.dirname(xml_a))
+    match_cli(xml_icp, ["-l", "beads", "-m", "ICP", "--icpUseRANSAC",
+                        "--clearCorrespondences", *small], "9c ICP", dev,
+              card, launches)
+    check_links("9c ICP", proj, xml_icp, 2.5, 4 if tiny else 20, 2.5)
+    for route, extra in (("9c multi-consensus", ["-rmc"]),
+                         ("9c search radius", ["-sr", "10"])):
+        xml_c = copy_of("match_" + route.split()[1].replace("-", "_"))
+        run = match_cli(xml_c, ["-l", "beads", *extra, *small], route, dev,
+                        card, launches)
+        check(sum(len(r.ids_a) for r in run.results) > 0,
+              f"{route}: {sum(len(r.ids_a) for r in run.results)} "
+              "correspondences stored")
+        check_links(route, proj, xml_c, 5.0, 4 if tiny else 20)
+    if dev.type != "cuda":
+        return {}
+    res = match_kernel_times(inputs, card)
+    for name, r in res.items():
+        r["err"] = err.get(name, 0.0)
     return res
 
 
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-8 through the CLI entry functions; returns route A's XML
-    and container paths and phases 7 and 8's kernel results."""
+    """Phases 2-9 through the CLI entry functions; returns route A's XML
+    and container paths and phases 7-9's kernel results."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
     route_d(work, scale, dev, card, launches, a)
     phase6_stitching(a[0], proj_c, dev, card, launches)
     relax = phase7_solver(work, scale, a[0], dev, card, launches)
-    det = phase8_detection(a[0], scale, dev, card, launches)
-    return a[0].xml_path, a[1], {**relax, **det}
+    det, det_b = phase8_detection(a[0], scale, dev, card, launches)
+    match = phase9_matching(work, a[0], det_b, scale, dev, card, launches)
+    return a[0].xml_path, a[1], {**relax, **det, **match}
 
 
 # ---------------------------------------------------------------- main
@@ -2027,7 +2408,7 @@ def main(argv=None) -> int:
         *route, later = main_path(work, args.scale, dev, card, launches)
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection): "
+              f"detection, matching): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -2055,6 +2436,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms"),
+            **({"plain_shape": r["plain_shape"]} if "plain_shape" in r
+               else {}),
             **({"block_ms": r["block_ms"],
                 "block_wrapper_ms": r["block_wrapper_ms"],
                 "block_plain_ms": r["block_plain_ms"],

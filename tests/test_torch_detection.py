@@ -12,6 +12,27 @@ overlap box face, which such a difference may move across the face (the
 crop keeps points on the box). Refined values within 1e-6, sampled
 intensities within rtol 1e-5. The store and the XML the port's CLI
 writes are read back by both packages' stores.
+
+Minima (``--type MIN``/``BOTH``) at low thresholds and stored pyramid
+levels meet a weaker contract, checked on each block's candidates (spies
+on both packages' ``dog_block_topk_batch``, same inputs). Its reason: the
+port's separable passes and JAX's Toeplitz products round the response
+differently (measured <= 1.02e-6 apart), and weak minima sit on nearly
+flat ground, where the quadratic fit divides by Hessian eigenvalues down
+to 5e-7. On those cases:
+
+- the responses of a block agree within ``RESP_TOL`` = 2e-6;
+- the candidate voxels agree except near-tie flips: a voxel found by one
+  package only has a 3x3x3 neighbour whose tie-broken response is within
+  ``TIE_TOL`` = 4e-6 of its own, or its |response| is within ``RESP_TOL`` of
+  the threshold; at most ``MAX_FLIPS`` = 2 such flips a view;
+- a candidate found by both is fitted within ``max(PX_TOL, FIT_GAIN /
+  lam)`` det-res px, ``FIT_GAIN`` = 1e-6, where ``lam`` is the smallest
+  |eigenvalue| of the port's Hessian along its moves (first-order
+  perturbation of ``-H^-1 g`` by a response error of ~1e-6; measured
+  |d sub| * lam <= 4.2e-7), and its value within ``VAL_ATOL + 0.01 |d sub|``;
+- the final points then match one to one within that largest fit
+  difference (times the downsampling factor), apart from the flipped ones.
 """
 
 import os
@@ -41,6 +62,11 @@ from bigstitcher_spark_tpu_torch.models import detection as TD
 
 PX_TOL = 1e-4
 VAL_ATOL = 1e-6
+# the weaker contract of minima and stored levels (module docstring)
+RESP_TOL = 2e-6
+TIE_TOL = 2 * RESP_TOL
+MAX_FLIPS = 2
+FIT_GAIN = 1e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -61,6 +87,17 @@ def project(tmp_path_factory):
         str(tmp_path_factory.mktemp("det") / "proj"),
         n_tiles=(2, 1, 1), tile_size=(96, 96, 48), overlap=24,
         jitter=2.0, seed=5, n_beads_per_tile=30,
+    )
+
+
+@pytest.fixture(scope="module")
+def project_levels(tmp_path_factory):
+    """The same project stored with two pyramid levels."""
+    return make_synthetic_project(
+        str(tmp_path_factory.mktemp("det_levels") / "proj"),
+        n_tiles=(2, 1, 1), tile_size=(96, 96, 48), overlap=24,
+        jitter=2.0, seed=5, n_beads_per_tile=30,
+        downsampling_factors=((1, 1, 1), (2, 2, 1), (4, 4, 2)),
     )
 
 
@@ -155,11 +192,148 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_detect_interest_points_matches_jax(project, case):
-    kw = CASES[case]
-    jd, td, stats, tsd = _run_both(project.xml_path, **kw)
-    _compare(jd, td, tsd, kw)
+# minima and stored levels, on ``project_levels`` (module docstring)
+NEAR_TIE_CASES = {
+    "MIN ds1": dict(find_max=False, find_min=True, downsample_xy=1,
+                    downsample_z=1, threshold=0.002, block_size=(48, 48, 48)),
+    "BOTH ds2 (stored level 1)": dict(find_max=True, find_min=True,
+                                      downsample_xy=2, threshold=0.004,
+                                      block_size=(24, 24, 48)),
+    "MAX ds4,2 (stored level 2)": dict(downsample_xy=4, downsample_z=2),
+}
+
+
+def _spy(monkeypatch, module, record, to_numpy):
+    real = module.dog_block_topk_batch
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        record.append((args, [to_numpy(o) for o in out]))
+        return out
+
+    monkeypatch.setattr(module, "dog_block_topk_batch", spy)
+
+
+def _fit_lambda(dog, p, shape):
+    """Smallest |eigenvalue| of the quadratic fit's Hessian (float64) along
+    the moves the fit takes from voxel ``p``."""
+    p = np.array(p, np.int64)
+    eye = np.eye(3, dtype=np.int64)
+    lam = np.inf
+    for _ in range(4):
+        if np.any(p < 1) or np.any(p > np.array(shape) - 2):
+            break
+        at = lambda q: float(dog[tuple(q)])
+        c = at(p)
+        g = np.array([0.5 * (at(p + eye[d]) - at(p - eye[d])) for d in range(3)])
+        h = np.zeros((3, 3))
+        for d in range(3):
+            h[d, d] = at(p + eye[d]) - 2 * c + at(p - eye[d])
+            for e in range(d + 1, 3):
+                h[d, e] = h[e, d] = 0.25 * (
+                    at(p + eye[d] + eye[e]) - at(p + eye[d] - eye[e])
+                    - at(p - eye[d] + eye[e]) + at(p - eye[d] - eye[e]))
+        lam = min(lam, float(np.abs(np.linalg.eigvalsh(h)).min()))
+        if abs(np.linalg.det(h)) <= 1e-12:
+            break
+        off = np.clip(-np.linalg.solve(h, g), -1.0, 1.0)
+        moved = np.abs(off) > 0.5
+        if not moved.any():
+            break
+        p = p + np.where(moved, np.sign(off).astype(np.int64), 0)
+    return lam
+
+
+def _compare_candidates(jrec, trec):
+    """The near-tie contract on each block's candidates; returns (flips,
+    largest fit difference in det-res px)."""
+    import jax.numpy as jnp
+    from bigstitcher_spark_tpu.ops import dog as JO
+    from bigstitcher_spark_tpu_torch.ops import dog as TO
+
+    assert len(jrec) == len(trec)
+    flips, worst = 0, 0.0
+    for (jargs, jout), (targs, tout) in zip(jrec, trec):
+        blocks = np.asarray(jargs[0])
+        assert np.array_equal(blocks, targs[0].numpy())
+        lo, hi, thr, org = (np.asarray(v) for v in jargs[1:5])
+        sigma, fmax, fmin, _, _, rel = jargs[5:]
+        x = torch.from_numpy(blocks)
+        if tuple(rel) != (1, 1, 1):
+            x = TO.downsample_block_plain(x, tuple(rel))
+        tdog, _ = TO.dog_block_batch(x, lo, hi, thr, sigma, fmax, fmin, org,
+                                     stages=TO.PLAIN)
+        tdog = tdog.numpy()
+        for b in range(len(blocks)):
+            jdog = np.asarray(JO.dog_block(
+                jnp.asarray(x[b].numpy()), lo[b], hi[b], thr[b], sigma, fmax,
+                fmin, jnp.asarray(org[b]))[0])
+            assert np.abs(jdog - tdog[b]).max() <= RESP_TOL
+            cands = []
+            for idx, sub, val, valid, _ in (jout, tout):
+                cands.append({tuple(int(v) for v in i): (s, float(v))
+                              for i, s, v, ok in zip(idx[b], sub[b], val[b],
+                                                     valid[b]) if ok})
+            jc, tc = cands
+            tb = np.asarray(JO._tiebreak(tdog[b].shape, jnp.asarray(org[b])))
+            for key in set(jc) ^ set(tc):
+                flips += 1
+                p = np.array(key)
+                win = tuple(slice(max(v - 1, 0), v + 2) for v in p)
+                near = abs(abs(tdog[b][key]) - thr[b]) <= RESP_TOL
+                for field in (tdog[b] + tb, tdog[b] - tb):
+                    gaps = np.sort(np.abs(field[win].ravel() - field[key]))
+                    near |= bool(gaps[1] <= TIE_TOL)
+                assert near, f"candidate {key} flipped without a near tie"
+            for key in set(jc) & set(tc):
+                d = float(np.linalg.norm(jc[key][0] - tc[key][0]))
+                if d > PX_TOL:
+                    lam = _fit_lambda(tdog[b].astype(np.float64), key,
+                                      tdog[b].shape)
+                    assert d <= FIT_GAIN / lam, (key, d, lam)
+                assert abs(jc[key][1] - tc[key][1]) <= VAL_ATOL + 0.01 * d
+                worst = max(worst, d)
+    return flips, worst
+
+
+def _compare_near_ties(jd, td, kw, flips, worst):
+    """Final points one to one within the largest fit difference, apart
+    from at most ``flips`` points (all views)."""
+    tol = PX_TOL + worst * max(TD.DetectionParams(**kw).downsampling)
+    loose = 0
+    for a, b in zip(jd, td):
+        assert (a.view.timepoint, a.view.setup) == (b.view.timepoint,
+                                                    b.view.setup)
+        assert abs(len(a.points) - len(b.points)) <= MAX_FLIPS
+        d = np.linalg.norm(a.points[:, None] - b.points[None], axis=2)
+        # greedy by distance: two candidates may fit to one position
+        used_a, used_b = set(), set()
+        for i, j in zip(*np.unravel_index(np.argsort(d, axis=None), d.shape)):
+            if d[i, j] > tol:
+                break
+            if i not in used_a and j not in used_b:
+                used_a.add(i)
+                used_b.add(j)
+        loose += len(a.points) + len(b.points) - 2 * len(used_a)
+    assert loose <= flips
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(NEAR_TIE_CASES))
+def test_detect_interest_points_matches_jax(request, monkeypatch, case):
+    if case in NEAR_TIE_CASES:
+        kw = NEAR_TIE_CASES[case]
+        project = request.getfixturevalue("project_levels")
+        jrec, trec = [], []
+        _spy(monkeypatch, JD, jrec, np.asarray)
+        _spy(monkeypatch, TD, trec, lambda t: t.numpy())
+        jd, td, stats, tsd = _run_both(project.xml_path, **kw)
+        flips, worst = _compare_candidates(jrec, trec)
+        _compare_near_ties(jd, td, kw, flips, worst)
+    else:
+        kw = CASES[case]
+        project = request.getfixturevalue("project")
+        jd, td, stats, tsd = _run_both(project.xml_path, **kw)
+        _compare(jd, td, tsd, kw)
     assert sum(len(d.points) for d in td) > 0
     assert stats.blocks > 0 and stats.core_voxels > 0
     assert stats.points == sum(len(d.points) for d in td)

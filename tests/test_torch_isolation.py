@@ -3,7 +3,7 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the six JAX click
+* The port's argparse accepts every option spelling of the seven JAX click
   commands it ports; the options not yet ported are refused with a pointer
   to ROADMAP.md instead of doing something else.
 """
@@ -17,6 +17,7 @@ import torch
 import bigstitcher_spark_tpu_torch as port
 from bigstitcher_spark_tpu.cli.detection_tools import (
     detect_interestpoints_cmd as jax_detect,
+    match_interestpoints_cmd as jax_match,
 )
 from bigstitcher_spark_tpu.cli.fusion_tools import (
     affine_fusion_cmd as jax_affine_fusion,
@@ -32,6 +33,7 @@ from bigstitcher_spark_tpu_torch.cli.main import main as torch_main
 from bigstitcher_spark_tpu_torch.cli.main import tool_parser
 from bigstitcher_spark_tpu_torch.models.affine_fusion import fuse_volume
 from bigstitcher_spark_tpu_torch.models.detection import detect_interest_points
+from bigstitcher_spark_tpu_torch.models.matching import match_interest_points
 from bigstitcher_spark_tpu_torch.models.stitching import stitch_all_pairs
 from bigstitcher_spark_tpu_torch.utils.device import resolve_device
 
@@ -99,6 +101,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_main(["detect-interestpoints", "-x",
                     str(tmp_path / "missing.xml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        match_interest_points(None, [])
+    assert tool_parser("match-interestpoints").parse_args(
+        ["-x", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_main(["match-interestpoints", "-x",
+                    str(tmp_path / "missing.xml")])
 
 
 def _click_spellings(cmd):
@@ -115,6 +124,7 @@ def _click_spellings(cmd):
     ("stitching", jax_stitching),
     ("solver", jax_solver),
     ("detect-interestpoints", jax_detect),
+    ("match-interestpoints", jax_match),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -141,6 +151,8 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("detect-interestpoints", ["--profile"], "--profile"),
     ("detect-interestpoints", ["--telemetry-dir", "t"], "--telemetry-dir"),
     ("detect-interestpoints", ["--s3Region", "us-east-1"], "--s3Region"),
+    ("match-interestpoints", ["--profile"], "--profile"),
+    ("match-interestpoints", ["--telemetry-dir", "t"], "--telemetry-dir"),
 ])
 def test_not_yet_ported_options_are_refused(tool, args, what):
     base = {"create-fusion-container": ["-x", "unused.xml", "-o",
@@ -150,6 +162,7 @@ def test_not_yet_ported_options_are_refused(tool, args, what):
             "stitching": ["-x", "unused.xml"],
             "solver": ["-x", "unused.xml", "-s", "IP"],
             "detect-interestpoints": ["-x", "unused.xml"],
+            "match-interestpoints": ["-x", "unused.xml"],
             }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])

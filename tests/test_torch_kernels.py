@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K18) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K22) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -25,7 +25,13 @@ JAX package's device-vs-numpy contract (iterations equal, history rtol 1e-9
 K16 (response, extrema) take the same float32 operations in the same order
 as their twins: bitwise equal, candidate lists equal as sets with exact
 counts. K17 (top-k): indices and flags equal. K18 (subpixel fit): sub
-within 1e-5 px, val within rtol 1e-6.
+within 1e-5 px, val within rtol 1e-6. K19 (kNN descriptors), K20 (ratio
+test) and K21 (RANSAC scores) take the same float32 operations in the
+same order as their twins: indices, owners, flags and counts equal,
+descriptors, distances and models bitwise (K20's mean of B is a float64
+sum in another order, rounded once). K22 (refit, float64): masks and
+counts equal, models within rtol 1e-9 / atol 1e-9 (moments summed in
+another order).
 """
 
 import numpy as np
@@ -33,6 +39,7 @@ import pytest
 import torch
 
 from bigstitcher_spark_tpu_torch import ops
+from bigstitcher_spark_tpu_torch.ops import descriptors as DS
 from bigstitcher_spark_tpu_torch.ops import dog as G
 from bigstitcher_spark_tpu_torch.ops import downsample as D
 from bigstitcher_spark_tpu_torch.ops import fusion as F
@@ -703,3 +710,106 @@ def test_dog_block_batch_kernels(dev):
     assert torch.equal(dog, pdog) and torch.equal(mask, pmask)
     assert int(mask[0].sum()) > 0 and int(mask[1].sum()) == 0
     assert float(dog[1].abs().max()) == 0.0
+
+
+# --------------------------------------------------------------- K19-K22
+
+
+@pytest.mark.parametrize("rot", [True, False], ids=["rotation", "translation"])
+@pytest.mark.parametrize("n,r", [(3, 1), (2, 2), (4, 3)])
+def test_knn_descriptors_dense_kernel(dev, rot, n, r):
+    rng = np.random.default_rng(21)
+    pts = torch.from_numpy(rng.uniform(0, 300, (1, 3000, 3)).astype(np.float32))
+    pts[0, 10] = pts[0, 11]  # a duplicate point: equal distances
+    got = DS.knn_descriptors(pts.to(dev), None, n, r, rot)
+    ref = DS.knn_descriptors_plain(pts.to(dev), None, n, r, rot)
+    for g, e in zip(got, ref):
+        assert torch.equal(g, e)
+
+
+def test_knn_descriptors_masked_kernel(dev):
+    rng = np.random.default_rng(22)
+    pts = torch.from_numpy(rng.uniform(0, 60, (3, 300, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(3, 300)) > 0.4)
+    valid[2, 3:] = False  # fewer valid points than a pool
+    got = DS.knn_descriptors(pts.to(dev), valid.to(dev), 3, 1, True)
+    ref = DS.knn_descriptors_plain(pts.to(dev), valid.to(dev), 3, 1, True)
+    for g, e in zip(got, ref):
+        assert torch.equal(g, e)
+    assert not bool(got[2][2].any())
+
+
+def test_knn_descriptors_row_slice_twin(dev):
+    rng = np.random.default_rng(23)
+    pts = torch.from_numpy(rng.uniform(0, 500, (1, 5000, 3)).astype(
+        np.float32)).to(dev)
+    got = DS.knn_descriptors(pts, None, 3, 1, True)
+    ref = DS.knn_descriptors_plain(pts, None, 3, 1, True, rows=slice(1200, 2200))
+    for g, e in zip(got, ref):
+        assert torch.equal(g[:, 1200:2200], e)
+
+
+@pytest.mark.parametrize("D", [3, 9, 24])
+def test_ratio_match_kernel(dev, D):
+    rng = np.random.default_rng(24)
+    b = torch.from_numpy(rng.normal(0, 5, (4000, D)).astype(np.float32) + 100)
+    a = (b[::3] + torch.from_numpy(rng.normal(0, 0.1, (1334, D)).astype(
+        np.float32)))
+    owner = torch.from_numpy((np.arange(4000) // 4).astype(np.int32))
+    for own in (owner, None):
+        args = (a.to(dev), b.to(dev), None if own is None else own.to(dev), 3.0)
+        got, ref = DS.ratio_match(*args), DS.ratio_match_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        if own is not None:
+            assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("kind", ["TRANSLATION", "RIGID", "AFFINE"])
+def test_ransac_score_kernel(dev, kind):
+    rng = np.random.default_rng(25)
+    m = 5000
+    a = rng.uniform(0, 400, (m, 3))
+    b = a @ np.array([[0.99, -0.1, 0], [0.1, 0.99, 0], [0, 0, 1.0]]).T + 7.0
+    b[: m // 3] = rng.uniform(0, 400, (m // 3, 3))
+    pa = torch.from_numpy(a.astype(np.float32)).to(dev)
+    pb = torch.from_numpy(b.astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    idx = DS.draw_hypotheses(m, 3000, 4, g)
+    got = DS.ransac_score(pa, pb, idx, 5.0, kind)
+    ref = DS.ransac_score_plain(pa, pb, idx, 5.0, kind)
+    for x, y in zip(got, ref):  # a degenerate sample fits NaN on both
+        assert torch.equal(x.isnan(), y.isnan())
+        assert torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+@pytest.mark.parametrize("kind,reg,lam", [
+    ("AFFINE", "RIGID", 0.1), ("RIGID", "NONE", 0.0),
+    ("TRANSLATION", "IDENTITY", 0.3)])
+def test_ransac_refit_kernel(dev, kind, reg, lam):
+    rng = np.random.default_rng(26)
+    m = 20000
+    a = rng.uniform(0, 900, (m, 3))
+    b = a + np.array([3.0, -2.0, 1.0]) + rng.normal(0, 1.0, a.shape)
+    b[: m // 4] += rng.uniform(-30, 30, (m // 4, 3))
+    pa = torch.from_numpy(a.astype(np.float32)).to(dev)
+    pb = torch.from_numpy(b.astype(np.float32)).to(dev)
+    model = torch.tensor([[1, 0, 0, 3], [0, 1, 0, -2], [0, 0, 1, 1.0]],
+                         dtype=torch.float64, device=dev)
+    for fit in (True, False):
+        got = DS.ransac_refit(pa, pb, model, 2.5, kind, reg, lam, fit)
+        ref = DS.ransac_refit_plain(pa, pb, model, 2.5, kind, reg, lam, fit)
+        assert torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+        if fit:
+            torch.testing.assert_close(got[2], ref[2], rtol=1e-9, atol=1e-9)
+
+
+def test_matching_wrappers_count_and_refuse(dev):
+    ops.reset_launch_counts()
+    pts = torch.rand((1, 50, 3), device=dev)
+    DS.knn_descriptors(pts, None, 3, 1, True)
+    assert ops.launch_counts()["knn_descriptors"] == 1
+    with pytest.raises(ValueError):
+        DS.knn_descriptors(pts, None, 6, 3, True)  # pool 9 > MAX_POOL
+    with pytest.raises(ValueError):
+        DS.ratio_match(pts[0].double(), pts[0].double(), None, 3.0)
