@@ -16,7 +16,9 @@ Ported so far: ``create-fusion-container`` (with pyramids),
 single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
 downsample stage), ``downsample``, single-device ``stitching``, the
 single-device ``solver`` (stitching and interest-point sources),
-``detect-interestpoints`` and ``match-interestpoints``.
+``detect-interestpoints``, ``match-interestpoints``, ``match-intensities``
+and ``solve-intensities`` (whose grids ``affine-fusion --intensityN5``
+applies).
 Everything else raises :class:`NotYetPorted`.
 """
 

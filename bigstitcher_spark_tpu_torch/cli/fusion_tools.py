@@ -202,7 +202,9 @@ def add_affine_fusion(sub) -> argparse.ArgumentParser:
                    help="one reader thread")
     p.add_argument("--intensityN5", dest="intensity_n5", nargs="?", const="",
                    default=None,
-                   help="intensity coefficients (not yet ported)")
+                   help="apply the intensity-correction coefficients of "
+                        "solve-intensities from this N5 (no value: "
+                        "intensity.n5 next to the XML)")
     p.add_argument("--devices", dest="devices", type=int, default=None,
                    help="devices to use; only 1 until the sharded route is "
                         "ported")
@@ -229,8 +231,6 @@ def affine_fusion_cmd(args: argparse.Namespace):
     from ..utils.device import resolve_device
 
     check_infrastructure(args)
-    if args.intensity_n5 is not None:
-        raise NotYetPorted("--intensityN5")
     if args.devices is not None and args.devices != 1:
         raise NotYetPorted(f"--devices {args.devices} (the sharded route)")
     device = resolve_device(args.device)
@@ -246,6 +246,19 @@ def affine_fusion_cmd(args: argparse.Namespace):
     sd = SpimData.load(meta.input_xml)
     loader = ViewLoader(sd)
     all_views = select_views_from_args(sd, args)
+    coefficients = None
+    if args.intensity_n5 is not None:
+        from ..models.intensity import IntensityStore
+
+        istore = (IntensityStore(args.intensity_n5) if args.intensity_n5
+                  else IntensityStore.for_project(sd))
+        coefficients = {}
+        for v in all_views:
+            c = istore.load_coefficients(v)
+            if c is not None:
+                coefficients[v] = c.astype(np.float32)
+        print(f"intensity correction: coefficients for "
+              f"{len(coefficients)}/{len(all_views)} views from {istore.root}")
     blend = BlendParams(
         border=tuple(float(v) for v in args.blending_border.split(",")),
         range=tuple(float(v) for v in args.blending_range.split(",")),
@@ -294,6 +307,7 @@ def affine_fusion_cmd(args: argparse.Namespace):
                 io_threads=4 if args.prefetch else 1,
                 device=device,
                 pyramid=pyr,
+                coefficients=coefficients,
             )
             total_vox += stats.voxels
             results.append(stats)

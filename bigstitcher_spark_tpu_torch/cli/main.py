@@ -13,6 +13,7 @@ from .. import NotYetPorted
 from . import (
     detection_tools,
     fusion_tools,
+    intensity_tools,
     resave_tools,
     solver_tools,
     stitching_tools,
@@ -31,6 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     solver_tools.add_solver(sub)
     detection_tools.add_detect_interestpoints(sub)
     detection_tools.add_match_interestpoints(sub)
+    intensity_tools.add_match_intensities(sub)
+    intensity_tools.add_solve_intensities(sub)
     return parser
 
 

@@ -475,6 +475,14 @@ class ChunkStore:
         """Whether a group, dataset or object lies at ``path``."""
         return os.path.exists(self._kvpath(path))
 
+    def list_children(self, path: str = "") -> list[str]:
+        """Names of the groups and datasets directly under ``path``."""
+        p = self._kvpath(path)
+        if not os.path.isdir(p):
+            return []
+        return sorted(d for d in os.listdir(p)
+                      if os.path.isdir(os.path.join(p, d)))
+
     def remove(self, path: str = "") -> None:
         """Delete ``path`` and everything under it (the whole store for "")."""
         p = self._kvpath(path) if path else self.root

@@ -23,22 +23,30 @@ downsample levels on the device from the converted volume (K6,
 per-block route the downsample stage
 (:func:`.downsample_driver.downsample_pyramid_level`) makes every level.
 
-Intensity coefficients, the sharded multi-device route (and its per-block
-epilogue, ``eligible_epilogue_levels``) and the device tile cache are not
-yet ported.
+Intensity coefficients (per-view (Cx, Cy, Cz, 2) grids of [scale, offset]
+from ``solve-intensities``) ride on both routes: K1 takes them when every
+view is a translation, otherwise every per-block fusion goes to K3, as in
+the JAX planner. The grids live on the device in one table per content
+digest (:func:`coefficient_table`); a solve on the device registers its
+grids there without a host round trip (:func:`register_coefficient_table`).
+
+The sharded multi-device route (and its per-block epilogue,
+``eligible_epilogue_levels``) and the device tile cache are not yet ported.
 """
 
 from __future__ import annotations
 
+import hashlib
+import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from .. import NotYetPorted, config
+from .. import config
 from ..io.chunkstore import Dataset
 from ..io.dataset_io import ViewLoader, best_mipmap_level
 from ..io.spimdata import SpimData, ViewId
@@ -211,6 +219,117 @@ def _blend_per_view(loader, p, blend):
             np.asarray(blend.range) / factors)
 
 
+# ---------------------------------------------------------------------------
+# intensity coefficients
+# ---------------------------------------------------------------------------
+
+
+def _coeff_grid_affine(sd, loader, p, cdims) -> np.ndarray:
+    """(3, 4) level position -> grid coordinate affine of one view plan:
+    full-res px = f l + (f - 1) / 2, cell centres at (k + 0.5) cs - 0.5 with
+    cs = view_size / dims (BlkAffineFusion coefficients semantics), as the
+    JAX package's ``_coeff_grid_affine``. Shared by both routes."""
+    f = np.asarray(loader.downsampling_factors(p.view.setup)[p.level],
+                   np.float64)
+    cs = np.array(sd.view_size(p.view), np.float64) / np.array(cdims)
+    aff = np.zeros((3, 4), np.float32)
+    aff[:, :3] = np.diag(f / cs)
+    aff[:, 3] = ((f - 1) / 2.0 + 0.5) / cs - 0.5
+    return aff
+
+
+def _coeff_digest(coefficients) -> bytes:
+    """Content signature of a coefficient set: view identity + grid bytes."""
+    h = hashlib.blake2b(digest_size=16)
+    for v in sorted(coefficients, key=lambda v: (v.timepoint, v.setup)):
+        g = np.ascontiguousarray(coefficients[v], np.float32)
+        h.update(np.asarray([v.timepoint, v.setup, *g.shape],
+                            np.int64).tobytes())
+        h.update(g.tobytes())
+    return h.digest()
+
+
+def _coeff_rows(coefficients) -> dict:
+    """Canonical {view: table row} assignment (row 0 is the identity)."""
+    views = sorted(coefficients, key=lambda v: (v.timepoint, v.setup))
+    return {v: i + 1 for i, v in enumerate(views)}
+
+
+_COEFF_TABLE_KEEP = 4
+_COEFF_TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_COEFF_LOCK = threading.Lock()
+
+
+def _cache_table(key, entry) -> None:
+    with _COEFF_LOCK:
+        _COEFF_TABLES[key] = entry
+        _COEFF_TABLES.move_to_end(key)
+        while len(_COEFF_TABLES) > _COEFF_TABLE_KEEP:
+            _COEFF_TABLES.popitem(last=False)
+
+
+def coefficient_table(coefficients, device) -> tuple[torch.Tensor, dict]:
+    """(table, rows): ``table`` a (n_views + 1, Cx, Cy, Cz, 2) float32 stack
+    on ``device`` whose row 0 is the identity map (scale 1, offset 0) for
+    views without a grid, ``rows`` the {view: row} map. Uploaded at most
+    once per content digest and device (the last few sets are kept)."""
+    dev = torch.device(device)
+    key = (_coeff_digest(coefficients), str(dev))
+    with _COEFF_LOCK:
+        ent = _COEFF_TABLES.get(key)
+        if ent is not None:
+            _COEFF_TABLES.move_to_end(key)
+            return ent
+    rows = _coeff_rows(coefficients)
+    cdims = next(iter(coefficients.values())).shape[:3]
+    host = np.zeros((len(rows) + 1, *cdims, 2), np.float32)
+    host[..., 0] = 1.0
+    for v, r in rows.items():
+        host[r] = coefficients[v]
+    ent = (torch.from_numpy(host).to(dev), rows)
+    _cache_table(key, ent)
+    return ent
+
+
+def register_coefficient_table(coefficients, per_view_dev) -> None:
+    """Adopt grids already on the device for ``coefficients`` (the solve ->
+    fusion handoff: ``per_view_dev`` {view: (Cx, Cy, Cz, 2) float32 tensor}
+    holds the same values), so the next :func:`coefficient_table` lookup
+    on that device uploads nothing."""
+    rows = _coeff_rows(coefficients)
+    if set(rows) != set(per_view_dev):
+        return
+    order = sorted(rows, key=rows.get)
+    first = per_view_dev[order[0]]
+    ident = torch.zeros((1, *first.shape), dtype=torch.float32,
+                        device=first.device)
+    ident[..., 0] = 1.0
+    table = torch.cat([ident] + [per_view_dev[v].to(torch.float32)[None]
+                                 for v in order]).contiguous()
+    _cache_table((_coeff_digest(coefficients), str(first.device)),
+                 (table, rows))
+
+
+def gather_coefficient_inputs(sd, loader, plans, coefficients, nb, device):
+    """Per-block (or per-volume) coefficient kernel inputs: the (nb, Cx, Cy,
+    Cz, 2) rows of the device table (row 0, the identity, for padded slots
+    and views without a grid) and the (nb, 3, 4) float32 level position ->
+    grid affines (the identity for those)."""
+    table, rows = coefficient_table(coefficients, device)
+    cdims = tuple(int(s) for s in table.shape[1:4])
+    idx = np.zeros((nb,), np.int64)
+    coeff_affs = np.zeros((nb, 3, 4), np.float32)
+    coeff_affs[:, :, :3] = np.eye(3)
+    for i, p in enumerate(plans):
+        r = rows.get(p.view)
+        if r is None:
+            continue
+        idx[i] = r
+        coeff_affs[i] = _coeff_grid_affine(sd, loader, p, cdims)
+    coeffs = table.index_select(0, torch.from_numpy(idx).to(table.device))
+    return coeffs.contiguous(), coeff_affs
+
+
 def _gather_inputs(loader, plans, pshape, vb, blend, inside_offset):
     """Host staging for K3: the clipped source boxes (zero-padded to the
     bucketed patch shape) and the per-view parameter arrays."""
@@ -281,28 +400,36 @@ class StagedBlock:
     kind: str          # "shift" (K2), "sep" (K5) or "gather" (K3)
     shape: tuple       # compute block shape the kernel fuses
     arrays: tuple      # numpy kernel inputs, in the wrapper's order
+    # K3's intensity grids (device tensor) and their affines (numpy)
+    coeffs: tuple | None = None
 
 
 def stage_block(sd, loader, views, block, bbox, compute_block, blend,
-                anisotropy, inside_offset):
+                anisotropy, inside_offset, coefficients=None, device="cpu"):
     """Plan one compute block and read its source patches on the host.
-    None when no view overlaps it (the block is left empty)."""
+    None when no view overlaps it (the block is left empty). With
+    ``coefficients`` every block goes to K3, its grids gathered from the
+    table on ``device``."""
     bshape = tuple(int(s) for s in compute_block)
     block_global = Interval.from_shape(bshape, block.offset).translate(bbox.min)
     plans = plan_block(sd, loader, views, block_global, anisotropy)
     if not plans:
         return None
     vb = F.bucket_views(len(plans))
-    if all(p.is_translation for p in plans):
+    if coefficients is None and all(p.is_translation for p in plans):
         return StagedBlock(block, "shift", bshape, _shift_inputs(
             loader, plans, block_global, bshape, vb, blend, inside_offset))
     pshape = F.bucket_shape(
         np.max([p.patch_interval.shape for p in plans], axis=0))
-    if all(p.is_diagonal for p in plans):
+    if coefficients is None and all(p.is_diagonal for p in plans):
         return StagedBlock(block, "sep", bshape, _sep_inputs(
             loader, plans, pshape, vb, blend, inside_offset))
+    coeffs = None
+    if coefficients is not None:
+        coeffs = gather_coefficient_inputs(sd, loader, plans, coefficients,
+                                           vb, device)
     return StagedBlock(block, "gather", bshape, _gather_inputs(
-        loader, plans, pshape, vb, blend, inside_offset))
+        loader, plans, pshape, vb, blend, inside_offset), coeffs)
 
 
 _BLOCK_KERNELS = {"shift": F.fuse_block_shift, "sep": F.fuse_block_sep,
@@ -320,9 +447,14 @@ def run_staged_block(staged: StagedBlock, fusion_type: str,
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     *inputs, ioffs = args
+    extra = {}
+    if staged.coeffs is not None:
+        grids, affs = staged.coeffs
+        extra = dict(coeffs=grids.to(device),
+                     coeff_affines=torch.from_numpy(affs).to(device))
     fused, wsum = _BLOCK_KERNELS[staged.kind](
         *inputs, block_shape=staged.shape, fusion_type=fusion_type,
-        inside_offs=ioffs)
+        inside_offs=ioffs, **extra)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
@@ -333,14 +465,17 @@ def run_staged_block(staged: StagedBlock, fusion_type: str,
 
 def fuse_grid_block(sd, loader, views, block, bbox, fusion_type="AVG_BLEND",
                     blend=None, anisotropy=None, compute_block_shape=None,
-                    inside_offset=(0.0, 0.0, 0.0), device=None):
+                    inside_offset=(0.0, 0.0, 0.0), device=None,
+                    coefficients=None):
     """Fuse one grid block. Returns (fused, wsum) float32 tensors of
     ``block.size`` on ``device`` (default ``cuda``), or None when no view
-    overlaps the block."""
+    overlaps the block. ``coefficients``: per-view intensity grids (then
+    K3 fuses the block)."""
     dev = resolve_device(device)
     staged = stage_block(sd, loader, views, block, bbox,
                          compute_block_shape or block.size,
-                         blend or BlendParams(), anisotropy, inside_offset)
+                         blend or BlendParams(), anisotropy, inside_offset,
+                         coefficients, dev)
     if staged is None:
         return None
     fused, wsum = run_staged_block(staged, fusion_type, dev)
@@ -367,13 +502,18 @@ class CompositePlan:
     kinds: tuple = ()
     diags: torch.Tensor | None = None
     offs: torch.Tensor | None = None
+    coeffs: torch.Tensor | None = None      # (V, Cx, Cy, Cz, 2) intensity grids
+    coeff_affs: torch.Tensor | None = None  # (V, 3, 4) level pos -> grid
 
 
 def plan_composite_volume(sd, loader, views, bbox, anisotropy, blend,
-                          masks=False, mask_offset=(0.0, 0.0, 0.0)):
+                          masks=False, mask_offset=(0.0, 0.0, 0.0),
+                          coefficients=None, device="cpu"):
     """Plan the composite route. None when a view is neither a translation
-    nor a positive diagonal at stored level 0, or when tiles + float32
-    accumulators exceed the device budget."""
+    nor a positive diagonal at stored level 0, when ``coefficients`` come
+    with a view that is not a translation (the per-block route applies
+    them), or when tiles + float32 accumulators exceed the device budget.
+    The grids are gathered from the table on ``device``."""
     vol_iv = Interval.from_shape(bbox.shape).translate(bbox.min)
     plans = plan_block(sd, loader, views, vol_iv, anisotropy)
     if not plans:
@@ -381,6 +521,8 @@ def plan_composite_volume(sd, loader, views, bbox, anisotropy, blend,
     if any(not (p.is_translation or p.is_diagonal) or p.level != 0
            for p in plans):
         return None
+    if coefficients is not None and any(not p.is_translation for p in plans):
+        return None  # coefficients + diagonal views -> per-block route
     if any(not p.is_translation
            and np.any(np.diagonal(p.inv_total[:, :3]) <= 0) for p in plans):
         return None  # mirrored axes: keep the general gather path
@@ -437,9 +579,15 @@ def plan_composite_volume(sd, loader, views, bbox, anisotropy, blend,
         img_dims[i] = p.img_dim
         borders[i], ranges[i] = _blend_per_view(loader, p, blend)
     t = torch.from_numpy
+    coeffs = coeff_affs = None
+    if coefficients is not None:
+        coeffs, affs = gather_coefficient_inputs(sd, loader, plans,
+                                                 coefficients, V, device)
+        coeff_affs = t(affs)
     return CompositePlan(plans, out_shape, tuple(windows), tuple(n_offs), pad,
                          t(fracs), t(img_dims), t(borders), t(ranges),
-                         t(inside_offs), tuple(kinds), t(diags), t(offs))
+                         t(inside_offs), tuple(kinds), t(diags), t(offs),
+                         coeffs, coeff_affs)
 
 
 def composite_plan_from_reference(fields) -> CompositePlan | list[_ViewPlan]:
@@ -461,8 +609,6 @@ def composite_plan_from_reference(fields) -> CompositePlan | list[_ViewPlan]:
         ) for p in fields]
     get = (fields.get if isinstance(fields, dict)
            else lambda k, d=None: getattr(fields, k, d))
-    if get("coeffs") is not None:
-        raise NotYetPorted("intensity coefficients in the composite plan")
     V = len(get("windows"))
     f32 = lambda k, fill: torch.from_numpy(np.ascontiguousarray(
         get(k) if get(k) is not None else np.full((V, 3), fill), np.float32))
@@ -479,6 +625,10 @@ def composite_plan_from_reference(fields) -> CompositePlan | list[_ViewPlan]:
         inside_offs=f32("inside_offs", 0.0),
         kinds=tuple(get("kinds") or ("shift",) * V),
         diags=f32("diags", 1.0), offs=f32("offs", 0.0),
+        coeffs=(None if get("coeffs") is None else torch.from_numpy(
+            np.ascontiguousarray(get("coeffs"), np.float32))),
+        coeff_affs=(None if get("coeff_affs") is None else torch.from_numpy(
+            np.ascontiguousarray(get("coeff_affs"), np.float32))),
     )
 
 
@@ -527,12 +677,15 @@ def upload_composite_tiles(loader, cp: CompositePlan, device, timings=None):
 def dispatch_composite(cp: CompositePlan, tiles, fusion_type, out_dtype,
                        masks, min_intensity, max_intensity):
     """K1 over the whole volume; returns the converted device volume."""
+    dev = tiles[0].device
     return F.composite_fuse(
         tiles, cp.fracs, cp.img_dims, cp.borders, cp.ranges, cp.inside_offs,
         min_intensity, max_intensity, cp.diags, cp.offs,
         out_shape=cp.out_shape, windows=cp.windows, n_offs=cp.n_offs,
         pad=cp.pad, fusion_type=fusion_type, out_dtype=out_dtype,
-        masks=masks, kinds=cp.kinds)
+        masks=masks, kinds=cp.kinds,
+        coeffs=None if cp.coeffs is None else cp.coeffs.to(dev),
+        coeff_affs=cp.coeff_affs)
 
 
 def _write(out_ds: Dataset, data: np.ndarray, offset, zarr_ct) -> None:
@@ -619,6 +772,7 @@ def fuse_volume(
     io_threads: int = 4,
     device: str | torch.device | None = None,
     pyramid: list[PyramidLevel] | None = None,
+    coefficients: dict | None = None,
 ) -> FusionStats:
     """Fuse ``views`` into ``out_ds`` over ``bbox`` on one device.
 
@@ -630,11 +784,15 @@ def fuse_volume(
     computes on the device and drains with the volume (bit-identical to
     the downsample stage); the per-block route makes none.
     ``stats.pyramid_levels`` says how many were made: the rest are the
-    downsample stage's job."""
+    downsample stage's job. ``coefficients``: per-view (Cx, Cy, Cz, 2)
+    intensity-correction grids ({view: array}; views without one keep
+    their intensities); they keep the composite route only when every view
+    is a translation and send every per-block fusion to K3."""
     dev = resolve_device(device)
     stats = FusionStats()
     t0 = time.time()
     blend = blend or BlendParams()
+    coefficients = coefficients or None  # no grid at all: nothing to apply
     aniso = anisotropy_transform(anisotropy_factor)
     compute_block = tuple(b * s for b, s in zip(block_size, block_scale))
     grid = create_grid(bbox.shape, compute_block, block_size)
@@ -645,7 +803,7 @@ def fuse_volume(
     threads = config.get("BST_WRITE_THREADS") or 1
 
     cp = plan_composite_volume(sd, loader, views, bbox, aniso, blend, masks,
-                               mask_offset)
+                               mask_offset, coefficients, dev)
     if cp is not None:
         stats.path = "composite"
         tiles = upload_composite_tiles(loader, cp, dev, stats.timings)
@@ -674,7 +832,7 @@ def fuse_volume(
     def stage(block):
         ts = time.perf_counter()
         staged = stage_block(sd, loader, views, block, bbox, compute_block,
-                             blend, aniso, inside_offset)
+                             blend, aniso, inside_offset, coefficients, dev)
         return staged, time.perf_counter() - ts
 
     readers = ThreadPoolExecutor(max_workers=max(1, io_threads),

@@ -27,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
-           "pcm", "fft", "solve", "dog", "descriptors", "ransac")
+           "pcm", "fft", "solve", "dog", "descriptors", "ransac", "intensity",
+           "cg")
 HEADERS = ("fusion_common.cuh", "fit3d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,7 +42,8 @@ class BstCompositeView(ctypes.Structure):
 
     _fields_ = [(name, t * 3) for name, t in (
         ("a", _I), ("L", _I), ("n", _I), ("pad", _I), ("tshape", _I))]
-    _fields_ += [("kind", _I), ("table_off", _I)]
+    _fields_ += [("kind", _I), ("table_off", _I), ("cdims", _I * 3),
+                 ("ctab_off", _I)]
     _fields_ += [(name, _F * 3) for name in ("frac", "diag", "off")]
 
 
@@ -50,7 +52,7 @@ _SIGNATURES = {
     "composite": {
         "bst_composite_init": [_VP, _VP, _I64, _I, _VP],
         "bst_composite_view": [_VP, _I, ctypes.POINTER(BstCompositeView),
-                               _VP, _I, _VP, _VP, _I, _I, _I, _VP],
+                               _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP],
         "bst_composite_finalize": [_VP, _VP, _I64, _I, _I, _I, _F, _F, _VP,
                                    _VP],
     },
@@ -60,7 +62,7 @@ _SIGNATURES = {
     },
     "gather": {
         "bst_fuse_block": [_VP, _I, _I, _I, _I] + [_VP] * 7 + [_I] * 5
-                          + [_VP, _VP, _VP],
+                          + [_VP, _VP, _I, _I, _I] + [_VP, _VP, _VP],
     },
     "convert": {
         "bst_convert_intensity": [_VP, _I64, _F, _F, _I, _VP, _VP],
@@ -101,6 +103,14 @@ _SIGNATURES = {
         "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_VP] * 5,
         "bst_ransac_refit": [_VP, _VP, _I, _VP, _D, _I, _I, _I, _D]
                             + [_VP] * 4,
+    },
+    "intensity": {
+        "bst_linefit_ransac": [_VP, _VP, _VP, _I, _I, _VP, _I, _F]
+                              + [_VP] * 6,
+    },
+    "cg": {
+        "bst_cg_spmv": [_I] + [_VP] * 11,
+        "bst_cg_update": [_I, _I] + [_VP] * 9,
     },
 }
 

@@ -15,6 +15,12 @@ wrapper                   kernel (csrc/)               JAX program
 :func:`fuse_block_sep`    ``sep.cu`` (K5)              fuse_block_sep
 ========================  ===========================  ====================
 
+K1 and K3 also apply per-view intensity-correction grids (Cx, Cy, Cz, 2)
+of [scale, offset] when given them (``so[0] * val + so[1]`` before the
+blend, as the JAX programs do): K1 by separable interpolation rows over
+each window (:func:`composite_coeff_tables`), K3 by a trilinear sample at
+each voxel's grid coordinate (:func:`_trilinear_vec`).
+
 A wrapper takes the plain version only because its tensors lie on the
 CPU; on CUDA tensors it launches the kernel or raises. Each wrapper counts
 its kernel launches in its ``launches`` attribute (an int), so a run can
@@ -359,12 +365,51 @@ def _trilinear_sample(patch: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return c000 + c100 + c010 + c110 + c001 + c101 + c011 + c111
 
 
+def _trilinear_vec(grid: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Sample a vector-valued grid (Gx, Gy, Gz, C) at (N, 3) float grid
+    coordinates: floor and fraction, both corner indices clipped to the
+    grid (ops/nonrigid.py _trilinear_vec). Returns (N, C)."""
+    gx, gy, gz, C = grid.shape
+    p0 = torch.floor(pts)
+    f = pts - p0
+    p0 = p0.to(torch.int64)
+    x0 = torch.clamp(p0[:, 0], 0, gx - 1)
+    y0 = torch.clamp(p0[:, 1], 0, gy - 1)
+    z0 = torch.clamp(p0[:, 2], 0, gz - 1)
+    x1 = torch.clamp(p0[:, 0] + 1, 0, gx - 1)
+    y1 = torch.clamp(p0[:, 1] + 1, 0, gy - 1)
+    z1 = torch.clamp(p0[:, 2] + 1, 0, gz - 1)
+    flat = grid.reshape(-1, C)
+    syz = gy * gz
+
+    def g(xi, yi, zi):
+        return flat[xi * syz + yi * gz + zi]
+
+    fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
+    return (g(x0, y0, z0) * (1 - fx) * (1 - fy) * (1 - fz)
+            + g(x1, y0, z0) * fx * (1 - fy) * (1 - fz)
+            + g(x0, y1, z0) * (1 - fx) * fy * (1 - fz)
+            + g(x1, y1, z0) * fx * fy * (1 - fz)
+            + g(x0, y0, z1) * (1 - fx) * (1 - fy) * fz
+            + g(x1, y0, z1) * fx * (1 - fy) * fz
+            + g(x0, y1, z1) * (1 - fx) * fy * fz
+            + g(x1, y1, z1) * fx * fy * fz)
+
+
+def _apply3(x, y, z, A):
+    """((x A[:, 0] + y A[:, 1]) + z A[:, 2]) + A[:, 3], one rounding per op
+    in the kernels' order (a matmul on the card may fuse and reorder)."""
+    return ((x * A[:, 0] + y * A[:, 1]) + z * A[:, 2]) + A[:, 3]
+
+
 def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
                      blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
-                     inside_offs=None):
+                     inside_offs=None, coeffs=None, coeff_affines=None):
     """Plain-torch ``fuse_block``: per view, map block coords through the
-    block->patch affine, sample trilinearly (edge-clamped), weight by the
-    inside test and blend; then the per-type combine."""
+    block->patch affine, sample trilinearly (edge-clamped), apply the
+    view's intensity grid if ``coeffs`` (sampled at ``coeff_affines`` @
+    level position), weight by the inside test and blend; then the
+    per-type combine."""
     patches = patches.to(torch.float32)
     if inside_offs is None:
         inside_offs = torch.zeros_like(borders)
@@ -373,14 +418,20 @@ def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
     x, y, z = coords[:, 0:1], coords[:, 1:2], coords[:, 2:3]
     for v in range(patches.shape[0]):
         A = affines[v]
-        # coords @ A[:, :3].T + A[:, 3], one rounding per op in the kernel's
-        # order: a matmul (cuBLAS on the card) may fuse and reorder, and one
-        # ulp of sample position is a visible step on a steep image
-        p = ((x * A[:, 0] + y * A[:, 1]) + z * A[:, 2]) + A[:, 3]
-        vals.append(_trilinear_sample(patches[v], p))
+        # coords @ A[:, :3].T + A[:, 3]: one ulp of sample position is a
+        # visible step on a steep image
+        p = _apply3(x, y, z, A)
+        val = _trilinear_sample(patches[v], p)
+        lpos = p + patch_offsets[v]
+        if coeffs is not None:
+            g = _apply3(lpos[:, 0:1], lpos[:, 1:2], lpos[:, 2:3],
+                        coeff_affines[v])
+            so = _trilinear_vec(coeffs[v], g)
+            val = so[:, 0] * val + so[:, 1]
+        vals.append(val)
         # cosine border ramp and inside test per axis at the level coords,
         # product over axes (ops/fusion.py _blend_weight)
-        w, ins = _axis_blend_at(p + patch_offsets[v], img_dims[v], borders[v],
+        w, ins = _axis_blend_at(lpos, img_dims[v], borders[v],
                                 blend_ranges[v], inside_offs[v])
         insides.append(ins[:, 0] * ins[:, 1] * ins[:, 2])
         blends.append(w[:, 0] * w[:, 1] * w[:, 2])
@@ -391,17 +442,22 @@ def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
 
 def fuse_block(patches, affines, patch_offsets, img_dims, borders,
                blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
-               inside_offs=None):
+               inside_offs=None, coeffs=None, coeff_affines=None):
     """K3 (``csrc/gather.cu``) on CUDA, the plain version on the CPU.
 
     patches (V, Px, Py, Pz) uint8/uint16/int16/float32; affines (V, 3, 4)
     float32 (block index -> patch coords); patch_offsets, img_dims, borders,
-    blend_ranges, inside_offs (V, 3) float32; valid (V,) float32. Returns
-    (fused, wsum), both ``block_shape`` float32."""
+    blend_ranges, inside_offs (V, 3) float32; valid (V,) float32; optional
+    intensity grids ``coeffs`` (V, Cx, Cy, Cz, 2) float32 and their (V, 3,
+    4) float32 level position -> grid coordinate affines. Returns (fused,
+    wsum), both ``block_shape`` float32."""
+    if (coeffs is None) != (coeff_affines is None):
+        raise ValueError("coeffs and coeff_affines go together")
     if patches.device.type == "cpu":
         return fuse_block_plain(patches, affines, patch_offsets, img_dims,
                                 borders, blend_ranges, valid, block_shape,
-                                fusion_type, inside_offs)
+                                fusion_type, inside_offs, coeffs,
+                                coeff_affines)
     dev = patches.device
     V, px, py, pz = (int(s) for s in patches.shape)
     bx, by, bz = (int(s) for s in block_shape)
@@ -414,6 +470,15 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
                     ("inside_offs", inside_offs)):
         _require(t, name, dev, _F32, (V, 3))
     _require(valid, "valid", dev, _F32, (V,))
+    cdims, cptr, captr = (0, 0, 0), None, None
+    if coeffs is not None:
+        _require(coeffs, "coeffs", dev, _F32)
+        if coeffs.dim() != 5 or coeffs.shape[0] != V or coeffs.shape[4] != 2:
+            raise ValueError(f"coeffs has shape {tuple(coeffs.shape)}, "
+                             f"expected ({V}, Cx, Cy, Cz, 2)")
+        _require(coeff_affines, "coeff_affines", dev, _F32, (V, 3, 4))
+        cdims = tuple(int(c) for c in coeffs.shape[1:4])
+        cptr, captr = coeffs.data_ptr(), coeff_affines.data_ptr()
     fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     lib = _cuda.load("gather")
@@ -422,13 +487,15 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
         affines.data_ptr(), patch_offsets.data_ptr(), img_dims.data_ptr(),
         borders.data_ptr(), blend_ranges.data_ptr(), valid.data_ptr(),
         inside_offs.data_ptr(), V, bx, by, bz, _ft_code(fusion_type),
-        fused.data_ptr(), wsum.data_ptr(), _stream(dev))
+        cptr, captr, *cdims, fused.data_ptr(), wsum.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "fuse_block")
     fuse_block.launches += 1
+    fuse_block.coeff_launches += coeffs is not None
     return fused, wsum
 
 
 fuse_block.launches = 0
+fuse_block.coeff_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -617,6 +684,76 @@ def composite_axis_tables(windows, n_offs, kinds, fracs, diags, offs,
     return torch.cat(parts).contiguous(), starts
 
 
+def composite_coeff_tables(windows, n_offs, fracs, coeff_affs, cdims,
+                           starts, device):
+    """Per-view interpolation rows of the intensity grid over each "shift"
+    view's window (make_translation_composite :580-591), packed into one
+    float32 tensor on ``device``: for view v at ``offs[v]``, the low taps of
+    x, y, z, then the high taps, then the weights (3 * (L0 + L1 + L2)
+    floats). The grid coordinate of window index i along axis d is
+    ``lpos * s + t`` rounded once (:func:`_fma`, as XLA contracts it), with
+    lpos = ((a + n) + i) + frac and (s, t) the diagonal and translation of
+    the view's level position -> grid affine; the taps follow
+    _separable_interp_matrix (:func:`_interp_taps`). K1 and its plain twin
+    both read this one tensor. ``offs[v]`` is None where ``starts[v]`` is."""
+    host = lambda x: np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(),
+                                np.float32)
+    fracs, caffs = host(fracs), host(coeff_affs)
+    base, mul, add, size, offs, at = [], [], [], [], [], 0
+    for v, ((a, b), n) in enumerate(zip(windows, n_offs)):
+        if starts[v] is None:
+            offs.append(None)
+            continue
+        for d in range(3):
+            L = int(b[d]) - int(a[d])
+            lpos = (np.float32(int(a[d]) + int(n[d]))
+                    + np.arange(L, dtype=np.float32)) + fracs[v, d]
+            base.append(lpos.astype(np.float32))
+            mul.append(np.full(L, caffs[v, d, d], np.float32))
+            add.append(np.full(L, caffs[v, d, 3], np.float32))
+            size.append(np.full(L, int(cdims[d]), np.int64))
+        offs.append(at)
+        at += 3 * sum(int(b[d]) - int(a[d]) for d in range(3))
+    if not base:
+        return torch.zeros(1, dtype=torch.float32, device=device), offs
+    t = lambda xs: torch.from_numpy(np.concatenate(xs)).to(device)
+    gc = _fma(t(base), t(mul), t(add))
+    c = t(size)
+    p = torch.minimum(torch.clamp(gc, min=0.0), (c - 1).to(torch.float32))
+    lo = torch.minimum(torch.floor(p), torch.clamp(c - 2, min=0).to(
+        torch.float32))
+    f = p - lo
+    hi = torch.minimum(lo + 1, (c - 1).to(torch.float32))
+    parts, pos = [], 0
+    for v, o in enumerate(offs):
+        if o is None:
+            continue
+        (a, b) = windows[v]
+        m = sum(int(b[d]) - int(a[d]) for d in range(3))
+        parts += [lo[pos:pos + m], hi[pos:pos + m], f[pos:pos + m]]
+        pos += m
+    return torch.cat(parts).contiguous(), offs
+
+
+def _composite_coeff_view(grid, ct, L):
+    """One view's (scale, offset) over its window, (L0, L1, L2, 2): the grid
+    interpolated along x, then y, then z with the rows of
+    :func:`composite_coeff_tables` (``ct``: this view's slice)."""
+    S = sum(L)
+    lo, hi, f = ct[:S], ct[S:2 * S], ct[2 * S:]
+    so = grid
+    at = 0
+    for d in range(3):
+        sl = slice(at, at + L[d])
+        shape = [1] * 4
+        shape[d] = -1
+        w = f[sl].reshape(shape)
+        so = (so.index_select(d, lo[sl].long()) * (1.0 - w)
+              + so.index_select(d, hi[sl].long()) * w)
+        at += L[d]
+    return so
+
+
 def _composite_one_view(P, frac, a, L, n, pad):
     """One "shift" view's samples over its window: 8 shifted slices of the
     zero-padded tile ``P`` with constant corner weights."""
@@ -645,18 +782,41 @@ def _composite_one_view_sep(P, diag, off, a, L, pad):
     return so
 
 
+def _check_composite_coeffs(kinds, coeffs, coeff_affs, V):
+    if (coeffs is None) != (coeff_affs is None):
+        raise ValueError("coeffs and coeff_affs go together")
+    if coeffs is None:
+        return
+    if any(k == "sep" for k in kinds):
+        # the grid rows assume unit-step level positions, as in the JAX
+        # program; the planner sends such volumes to the per-block route
+        raise ValueError("intensity coefficients with diagonal views are "
+                         "handled by the per-block kernels")
+    if coeffs.dim() != 5 or coeffs.shape[0] != V or coeffs.shape[4] != 2:
+        raise ValueError(f"coeffs has shape {tuple(coeffs.shape)}, expected "
+                         f"({V}, Cx, Cy, Cz, 2)")
+
+
 def composite_fuse_plain(tiles, fracs, img_dims, borders, ranges, inside_offs,
                          min_i, max_i, diags, offs, *, out_shape, windows,
                          n_offs, pad, fusion_type="AVG_BLEND",
-                         out_dtype="float32", masks=False, kinds=()):
+                         out_dtype="float32", masks=False, kinds=(),
+                         coeffs=None, coeff_affs=None):
     """Plain-torch whole-volume composite fusion (the JAX program ``impl``
-    of make_translation_composite without intensity coefficients)."""
+    of make_translation_composite); ``coeffs`` (V, Cx, Cy, Cz, 2) and
+    ``coeff_affs`` (V, 3, 4): the intensity grids and their level position
+    -> grid affines ("shift" views only)."""
     dev = tiles[0].device
     V = len(windows)
     kinds = kinds or ("shift",) * V
+    _check_composite_coeffs(kinds, coeffs, coeff_affs, V)
     tables, starts = composite_axis_tables(
         windows, n_offs, kinds, fracs, diags, offs, img_dims, borders,
         ranges, inside_offs, dev)
+    if coeffs is not None:
+        ctab, coffs = composite_coeff_tables(
+            windows, n_offs, fracs, coeff_affs, coeffs.shape[1:4], starts,
+            dev)
     cast = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)
     fracs, diags, offs = cast(fracs), cast(diags), cast(offs)
     out_shape = tuple(int(s) for s in out_shape)
@@ -675,6 +835,11 @@ def composite_fuse_plain(tiles, fracs, img_dims, borders, ranges, inside_offs,
             val = _composite_one_view_sep(P, diags[v], offs[v], a, L, pd)
         else:
             val = _composite_one_view(P, fracs[v], a, L, n, pd)
+        if coeffs is not None:
+            so = _composite_coeff_view(
+                coeffs[v].to(torch.float32),
+                ctab[coffs[v]:coffs[v] + 3 * sum(L)], L)
+            val = so[..., 0] * val + so[..., 1]
         t = tables[starts[v]:starts[v] + 2 * sum(L)]
         blend = _outer3(_split3(t[:sum(L)], L))
         inside = _outer3(_split3(t[sum(L):], L))
@@ -709,12 +874,14 @@ def composite_fuse_plain(tiles, fracs, img_dims, borders, ranges, inside_offs,
 def composite_fuse(tiles, fracs, img_dims, borders, ranges, inside_offs,
                    min_i, max_i, diags, offs, *, out_shape, windows, n_offs,
                    pad, fusion_type="AVG_BLEND", out_dtype="float32",
-                   masks=False, kinds=()):
+                   masks=False, kinds=(), coeffs=None, coeff_affs=None):
     """K1 (``csrc/composite.cu``) on CUDA, the plain version on the CPU.
 
     ``tiles``: per-view unpadded tiles (x, y, z) on one device; the per-view
     parameter arrays (V, 3) are numpy or tensors; windows, n_offs, pad and
-    kinds come from the composite plan. Returns the fused volume of
+    kinds come from the composite plan; ``coeffs`` (V, Cx, Cy, Cz, 2)
+    float32 on the tiles' device and ``coeff_affs`` (V, 3, 4): optional
+    intensity grids ("shift" views only). Returns the fused volume of
     ``out_shape`` in the storage dtype."""
     dev = tiles[0].device
     if dev.type == "cpu":
@@ -722,28 +889,38 @@ def composite_fuse(tiles, fracs, img_dims, borders, ranges, inside_offs,
             tiles, fracs, img_dims, borders, ranges, inside_offs, min_i, max_i,
             diags, offs, out_shape=out_shape, windows=windows, n_offs=n_offs,
             pad=pad, fusion_type=fusion_type, out_dtype=out_dtype,
-            masks=masks, kinds=kinds)
+            masks=masks, kinds=kinds, coeffs=coeffs, coeff_affs=coeff_affs)
     V = len(windows)
     kinds = kinds or ("shift",) * V
     for v, t in enumerate(tiles):
         _require(t, f"tiles[{v}]", dev, _IN_CODE)
         if t.dim() != 3:
             raise ValueError(f"tiles[{v}] must be 3-D (x, y, z)")
+    _check_composite_coeffs(kinds, coeffs, coeff_affs, V)
     tables, starts = composite_axis_tables(
         windows, n_offs, kinds, fracs, diags, offs, img_dims, borders,
         ranges, inside_offs, dev)
+    ctab = coffs = None
+    if coeffs is not None:
+        _require(coeffs, "coeffs", dev, _F32)
+        ctab, coffs = composite_coeff_tables(
+            windows, n_offs, fracs, coeff_affs, coeffs.shape[1:4], starts,
+            dev)
     return launch_composite(tiles, tables, starts, fracs, diags, offs,
                             min_i, max_i, out_shape=out_shape,
                             windows=windows, n_offs=n_offs, pad=pad,
                             fusion_type=fusion_type, out_dtype=out_dtype,
-                            masks=masks, kinds=kinds)
+                            masks=masks, kinds=kinds, coeffs=coeffs,
+                            ctab=ctab, coffs=coffs)
 
 
 def launch_composite(tiles, tables, starts, fracs, diags, offs, min_i, max_i,
                      *, out_shape, windows, n_offs, pad, fusion_type,
-                     out_dtype, masks, kinds):
+                     out_dtype, masks, kinds, coeffs=None, ctab=None,
+                     coffs=None):
     """K1 alone (init, one launch per view, finalize) on checked tiles and
-    the tables :func:`composite_axis_tables` built."""
+    the tables :func:`composite_axis_tables` (and, with ``coeffs``,
+    :func:`composite_coeff_tables`) built."""
     dev = tiles[0].device
     host = lambda x: np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(),
                                 np.float32)
@@ -775,12 +952,19 @@ def launch_composite(tiles, tables, starts, fracs, diags, offs, min_i, max_i,
         vp.frac[:] = [float(x) for x in fracs[v]]
         vp.diag[:] = [float(x) for x in diags[v]]
         vp.off[:] = [float(x) for x in offs[v]]
+        grid = None
+        if coeffs is not None:
+            vp.cdims[:] = [int(c) for c in coeffs.shape[1:4]]
+            vp.ctab_off = coffs[v]
+            grid = coeffs[v].data_ptr()
         ret = lib.bst_composite_view(
             tiles[v].data_ptr(), _IN_CODE[tiles[v].dtype], vp,
-            tables.data_ptr(), ft, acc.data_ptr(), wsum.data_ptr(), X, Y, Z,
-            stream)
+            tables.data_ptr(), grid,
+            None if grid is None else ctab.data_ptr(), ft, acc.data_ptr(),
+            wsum.data_ptr(), X, Y, Z, stream)
         _cuda.check(lib, ret, f"composite view {v}")
         composite_fuse.launches += 1
+        composite_fuse.coeff_launches += grid is not None
     ret = lib.bst_composite_finalize(
         acc.data_ptr(), wsum.data_ptr(), n, ft, int(bool(masks)), code,
         float(np.float32(min_i)), float(np.float32(max_i)), out.data_ptr(),
@@ -791,6 +975,7 @@ def launch_composite(tiles, tables, starts, fracs, diags, offs, min_i, max_i,
 
 
 composite_fuse.launches = 0
+composite_fuse.coeff_launches = 0
 
 
 KERNEL_WRAPPERS = {

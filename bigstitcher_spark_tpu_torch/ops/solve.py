@@ -666,3 +666,275 @@ def _relax(fns, problem, link_mask, fixed_mask, warm_t, lam, damping,
     return RelaxOutput(cur.cpu().numpy(), hist[:iters].cpu().numpy(), iters,
                        link_err.cpu().numpy())
 
+
+
+# ---------------------------------------------------------------------------
+# intensity coefficient solve: conjugate gradients (K24, K25)
+# ---------------------------------------------------------------------------
+#
+# The JAX program ``_build_cg_fn`` (ops/solve.py:527, jit :587) is one
+# float64 ``while_loop`` of matrix-free CG. Here one iteration is two
+# launches on one stream:
+#   K24 cg_spmv    p <- r + beta p (into the other buffer of a pair) and
+#                  Ap = A p from fixed-order per-unknown lists (CSR); the
+#                  last block sums the per-block partials of p.Ap
+#   K25 cg_update  alpha = rs / p.Ap, x += alpha p, r -= alpha Ap; the last
+#                  block sums the partials of r.r, sets beta, rs, the
+#                  iteration count and the done flag
+# Every later launch of a chunk reads the done flag and returns at once;
+# the host reads the state once a chunk (8 iterations, doubling to 64), as
+# in the relax loop. The JAX stop rule and cap are kept: stop when
+# r.r <= (1e-11 |rhs|)^2 or after min(4 n + 64, 20000) iterations, n the
+# padded unknowns 2 * bucket(C, 16). Padded unknowns solve to 0 and touch
+# nothing, so the system holds the 2C real ones only.
+
+# dstate: rs, beta, tol2, p.Ap; istate: iterations, done, cap, two tickets
+_CG_D, _CG_I = 4, 5
+
+
+def bucket(n: int, minimum: int = 8) -> int:
+    """Next power of two >= ``minimum`` (the JAX package's shape buckets)."""
+    n = max(int(n), minimum)
+    return 1 << int(np.ceil(np.log2(n)))
+
+
+def cg_shapes(n_cells: int, n_rows: int, n_smooth: int
+              ) -> tuple[int, int, int, int]:
+    """The JAX CG's one-device compile-bucket shapes (unknowns, row pad,
+    smooth pad, iteration cap): the cap derives from the padded unknowns."""
+    n_unknowns = 2 * bucket(n_cells, 16)
+    M_pad = bucket(n_rows, 8)
+    S_pad = bucket(max(n_smooth, 1), 8)
+    max_iter = min(4 * n_unknowns + 64, 20000)
+    return n_unknowns, M_pad, S_pad, max_iter
+
+
+@dataclass
+class CGSystem:
+    """The intensity normal equations on one device as CSR lists: row u
+    holds every term of unknown u's matvec, merged per column, each merged
+    sum taken on the host in one fixed order (the diagonal, the match
+    rows', then the smoothness pairs')."""
+
+    n: int                    # unknowns (2C)
+    row_ptr: torch.Tensor     # (n + 1,) int32
+    row_len: torch.Tensor     # (n,) int64
+    cols: torch.Tensor        # (nnz,) int32
+    vals: torch.Tensor        # (nnz,) f64
+    rhs: torch.Tensor         # (n,) f64
+    x0: torch.Tensor          # (n,) f64, rhs / diag
+    tol2: float
+    max_iter: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+
+def cg_triplets(n_cells, rows, diag, sidx, sw):
+    """(row, col, value) of every term of the quadratic form's matvec, in
+    the JAX ``data_term`` / smoothness / diagonal meaning: the 4x4 block
+    of each match row, (w, -w; -w, w) of each flattened smoothness pair,
+    and the diagonal."""
+    rows = np.asarray(rows, np.float64).reshape(-1, 8)
+    ia = 2 * rows[:, 0].astype(np.int64)
+    ib = 2 * rows[:, 1].astype(np.int64)
+    n, sx, sy, sxx, syy, sxy = (rows[:, k] for k in range(2, 8))
+    u = [ia, ia + 1, ib, ib + 1]
+    block = [[sxx, sx, -sxy, -sx], [sx, n, -sy, -n],
+             [-sxy, -sy, syy, sy], [-sx, -n, sy, n]]
+    r_d = [u[i] for i in range(4) for _ in range(4)]
+    c_d = [u[j] for _ in range(4) for j in range(4)]
+    v_d = [block[i][j] for i in range(4) for j in range(4)]
+    si = np.asarray(sidx, np.int64).reshape(-1, 2)
+    w = np.asarray(sw, np.float64)
+    d = np.arange(2 * n_cells, dtype=np.int64)
+    r = np.concatenate([d, *r_d, si[:, 0], si[:, 0], si[:, 1], si[:, 1]])
+    c = np.concatenate([d, *c_d, si[:, 0], si[:, 1], si[:, 0], si[:, 1]])
+    v = np.concatenate([np.asarray(diag, np.float64), *v_d, w, -w, -w, w])
+    return r, c, v
+
+
+def assemble_cg(n_cells: int, rows, diag, rhs, sidx, sw, device,
+                rtol: float = 1e-11) -> CGSystem:
+    """The :class:`CGSystem` of the intensity solve on ``device``; the stop
+    threshold and cap are the JAX package's (``solve_intensity_device``)."""
+    n = 2 * int(n_cells)
+    r, c, v = cg_triplets(n_cells, rows, diag, sidx, sw)
+    order = np.argsort(r * n + c, kind="stable")
+    key = (r * n + c)[order]
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    vals = np.add.reduceat(v[order], starts)
+    ur, uc = r[order][starts], c[order][starts]
+    counts = np.bincount(ur, minlength=n)
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    if row_ptr[-1] >= 2 ** 31:
+        raise ValueError(f"{row_ptr[-1]} terms: the CG indexes them in 31 bits")
+    _, _, _, max_iter = cg_shapes(n_cells, len(np.asarray(rows).reshape(-1, 8)),
+                                  len(sidx))
+    diag = np.asarray(diag, np.float64)
+    rhs = np.asarray(rhs, np.float64)
+    # the padded rhs of the JAX package holds zeros past 2C: the same norm
+    tol2 = (rtol * float(np.linalg.norm(rhs))) ** 2
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+    return CGSystem(n, t(row_ptr, np.int32), t(counts, np.int64),
+                    t(uc, np.int32), t(vals, np.float64), t(rhs, np.float64),
+                    t(rhs / np.maximum(diag, 1e-300), np.float64), tol2,
+                    max_iter)
+
+
+def cg_state(sysm: CGSystem, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fresh (dstate, istate): rs 0, beta 0, the stop threshold; 0
+    iterations, not done, the cap, tickets 0."""
+    dstate = torch.tensor([0.0, 0.0, sysm.tol2, 0.0], dtype=torch.float64,
+                          device=device)
+    istate = torch.tensor([0, 0, sysm.max_iter, 0, 0], dtype=torch.int32,
+                          device=device)
+    return dstate, istate
+
+
+def _cg_done(istate: torch.Tensor) -> bool:
+    return bool(int(istate[1]))
+
+
+def cg_spmv_plain(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
+    """K24's twin: p_new = r + beta p_old, ap = A p_new (per-row sums over
+    the CSR lists), dstate[3] = p_new . ap; nothing once done."""
+    if _cg_done(istate):
+        return
+    p_new.copy_(r + dstate[1] * p_old)
+    terms = sysm.vals * p_new[sysm.cols.long()]
+    ap.copy_(torch.segment_reduce(terms, "sum", lengths=sysm.row_len))
+    dstate[3] = torch.dot(p_new, ap)
+
+
+def cg_update_plain(sysm: CGSystem, x, r, p, ap, dstate, istate,
+                    init: bool = False):
+    """K25's twin. ``init``: r = rhs - ap (ap = A x0), rs = r.r, the done
+    flag. Else alpha = rs / max(p.Ap, 1e-300), x += alpha p, r -= alpha
+    ap, then beta = rs_new / max(rs, 1e-300), rs = rs_new, one more
+    iteration, done when rs <= tol2 or at the cap; nothing once done."""
+    if _cg_done(istate):
+        return
+    if init:
+        r.copy_(sysm.rhs - ap)
+        k = 0
+        beta = torch.zeros((), dtype=torch.float64, device=r.device)
+    else:
+        alpha = dstate[0] / torch.clamp(dstate[3], min=1e-300)
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * ap)
+        k = int(istate[0]) + 1
+    rs_new = torch.dot(r, r)
+    if not init:
+        beta = rs_new / torch.clamp(dstate[0], min=1e-300)
+    dstate[0] = rs_new
+    dstate[1] = beta
+    istate[0] = k
+    istate[1] = int(not (float(rs_new) > float(dstate[2])
+                         and k < int(istate[2])))
+
+
+def _check_cg(sysm: CGSystem, vecs: dict, dstate, istate):
+    dev = sysm.device
+    for name, v in vecs.items():
+        _require(v, name, dev, _F64, (sysm.n,))
+    _require(dstate, "dstate", dev, _F64, (_CG_D,))
+    _require(istate, "istate", dev, _I32, (_CG_I,))
+
+
+def _cg_partials(dev) -> torch.Tensor:
+    """The kernels' per-block partial sums (at most 1024 blocks)."""
+    return torch.empty(1024, dtype=torch.float64, device=dev)
+
+
+def cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
+    """K24 (``csrc/cg.cu``) on CUDA, :func:`cg_spmv_plain` on the CPU."""
+    if r.device.type == "cpu":
+        return cg_spmv_plain(sysm, r, p_old, p_new, ap, dstate, istate)
+    _check_cg(sysm, {"r": r, "p_old": p_old, "p_new": p_new, "ap": ap},
+              dstate, istate)
+    partials = _cg_partials(r.device)
+    lib = _cuda.load("cg")
+    ret = lib.bst_cg_spmv(
+        sysm.n, sysm.row_ptr.data_ptr(), sysm.cols.data_ptr(),
+        sysm.vals.data_ptr(), r.data_ptr(), p_old.data_ptr(),
+        p_new.data_ptr(), ap.data_ptr(), dstate.data_ptr(),
+        istate.data_ptr(), partials.data_ptr(), _stream(r.device))
+    _cuda.check(lib, ret, "cg_spmv")
+    cg_spmv.launches += 1
+
+
+cg_spmv.launches = 0
+
+
+def cg_update(sysm: CGSystem, x, r, p, ap, dstate, istate, init=False):
+    """K25 (``csrc/cg.cu``) on CUDA, :func:`cg_update_plain` on the CPU."""
+    if r.device.type == "cpu":
+        return cg_update_plain(sysm, x, r, p, ap, dstate, istate, init)
+    _check_cg(sysm, {"x": x, "r": r, "p": p, "ap": ap}, dstate, istate)
+    partials = _cg_partials(r.device)
+    lib = _cuda.load("cg")
+    ret = lib.bst_cg_update(
+        sysm.n, int(bool(init)), sysm.rhs.data_ptr(), x.data_ptr(),
+        r.data_ptr(), p.data_ptr(), ap.data_ptr(), dstate.data_ptr(),
+        istate.data_ptr(), partials.data_ptr(), _stream(r.device))
+    _cuda.check(lib, ret, "cg_update")
+    cg_update.launches += 1
+
+
+cg_update.launches = 0
+
+KERNEL_WRAPPERS.update({"cg_spmv": cg_spmv, "cg_update": cg_update})
+
+
+@dataclass
+class CGOutput:
+    x: torch.Tensor           # (2C,) f64 on the system's device
+    iterations: int
+
+
+def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
+    dev, n = sysm.device, sysm.n
+    f64 = dict(dtype=torch.float64, device=dev)
+    dstate, istate = cg_state(sysm, dev)
+    x = sysm.x0.clone()
+    r = torch.zeros(n, **f64)
+    ap = torch.empty(n, **f64)
+    p = [torch.zeros(n, **f64), torch.zeros(n, **f64)]
+    # r0 = rhs - A x0: K24 on x0 (beta 0), then K25 in its init form
+    spmv(sysm, x, p[1], p[0], ap, dstate, istate)
+    update(sysm, x, r, p[0], ap, dstate, istate, init=True)
+    cur, chunk = 1, FIRST_CHUNK
+    while True:
+        for _ in range(chunk):
+            spmv(sysm, r, p[1 - cur], p[cur], ap, dstate, istate)
+            update(sysm, x, r, p[cur], ap, dstate, istate)
+            cur = 1 - cur
+        iters, done = istate[:2].tolist()
+        if done:
+            break
+        chunk = min(2 * chunk, MAX_CHUNK)
+    return CGOutput(x, int(iters))
+
+
+def cg_on_device(sysm: CGSystem) -> CGOutput:
+    """CG through K24/K25 (their twins where the system lies on the CPU)."""
+    return _cg(cg_spmv, cg_update, sysm)
+
+
+def cg_plain(sysm: CGSystem) -> CGOutput:
+    """The same loop through the plain twins, on any device."""
+    return _cg(cg_spmv_plain, cg_update_plain, sysm)
+
+
+def solve_intensity_device(n_cells, rows, diag, rhs, sidx, sw, device
+                           ) -> tuple[torch.Tensor, int]:
+    """CG-solve the intensity normal equations (``rows`` (M, 8) match
+    statistics, ``diag`` / ``rhs`` (2C,), flattened smoothness pairs
+    ``sidx`` (S, 2) with weights ``sw``) on ``device``. Returns the device
+    solution (2C,) and the iteration count."""
+    out = cg_on_device(assemble_cg(n_cells, rows, diag, rhs, sidx, sw,
+                                   device))
+    return out.x, out.iterations

@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all twelve at once).
+         kernels from csrc/ (one nvcc per source, all fourteen at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -136,6 +136,29 @@ Phase 9  match-interestpoints through the port's CLI entry function. 9a:
          counts equal, models within rtol 1e-9. They are timed at 9b's
          shapes beside their bounds; no single PyTorch call computes any
          of them (library none).
+Phase 10 the intensity-correction chain through the port's CLI entry
+         functions on route A's geometry (2x2x1 tiles of 1024x1024x128
+         uint16, 102 px overlap, raw N5) built as the JAX intensity
+         fixture is: smooth_field=600, no jitter, setup 1's s0 rescaled to
+         clip(1.4 i + 30). 10a: match-intensities at the reference defaults
+         (8,8,8 cells, renderScale 0.25, RANSAC 1000 iterations, epsilon
+         0.02, minNumCandidates 1000); K23 held against its twin on every
+         launch (every count and argmax bitwise, a and b within 1e-5); the
+         fits between setup 1 and its neighbours map their cells' mean
+         intensity within 1 % of 1.4 i + 30 (or its inverse). 10b: solve-intensities on 10a's matches,
+         then a synthetic system on 7c's view grid (16x16x2 views of 8x8x8
+         cells: 524,288 unknowns, 77,824 match rows, 688,128 smoothness
+         pairs); each CG held against cg_plain on the card (rtol 1e-9,
+         iterations within 1) and by its residual |Ax - b| / |b| <= 1e-9
+         with A from scipy.sparse; K24/K25 timed alone, K24 beside torch's
+         CSR product. 10c: affine-fusion --intensityN5 on the composite
+         route (K1's coefficient branch; the whole volume within |delta|
+         <= 1 of the twin on the card), the same without correction (the
+         fused voxels/s of both), and forced per block (K3's branch + K4;
+         three blocks against the twin, the volume within 1 of the
+         composite's); then the JAX test's seam gate: a FIRST_WINS float32
+         fuse_volume of a crop across the setup 0 / setup 1 seam, raw jump
+         > 0.15 and corrected jump < raw / 3.
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -150,9 +173,10 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-9 on the CPU with the
-plain twins (no kernels, no timings; 9b at 2,000 points); it then exits 3
-without a result.
+``--device cpu --scale tiny`` rehearses phases 1-10 on the CPU with the
+plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
+cells and renderScale 0.5, 10b's large system on 3x3x2 views); it then
+exits 3 without a result.
 """
 
 from __future__ import annotations
@@ -197,6 +221,9 @@ KERNELS = {
     "ratio_match": ("descriptors.cu", "ops/descriptors.py:208"),
     "ransac_score": ("ransac.cu", "ops/descriptors.py:380"),
     "ransac_refit": ("ransac.cu", "ops/descriptors.py:380"),
+    "linefit_ransac": ("intensity.cu", "ops/intensity.py:36"),
+    "cg_spmv": ("cg.cu", "ops/solve.py:527"),
+    "cg_update": ("cg.cu", "ops/solve.py:527"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -219,7 +246,12 @@ KERNELS = {
 # of descriptors of D values, D products and D - 1 sums (dot), 2 sums, a
 # product and a max; K21: per hypothesis and candidate 18 for the apply,
 # 3 differences, 5 for the squared norm and a compare; K22 (float64): per
-# candidate the same 27 and 31 for the moments of an inlier.
+# candidate the same 27 and 31 for the moments of an inlier. K23: per
+# hypothesis and sample a multiply and an add (the prediction), a
+# subtract, an absolute value, a compare and the valid test. K1's
+# coefficient branch: per voxel 2 channels x (4 + 2 + 1 lerps of 4) and the
+# apply; K3's: the grid coordinate (18), floor and clip (~15), 2 channels
+# x 8 corners x 3 products, their sums and the apply (~65).
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
        "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
@@ -228,7 +260,7 @@ OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "fit": {"IDENTITY": 0, "TRANSLATION": 6, "AFFINE": 110,
                "RIGID": 900, "NONE": 0}, "fit_blend": 72,
        "dog_window": 54, "dog_fit": 90, "knn_pair": 8, "ransac_apply": 27,
-       "refit_row": 58}
+       "refit_row": 58, "linefit": 6, "coeff_k1": 58, "coeff_k3": 100}
 # bytes a relax row holds: p, q (2 x 24), other, link_id (2 x 4), w (8)
 RELAX_ROW_BYTES = 64
 
@@ -241,7 +273,7 @@ SCALES = {
                  grid_g=(32, 32, 4), grid_bad=8, ip_grid=(16, 16, 2),
                  ip_pairs=500, solve_tile=(2048, 2048, 512), det_block=None,
                  det_block_c=(192, 192, 128), cloud=100_000,
-                 cloud_extent=4000.0, twin_rows=8192),
+                 cloud_extent=4000.0, twin_rows=8192, intensity_args=[]),
     # the default budget fits tiny volumes: force the per-block routes
     "tiny": dict(tile=(96, 80, 24), overlap=24, block=(32, 32, 16),
                  rot_tile=(96, 80, 16), beads=20, per_block_budget=1,
@@ -251,7 +283,9 @@ SCALES = {
                  grid_g=(8, 8, 2), grid_bad=2, ip_grid=(3, 3, 2),
                  ip_pairs=30, solve_tile=(256, 256, 64),
                  det_block=(32, 32, 16), det_block_c=(32, 32, 16),
-                 cloud=2000, cloud_extent=1100.0, twin_rows=512),
+                 cloud=2000, cloud_extent=1100.0, twin_rows=512,
+                 intensity_args=["--coefficients", "2,2,2", "--renderScale",
+                                 "0.5"]),
 }
 BLOCK_SCALE = (2, 2, 1)       # affine-fusion's default --blockScale
 COMPOSITE_BUDGET = int(40e9)  # BST_DEVICE_TILE_BUDGET that fits route A
@@ -280,6 +314,11 @@ ROUTE_KERNELS.update({
     "9c ICP": ("ratio_match", "ransac_score", "ransac_refit"),
     "9c multi-consensus": MATCH_KERNELS,
     "9c search radius": MATCH_KERNELS,
+    "10a": ("linefit_ransac",),
+    "10b": ("cg_spmv", "cg_update"), "10b large": ("cg_spmv", "cg_update"),
+    "10c composite": ("composite_fuse", "composite_fuse+coeff"),
+    "10c uncorrected": ("composite_fuse",),
+    "10c per-block": ("fuse_block", "fuse_block+coeff", "convert_intensity"),
 })
 
 
@@ -998,7 +1037,7 @@ def counted(route, launches, dev, fn):
 
     ops.reset_launch_counts()
     out = fn()
-    got = ops.launch_counts()
+    got = {**ops.launch_counts(), **ops.coeff_launch_counts()}
     print(f"  route {route} launches: {got}", flush=True)
     for k in ROUTE_KERNELS[route] if dev.type == "cuda" else ():
         check(got[k] > 0, f"route {route}: kernel {k} launched {got[k]} "
@@ -2340,9 +2379,564 @@ def phase9_matching(work, proj, det_b, scale, dev, card, launches):
     return res
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def make_intensity_project(root, scale, seed=71):
+    """Route A's geometry built with smooth_field=600 and no jitter (the
+    JAX intensity fixture's choices: line fits need dynamic range), setup
+    1's s0 rescaled to clip(1.4 i + 30): the miscalibration to recover;
+    the views registered to their true offsets."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.chunkstore import ChunkStore
+    from bigstitcher_spark_tpu_torch.utils.geometry import translation_affine
+    from bigstitcher_spark_tpu_torch.utils.testdata import (
+        append_view_transforms, make_synthetic_project)
+
+    cfg = SCALES[scale]
+    t0 = time.time()
+    proj = make_synthetic_project(
+        root, n_tiles=(2, 2, 1), tile_size=cfg["tile"],
+        overlap=cfg["overlap"], block_size=cfg["block"], jitter=0.0,
+        n_beads_per_tile=cfg["beads"], seed=seed, smooth_field=600.0,
+        compression="raw")
+    ds = ChunkStore.open(os.path.join(root, "dataset.n5")).open_dataset(
+        "setup1/timepoint0/s0")
+    img = ds.read_full().astype(np.float32)
+    ds.write(np.clip(np.float32(1.4) * img + np.float32(30), 0,
+                     65535).astype(np.uint16), (0, 0, 0))
+    # registered, as after a solve: the intensity chain runs on registered
+    # views (the generator's nominal grid is up to 4 px off the truth)
+    append_view_transforms(proj.xml_path, {
+        s: translation_affine(proj.true_offsets[s] - proj.nominal_offsets[s])
+        for s in proj.true_offsets}, name="registration")
+    print(f"  synthesized 4 tiles of {cfg['tile']} uint16 with a smooth "
+          f"field, setup 1 rescaled to 1.4 i + 30, registered to the truth, "
+          f"in {time.time() - t0:.1f}s (host)", flush=True)
+    return proj
+
+
+def linefit_spy():
+    """Swap ``ops.intensity.linefit_ransac`` for a recorder of its inputs
+    and outputs; returns (calls, undo)."""
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+
+    real, calls = OI.linefit_ransac, []
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        # the wrapper counts under its module name, which is now the spy's
+        real.launches += spy.launches
+        spy.launches = 0
+        calls.append((a, out))
+        return out
+
+    spy.launches = 0
+    OI.linefit_ransac = spy
+
+    def undo():
+        OI.linefit_ransac = real
+
+    return calls, undo
+
+
+def cg_spy():
+    """Swap ``ops.solve.solve_intensity_device`` for a recorder of the
+    systems it solves; returns (calls, undo)."""
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    real, calls = R.solve_intensity_device, []
+
+    def spy(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        calls.append((a, out, time.perf_counter() - t0))
+        return out
+
+    R.solve_intensity_device = spy
+
+    def undo():
+        R.solve_intensity_device = real
+
+    return calls, undo
+
+
+def linefit_times(a, card):
+    """K23 alone on one recorded launch's inputs: kernel and twin times,
+    the bound (about 6 float32 operations a hypothesis and sample)."""
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+
+    x, y, v, hyp, eps = a
+    P, N = x.shape
+    I = hyp.shape[1]
+    r = dict(ms=time_ms(lambda: OI.linefit_ransac(x, y, v, hyp, eps)),
+             plain_ms=time_ms(lambda: OI.linefit_ransac_plain(x, y, v, hyp,
+                                                              eps), reps=2),
+             library_ms=None,
+             bound=bound(P * N * 12 + P * I * 12 + P * 16,
+                         P * I * N * OPS["linefit"]))
+    r["wrapper_ms"] = r["ms"]
+    print(f"  linefit_ransac (K23) at {P} cell pairs x {N} samples x {I} "
+          f"hypotheses [{card}]: kernel {r['ms']} ms  plain {r['plain_ms']} "
+          f"ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
+          flush=True)
+    return r
+
+
+def phase10a(proj, scale, dev, card, launches):
+    """10a: match-intensities at the reference defaults (8,8,8 cells,
+    renderScale 0.25, RANSAC 1000 iterations, epsilon 0.02,
+    minNumCandidates 1000); K23 held against its twin on every launch."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.io.spimdata import ViewId
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+
+    calls, undo = linefit_spy()
+    try:
+        matches, st = counted("10a", launches, dev, lambda: main(
+            ["match-intensities", "-x", proj.xml_path, "--device", str(dev),
+             *SCALES[scale]["intensity_args"]]))
+    finally:
+        undo()
+    t = st.timings
+    print(f"  [intensity 10a] {card}: {st.pairs} view pairs, "
+          f"{st.cell_pairs} cell pairs fitted in {len(calls)} K23 launches, "
+          f"{st.matches} cell matches kept; wall {st.seconds:.3f}s: sample "
+          f"{t['sample']:.3f}s K23 {t['ransac']:.3f}s (card "
+          f"{st.kernel:.4f}s) trim {t['trim']:.3f}s store {t['store']:.3f}s; "
+          f"idle share {1 - st.kernel / max(st.seconds, 1e-9):.4f}",
+          flush=True)
+    check(len(calls) > 0 and st.matches > 0,
+          f"10a: {st.matches} cell matches from {len(calls)} K23 launches")
+    err = 0.0
+    for a, got in calls:
+        ref = OI.linefit_ransac_plain(*a)
+        same = (torch.equal(got.counts, ref.counts)
+                and torch.equal(got.best, ref.best)
+                and torch.equal(got.count, ref.count))
+        e = max(max_abs(got.a, ref.a), max_abs(got.b, ref.b))
+        err = max(err, e)
+        check(same and e <= 1e-5,
+              f"10a K23 launch of {tuple(a[0].shape)} x {a[3].shape[1]}: "
+              f"every count and argmax bitwise equal to the twin, a and b "
+              f"within {e:.3g} <= 1e-5")
+    # setup 1's fits must recover the map 1.4 i + 30 (its inverse where
+    # setup 1 is the first view) at the intensities they fit: a least-
+    # squares line passes through its inliers' centroid, so the map is
+    # checked there. The slope alone is attenuated toward 0 where a cell's
+    # own intensity spread is near the noise (errors in x): reported only.
+    s1 = [m for m in matches if 1 in (m.view_a.setup, m.view_b.setup)]
+    fwd = lambda m: m.view_b == ViewId(0, 1)
+    rel, slope = [], []
+    for m in s1:
+        xm = m.stats[1] / m.stats[0]
+        want = 1.4 * xm + 30.0 if fwd(m) else (xm - 30.0) / 1.4
+        rel.append(abs(m.fit[0] * xm + m.fit[1] - want) / want)
+        slope.append(abs(m.fit[0] - (1.4 if fwd(m) else 1 / 1.4)))
+    worst = max(rel) if rel else 1.0
+    slope = sorted(slope)
+    print(f"  10a slopes of setup 1's fits: median |a - 1.4 (1/1.4)| "
+          f"{slope[len(slope) // 2]:.4f}, {sum(e < 0.05 for e in slope)} of "
+          f"{len(slope)} within 0.05 (not gated: errors in x attenuate a)",
+          flush=True)
+    check(len(s1) > 0 and worst < 0.01,
+          f"10a: {len(s1)} fits between setup 1 and its neighbours map their "
+          f"cells' mean intensity within {worst:.4f} < 0.01 (relative) of "
+          "1.4 i + 30 (or its inverse)")
+    biggest = max(calls, key=lambda c: c[0][0].numel() * c[0][3].shape[1])
+    res = {}
+    if dev.type == "cuda":
+        res["linefit_ransac"] = {**linefit_times(biggest[0], card), "err": err}
+    return res
+
+
+def intensity_sparse(n_cells, rows, diag, sidx, sw):
+    """The intensity normal matrix as scipy.sparse, built term by term from
+    its definition (apart from the CG's own assembly)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rows = np.asarray(rows, np.float64).reshape(-1, 8)
+    ia, ib = 2 * rows[:, 0].astype(np.int64), 2 * rows[:, 1].astype(np.int64)
+    n, sx, sy, sxx, syy, sxy = (rows[:, k] for k in range(2, 8))
+    blocks = {(0, 0): sxx, (0, 1): sx, (0, 2): -sxy, (0, 3): -sx,
+              (1, 0): sx, (1, 1): n, (1, 2): -sy, (1, 3): -n,
+              (2, 0): -sxy, (2, 1): -sy, (2, 2): syy, (2, 3): sy,
+              (3, 0): -sx, (3, 1): -n, (3, 2): sy, (3, 3): n}
+    u = [ia, ia + 1, ib, ib + 1]
+    si = np.asarray(sidx, np.int64).reshape(-1, 2)
+    w = np.asarray(sw, np.float64)
+    i = np.concatenate([u[a] for a, _ in blocks] + [si[:, 0], si[:, 1],
+                                                    si[:, 0], si[:, 1]])
+    j = np.concatenate([u[b] for _, b in blocks] + [si[:, 0], si[:, 1],
+                                                    si[:, 1], si[:, 0]])
+    v = np.concatenate(list(blocks.values()) + [w, w, -w, -w])
+    N = 2 * n_cells
+    return sp.coo_matrix((v, (i, j)), shape=(N, N)).tocsr() + sp.diags(diag)
+
+
+def check_cg(what, args, x_dev, iters, dev):
+    """A recorded intensity CG against cg_plain on the card (solution within
+    rtol 1e-9 of the largest entry), and the residual |A x - b| / |b| <=
+    1e-9 with A built by scipy.sparse on the host."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    n_cells, rows, diag, rhs, sidx, sw, _dev = args
+    sysm = R.assemble_cg(n_cells, rows, diag, rhs, sidx, sw, dev)
+    t0 = time.perf_counter()
+    ref = R.cg_plain(sysm)
+    plain_s = time.perf_counter() - t0
+    x = x_dev.cpu().numpy()
+    xr = ref.x.cpu().numpy()
+    err = float(np.abs(x - xr).max())
+    scale = float(np.abs(xr).max())
+    A = intensity_sparse(n_cells, rows, diag, sidx, sw)
+    res = float(np.linalg.norm(A @ x - rhs) / np.linalg.norm(rhs))
+    print(f"  [intensity {what}] {2 * n_cells} unknowns, {len(rows)} match "
+          f"rows, {len(sidx)} smoothness pairs, {sysm.vals.numel()} CSR "
+          f"terms: kernels {iters} / twin {ref.iterations} iterations "
+          f"(cap {sysm.max_iter}); twin loop {plain_s:.3f}s", flush=True)
+    check(err <= 1e-9 * scale and abs(iters - ref.iterations) <= 1,
+          f"{what}: K24/K25 solution within {err:.3g} <= 1e-9 x {scale:.3g} "
+          "of cg_plain on the card")
+    check(res <= 1e-9, f"{what}: residual |Ax - b| / |b| = {res:.3g} <= 1e-9 "
+                       "(A from scipy.sparse)")
+    return sysm, err
+
+
+def large_intensity_system(grid, seed=73):
+    """7c's view grid, 8x8x8 cells a view: one match for each face-adjacent
+    cell pair across every view edge, stats drawn as
+    tests/test_solve_device.py::TestIntensityDevice._system draws them,
+    and every view's smoothness pairs. Returns (cells, rows, smooth)."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models.intensity import smoothness_pairs
+
+    rng = np.random.default_rng(seed)
+    dims, G = (8, 8, 8), tuple(grid)
+    ncell = 512
+    vid = np.arange(int(np.prod(G))).reshape(G)
+    cell = np.arange(ncell).reshape(dims)
+    pairs = []
+    for d in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[d], hi[d] = slice(0, G[d] - 1), slice(1, G[d])
+        va, vb = vid[tuple(lo)].ravel(), vid[tuple(hi)].ravel()
+        face_a = np.take(cell, [dims[d] - 1], axis=d).ravel()
+        face_b = np.take(cell, [0], axis=d).ravel()
+        pairs.append(np.stack([
+            (va[:, None] * ncell + face_a[None, :]).ravel(),
+            (vb[:, None] * ncell + face_b[None, :]).ravel()], 1))
+    pairs = np.concatenate(pairs)
+    M = len(pairs)
+    x = rng.uniform(100, 1000, (M, 50))
+    a = rng.uniform(0.8, 1.2, (M, 1))
+    b = rng.uniform(-20, 20, (M, 1))
+    y = a * x + b + rng.normal(0, 5, (M, 50))
+    x, y = x / 500, y / 500
+    rows = np.concatenate([pairs.astype(np.float64), np.stack(
+        [np.full(M, 50.0), x.sum(1), y.sum(1), (x * x).sum(1),
+         (y * y).sum(1), (x * y).sum(1)], 1)], 1)
+    n_views = int(np.prod(G))
+    return ncell * n_views, rows, smoothness_pairs(dims, n_views)
+
+
+def cg_times(sysm, card):
+    """K24 and K25 alone at ``sysm``'s shapes (the state held open so every
+    launch works), against their twin steps, beside their bounds; K24
+    beside torch's CSR product (``torch.mv`` on a sparse CSR tensor)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    dev, n, nnz = sysm.device, sysm.n, sysm.vals.numel()
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r0 = torch.randn(n, generator=g, **f64)
+    x0 = torch.randn(n, generator=g, **f64)
+    p_old = torch.randn(n, generator=g, **f64)
+    p_new, ap = torch.empty(n, **f64), torch.empty(n, **f64)
+    d0, i0 = R.cg_state(sysm, dev)
+    d0[0], d0[1], d0[2] = 2.0, 0.5, 0.0
+    i0[2] = 1 << 30
+    d, i, r, x = d0.clone(), i0.clone(), r0.clone(), x0.clone()
+
+    def reset():
+        d.copy_(d0)
+        i.copy_(i0)
+        r.copy_(r0)
+        x.copy_(x0)
+
+    spmv = lambda: R.cg_spmv(sysm, r, p_old, p_new, ap, d, i)
+    upd = lambda: R.cg_update(sysm, x, r, p_new, ap, d, i)
+    reset()
+    spmv()
+    upd()
+    got = (p_new.clone(), ap.clone(), r.clone(), x.clone(), d.clone())
+    reset()
+    pn2, ap2 = torch.empty_like(p_new), torch.empty_like(ap)
+    R.cg_spmv_plain(sysm, r, p_old, pn2, ap2, d, i)
+    R.cg_update_plain(sysm, x, r, pn2, ap2, d, i)
+    ref = (pn2, ap2, r.clone(), x.clone(), d.clone())
+    errs = [max_abs(a, b) for a, b in zip(got, ref)]
+    scale = max(float(t.abs().max()) for t in ref)
+    check(max(errs) <= 1e-12 * scale,
+          f"K24/K25 one step at {n} unknowns: within {max(errs):.3g} of "
+          "their twins (rtol 1e-12 of the largest entry)")
+    csr = torch.sparse_csr_tensor(sysm.row_ptr.long(), sysm.cols.long(),
+                                  sysm.vals, (n, n))
+    res = {
+        "cg_spmv": dict(
+            err=max(errs[:2]), ms=time_each(spmv, reset),
+            plain_ms=time_each(lambda: R.cg_spmv_plain(
+                sysm, r, p_old, pn2, ap2, d, i), reset, reps=10),
+            library_ms=time_ms(lambda: torch.mv(csr, p_old)),
+            bound=bound(nnz * 12 + (n + 1) * 4 + n * 32, nnz * 4 + n * 4,
+                        F64_OPS_PER_S)),
+        "cg_update": dict(
+            err=max(errs[2:]), ms=time_each(upd, reset),
+            plain_ms=time_each(lambda: R.cg_update_plain(
+                sysm, x, r, p_new, ap, d, i), reset, reps=10),
+            library_ms=None,
+            bound=bound(n * 48, n * 7, F64_OPS_PER_S)),
+    }
+    for name, r_ in res.items():
+        r_["wrapper_ms"] = r_["ms"]
+        lib = (f"  library {r_['library_ms']} ms (torch.mv, CSR)"
+               if r_["library_ms"] is not None else "  library none")
+        print(f"  {name} at {n} unknowns, {nnz} CSR terms [{card}]: kernel "
+              f"{r_['ms']} ms  plain {r_['plain_ms']} ms  bound "
+              f"{r_['bound'][0]:.4f} ms ({r_['bound'][1]}){lib}", flush=True)
+    return res
+
+
+def phase10b(proj, scale, dev, card, launches):
+    """10b: solve-intensities on 10a's matches, then the large synthetic
+    system; K24/K25 held against cg_plain and by their residual."""
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+
+    calls, undo = cg_spy()
+    try:
+        t0 = time.perf_counter()
+        counted("10b", launches, dev, lambda: main(
+            ["solve-intensities", "-x", proj.xml_path, "--device", str(dev)]))
+        wall = time.perf_counter() - t0
+        args, (x, iters), cg_s = calls[-1]
+        print(f"  [intensity 10b] {card}: solve-intensities wall {wall:.3f}s, "
+              f"CG {iters} iterations in {cg_s:.3f}s (assembly included)",
+              flush=True)
+        _sysm, err = check_cg("10b", args, x, iters, dev)
+        C, rows, smooth = large_intensity_system(SCALES[scale]["ip_grid"])
+        t0 = time.perf_counter()
+        counted("10b large", launches, dev, lambda:
+                OI.solve_intensity_coefficients(
+                    C, rows, 0.1, smooth_pairs=smooth, backend="device",
+                    device=dev))
+        wall = time.perf_counter() - t0
+        args, (x, iters), cg_s = calls[-1]
+        print(f"  [intensity 10b large] {card}: {C} cells, wall {wall:.3f}s, "
+              f"CG {iters} iterations in {cg_s:.3f}s (assembly included)",
+              flush=True)
+        sysm, err2 = check_cg("10b large", args, x, iters, dev)
+    finally:
+        undo()
+    if dev.type != "cuda":
+        return {}
+    res = cg_times(sysm, card)
+    for r in res.values():
+        r["err"] = max(r["err"], err, err2)
+    return res
+
+
+def coeff_times(kind, run, plain, nbytes, ops, card):
+    """A K1 or K3 coefficient launch and its twin timed, with the bound."""
+    r = dict(coeff_ms=time_ms(run, reps=5),
+             coeff_plain_ms=time_ms(plain, reps=2, rounds=1),
+             coeff_bound=bound(nbytes, ops))
+    print(f"  {kind} with coefficients [{card}]: kernel {r['coeff_ms']} ms  "
+          f"plain {r['coeff_plain_ms']} ms  bound {r['coeff_bound'][0]:.4f} "
+          f"ms ({r['coeff_bound'][1]})", flush=True)
+    return r
+
+
+def phase10c(work, proj, scale, dev, card, launches):
+    """10c: affine-fusion --intensityN5 on the composite route (K1 and its
+    coefficient branch) and forced per block (K3's branch, K4), held
+    against the twins; the JAX test's seam gate through fuse_volume."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.io.chunkstore import (
+        ChunkStore, StorageFormat)
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+    from bigstitcher_spark_tpu_torch.models.intensity import IntensityStore
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+    from bigstitcher_spark_tpu_torch.utils.geometry import Interval
+
+    compute_block = compute_block_of(scale)
+    sd = SpimData.load(proj.xml_path)
+    loader = ViewLoader(sd)
+    views = sd.view_ids()
+    store = IntensityStore.for_project(sd)
+    coeffs = {v: store.load_coefficients(v).astype(np.float32) for v in views}
+    vols, rates = {}, {}
+    for route, budget, extra in (
+            ("10c composite", COMPOSITE_BUDGET, ["--intensityN5"]),
+            ("10c uncorrected", COMPOSITE_BUDGET, []),
+            ("10c per-block", 1, ["--intensityN5"])):
+        out = os.path.join(work, route.replace(" ", "_") + ".ome.zarr")
+        stats, wall = counted(route, launches, dev, lambda: run_cli(
+            proj.xml_path, out, scale, str(dev), budget=budget,
+            fusion_args=extra))
+        report(stats, wall, card, route)
+        check(stats.path == route.split()[1].replace("uncorrected",
+                                                     "composite"),
+              f"{route}: took the {stats.path} route")
+        if route.endswith("per-block"):
+            check(stats.kernel_blocks["gather"] > 0
+                  and stats.kernel_blocks["shift"] == 0,
+                  f"{route}: every block through K3 "
+                  f"({stats.kernel_blocks})")
+        rates[route] = stats.voxels / max(stats.seconds, 1e-9)
+        vols[route] = read_volume(out)
+        if route.endswith("per-block"):
+            meta, blocks = pick_blocks(proj, out, compute_block)
+    print(f"  [intensity 10c] {card}: fused voxels/s composite corrected "
+          f"{rates['10c composite']:,.0f}, uncorrected "
+          f"{rates['10c uncorrected']:,.0f}, per-block corrected "
+          f"{rates['10c per-block']:,.0f}", flush=True)
+
+    # the composite volume against K1's twin on the card
+    with tile_budget(COMPOSITE_BUDGET):
+        cp = A.plan_composite_volume(sd, loader, views, meta.bbox, None,
+                                     A.BlendParams(), coefficients=coeffs,
+                                     device=dev)
+    tiles = [torch.from_numpy(loader.open(p.view).read_full()).to(dev)
+             for p in cp.plans]
+    params = (cp.fracs, cp.img_dims, cp.borders, cp.ranges, cp.inside_offs,
+              0.0, 65535.0, cp.diags, cp.offs)
+    kw = dict(out_shape=cp.out_shape, windows=cp.windows, n_offs=cp.n_offs,
+              pad=cp.pad, kinds=cp.kinds, fusion_type="AVG_BLEND",
+              out_dtype="uint16", coeffs=cp.coeffs.to(dev),
+              coeff_affs=cp.coeff_affs)
+    ref = F.composite_fuse_plain(tiles, *params, **kw).cpu().numpy()
+    e1 = max_abs_u16(vols["10c composite"], ref, dev)
+    check(e1 <= 1, f"10c composite volume {ref.shape}: |delta| {e1} <= 1 vs "
+                   "the plain composite with coefficients on the device")
+    del ref
+    e2 = max_abs_u16(vols["10c per-block"], vols["10c composite"], dev)
+    check(e2 <= 1, f"10c per-block (K3) volume: |delta| {e2} <= 1 vs the "
+                   "composite (K1) one")
+    moved = max_abs_u16(vols["10c composite"], vols["10c uncorrected"], dev)
+    check(moved > 50, f"10c: the correction moves the volume by up to "
+                      f"{moved} > 50")
+    res = {}
+    if dev.type == "cuda":
+        n = int(np.prod(cp.out_shape))
+        steps = sum(int(np.prod([b - a for a, b in zip(*w)]))
+                    for w in cp.windows)
+        res["composite_fuse"] = coeff_times(
+            "composite_fuse (K1) at 10c's volume",
+            lambda: F.composite_fuse(tiles, *params, **kw),
+            lambda: F.composite_fuse_plain(tiles, *params, **kw),
+            sum(t.numel() * t.element_size() for t in tiles) + n * 2,
+            steps * (OPS["composite_view"] + OPS["coeff_k1"])
+            + n * OPS["composite_final"], card)
+        res["composite_fuse"]["coeff_err"] = float(e1)
+    del tiles
+
+    # per-block samples against K3's twin (coefficients), |delta| <= 1
+    grid_err = 0
+    for tag, b in blocks:
+        staged = A.stage_block(sd, loader, views, b, meta.bbox,
+                               compute_block, A.BlendParams(), None,
+                               (0.0,) * 3, coeffs, dev)
+        *ins, ioffs = [torch.from_numpy(a).to(dev) for a in staged.arrays]
+        cf = dict(coeffs=staged.coeffs[0].to(dev),
+                  coeff_affines=torch.from_numpy(staged.coeffs[1]).to(dev))
+        fused, _w = F.fuse_block_plain(*ins, staged.shape, "AVG_BLEND", ioffs,
+                                       **cf)
+        want = F.convert_intensity_plain(fused, 0.0, 65535.0,
+                                         "uint16").cpu().numpy()
+        sl = tuple(slice(o, o + s) for o, s in zip(b.offset, b.size))
+        got = vols["10c per-block"][sl]
+        e = int(np.abs(got.astype(np.int64) - want[tuple(
+            slice(0, s) for s in b.size)].astype(np.int64)).max())
+        grid_err = max(grid_err, e)
+        check(staged.kind == "gather" and e <= 1,
+              f"10c per-block block {tag} at {b.offset}: |delta| {e} <= 1 vs "
+              "K3's twin with coefficients on the device")
+        if dev.type == "cuda" and tag == "tile corner":
+            V = int(ins[0].shape[0])
+            nb = int(np.prod(staged.shape))
+            res["fuse_block"] = coeff_times(
+                f"fuse_block (K3) at a {staged.shape} block of {V} views",
+                lambda: F.fuse_block(*ins, staged.shape, "AVG_BLEND", ioffs,
+                                     **cf),
+                lambda: F.fuse_block_plain(*ins, staged.shape, "AVG_BLEND",
+                                           ioffs, **cf),
+                ins[0].numel() * ins[0].element_size()
+                + cf["coeffs"].numel() * 4 + nb * 8,
+                V * nb * (OPS["gather"] + OPS["coeff_k3"]), card)
+    if "fuse_block" in res:
+        res["fuse_block"]["coeff_err"] = float(grid_err)
+    del vols
+
+    # the seam gate of tests/test_intensity.py::test_cli_and_corrected_fusion
+    # on a crop across the setup 0 / setup 1 seam, FIRST_WINS float32
+    # in world coordinates: view 0 (setup 0) ends at x_end; below setup
+    # 2's first row only setups 0 and 1 cover the crop
+    bbox = meta.bbox
+    x_end = int(round(sd.model(views[0])[0, 3])) + sd.view_size(views[0])[0]
+    half = min(64, sd.view_size(views[0])[0] // 4)
+    ylen = int(round(sd.model(views[2])[1, 3])) - int(bbox.min[1]) - 8
+    crop = Interval.from_shape((2 * half, ylen, bbox.shape[2]),
+                               (x_end - half, bbox.min[1], bbox.min[2]))
+    cs = ChunkStore.create(os.path.join(work, "seam.n5"), StorageFormat.N5)
+    jumps = {}
+    for name, cf in (("raw", None), ("corrected", coeffs)):
+        ds = cs.create_dataset(name, crop.shape, compute_block, "float32")
+        A.fuse_volume(sd, loader, views, ds, crop, block_size=compute_block,
+                      block_scale=(1, 1, 1), fusion_type="FIRST_WINS",
+                      out_dtype="float32", min_intensity=0.0,
+                      max_intensity=1.0, device=dev, coefficients=cf)
+        v = ds.read_full()
+        zs = slice(8, max(9, v.shape[2] - 8))
+        left = v[half - 3:half, 8:ylen - 8, zs].mean()
+        right = v[half + 1:half + 4, 8:ylen - 8, zs].mean()
+        jumps[name] = abs(left - right) / right
+    check(jumps["raw"] > 0.15 and jumps["corrected"] < jumps["raw"] / 3,
+          f"10c seam: raw jump {jumps['raw']:.4f} > 0.15, corrected "
+          f"{jumps['corrected']:.4f} < raw / 3")
+    return res
+
+
+def phase10_intensity(work, scale, dev, card, launches):
+    """Phase 10: the intensity-correction chain on route A's geometry."""
+    print("phase 10 (intensity correction)", flush=True)
+    t0 = time.perf_counter()
+    proj = make_intensity_project(os.path.join(work, "p10"), scale)
+    res = phase10a(proj, scale, dev, card, launches)
+    res.update(phase10b(proj, scale, dev, card, launches))
+    res["coeff"] = phase10c(work, proj, scale, dev, card, launches)
+    print(f"  phase 10 wall {time.perf_counter() - t0:.1f}s", flush=True)
+    return res
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-9 through the CLI entry functions; returns route A's XML
-    and container paths and phases 7-9's kernel results."""
+    """Phases 2-10 through the CLI entry functions; returns route A's XML
+    and container paths and phases 7-10's kernel results."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
@@ -2351,7 +2945,8 @@ def main_path(work, scale, dev, card, launches):
     relax = phase7_solver(work, scale, a[0], dev, card, launches)
     det, det_b = phase8_detection(a[0], scale, dev, card, launches)
     match = phase9_matching(work, a[0], det_b, scale, dev, card, launches)
-    return a[0].xml_path, a[1], {**relax, **det, **match}
+    inten = phase10_intensity(work, scale, dev, card, launches)
+    return a[0].xml_path, a[1], {**relax, **det, **match, **inten}
 
 
 # ---------------------------------------------------------------- main
@@ -2406,9 +3001,10 @@ def main(argv=None) -> int:
         res = phase1_kernels(dev, args.scale, card)
 
         *route, later = main_path(work, args.scale, dev, card, launches)
+        coeff = later.pop("coeff")
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection, matching): "
+              f"detection, matching, intensity): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -2444,6 +3040,12 @@ def main(argv=None) -> int:
                 "block_bound_ms": r["block_bound"][0],
                 "block_max_abs_err": r["block_err"]}
                if "block_ms" in r else {}),
+            **({"coeff_launches": launches[f"{name}+coeff"],
+                "coeff_ms": coeff[name]["coeff_ms"],
+                "coeff_plain_ms": coeff[name]["coeff_plain_ms"],
+                "coeff_bound_ms": coeff[name]["coeff_bound"][0],
+                "coeff_max_abs_err": coeff[name]["coeff_err"]}
+               if name in coeff else {}),
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -273,3 +273,155 @@ def test_unknown_fusion_type_raises():
     with pytest.raises(ValueError):
         TF._combine_views(torch.zeros(1, 2), torch.zeros(1, 2),
                           torch.zeros(1, 2), torch.ones(1), "MEDIAN")
+
+
+# ---------------------------------------------------------------- coefficients
+#
+# Intensity-correction grids (V, Cx, Cy, Cz, 2) of [scale, offset] applied
+# inside K1 and K3 (make_translation_composite with_coeffs, :580-591;
+# fuse_block's _sample_one_view :98-103). Tolerance: fused float32 within
+# rtol 1e-4 / atol 1e-3 of JAX (XLA contracts the grid coordinate and the
+# scale * val + offset into fused multiply-adds and contracts the grid by
+# dot products; the twins round every op), converted integers |delta| <= 1.
+
+
+def _coeff_grids(rng, V, cdims=(3, 4, 2)):
+    g = np.empty((V, *cdims, 2), np.float32)
+    g[..., 0] = rng.uniform(0.6, 1.6, (V, *cdims))
+    g[..., 1] = rng.uniform(-200, 200, (V, *cdims))
+    return g
+
+
+def _coeff_affs(rng, V, extent, cdims):
+    """Diagonal level position -> grid affines whose grid coordinates run
+    from below 0 to past C - 1 over ``extent``: both edge rules engage."""
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        for d in range(3):
+            s = (cdims[d] + 1.5) / extent[d] * rng.uniform(0.9, 1.1)
+            aff[v, d, d] = s
+            aff[v, d, 3] = rng.uniform(-1.2, -0.6)
+    return aff
+
+
+def _shift_composite_case(rng):
+    """Four translated tiles around a (56, 48, 20) volume (the composite
+    route's coefficient case: every view a translation)."""
+    out_shape, V, S = (56, 48, 20), 4, (36, 30, 14)
+    corners = [(0, 0, 0), (20, 18, 6), (20, 0, 3), (0, 18, 3)]
+    tiles, windows, n_offs = [], [], []
+    fr = np.zeros((V, 3), np.float32)
+    for v in range(V):
+        tiles.append(rng.integers(0, 4000, S).astype(np.uint16))
+        g = rng.uniform(-0.5, 0.5, 3) - np.array(corners[v])
+        n = np.floor(g).astype(np.int64)
+        fr[v] = g - n
+        windows.append((tuple(int(max(0, -n[d] - 1)) for d in range(3)),
+                        tuple(int(min(out_shape[d], S[d] - n[d]))
+                              for d in range(3))))
+        n_offs.append(tuple(int(x) for x in n))
+    dims = np.tile(np.array(S, np.float32), (V, 1))
+    borders, ranges = _per_view(rng, V, 0, 2), _per_view(rng, V, 4, 16)
+    ioffs = np.zeros((V, 3), np.float32)
+    static = dict(out_shape=out_shape, windows=tuple(windows),
+                  n_offs=tuple(n_offs), pad=(1, 1, 1),
+                  kinds=("shift",) * V)
+    ones, zeros = np.ones((V, 3), np.float32), np.zeros((V, 3), np.float32)
+    return tiles, (fr, dims, borders, ranges, ioffs), (ones, zeros), static
+
+
+@pytest.mark.parametrize("fusion_type,out_dtype", [
+    *[(ft, "float32") for ft in FTYPES], ("AVG_BLEND", "uint16")])
+def test_composite_coeffs_matches_jax(fusion_type, out_dtype):
+    rng = np.random.default_rng(14)
+    tiles, params, (dg, of), st = _shift_composite_case(rng)
+    V, cdims = len(tiles), (3, 4, 2)
+    coeffs = _coeff_grids(rng, V, cdims)
+    caffs = _coeff_affs(rng, V, (36, 30, 14), cdims)
+    fn = JF.make_translation_composite(
+        st["out_shape"], st["windows"], st["n_offs"], pad=st["pad"],
+        fusion_type=fusion_type, out_dtype=out_dtype, with_coeffs=True,
+        kinds=st["kinds"])
+    mx = 1.0 if out_dtype == "float32" else 6000.0
+    ref = np.asarray(fn(tiles, *params, np.float32(0.0), np.float32(mx),
+                        dg, of, coeffs, caffs))
+    got = TF.composite_fuse(_t(*tiles), *params, 0.0, mx, dg, of,
+                            fusion_type=fusion_type, out_dtype=out_dtype,
+                            coeffs=torch.from_numpy(coeffs), coeff_affs=caffs,
+                            **st).numpy()
+    plain = TF.composite_fuse(_t(*tiles), *params, 0.0, mx, dg, of,
+                              fusion_type=fusion_type, out_dtype=out_dtype,
+                              **st).numpy()
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+    else:
+        _close_int(got, ref)
+    # the correction is applied: the output moves off the uncorrected one
+    assert np.abs(got.astype(np.float64) - plain).max() > 10
+
+
+def test_composite_coeffs_refuse_sep_views():
+    rng = np.random.default_rng(4)
+    tiles, params, (dg, of), st = _composite_case(rng, False)
+    V = len(tiles)
+    with pytest.raises(ValueError, match="per-block"):
+        TF.composite_fuse(_t(*tiles), *params, 0.0, 1.0, dg, of,
+                          coeffs=torch.from_numpy(_coeff_grids(rng, V)),
+                          coeff_affs=np.tile(np.eye(3, 4, dtype=np.float32),
+                                             (V, 1, 1)), **st)
+
+
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_gather_coeffs_matches_jax(fusion_type):
+    rng = np.random.default_rng(12)
+    V, bs, ps = 4, (16, 14, 8), (32, 32, 16)
+    patches = rng.uniform(0, 4000, (V, *ps)).astype(np.float32)
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        a = np.deg2rad(rng.uniform(-12, 12))
+        aff[v, :3, :3] = [[np.cos(a), -np.sin(a), 0],
+                          [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        aff[v, :, 3] = rng.uniform(-8, 24, 3)
+    offsets = _per_view(rng, V, 0, 20)
+    dims = np.tile(np.array([50, 40, 20], np.float32), (V, 1))
+    borders, ranges = _per_view(rng, V, 0, 3), _per_view(rng, V, 4, 20)
+    valid = np.array([1, 1, 1, 0], np.float32)
+    ioffs = _per_view(rng, V, 0, 2)
+    cdims = (4, 3, 2)
+    coeffs = _coeff_grids(rng, V, cdims)
+    caffs = _coeff_affs(rng, V, (50, 40, 20), cdims)
+    args = (patches, aff, offsets, dims, borders, ranges, valid)
+    ref = JF.fuse_block(*args, block_shape=bs, fusion_type=fusion_type,
+                        inside_offs=ioffs, coeffs=coeffs,
+                        coeff_affines=caffs)
+    got = TF.fuse_block(*_t(*args), bs, fusion_type, *_t(ioffs),
+                        coeffs=torch.from_numpy(coeffs),
+                        coeff_affines=torch.from_numpy(caffs))
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+def test_grid_edge_rules_differ_and_each_matches_jax():
+    """Past the grid's edges the composite clamps the coordinate to [0, C-1]
+    with lo <= C-2 (taps C-2, C-1 at weight 1), the gather floors it and
+    clips both corner indices (taps C-1, C-1 at the fraction). Each side
+    equals its own JAX function there, within 1e-6."""
+    from bigstitcher_spark_tpu.ops import nonrigid as JN
+
+    C = 4
+    pos = np.array([-1.7, -0.5, 0.0, 1.25, 2.999, 3.0, 3.4, 5.8], np.float32)
+    lo, hi, f = TF._interp_taps(torch.from_numpy(pos), C)
+    m = np.asarray(JF._separable_interp_matrix(pos, C))
+    mine = np.zeros_like(m)
+    np.add.at(mine, (np.arange(len(pos)), lo.numpy()), 1.0 - f.numpy())
+    np.add.at(mine, (np.arange(len(pos)), hi.numpy()), f.numpy())
+    np.testing.assert_allclose(mine, m, rtol=0, atol=1e-6)
+    assert lo.numpy()[-1] == C - 2 and f.numpy()[-1] == 1.0
+    rng = np.random.default_rng(3)
+    grid = rng.uniform(0, 2, (C, 2, 3, 2)).astype(np.float32)
+    pts = np.stack([pos, np.zeros_like(pos), np.full_like(pos, 1.5)], 1)
+    ref = np.asarray(JN._trilinear_vec(grid, pts))
+    got = TF._trilinear_vec(torch.from_numpy(grid), torch.from_numpy(pts))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+    # past the last cell the gather's fraction is nonzero on equal taps
+    assert float(torch.floor(torch.tensor(pos[-1])) - (C - 1)) > 0

@@ -3,7 +3,7 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the seven JAX click
+* The port's argparse accepts every option spelling of the nine JAX click
   commands it ports; the options not yet ported are refused with a pointer
   to ROADMAP.md instead of doing something else.
 """
@@ -23,6 +23,10 @@ from bigstitcher_spark_tpu.cli.fusion_tools import (
     affine_fusion_cmd as jax_affine_fusion,
     create_fusion_container_cmd as jax_create_container,
 )
+from bigstitcher_spark_tpu.cli.intensity_tools import (
+    match_intensities_cmd as jax_match_intensities,
+    solve_intensities_cmd as jax_solve_intensities,
+)
 from bigstitcher_spark_tpu.cli.resave_tools import downsample_cmd as jax_downsample
 from bigstitcher_spark_tpu.cli.solver_tools import solver_cmd as jax_solver
 from bigstitcher_spark_tpu.cli.stitching_tools import (
@@ -33,6 +37,10 @@ from bigstitcher_spark_tpu_torch.cli.main import main as torch_main
 from bigstitcher_spark_tpu_torch.cli.main import tool_parser
 from bigstitcher_spark_tpu_torch.models.affine_fusion import fuse_volume
 from bigstitcher_spark_tpu_torch.models.detection import detect_interest_points
+from bigstitcher_spark_tpu_torch.models.intensity import (
+    match_intensities,
+    solve_intensities,
+)
 from bigstitcher_spark_tpu_torch.models.matching import match_interest_points
 from bigstitcher_spark_tpu_torch.models.stitching import stitch_all_pairs
 from bigstitcher_spark_tpu_torch.utils.device import resolve_device
@@ -108,6 +116,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_main(["match-interestpoints", "-x",
                     str(tmp_path / "missing.xml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        match_intensities(None, None, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_intensities([], [], (2, 2, 2))
+    for tool in ("match-intensities", "solve-intensities"):
+        assert tool_parser(tool).parse_args(["-x", "x"]).device == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            torch_main([tool, "-x", str(tmp_path / "missing.xml")])
 
 
 def _click_spellings(cmd):
@@ -125,6 +141,8 @@ def _click_spellings(cmd):
     ("solver", jax_solver),
     ("detect-interestpoints", jax_detect),
     ("match-interestpoints", jax_match),
+    ("match-intensities", jax_match_intensities),
+    ("solve-intensities", jax_solve_intensities),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -139,7 +157,7 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("create-fusion-container", ["-c", "lz4"], "lz4"),
     ("create-fusion-container", ["--bdv"], "--bdv"),
     ("create-fusion-container", ["--s3Region", "us-east-1"], "--s3Region"),
-    ("affine-fusion", ["--intensityN5"], "--intensityN5"),
+    ("match-intensities", ["--trace"], "--trace"),
     ("affine-fusion", ["--devices", "4"], "--devices"),
     ("affine-fusion", ["--trace"], "--trace"),
     ("downsample", ["-s", "HDF5"], "-s HDF5"),
@@ -163,6 +181,7 @@ def test_not_yet_ported_options_are_refused(tool, args, what):
             "solver": ["-x", "unused.xml", "-s", "IP"],
             "detect-interestpoints": ["-x", "unused.xml"],
             "match-interestpoints": ["-x", "unused.xml"],
+            "match-intensities": ["-x", "unused.xml"],
             }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])

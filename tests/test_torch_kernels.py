@@ -813,3 +813,176 @@ def test_matching_wrappers_count_and_refuse(dev):
         DS.knn_descriptors(pts, None, 6, 3, True)  # pool 9 > MAX_POOL
     with pytest.raises(ValueError):
         DS.ratio_match(pts[0].double(), pts[0].double(), None, 3.0)
+
+
+# ---------------------------------------------------------------- intensity
+
+
+def _coeff_inputs(rng, V, extent, cdims=(4, 3, 2)):
+    """(V, Cx, Cy, Cz, 2) grids of [scale, offset] and diagonal level
+    position -> grid affines whose coordinates run past both grid edges."""
+    g = np.empty((V, *cdims, 2), np.float32)
+    g[..., 0] = rng.uniform(0.6, 1.6, (V, *cdims))
+    g[..., 1] = rng.uniform(-200, 200, (V, *cdims))
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        for d in range(3):
+            aff[v, d, d] = (cdims[d] + 1.5) / extent[d]
+            aff[v, d, 3] = rng.uniform(-1.2, -0.6)
+    return torch.from_numpy(g), torch.from_numpy(aff)
+
+
+@pytest.mark.parametrize("fusion_type,out_dtype", [
+    *[(ft, "uint16") for ft in FTYPES], ("AVG_BLEND", "float32")])
+def test_composite_coeff_kernel(dev, fusion_type, out_dtype):
+    """K1's coefficient branch against its twin on the card: uint16
+    |delta| <= 1, float32 rtol 1e-5 / atol 1e-3."""
+    rng = np.random.default_rng(30)
+    tiles, params, kw = _composite_case(rng, fusion_type, out_dtype, False)
+    V = len(tiles)
+    kw["kinds"] = ("shift",) * V
+    kw["windows"] = tuple(kw["windows"][:2]) * 2
+    kw["n_offs"] = tuple(kw["n_offs"][:2]) * 2
+    fr = params[0].copy()
+    fr[2:] = fr[:2]
+    params = (fr, *params[1:])
+    coeffs, affs = _coeff_inputs(rng, V, (40, 36, 20))
+    tiles = [t.to(dev) for t in tiles]
+    ref = F.composite_fuse_plain(tiles, *params, coeffs=coeffs.to(dev),
+                                 coeff_affs=affs, **kw)
+    ops.reset_launch_counts()
+    got = F.composite_fuse(tiles, *params, coeffs=coeffs.to(dev),
+                           coeff_affs=affs, **kw)
+    assert ops.launch_counts()["composite_fuse"] == V + 2
+    assert ops.coeff_launch_counts()["composite_fuse+coeff"] == V
+    if out_dtype == "float32":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+    else:
+        d = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+        assert d.max() <= 1
+    with pytest.raises(ValueError, match="per-block"):
+        F.composite_fuse(tiles, *params, coeffs=coeffs.to(dev),
+                         coeff_affs=affs, **{**kw, "kinds": ("sep",) * V})
+
+
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_gather_coeff_kernel(dev, fusion_type):
+    """K3's coefficient branch against its twin on the card: float32 rtol
+    1e-5 / atol 1e-3, wsum atol 1e-5."""
+    rng = np.random.default_rng(31)
+    V, bs, ps = 4, (32, 28, 16), (48, 40, 24)
+    patches = torch.from_numpy(rng.integers(0, 4000, (V, *ps)).astype(
+        np.uint16))
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        a = np.deg2rad(rng.uniform(-10, 10))
+        aff[v, :3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                          [0, 0, 1]]
+        aff[v, :, 3] = rng.uniform(-6, 12, 3)
+    coeffs, caffs = _coeff_inputs(rng, V, (60, 50, 30))
+    args = [patches, torch.from_numpy(aff), _per_view(rng, V, 0, 30),
+            torch.from_numpy(np.tile(np.array([60, 50, 30], np.float32),
+                                     (V, 1))),
+            _per_view(rng, V, 0, 3), _per_view(rng, V, 5, 30),
+            torch.from_numpy((np.arange(V) < V - 1).astype(np.float32)),
+            _per_view(rng, V, 0, 2)]
+    args = [a.to(dev) for a in args]
+    cf = dict(coeffs=coeffs.to(dev), coeff_affines=caffs.to(dev))
+    ref = F.fuse_block_plain(*args[:7], bs, fusion_type, args[7], **cf)
+    ops.reset_launch_counts()
+    got = F.fuse_block(*args[:7], bs, fusion_type, args[7], **cf)
+    assert ops.coeff_launch_counts()["fuse_block+coeff"] == 1
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    plain = F.fuse_block(*args[:7], bs, fusion_type, args[7])
+    assert (got[0] - plain[0]).abs().max() > 10  # the branch was taken
+
+
+@pytest.mark.parametrize("P,N,I", [(3, 256, 500), (64, 2048, 1000),
+                                   (5, 16384, 300)])
+def test_linefit_ransac_kernel(dev, P, N, I):
+    """K23 against its twin on the same draws: every hypothesis' count and
+    the argmax bitwise; the refitted a, b within 1e-5 (float32 sums in
+    another order)."""
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+
+    rng = np.random.default_rng(32)
+    sa, sb = [], []
+    for p in range(P):
+        n = int(rng.integers(N // 2 + 1, N + 1))
+        x = rng.uniform(0.05, 0.7, n).astype(np.float32)
+        y = (rng.uniform(0.6, 1.5) * x + rng.uniform(-0.1, 0.1)
+             + rng.normal(0, 0.004, n)).astype(np.float32)
+        y[: n // 5] = rng.uniform(0, 1, n // 5)
+        sa.append(x)
+        sb.append(y)
+    x, y, v = OI.pack_samples(sa, sb, dev)
+    assert x.shape == (P, N)
+    hyp = OI.draw_hypotheses(9, P, N, I, dev)
+    ops.reset_launch_counts()
+    got = OI.linefit_ransac(x, y, v, hyp, 0.02)
+    assert ops.launch_counts()["linefit_ransac"] == 1
+    ref = OI.linefit_ransac_plain(x, y, v, hyp, 0.02)
+    assert torch.equal(got.counts, ref.counts)
+    assert torch.equal(got.best, ref.best) and torch.equal(got.count,
+                                                           ref.count)
+    torch.testing.assert_close(got.a, ref.a, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.b, ref.b, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        OI.linefit_ransac(x.double(), y, v, hyp, 0.02)
+
+
+def _cg_case(seed, n_views, dims, n_matches):
+    from bigstitcher_spark_tpu_torch.models.intensity import smoothness_pairs
+    from bigstitcher_spark_tpu_torch.ops.intensity import (
+        intensity_system, match_stats)
+
+    rng = np.random.default_rng(seed)
+    C = int(np.prod(dims)) * n_views
+    matches = []
+    for _ in range(n_matches):
+        ca, cb = rng.integers(0, C, 2)
+        x = rng.uniform(100, 1000, 50)
+        y = rng.uniform(0.8, 1.2) * x + rng.uniform(-20, 20) + rng.normal(0, 5, 50)
+        matches.append((int(ca), int(cb), *match_stats(x / 500, y / 500)))
+    return C, intensity_system(C, matches, 0.1,
+                               smoothness_pairs(dims, n_views))
+
+
+@pytest.mark.parametrize("n_views,dims,n_matches", [
+    (3, (4, 4, 4), 300), (64, (8, 8, 8), 4000)])
+def test_cg_kernels_match_plain(dev, n_views, dims, n_matches):
+    """K24/K25 against cg_plain on the card: the solution within rtol 1e-9
+    (dot products summed in another order), iteration counts within 1; a
+    K24 and a K25 step alone against their twins within rtol 1e-12."""
+    C, (rows, diag, rhs, sidx, sw) = _cg_case(5, n_views, dims, n_matches)
+    sysm = R.assemble_cg(C, rows, diag, rhs, sidx, sw, dev)
+    ops.reset_launch_counts()
+    got = R.cg_on_device(sysm)
+    counts = ops.launch_counts()
+    assert counts["cg_spmv"] > got.iterations and counts["cg_update"] > 0
+    ref = R.cg_plain(sysm)
+    assert abs(got.iterations - ref.iterations) <= 1
+    scale = float(ref.x.abs().max())
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-9, atol=1e-9 * scale)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    r = torch.randn(sysm.n, generator=g, device=dev, dtype=torch.float64)
+    p_old = torch.randn(sysm.n, generator=g, device=dev, dtype=torch.float64)
+    x = torch.randn(sysm.n, generator=g, device=dev, dtype=torch.float64)
+    outs = []
+    for spmv, update in ((R.cg_spmv, R.cg_update),
+                         (R.cg_spmv_plain, R.cg_update_plain)):
+        d, i = R.cg_state(sysm, dev)
+        d[0], d[1] = 3.5, 0.25
+        pn, ap = torch.empty_like(r), torch.empty_like(r)
+        rr, xx = r.clone(), x.clone()
+        spmv(sysm, rr, p_old, pn, ap, d, i)
+        update(sysm, xx, rr, pn, ap, d, i)
+        outs.append((pn, ap, rr, xx, d.clone(), i.clone()))
+    for a, b in zip(*outs):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
