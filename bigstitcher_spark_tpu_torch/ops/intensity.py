@@ -64,14 +64,15 @@ def sample_bucket(n_max: int) -> int:
 def draw_hypotheses(seed: int, P: int, N: int, iterations: int,
                     device) -> torch.Tensor:
     """(P, iterations, 2) int32 sample indices, uniform with replacement
-    over [0, N) (the padding included, as JAX draws them), from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    dev = torch.device(device)
-    g = torch.Generator(device=dev)
+    over [0, N) (the padding included, as JAX draws them), on ``device``.
+    Drawn by a CPU ``torch.Generator`` seeded with ``seed`` whatever the
+    device, so a run on the card and one on the CPU score the same
+    hypotheses."""
+    g = torch.Generator()
     g.manual_seed(int(seed))
     idx = torch.randint(0, int(N), (int(P), int(iterations), 2), generator=g,
-                        device=dev, dtype=torch.int64)
-    return idx.to(torch.int32)
+                        dtype=torch.int64)
+    return idx.to(torch.int32).to(torch.device(device))
 
 
 def _hypothesis_lines(x, y, hyp):
@@ -359,8 +360,8 @@ def solve_intensity_coefficients(
     rows, diag, rhs, sidx, sw = intensity_system(
         n_cells, matches, lam, smooth_pairs, smooth_weight)
     if S.resolve_backend(backend) == "device" and len(rows):
-        sol, _iters = S.solve_intensity_device(
-            n_cells, rows, diag, rhs, sidx, sw, resolve_device(device))
+        sol = S.solve_intensity_device(
+            n_cells, rows, diag, rhs, sidx, sw, resolve_device(device)).x
         if on_device_solution is not None:
             on_device_solution(sol)
         return sol.cpu().numpy().reshape(n_cells, 2)

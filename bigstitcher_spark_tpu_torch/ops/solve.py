@@ -48,6 +48,7 @@ compile-bucket telemetry, and the intensity solve's conjugate gradients.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -893,16 +894,31 @@ KERNEL_WRAPPERS.update({"cg_spmv": cg_spmv, "cg_update": cg_update})
 class CGOutput:
     x: torch.Tensor           # (2C,) f64 on the system's device
     iterations: int
+    seconds: float = 0.0      # host wall of the launches and state reads
+    card_seconds: float = 0.0  # CUDA events around each chunk's launches
+    #                            (on the CPU: ``seconds``)
 
 
 def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
     dev, n = sysm.device, sysm.n
     f64 = dict(dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    events = []
+
+    def mark():
+        # one CUDA event pair around each chunk's launches: the card's
+        # seconds without the host's state reads between chunks
+        if stream is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record(stream)
+
     dstate, istate = cg_state(sysm, dev)
     x = sysm.x0.clone()
     r = torch.zeros(n, **f64)
     ap = torch.empty(n, **f64)
     p = [torch.zeros(n, **f64), torch.zeros(n, **f64)]
+    mark()
     # r0 = rhs - A x0: K24 on x0 (beta 0), then K25 in its init form
     spmv(sysm, x, p[1], p[0], ap, dstate, istate)
     update(sysm, x, r, p[0], ap, dstate, istate, init=True)
@@ -912,11 +928,16 @@ def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
             spmv(sysm, r, p[1 - cur], p[cur], ap, dstate, istate)
             update(sysm, x, r, p[cur], ap, dstate, istate)
             cur = 1 - cur
+        mark()
         iters, done = istate[:2].tolist()
         if done:
             break
         chunk = min(2 * chunk, MAX_CHUNK)
-    return CGOutput(x, int(iters))
+        mark()
+    secs = time.perf_counter() - t0
+    card = (sum(a.elapsed_time(b) for a, b in zip(events[::2], events[1::2]))
+            / 1e3 if events else secs)
+    return CGOutput(x, int(iters), secs, card)
 
 
 def cg_on_device(sysm: CGSystem) -> CGOutput:
@@ -930,11 +951,10 @@ def cg_plain(sysm: CGSystem) -> CGOutput:
 
 
 def solve_intensity_device(n_cells, rows, diag, rhs, sidx, sw, device
-                           ) -> tuple[torch.Tensor, int]:
+                           ) -> CGOutput:
     """CG-solve the intensity normal equations (``rows`` (M, 8) match
     statistics, ``diag`` / ``rhs`` (2C,), flattened smoothness pairs
-    ``sidx`` (S, 2) with weights ``sw``) on ``device``. Returns the device
-    solution (2C,) and the iteration count."""
-    out = cg_on_device(assemble_cg(n_cells, rows, diag, rhs, sidx, sw,
-                                   device))
-    return out.x, out.iterations
+    ``sidx`` (S, 2) with weights ``sw``) on ``device``: the device
+    solution (2C,), the iteration count and the loop's seconds."""
+    return cg_on_device(assemble_cg(n_cells, rows, diag, rhs, sidx, sw,
+                                    device))

@@ -33,6 +33,8 @@ from ..io.spimdata import (
 )
 from .geometry import translation_affine
 
+NOISE_SIGMA = 8.0   # each tile's Gaussian sensor noise (intensity units)
+
 
 @dataclass
 class SyntheticProject:
@@ -115,9 +117,12 @@ def make_synthetic_project(
     downsampling_factors=((1, 1, 1),),
     smooth_field=0.0,
     compression="zstd",
+    noise_sigma=NOISE_SIGMA,
 ) -> SyntheticProject:
     """Write ``dataset.xml`` + ``dataset.n5`` under ``out_dir``.
-    ``compression`` is the N5 codec of the tile datasets."""
+    ``compression`` is the N5 codec of the tile datasets; ``noise_sigma``
+    the standard deviation of each tile's Gaussian sensor noise (drawn
+    whatever its value, so the rest of the project does not change)."""
     rng = np.random.default_rng(seed + 1)
     n_tiles = tuple(int(v) for v in n_tiles)
     tile_size = tuple(int(v) for v in tile_size)
@@ -172,7 +177,7 @@ def make_synthetic_project(
                 ]
                 for c in range(n_channels):
                     img = crop * (1.0 + 0.15 * c)
-                    noise = rng.normal(0, 8.0, img.shape)
+                    noise = rng.normal(0, noise_sigma, img.shape)
                     img = img + noise
                     if info is not None:
                         img = np.clip(img, info.min, info.max).astype(dtype)

@@ -919,6 +919,8 @@ def test_linefit_ransac_kernel(dev, P, N, I):
     x, y, v = OI.pack_samples(sa, sb, dev)
     assert x.shape == (P, N)
     hyp = OI.draw_hypotheses(9, P, N, I, dev)
+    # the card scores the hypotheses a CPU run scores
+    assert torch.equal(hyp.cpu(), OI.draw_hypotheses(9, P, N, I, "cpu"))
     ops.reset_launch_counts()
     got = OI.linefit_ransac(x, y, v, hyp, 0.02)
     assert ops.launch_counts()["linefit_ransac"] == 1
@@ -961,6 +963,7 @@ def test_cg_kernels_match_plain(dev, n_views, dims, n_matches):
     got = R.cg_on_device(sysm)
     counts = ops.launch_counts()
     assert counts["cg_spmv"] > got.iterations and counts["cg_update"] > 0
+    assert 0 < got.card_seconds <= got.seconds
     ref = R.cg_plain(sysm)
     assert abs(got.iterations - ref.iterations) <= 1
     scale = float(ref.x.abs().max())
