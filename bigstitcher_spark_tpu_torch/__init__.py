@@ -18,7 +18,7 @@ downsample stage), ``downsample``, single-device ``stitching``, the
 single-device ``solver`` (stitching and interest-point sources),
 ``detect-interestpoints``, ``match-interestpoints``, ``match-intensities``
 and ``solve-intensities`` (whose grids ``affine-fusion --intensityN5``
-applies).
+applies), and single-device ``nonrigid-fusion``.
 Everything else raises :class:`NotYetPorted`.
 """
 

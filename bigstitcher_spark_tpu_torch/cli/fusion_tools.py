@@ -1,4 +1,5 @@
-"""``create-fusion-container`` and ``affine-fusion`` commands.
+"""``create-fusion-container``, ``affine-fusion`` and ``nonrigid-fusion``
+commands.
 
 Port of ``bigstitcher_spark_tpu/cli/fusion_tools.py`` on argparse, with
 the same option spellings. Options this slice does not implement are
@@ -346,3 +347,173 @@ def _write_pyramid(store, mr_levels, is_zarr5d, ct, device,
         downsample_pyramid_level(store, mr_levels[lvl - 1], mr_levels[lvl],
                                  is_zarr5d, ct, device=device,
                                  skip_existing=True)
+
+
+def add_nonrigid_fusion(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser("nonrigid-fusion", allow_abbrev=False,
+                       help="non-rigid fusion driven by corresponding "
+                            "interest points")
+    add_infrastructure_options(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("-o", "--n5Path", "--output", dest="output", required=True,
+                   help="fusion container created by create-fusion-container, "
+                        "or a fresh path with -x/--dataType (direct-output "
+                        "mode)")
+    p.add_argument("-x", "--xml", dest="xml", default=None,
+                   help="dataset XML (direct-output mode only; containers "
+                        "carry their InputXML)")
+    add_view_selection_options(p)
+    p.add_argument("-ip", "--interestPoints", "-l", "--label", dest="labels",
+                   action="append", default=None,
+                   help="interest point label(s) defining the deformation "
+                        "(repeatable; default beads)")
+    p.add_argument("-cpd", "--controlPointDistance", dest="cpd", type=float,
+                   default=10.0, help="control point grid spacing in px")
+    p.add_argument("--alpha", type=float, default=1.0,
+                   help="inverse-distance weight exponent")
+    p.add_argument("--fusionType", dest="fusion_type", type=str.upper,
+                   choices=FUSION_TYPES, default="AVG_BLEND")
+    p.add_argument("--blockScale", dest="block_scale", default="2,2,1")
+    p.add_argument("--blendingRange", dest="blending_range", default="40,40,40")
+    p.add_argument("--blendingBorder", dest="blending_border", default="0,0,0")
+    p.add_argument("--channelIndex", dest="channel_index", type=int,
+                   default=None)
+    p.add_argument("--timepointIndex", dest="timepoint_index", type=int,
+                   default=None)
+    p.add_argument("-s", "--storage", dest="storage_opt", default=None,
+                   choices=("N5", "ZARR", "HDF5"),
+                   help="storage format for direct-output mode (default ZARR; "
+                        "HDF5: not yet ported)")
+    p.add_argument("-d", "--n5Dataset", dest="n5_dataset", default=None,
+                   help="accepted for compatibility; the container layout "
+                        "fixes the dataset names")
+    p.add_argument("-p", "--dataType", dest="data_type", default=None,
+                   choices=_DTYPES, help="output data type (direct-output mode)")
+    p.add_argument("--minIntensity", dest="min_intensity", type=float,
+                   default=None)
+    p.add_argument("--maxIntensity", dest="max_intensity", type=float,
+                   default=None)
+    p.add_argument("-b", "--boundingBox", dest="bounding_box", default=None,
+                   help="named bounding box (direct-output mode)")
+    p.add_argument("--bdv", action="store_true",
+                   help="also write a BDV project XML (not yet ported)")
+    p.add_argument("-xo", "--xmlout", dest="xml_out", default=None,
+                   help="output XML path for --bdv (direct-output mode)")
+    p.add_argument("--devices", dest="devices", type=int, default=None,
+                   help="devices to use; only 1 until the sharded route is "
+                        "ported")
+    p.set_defaults(func=nonrigid_fusion_cmd)
+    return p
+
+
+def nonrigid_fusion_cmd(args: argparse.Namespace):
+    """Non-rigid fusion driven by corresponding interest points
+    (SparkNonRigidFusion). Returns the list of :class:`FusionStats`, one
+    per fused (channel, timepoint) slot."""
+    from ..io.interestpoints import InterestPointStore
+    from ..models.affine_fusion import BlendParams
+    from ..models.nonrigid_fusion import (
+        build_unique_points,
+        fuse_nonrigid_volume,
+    )
+    from ..utils.device import resolve_device
+
+    check_infrastructure(args)
+    if args.devices is not None and args.devices != 1:
+        raise NotYetPorted(f"--devices {args.devices} (the sharded route)")
+    if args.bdv:
+        raise NotYetPorted("--bdv")
+    if args.storage_opt == "HDF5":
+        raise NotYetPorted("-s HDF5")
+    device = resolve_device(args.device)
+    t_start = time.time()
+    try:
+        store = open_container(args.output)
+        meta = read_container_meta(store)
+    except (ValueError, FileNotFoundError) as e:
+        # direct-output mode (the reference's SparkNonRigidFusion writes
+        # straight to an N5/ZARR, no create-fusion-container step): create
+        # the container here from -x/--dataType/--boundingBox
+        if args.xml is None or args.data_type is None:
+            raise ValueError(
+                f"{args.output} is not a fusion container ({e}); for direct "
+                "output pass -x <dataset.xml> and -p/--dataType (plus "
+                "optionally -s, -b, --minIntensity/--maxIntensity)") from e
+        create_fusion_container_cmd(argparse.Namespace(
+            **{k: getattr(args, k) for k in (
+                "xml", "output", "data_type", "min_intensity",
+                "max_intensity", "bounding_box", "xml_out", "angle_ids",
+                "channel_ids", "illumination_ids", "tile_ids",
+                "timepoint_ids", "vi", "s3_region", "telemetry_dir",
+                "profile", "trace")},
+            storage=args.storage_opt or "ZARR", block_size="128,128,128",
+            num_channels_opt=None, num_timepoints_opt=None, bdv=False,
+            multi_res=False, downsampling=None, preserve_anisotropy=False,
+            anisotropy_factor=float("nan"), compression="zstd",
+            compression_level=None, dry_run=False))
+        print(f"direct output: created container at {args.output}")
+        store = open_container(args.output)
+        meta = read_container_meta(store)
+    sd = SpimData.load(meta.input_xml)
+    loader = ViewLoader(sd)
+    all_views = select_views_from_args(sd, args)
+    ip_store = InterestPointStore.for_project(sd)
+    labels = args.labels or ["beads"]
+
+    blend = BlendParams(
+        border=tuple(float(v) for v in args.blending_border.split(",")),
+        range=tuple(float(v) for v in args.blending_range.split(",")),
+    )
+    bscale = parse_csv_ints(args.block_scale, 3)
+    is_zarr5d = meta.fusion_format in ("OME-ZARR", "BDV/OME-ZARR")
+    channels = sorted({sd.setups[v.setup].attributes.get("channel", 0)
+                       for v in all_views})
+    tps = sorted({v.timepoint for v in all_views})
+    c_indices = ([args.channel_index] if args.channel_index is not None
+                 else list(range(len(channels))))
+    t_indices = ([args.timepoint_index] if args.timepoint_index is not None
+                 else list(range(len(tps))))
+
+    total_vox = 0
+    results = []
+    for ti in t_indices:
+        t = tps[ti]
+        for ci in c_indices:
+            c = channels[ci]
+            views = [v for v in all_views if v.timepoint == t
+                     and sd.setups[v.setup].attributes.get("channel", 0) == c]
+            if not views:
+                continue
+            # deformation may use IPs of ALL views of this timepoint
+            # (corresponding views need not be restricted to the channel)
+            ip_views = [v for v in all_views if v.timepoint == t]
+            unique = build_unique_points(sd, ip_store, ip_views, labels)
+            mr = meta.mr_infos[ci + ti * meta.num_channels]
+            ds = store.open_dataset(mr[0].dataset.strip("/"))
+            print(f"nonrigid fusing channel {c} timepoint {t}: "
+                  f"{len(views)} views -> {mr[0].dataset}")
+            if args.dry_run:
+                continue
+            stats = fuse_nonrigid_volume(
+                sd, loader, views, unique, ds, meta.bbox,
+                block_size=tuple(meta.block_size), block_scale=tuple(bscale),
+                cpd=args.cpd, alpha=args.alpha, fusion_type=args.fusion_type,
+                blend=blend,
+                anisotropy_factor=(meta.anisotropy_factor
+                                   if meta.preserve_anisotropy
+                                   else float("nan")),
+                out_dtype=meta.data_type, min_intensity=meta.min_intensity,
+                max_intensity=meta.max_intensity,
+                zarr_ct=(ci, ti) if is_zarr5d else None, device=device)
+            total_vox += stats.voxels
+            results.append(stats)
+            tm = " ".join(f"{k}={v:.3f}s" for k, v in stats.timings.items())
+            print(f"  {stats.blocks} blocks ({stats.skipped_empty} empty), "
+                  f"{stats.voxels} voxels in {stats.seconds:.2f}s "
+                  f"({stats.voxels / max(stats.seconds, 1e-9):,.0f} vox/s) "
+                  f"{tm}")
+            if len(mr) > 1:
+                _write_pyramid(store, mr, is_zarr5d, (ci, ti), device)
+    print(f"done, {total_vox} voxels, took {time.time() - t_start:.1f}s")
+    return results

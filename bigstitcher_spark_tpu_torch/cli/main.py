@@ -27,6 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="tool", required=True)
     fusion_tools.add_create_fusion_container(sub)
     fusion_tools.add_affine_fusion(sub)
+    fusion_tools.add_nonrigid_fusion(sub)
     resave_tools.add_downsample(sub)
     stitching_tools.add_stitching(sub)
     solver_tools.add_solver(sub)

@@ -835,30 +835,40 @@ def fuse_volume(
                              blend, aniso, inside_offset, coefficients, dev)
         return staged, time.perf_counter() - ts
 
+    def finish(result, writer):
+        _finish_block(result, stats, fusion_type, dev, masks, imax,
+                      out_dtype, min_intensity, max_intensity, writer,
+                      out_ds, zarr_ct)
+
+    run_block_pipeline(grid, stage, finish, io_threads, threads,
+                       stats.timings)
+    stats.seconds = time.time() - t0
+    return stats
+
+
+def run_block_pipeline(blocks, stage, finish, io_threads: int, threads: int,
+                       timings: dict) -> None:
+    """The per-block loop of the fusion drivers: ``stage(block)`` runs on
+    ``io_threads`` reader threads, ``2 x io_threads`` blocks ahead;
+    ``finish(result, writer)`` takes each result in grid order on this
+    thread and submits its writes to ``writer``, a :class:`WriterPool` of
+    ``threads`` threads whose seconds go to ``timings['write']``."""
     readers = ThreadPoolExecutor(max_workers=max(1, io_threads),
                                  thread_name_prefix="bst-read")
-    writer = WriterPool(threads, stats.timings)
+    writer = WriterPool(threads, timings)
     pending: deque = deque()
-    blocks = iter(grid)
     try:
-        for block in blocks:  # read ahead by 2 x io_threads blocks
+        for block in blocks:
             pending.append(readers.submit(stage, block))
-            if len(pending) < 2 * max(1, io_threads):
-                continue
-            _finish_block(pending.popleft().result(), stats, fusion_type,
-                          dev, masks, imax, out_dtype, min_intensity,
-                          max_intensity, writer, out_ds, zarr_ct)
+            if len(pending) >= 2 * max(1, io_threads):
+                finish(pending.popleft().result(), writer)
         while pending:
-            _finish_block(pending.popleft().result(), stats, fusion_type,
-                          dev, masks, imax, out_dtype, min_intensity,
-                          max_intensity, writer, out_ds, zarr_ct)
+            finish(pending.popleft().result(), writer)
     finally:
         for f in pending:
             f.cancel()
         readers.shutdown(wait=True)
         writer.close()
-    stats.seconds = time.time() - t0
-    return stats
 
 
 def _finish_block(result, stats, fusion_type, dev, masks, imax, out_dtype,

@@ -28,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
            "pcm", "fft", "solve", "dog", "descriptors", "ransac", "intensity",
-           "cg")
+           "cg", "nonrigid")
 HEADERS = ("fusion_common.cuh", "fit3d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -111,6 +111,10 @@ _SIGNATURES = {
     "cg": {
         "bst_cg_spmv": [_I] + [_VP] * 11,
         "bst_cg_update": [_I, _I] + [_VP] * 9,
+    },
+    "nonrigid": {
+        "bst_nonrigid_fuse": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]
+                             + [_VP] * 9 + [_I] * 5 + [_VP, _VP, _VP],
     },
 }
 

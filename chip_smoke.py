@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all fourteen at once).
+         kernels from csrc/ (one nvcc per source, all fifteen at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -159,6 +159,27 @@ Phase 10 the intensity-correction chain through the port's CLI entry
          composite's); then the JAX test's seam gate: a FIRST_WINS float32
          fuse_volume of a crop across the setup 0 / setup 1 seam, raw jump
          > 0.15 and corrected jump < raw / 3.
+Phase 11 nonrigid-fusion through the port's CLI entry functions on route
+         A's project at its uncorrected registrations (phase 9's XML
+         before 9a's solve) with 9a's correspondences: create-fusion-
+         container (OME-ZARR, UINT16, 128x128x64 blocks, --multiRes), then
+         nonrigid-fusion at the reference defaults (-cpd 10, --alpha 1,
+         AVG_BLEND, --blockScale 2,2,1) and its downsample stage. Blocks
+         holding 1, 2 and 4 views are re-fused through K26's twin on the
+         card (uint16 |delta| <= 1; bitwise expected); the four-view block
+         with identity grids (no correspondence) through K26 and through
+         K3 (|delta| <= 1); the JAX test's recovery gate on crops of the
+         four pairwise overlaps with the port's DoG, over every bead 8 px
+         inside exactly two tiles: no second detection within 4 px, each
+         within 1.5 px of where the fitted warps place it, and within 1.5
+         px of its truth plus the two views' mean registration error, at
+         least 3 a crop. Beads missing the last (the fits extrapolate: an
+         open fault of the method, which JAX's fusion shares) are printed
+         as NOT met and counted. Prints fused voxels/s, the plan / read /
+         H2D / kernel / D2H / write split, card busy seconds (CUDA events)
+         and the idle share; K26 timed at the four-view block beside its
+         twin and its bound (library none: grid_sample resamples one view
+         by a flow field, without the 12-coefficient warp or the blend).
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -173,7 +194,7 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-10 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-11 on the CPU with the
 plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
 cells and renderScale 0.5, 10b's large system on 3x3x2 views); it then
 exits 3 without a result.
@@ -224,6 +245,7 @@ KERNELS = {
     "linefit_ransac": ("intensity.cu", "ops/intensity.py:36"),
     "cg_spmv": ("cg.cu", "ops/solve.py:527"),
     "cg_update": ("cg.cu", "ops/solve.py:527"),
+    "nonrigid_fuse": ("nonrigid.cu", "ops/nonrigid.py:133"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -253,7 +275,12 @@ KERNELS = {
 # lerp of 2 channels (4 each) and the apply (2); its x and y stages are
 # shared by a column (the kernel's choice to redo them per voxel is not
 # counted). K3's: the grid coordinate (18), floor and clip (~15), 2
-# channels x 8 corners x 3 products, their sums and the apply (~65).
+# channels x 8 corners x 3 products, their sums and the apply (~65). K26
+# per (view, voxel): the z lerp of 12 coefficients (36), the deform and
+# the view affine (18 each), the sample (~40: floor, fractions, 8 corner
+# products, their sum), the level position, inside test, blend and combine
+# (~38); the grid taps and the x and y lerps are shared by a z column and
+# not counted.
 OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "gather": 92, "convert": 5, "sep": 60, "downsample_in": 1,
        "downsample_out": 10, "window": 5, "fft": 2.5, "cross": 12,
@@ -262,7 +289,8 @@ OPS = {"composite_view": 40, "composite_final": 6, "shift": 40,
        "fit": {"IDENTITY": 0, "TRANSLATION": 6, "AFFINE": 110,
                "RIGID": 900, "NONE": 0}, "fit_blend": 72,
        "dog_window": 54, "dog_fit": 90, "knn_pair": 8, "ransac_apply": 27,
-       "refit_row": 58, "linefit": 6, "coeff_k1": 10, "coeff_k3": 100}
+       "refit_row": 58, "linefit": 6, "coeff_k1": 10, "coeff_k3": 100,
+       "nonrigid": 150}
 # bytes a relax row holds: p, q (2 x 24), other, link_id (2 x 4), w (8)
 RELAX_ROW_BYTES = 64
 
@@ -321,6 +349,7 @@ ROUTE_KERNELS.update({
     "10c composite": ("composite_fuse", "composite_fuse+coeff"),
     "10c uncorrected": ("composite_fuse",),
     "10c per-block": ("fuse_block", "fuse_block+coeff", "convert_intensity"),
+    "11": ("nonrigid_fuse", "convert_intensity", "downsample_batch"),
 })
 
 
@@ -2972,9 +3001,384 @@ def phase10_intensity(work, scale, dev, card, launches):
     return res
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def nonrigid_project(work, proj):
+    """Route A's XML at its uncorrected registrations (phase 9's copy,
+    before 9a's solve) beside 9a's interestpoints.n5 (8b's beads and 9a's
+    correspondences) and a link to route A's images."""
+    d = os.path.join(work, "p11")
+    shutil.copytree(os.path.join(work, "match_9a"), d)
+    shutil.copy(os.path.join(work, "match_8b", "dataset.xml"),
+                os.path.join(d, "dataset.xml"))
+    os.symlink(os.path.join(os.path.dirname(proj.xml_path), "dataset.n5"),
+               os.path.join(d, "dataset.n5"))
+    return os.path.join(d, "dataset.xml")
+
+
+def views_near(sd, block_global):
+    """How many views cover a block (their boxes overlap it grown by 2 px):
+    the views the nonrigid planner keeps, up to its deformation."""
+    from bigstitcher_spark_tpu_torch.utils.geometry import (
+        Interval, transformed_interval)
+
+    grown = block_global.expand(2)
+    return sum(transformed_interval(sd.model(v), Interval.from_shape(
+        sd.view_size(v))).overlaps(grown) for v in sd.view_ids())
+
+
+def nonrigid_inputs(sd, loader, unique, block, bbox, compute_block, dev):
+    """One block's K26 inputs on ``dev``, staged as fuse_nonrigid_volume
+    stages them at the reference defaults, and the count of views, or None
+    when no view is selected."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.models import nonrigid_fusion as NF
+
+    arrays, nv, _p, _r = NF.stage_nonrigid_block(
+        sd, loader, sd.view_ids(), unique, block, bbox, compute_block)
+    if arrays is None:
+        return None
+    return [torch.from_numpy(a).to(dev) for a in arrays], nv
+
+
+def k3_block(sd, loader, block, bbox, compute_block, dev):
+    """The same block through K3 (affine fusion's gather kernel) and K4."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+    from bigstitcher_spark_tpu_torch.utils.geometry import Interval
+
+    bg = Interval.from_shape(compute_block, block.offset).translate(bbox.min)
+    plans = A.plan_block(sd, loader, sd.view_ids(), bg, None)
+    pshape = F.bucket_shape(np.max([p.patch_interval.shape for p in plans],
+                                   axis=0))
+    *ins, ioffs = [torch.from_numpy(a).to(dev) for a in A._gather_inputs(
+        loader, plans, pshape, F.bucket_views(len(plans)), A.BlendParams(),
+        (0.0, 0.0, 0.0))]
+    fused, _w = F.fuse_block(*ins, compute_block, "AVG_BLEND", ioffs)
+    return F.convert_intensity(fused, 0.0, 65535.0, "uint16")
+
+
+def warp_placement(sd, unique, bbox, compute_block, view, x, cpd=10.0,
+                   alpha=1.0):
+    """Where nonrigid fusion shows what lies at world position ``x`` under
+    ``view``'s registration: the w with A(w) w = x, A(w) the view's vertex
+    models of the compute block holding w (as fuse_nonrigid_volume fits
+    them) interpolated at w by K26's clamp rule, in float64. Fixed-point
+    steps from w = x, each solving with A frozen."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models import nonrigid_fusion as NF
+    from bigstitcher_spark_tpu_torch.utils.grid import GridBlock
+
+    gdims = NF.control_grid_dims(compute_block, cpd)
+    org, cb = np.asarray(bbox.min), np.asarray(compute_block)
+    x = np.asarray(x, np.float64)
+    w, grids = x, {}
+    for _ in range(50):
+        off = tuple(int(o) for o in np.floor((w - org) / cb) * cb)
+        if off not in grids:
+            res = NF._plan_nonrigid_block(
+                sd, [view], unique, GridBlock(off, tuple(compute_block),
+                                              (0, 0, 0)),
+                bbox, compute_block, gdims, cpd, alpha, None)
+            if res is None:
+                raise SmokeFailure(f"11: {view} does not cover {w}")
+            grids[off] = res[2][0][1].astype(np.float64)
+        a = grids[off]
+        pos = (w - (org + np.asarray(off)) + cpd) / cpd
+        for d in range(3):  # x, then y, then z
+            c = a.shape[0]
+            p = np.clip(pos[d], 0, c - 1)
+            lo = int(np.clip(np.floor(p), 0, max(c - 2, 0)))
+            a = a[lo] * (1 - (p - lo)) + a[min(lo + 1, c - 1)] * (p - lo)
+        a = a.reshape(3, 4)
+        nxt = np.linalg.solve(a[:, :3], x - a[:, 3])
+        done = np.abs(nxt - w).max() < 1e-6
+        w = nxt
+        if done:
+            break
+    return w
+
+
+def segment_distance(p, a, b) -> float:
+    """Distance from point p to the segment from a to b."""
+    import numpy as np
+
+    ab = b - a
+    t = np.clip(np.dot(p - a, ab) / max(float(np.dot(ab, ab)), 1e-12), 0, 1)
+    return float(np.linalg.norm(p - (a + t * ab)))
+
+
+def recovery_gate(proj, sd, unique, vol, bbox, compute_block, dev, tiny):
+    """JAX's test_recovers_misregistration gate on crops of the pairwise
+    overlaps, detected with the port's DoG. Every bead 8 px inside exactly
+    two tiles (and clear of the others) is checked; its expected position
+    is the truth plus the mean registration error of the two views. JAX's
+    gate: the nearest detection lies within 1.5 px of it and no second one
+    within 4 px (no double image). On full-size tiles a view's fits may
+    extrapolate from few correspondences, and the reference's warp then
+    places a bead away from that expectation: such misses are counted and
+    returned, an open fault of the algorithm (ROADMAP Queue 3), which JAX's
+    fusion shares (tests/test_torch_nonrigid.py). Each bead is also held to
+    where the fitted warps place it: its nearest detection lies within 1.5
+    px of the segment between the two views' placements
+    (:func:`warp_placement`): some detection does. Fails on a double image, on a bead off its
+    placements, or on a crop where fewer than 3 beads meet JAX's gate.
+    Returns (beads checked, beads that meet JAX's gate, worst of those,
+    misses as (bead, px from the expectation), worst px from the
+    placements)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as DG
+    from bigstitcher_spark_tpu_torch.utils.geometry import apply_affine
+
+    tile = np.asarray(sd.view_size(sd.view_ids()[0]))
+    org = np.asarray(bbox.min)
+    true = {s: np.asarray(o, np.float64) for s, o in proj.true_offsets.items()}
+    view = {v.setup: v for v in sd.view_ids()}
+    reg = {s: sd.model(v)[:, 3] for s, v in view.items()}
+    beads = np.asarray(proj.bead_positions)
+    local = {s: beads - o for s, o in true.items()}
+    inside = {s: np.all((x >= 8) & (x <= tile - 8), axis=1)
+              for s, x in local.items()}
+    near_tile = {s: np.all((x >= -4) & (x <= tile + 3), axis=1)
+                 for s, x in local.items()}
+
+    total, met, worst, misses, off_warp = 0, 0, 0.0, [], 0.0
+    for a, b in ((0, 1), (2, 3), (0, 2), (1, 3)):
+        lo = np.maximum(np.maximum(true[a], true[b]).astype(int) - org, 0)
+        hi = np.minimum(np.minimum(true[a], true[b]).astype(int) + tile - org,
+                        vol.shape)
+        crop = vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]].astype(np.float32)
+        dogv, mask = DG.dog_block(torch.from_numpy(crop).to(dev),
+                                  float(crop.min()), float(crop.max()), 0.01,
+                                  1.8)
+        pts, _v = DG.localize_quadratic(dogv.cpu().numpy(),
+                                        np.argwhere(mask.cpu().numpy()))
+        pts = pts + lo + org
+        sel = inside[a] & inside[b]
+        for s_ in true:
+            if s_ not in (a, b):
+                sel &= ~near_tile[s_]
+        drift = 0.5 * ((reg[a] - true[a]) + (reg[b] - true[b]))
+        checked = crop_met = 0
+        for bead in beads[sel]:
+            exp = bead + drift
+            if np.any(exp - 4 < lo + org) or np.any(exp + 4 > hi + org):
+                continue
+            dist = np.linalg.norm(pts - exp, axis=1)
+            near = np.sort(dist)[:2]
+            if near[1] <= 4.0:
+                raise SmokeFailure(f"11 overlap {a}-{b}: bead "
+                                   f"{np.round(bead, 2)} double-imaged "
+                                   f"({np.round(near, 3)} px)")
+            placed = [warp_placement(
+                sd, unique, bbox, compute_block, view[s],
+                apply_affine(sd.model(view[s]), bead - true[s]))
+                for s in (a, b)]
+            e = min(segment_distance(p, *placed) for p in pts)
+            if e >= 1.5:
+                raise SmokeFailure(
+                    f"11 overlap {a}-{b}: bead {np.round(bead, 2)} detected "
+                    f"{e:.3f} px from where the fitted warps place it "
+                    f"({np.round(placed[0], 2)}, {np.round(placed[1], 2)}; "
+                    "need < 1.5)")
+            off_warp = max(off_warp, e)
+            checked += 1
+            if near[0] < 1.5:
+                crop_met += 1
+                worst = max(worst, float(near[0]))
+            else:
+                misses.append((bead, float(near[0])))
+                print(f"  NOT met: 11 overlap {a}-{b} bead "
+                      f"{np.round(bead, 2)} {near[0]:.3f} px from truth + "
+                      f"drift; the fitted warps place it "
+                      f"{np.linalg.norm(placed[0] - exp):.3f} and "
+                      f"{np.linalg.norm(placed[1] - exp):.3f} px from it "
+                      f"(setups {a}, {b}), the detection {e:.3f} px from "
+                      "them", flush=True)
+        check(crop_met >= (0 if tiny else 3),
+              f"11 overlap {a}-{b} crop {tuple(int(x) for x in hi - lo)}: "
+              f"{crop_met} of {checked} beads within 1.5 px of truth + drift "
+              "(JAX's gate), none double-imaged within 4 px, each within "
+              "1.5 px of the fitted warps' placement")
+        total += checked
+        met += crop_met
+    return total, met, worst, misses, off_warp
+
+
+def nonrigid_times(ins, nv, card):
+    """K26 at the main path's compute block (the tile corner's staged
+    inputs) against its twin on the card, timed, with its bound."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    bs = compute_block_of("full")
+    run = lambda: NR.nonrigid_fuse_block(*ins, bs, "AVG_BLEND")
+    plain = lambda: NR.nonrigid_fuse_block_plain(*ins, bs, "AVG_BLEND")
+    got, ref = run(), plain()
+    err = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    del got, ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        run()
+        torch.cuda.synchronize()
+    wrapper_ms = (time.perf_counter() - t0) * 100.0
+    V, nb = int(ins[0].shape[0]), int(np.prod(bs))
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + nb * 8
+    r = dict(err=err, ms=time_ms(run, reps=10), wrapper_ms=wrapper_ms,
+             plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
+             bound=bound(nbytes, nv * nb * OPS["nonrigid"]))
+    print(f"  nonrigid_fuse (K26) at a {bs} block of {nv} views ({V} "
+          f"staged, {tuple(ins[0].shape[1:])} {ins[0].dtype} patches, grids "
+          f"{tuple(ins[1].shape[1:4])}) [{card}]: max|delta| {err:.3g}  "
+          f"kernel {r['ms']} ms  wrapper {wrapper_ms:.4f} ms  plain "
+          f"{r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]})  library none", flush=True)
+    return r
+
+
+def phase11_nonrigid(work, proj, scale, dev, card, launches):
+    """Phase 11: nonrigid-fusion through the CLI entry functions on route
+    A's project, with 9a's correspondences at the views' uncorrected
+    registrations; K26 held against its twin and, on identity grids,
+    against K3; JAX's recovery gate on the overlaps; K26 timed."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.cli.main import main
+    from bigstitcher_spark_tpu_torch.io.container import read_container_meta
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import nonrigid_fusion as NF
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+    from bigstitcher_spark_tpu_torch.utils.geometry import Interval
+    from bigstitcher_spark_tpu_torch.utils.grid import create_grid
+
+    print("phase 11 (nonrigid fusion)", flush=True)
+    t_phase = time.perf_counter()
+    cfg = SCALES[scale]
+    compute_block = compute_block_of(scale)
+    xml = nonrigid_project(work, proj)
+    out = os.path.join(work, "nonrigid.ome.zarr")
+    main(["create-fusion-container", "-x", xml, "-o", out, "-s", "ZARR",
+          "-d", "UINT16", "-c", "raw", "--blockSize",
+          ",".join(str(b) for b in cfg["block"]), "--multiRes"])
+    t0 = time.perf_counter()
+    (stats,) = counted("11", launches, dev, lambda: main(
+        ["nonrigid-fusion", "-o", out, "-l", "beads", "--device", str(dev)]))
+    wall = time.perf_counter() - t0
+    t = stats.timings
+    card_s = t.get("card")
+    print(f"  [nonrigid 11] {card}: {stats.blocks} blocks "
+          f"({stats.skipped_empty} empty), {stats.voxels} voxels in "
+          f"{stats.seconds:.3f}s -> {stats.voxels / stats.seconds:,.0f} fused "
+          f"voxels/s (tool wall {wall:.3f}s with the pyramid); plan "
+          f"{t['plan']:.3f}s read {t['read']:.3f}s h2d {t['h2d']:.3f}s kernel "
+          f"{t['kernel']:.3f}s d2h {t['d2h']:.3f}s write {t['write']:.3f}s; "
+          + (f"card busy {card_s:.4f}s, idle share "
+             f"{1 - card_s / stats.seconds:.4f}" if card_s is not None
+             else "card not measured (CPU)"), flush=True)
+    store, mr, read = container_levels(out)
+    vol = read(0)
+    check(stats.voxels == vol.size and stats.kernel_blocks["nonrigid"]
+          == stats.blocks - stats.skipped_empty and len(mr) > 1,
+          f"11: {stats.voxels} voxels fused through K26 in "
+          f"{stats.kernel_blocks['nonrigid']} blocks, {len(mr) - 1} pyramid "
+          "levels")
+    check_level_blocks("11", mr, read, dev)
+
+    sd = SpimData.load(xml)
+    loader = ViewLoader(sd)
+    views = sd.view_ids()
+    unique = NF.build_unique_points(sd, InterestPointStore.for_project(sd),
+                                    views, ["beads"])
+    counts = {v.setup: len(unique.targets[v]) for v in views}
+    tiny = scale == "tiny"
+    # tiny tiles share a few beads: not every view has a correspondence
+    check(all(n > 0 for n in counts.values()) or tiny,
+          f"11: unique points per setup {counts}")
+    bbox = read_container_meta(store).bbox
+    grid = create_grid(bbox.shape, compute_block, cfg["block"])
+    picks = {}
+    for blk in grid:
+        n = views_near(sd, Interval.from_shape(compute_block, blk.offset
+                                               ).translate(bbox.min))
+        picks.setdefault(n, blk)
+    worst, res, seen = 0, {}, []
+    for n in (n for n in (1, 2, 4) if n in picks):
+        blk = picks[n]
+        ins, nv = nonrigid_inputs(sd, loader, unique, blk, bbox,
+                                  compute_block, dev)
+        fused, _w = NR.nonrigid_fuse_block_plain(*ins, compute_block,
+                                                 "AVG_BLEND")
+        want = F.convert_intensity_plain(fused, 0.0, 65535.0,
+                                         "uint16").cpu().numpy()
+        del fused, _w
+        sl = tuple(slice(o, o + s) for o, s in zip(blk.offset, blk.size))
+        e = int(np.abs(vol[sl].astype(np.int64) - want[tuple(
+            slice(0, s) for s in blk.size)].astype(np.int64)).max())
+        worst = max(worst, e)
+        seen.append(nv)
+        check(e <= 1,
+              f"11 block of {nv} views at {blk.offset}: |delta| {e} <= 1 vs "
+              "K26's twin on the device")
+        if nv == 4 and dev.type == "cuda":
+            res["nonrigid_fuse"] = nonrigid_times(ins, nv, card)
+        del ins
+    # tiny tiles leave no block to a single view
+    check(seen == [1, 2, 4] or (tiny and 4 in seen),
+          f"11: the checked blocks hold {seen} views")
+
+    # identity grids (no correspondence: M = 0) against K3's fusion
+    empty = NF.UniquePoints({v: np.zeros((0, 3)) for v in views},
+                            {v: np.zeros((0, 3)) for v in views})
+    blk = picks[4]
+    ins, _nv = nonrigid_inputs(sd, loader, empty, blk, bbox, compute_block,
+                               dev)
+    fused, _w = NR.nonrigid_fuse_block(*ins, compute_block, "AVG_BLEND")
+    a = F.convert_intensity(fused, 0.0, 65535.0, "uint16").to(torch.int32)
+    b = k3_block(sd, loader, blk, bbox, compute_block, dev).to(torch.int32)
+    e_id = int((a - b).abs().max())
+    check(e_id <= 1 and int(b.max()) > 0,
+          f"11 identity grids at {blk.offset}: K26 within |delta| {e_id} <= 1 "
+          "of K3's fusion of the block")
+    del ins, fused, _w, a, b
+
+    n_checked, met, gate, misses, off_warp = recovery_gate(
+        proj, sd, unique, vol, bbox, compute_block, dev, tiny)
+    print(f"  [nonrigid 11] recovery gate (JAX's): {met} of {n_checked} "
+          f"beads in 4 overlap crops within 1.5 px of truth + drift, worst "
+          f"{gate:.3f} px; "
+          + (f"NOT met for {len(misses)} (worst "
+             f"{max(m[1] for m in misses):.3f} px), where the fits "
+             "extrapolate: open fault, ROADMAP Queue 3; " if misses else "")
+          + f"every bead within {off_warp:.3f} px of the fitted warps' "
+          f"placement; twin blocks worst |delta| {worst}, identity vs K3 "
+          f"{e_id}; phase 11 wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    if "nonrigid_fuse" in res:
+        res["nonrigid_fuse"]["err"] = max(res["nonrigid_fuse"]["err"], worst)
+    return res
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-10 through the CLI entry functions; returns route A's XML
-    and container paths and phases 7-10's kernel results."""
+    """Phases 2-11 through the CLI entry functions; returns route A's XML
+    and container paths and phases 7-11's kernel results."""
     a = route_a(work, scale, dev, card, launches)
     route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
@@ -2984,7 +3388,9 @@ def main_path(work, scale, dev, card, launches):
     det, det_b = phase8_detection(a[0], scale, dev, card, launches)
     match = phase9_matching(work, a[0], det_b, scale, dev, card, launches)
     inten = phase10_intensity(work, scale, dev, card, launches)
-    return a[0].xml_path, a[1], {**relax, **det, **match, **inten}
+    nonrigid = phase11_nonrigid(work, a[0], scale, dev, card, launches)
+    return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
+                                 **nonrigid}
 
 
 # ---------------------------------------------------------------- main
@@ -3014,6 +3420,7 @@ def main(argv=None) -> int:
 
     os.makedirs(work, exist_ok=True)
     launches: dict = {}
+    t_start = time.time()
     try:
         if args.device == "cpu":
             torch.set_num_threads(1)
@@ -3042,7 +3449,7 @@ def main(argv=None) -> int:
         coeff = later.pop("coeff")
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection, matching, intensity): "
+              f"detection, matching, intensity, nonrigid): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -3085,6 +3492,7 @@ def main(argv=None) -> int:
                 "coeff_max_abs_err": coeff[name]["coeff_err"]}
                if name in coeff else {}),
         })
+    print(f"total {time.time() - t_start:.1f}s (builds included)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 * An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
   ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
-* The port's argparse accepts every option spelling of the nine JAX click
+* The port's argparse accepts every option spelling of the ten JAX click
   commands it ports; the options not yet ported are refused with a pointer
   to ROADMAP.md instead of doing something else.
 """
@@ -22,6 +22,7 @@ from bigstitcher_spark_tpu.cli.detection_tools import (
 from bigstitcher_spark_tpu.cli.fusion_tools import (
     affine_fusion_cmd as jax_affine_fusion,
     create_fusion_container_cmd as jax_create_container,
+    nonrigid_fusion_cmd as jax_nonrigid_fusion,
 )
 from bigstitcher_spark_tpu.cli.intensity_tools import (
     match_intensities_cmd as jax_match_intensities,
@@ -42,6 +43,9 @@ from bigstitcher_spark_tpu_torch.models.intensity import (
     solve_intensities,
 )
 from bigstitcher_spark_tpu_torch.models.matching import match_interest_points
+from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
+    fuse_nonrigid_volume,
+)
 from bigstitcher_spark_tpu_torch.models.stitching import stitch_all_pairs
 from bigstitcher_spark_tpu_torch.utils.device import resolve_device
 
@@ -124,6 +128,12 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         assert tool_parser(tool).parse_args(["-x", "x"]).device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             torch_main([tool, "-x", str(tmp_path / "missing.xml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fuse_nonrigid_volume(None, None, [], None, None, None, (8, 8, 8))
+    assert tool_parser("nonrigid-fusion").parse_args(
+        ["-o", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_main(["nonrigid-fusion", "-o", str(tmp_path / "missing.zarr")])
 
 
 def _click_spellings(cmd):
@@ -143,6 +153,7 @@ def _click_spellings(cmd):
     ("match-interestpoints", jax_match),
     ("match-intensities", jax_match_intensities),
     ("solve-intensities", jax_solve_intensities),
+    ("nonrigid-fusion", jax_nonrigid_fusion),
 ])
 def test_argparse_accepts_every_jax_spelling(tool, cmd):
     mine = set(tool_parser(tool)._option_string_actions)
@@ -171,6 +182,10 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("detect-interestpoints", ["--s3Region", "us-east-1"], "--s3Region"),
     ("match-interestpoints", ["--profile"], "--profile"),
     ("match-interestpoints", ["--telemetry-dir", "t"], "--telemetry-dir"),
+    ("nonrigid-fusion", ["--devices", "2"], "--devices"),
+    ("nonrigid-fusion", ["--trace"], "--trace"),
+    ("nonrigid-fusion", ["--bdv"], "--bdv"),
+    ("nonrigid-fusion", ["-s", "HDF5"], "-s HDF5"),
 ])
 def test_not_yet_ported_options_are_refused(tool, args, what):
     base = {"create-fusion-container": ["-x", "unused.xml", "-o",
@@ -182,6 +197,7 @@ def test_not_yet_ported_options_are_refused(tool, args, what):
             "detect-interestpoints": ["-x", "unused.xml"],
             "match-interestpoints": ["-x", "unused.xml"],
             "match-intensities": ["-x", "unused.xml"],
+            "nonrigid-fusion": ["-o", "unused.zarr"],
             }[tool]
     with pytest.raises(NotYetPorted, match="ROADMAP.md") as e:
         torch_main([tool, *base, *args])

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K22) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K26) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -31,7 +31,9 @@ same order as their twins: indices, owners, flags and counts equal,
 descriptors, distances and models bitwise (K20's mean of B is a float64
 sum in another order, rounded once). K22 (refit, float64): masks and
 counts equal, models within rtol 1e-9 / atol 1e-9 (moments summed in
-another order).
+another order). K26 (non-rigid fusion) at the fusion kernels' tolerances:
+it rounds where its twin rounds (the twin's fused multiply-adds in
+float64 may round twice where fmaf rounds once, in rare last bits).
 """
 
 import numpy as np
@@ -989,3 +991,94 @@ def test_cg_kernels_match_plain(dev, n_views, dims, n_matches):
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------- K26
+
+
+def _nonrigid_case(rng, dtype, V=4, n_valid=3, bs=(24, 20, 16)):
+    """K26 inputs: V views (the last V - n_valid padded), fitted vertex
+    grids at the main path's spacing, a block origin near (1500, 900, 60);
+    one view rotated, one image ending inside the block."""
+    from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
+        control_grid_dims)
+    from bigstitcher_spark_tpu_torch.ops.nonrigid import fit_control_grid
+
+    bo = np.array([1500.25, 900.5, 60.75], np.float32)
+    go = bo - np.float32(10.0)
+    gdims = control_grid_dims(bs, 10.0)
+    grids = np.zeros((V, *gdims, 12), np.float32)
+    grids[..., 0] = grids[..., 5] = grids[..., 10] = 1.0
+    pshape = tuple(s + 24 for s in bs)
+    vmax = {"uint8": 255, "uint16": 4000, "int16": 3000, "float32": 4000}[dtype]
+    patches = np.zeros((V, *pshape), dtype)
+    vaff = np.zeros((V, 3, 4), np.float32)
+    offsets = np.zeros((V, 3), np.float32)
+    for v in range(n_valid):
+        t = bo + rng.uniform(-10, 30, (30, 3))
+        vw = t + rng.normal(0, 0.8, (30, 3)) + rng.uniform(-2, 2, 3)
+        grids[v] = fit_control_grid(t, vw, go.astype(np.float64), gdims, 10.0)
+        patches[v] = rng.uniform(0, vmax, pshape).astype(dtype)
+        ang = 0.05 * v
+        lin = np.array([[np.cos(ang), -np.sin(ang), 0],
+                        [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+        vaff[v, :, :3] = lin
+        vaff[v, :, 3] = -lin @ bo + 12.0 + rng.uniform(-0.5, 0.5, 3)
+        offsets[v] = rng.integers(0, 30, 3)
+    dims = (offsets + np.array(pshape, np.float32)
+            + rng.integers(5, 20, (V, 3)).astype(np.float32))
+    dims[0, 0] = offsets[0, 0] + 22.5
+    borders = rng.uniform(0, 2, (V, 3)).astype(np.float32)
+    ranges = rng.uniform(4, 12, (V, 3)).astype(np.float32)
+    valid = (np.arange(V) < n_valid).astype(np.float32)
+    arrays = (patches, grids, vaff, offsets, dims, borders, ranges, valid, bo,
+              go, np.full(3, 10.0, np.float32))
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays], bs
+
+
+def _nonrigid_check(dev, args, bs, fusion_type):
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    args = [a.to(dev) for a in args]
+    got = NR.nonrigid_fuse_block(*args, bs, fusion_type)
+    ref = NR.nonrigid_fuse_block_plain(*args, bs, fusion_type)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_nonrigid_fuse_kernel(dev, fusion_type):
+    """4 views, the last padded (valid 0, identity grid, zero affine)."""
+    args, bs = _nonrigid_case(np.random.default_rng(41), "uint16")
+    _nonrigid_check(dev, args, bs, fusion_type)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int16", "float32"])
+def test_nonrigid_fuse_kernel_dtypes(dev, dtype):
+    args, bs = _nonrigid_case(np.random.default_rng(42), dtype)
+    _nonrigid_check(dev, args, bs, "AVG_BLEND")
+
+
+def test_nonrigid_fuse_kernel_four_views(dev):
+    args, bs = _nonrigid_case(np.random.default_rng(43), "uint16", n_valid=4)
+    _nonrigid_check(dev, args, bs, "AVG_BLEND")
+
+
+def test_nonrigid_fuse_launch_counts_and_no_cpu_fallback(dev):
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    args, bs = _nonrigid_case(np.random.default_rng(44), "uint16")
+    args = [a.to(dev) for a in args]
+    ops.reset_launch_counts()
+    NR.nonrigid_fuse_block(*args, bs, "AVG")
+    NR.nonrigid_fuse_block_plain(*args, bs, "AVG")
+    assert ops.launch_counts()["nonrigid_fuse"] == 1
+    bad = list(args)
+    bad[1] = bad[1].to(torch.float64)
+    with pytest.raises(ValueError):
+        NR.nonrigid_fuse_block(*bad, bs, "AVG")
+    bad = list(args)
+    bad[8] = bad[8].cpu()
+    with pytest.raises(ValueError):
+        NR.nonrigid_fuse_block(*bad, bs, "AVG")
+    assert ops.launch_counts()["nonrigid_fuse"] == 1
