@@ -364,13 +364,13 @@ def _sep_inputs(loader, plans, pshape, vb, blend, inside_offset):
     return patches, diags, ts, offsets, img_dims, borders, ranges, valid, ioffs
 
 
-def _shift_inputs(loader, plans, block_global, bshape, vb, blend,
-                  inside_offset):
-    """Host staging for K2: (bx+1, by+1, bz+1) patches at the floor of each
-    view's level position of the block origin, plus fractions."""
-    pshape = tuple(s + 1 for s in bshape)
-    patches = np.zeros((vb, *pshape), dtype=patch_dtype(
-        loader, [(p.view, p.level) for p in plans]))
+def shift_plan(loader, plans, block_global, vb, blend, inside_offset):
+    """K2's per-view numbers of a translation block, ``vb`` slots (the
+    views' first, the rest invalid): floor_offs (vb, 3) int64 (the floor
+    of each view's level position of the block origin), fracs, lpos0,
+    img_dims, borders, ranges (vb, 3) float32, valid (vb,) float32 and
+    inside offsets (vb, 3) float32."""
+    floor_offs = np.zeros((vb, 3), dtype=np.int64)
     fracs = np.zeros((vb, 3), dtype=np.float32)
     lpos0 = np.zeros((vb, 3), dtype=np.float32)
     img_dims = np.ones((vb, 3), dtype=np.float32)
@@ -380,16 +380,30 @@ def _shift_inputs(loader, plans, block_global, bshape, vb, blend,
     bg_min = np.asarray(block_global.min, dtype=np.float64)
     for i, p in enumerate(plans):
         tlevel = p.inv_total[:, :3] @ bg_min + p.inv_total[:, 3]
-        floor_off = np.floor(tlevel).astype(np.int64)
-        patches[i] = loader.read_block(
-            p.view, p.level, tuple(floor_off), pshape)
-        fracs[i] = tlevel - floor_off
+        floor_offs[i] = np.floor(tlevel).astype(np.int64)
+        fracs[i] = tlevel - floor_offs[i]
         lpos0[i] = tlevel
         img_dims[i] = p.img_dim
         borders[i], ranges[i] = _blend_per_view(loader, p, blend)
         valid[i] = 1.0
     ioffs = np.tile(np.asarray(inside_offset, np.float32), (vb, 1))
-    return patches, fracs, lpos0, img_dims, borders, ranges, valid, ioffs
+    return floor_offs, fracs, lpos0, img_dims, borders, ranges, valid, ioffs
+
+
+def _shift_inputs(loader, plans, block_global, bshape, vb, blend,
+                  inside_offset):
+    """Host staging for K2: (bx+1, by+1, bz+1) patches at the floor of each
+    view's level position of the block origin (zeros outside the image),
+    plus fractions."""
+    pshape = tuple(s + 1 for s in bshape)
+    floor_offs, *rest = shift_plan(loader, plans, block_global, vb, blend,
+                                   inside_offset)
+    patches = np.zeros((vb, *pshape), dtype=patch_dtype(
+        loader, [(p.view, p.level) for p in plans]))
+    for i, p in enumerate(plans):
+        patches[i] = loader.read_block(
+            p.view, p.level, tuple(floor_offs[i]), pshape)
+    return (patches, *rest)
 
 
 @dataclass

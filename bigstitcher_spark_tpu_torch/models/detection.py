@@ -17,14 +17,24 @@ against the core, moved to view coordinates, filtered (overlap boxes,
 intensities. Detections restricted to overlap regions use one pass over
 the union of the overlap boxes, as the JAX package does.
 
+With ``DetectionParams.extract_descriptors`` each batch runs
+:func:`..ops.dog.dog_detect_extract_batch` instead: after K15-K18, K19's
+masked form computes the kNN-frame descriptors of each block's K
+candidate slots (block-local, rotation invariant) before anything leaves
+the device, and the descriptors and their validity ride with the points
+through the core re-check, the ordering and the filters
+(``ViewDetections.descriptors``, ``descriptor_valid``). The JAX package
+also has a staged form of that program (``BST_FUSED_DETECT=0``, two
+dispatches, the same bits); the port runs the composition only, on one
+stream, and has no such switch.
+
 While one batch computes, the reads of the next run on a thread pool.
 :class:`DetectionStats` splits the wall into the min/max estimate, the
 waits for reads, H2D, the kernels (CUDA events), D2H and the host tail.
 
 Not yet ported (raise :class:`~bigstitcher_spark_tpu_torch.NotYetPorted`):
-several devices, descriptor extraction riding the detection pass (the
-fused ``dog_detect_extract_batch`` program goes with matching) and the
-streamed device-resident producer of the stage DAG.
+several devices and the streamed device-resident producer of the stage
+DAG.
 """
 
 from __future__ import annotations
@@ -41,7 +51,13 @@ from .. import NotYetPorted
 from ..io.dataset_io import ViewLoader, best_mipmap_level, mipmap_transform
 from ..io.interestpoints import InterestPointStore, register_points_in_xml
 from ..io.spimdata import SpimData, ViewId
-from ..ops.dog import dog_block_topk_batch, dog_halo, sample_trilinear
+from ..ops.descriptors import check_pool, subset_combinations
+from ..ops.dog import (
+    dog_block_topk_batch,
+    dog_detect_extract_batch,
+    dog_halo,
+    sample_trilinear,
+)
 from ..ops.downsample import downsample_block, to_kernel_dtype
 from ..utils.device import resolve_device
 from ..utils.geometry import (
@@ -79,8 +95,12 @@ class DetectionParams:
     # device-side compaction budget: K strongest candidates per block leave
     # the device (count is returned, so truncation is detected and warned)
     max_candidates_per_block: int = 4096
-    # descriptor extraction riding the detection pass (not yet ported)
+    # geometric descriptor extraction riding the detection pass: each
+    # block's candidates get kNN-frame descriptors on the device (K19's
+    # masked form after K15-K18), n + r <= 8 neighbours a point
     extract_descriptors: bool = False
+    descriptor_neighbors: int = 3
+    descriptor_redundancy: int = 1
 
     @property
     def downsampling(self) -> tuple[int, int, int]:
@@ -98,6 +118,11 @@ class ViewDetections:
     points: np.ndarray            # (N,3) float64, full-res view-local px
     values: np.ndarray            # (N,) DoG response at the detection
     intensities: np.ndarray | None = None
+    # extract_descriptors riders: per-point kNN-frame descriptors (N, S, 3n)
+    # float32, block-local at detection resolution, and their validity
+    # (points near block borders may lack a full pool)
+    descriptors: np.ndarray | None = None
+    descriptor_valid: np.ndarray | None = None
 
 
 @dataclass
@@ -316,9 +341,10 @@ def detect_interest_points(
     pixel coordinates (correctForDownsampling applied,
     SparkInterestPointDetection.java:611)."""
     params = params or DetectionParams()
-    if params.extract_descriptors:
-        raise NotYetPorted("descriptor extraction during detection "
-                           "(dog_detect_extract_batch, with matching)")
+    want_desc = bool(params.extract_descriptors)
+    if want_desc:
+        check_pool(int(params.descriptor_neighbors),
+                   int(params.descriptor_redundancy))
     if devices is not None and int(devices) > 1:
         raise NotYetPorted(f"detection on {devices} devices")
     dev = resolve_device(device)
@@ -397,7 +423,7 @@ def detect_interest_points(
                 np.float32(params.threshold),
                 np.array([m - halo for m in job.core.min], np.int32))
 
-    def consume(job: _BlockJob, idx, sub, vals, valid, count):
+    def consume(job: _BlockJob, idx, sub, vals, valid, count, *extra):
         shape = job.core.shape
         k = len(idx)
         if int(count) > k:
@@ -422,6 +448,9 @@ def detect_interest_points(
         vv = vals[keep].astype(np.float64)
         order = np.lexsort(pts.T[::-1])
         job.result = (pts[order], vv[order])
+        if extra:  # (desc, dvalid) riders of the detect-and-extract program
+            dsc, dvalid = extra
+            job.result += (dsc[keep][order], dvalid[keep][order].astype(bool))
 
     def run_batch(inputs, batch, rel):
         t0 = time.perf_counter()
@@ -431,9 +460,16 @@ def detect_interest_points(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["h2d"] += time.perf_counter() - t0
-        outs, secs = _batch_seconds(dev, lambda: dog_block_topk_batch(
-            x, lo, hi, thr, org, params.sigma, params.find_max,
-            params.find_min, int(params.max_candidates_per_block), halo, rel))
+        args = (x, lo, hi, thr, org, params.sigma, params.find_max,
+                params.find_min, int(params.max_candidates_per_block), halo,
+                rel)
+        if want_desc:
+            outs, secs = _batch_seconds(dev, lambda: dog_detect_extract_batch(
+                *args, int(params.descriptor_neighbors),
+                int(params.descriptor_redundancy), True))
+        else:
+            outs, secs = _batch_seconds(
+                dev, lambda: dog_block_topk_batch(*args))
         timings["kernels"] += secs
         t0 = time.perf_counter()
         host = [o.cpu().numpy() for o in outs]
@@ -490,14 +526,20 @@ def detect_interest_points(
         if res:
             pts = np.concatenate([r[0] for r in res])
             vals = np.concatenate([r[1] for r in res])
+            riders = tuple(np.concatenate([r[i] for r in res])
+                           for i in range(2, len(res[0])))
         else:
             pts, vals = np.zeros((0, 3)), np.zeros(0)
-        pts, vals = _filter_spots(pts, vals, overlap_boxes.get(v), params)
+            riders = _empty_riders(params) if want_desc else ()
+        pts, vals, riders = _filter_spots(pts, vals, overlap_boxes.get(v),
+                                          params, riders)
         # detection-res -> full-res: average downsampling by f maps level
         # voxel p to full-res f*p + (f-1)/2 (DownsampleTools.correctForDownsampling)
         T = mipmap_transform(ds)
         full = apply_affine(T, pts) if len(pts) else pts
         det = ViewDetections(v, full, vals)
+        if want_desc:
+            det.descriptors, det.descriptor_valid = riders
         if params.store_intensities and len(pts):
             det.intensities = _sample_intensities(loader, plan, pts, dev)
         out.append(det)
@@ -509,9 +551,20 @@ def detect_interest_points(
     return out
 
 
-def _filter_spots(pts, vals, boxes, params: DetectionParams):
+def _empty_riders(params: DetectionParams):
+    """The riders of a view without points: (0, S, 3n) float32 and (0,)
+    bool."""
+    n = int(params.descriptor_neighbors)
+    s = len(subset_combinations(n + int(params.descriptor_redundancy), n))
+    return np.zeros((0, s, n * 3), np.float32), np.zeros(0, bool)
+
+
+def _filter_spots(pts, vals, boxes, params: DetectionParams, riders=()):
     """overlappingOnly final crop + brightest-N filters
-    (filterPoints / maxSpotsPerOverlap, SparkInterestPointDetection.java:745-806,973-995)."""
+    (filterPoints / maxSpotsPerOverlap, SparkInterestPointDetection.java:745-806,973-995).
+    ``riders``: extra per-point arrays (descriptors, validity) that follow
+    every mask and reordering of ``pts`` and ``vals``."""
+    riders = tuple(riders)
     if boxes is not None and len(pts):
         keep = np.zeros(len(pts), bool)
         for b in boxes:
@@ -520,6 +573,7 @@ def _filter_spots(pts, vals, boxes, params: DetectionParams):
             )
             keep |= inside
         pts, vals = pts[keep], vals[keep]
+        riders = tuple(r[keep] for r in riders)
     if params.max_spots > 0 and len(pts):
         if params.max_spots_per_overlap and boxes:
             total_vol = sum(b.num_elements for b in boxes)
@@ -537,10 +591,12 @@ def _filter_spots(pts, vals, boxes, params: DetectionParams):
                     idx = idx[order]
                 keep[idx] = True
             pts, vals = pts[keep], vals[keep]
+            riders = tuple(r[keep] for r in riders)
         elif len(pts) > params.max_spots:
             order = np.argsort(-np.abs(vals))[: params.max_spots]
             pts, vals = pts[order], vals[order]
-    return pts, vals
+            riders = tuple(r[order] for r in riders)
+    return pts, vals, riders
 
 
 def _sample_intensities(loader, plan: _ViewPlan, det_pts: np.ndarray,

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "shift": {
         "bst_fuse_block_shift": [_VP, _I, _VP, _VP, _VP] + [_I] * 5
                                 + [_VP, _VP, _VP],
+        "bst_fuse_volume_scan": [_VP] + [_I] * 4 + [_VP] * 6 + [_I] * 9
+                                + [_VP, _VP],
     },
     "gather": {
         "bst_fuse_block": [_VP, _I, _I, _I, _I] + [_VP] * 7 + [_I] * 5

@@ -326,6 +326,16 @@ def ransac_refit_plain(pa, pb, model, eps: float, kind: str, reg: str,
 # ---------------------------------------------------------------------------
 
 
+def check_pool(n: int, r: int) -> int:
+    """The neighbour pool n + r of a descriptor, or ValueError beyond what
+    K19 keeps (ROADMAP Queue 3 item 7)."""
+    P = int(n) + int(r)
+    if not (1 <= n <= P <= MAX_POOL):
+        raise ValueError(f"n={n}, r={r}: K19 keeps 1 to {MAX_POOL} "
+                         "neighbours a point")
+    return P
+
+
 def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
                     n: int, r: int, rot: bool, want_idx: bool = True):
     """K19 (``csrc/descriptors.cu``) on CUDA, :func:`knn_descriptors_plain`
@@ -334,10 +344,7 @@ def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
     (idx (B, K, P) int32, or None without ``want_idx``), its descriptors
     (B, K, S, 3n) float32 and dvalid (B, K) bool (all True without
     ``valid`` when K > P)."""
-    P = int(n) + int(r)
-    if not (1 <= n <= P <= MAX_POOL):
-        raise ValueError(f"n={n}, r={r}: K19 keeps 1 to {MAX_POOL} "
-                         "neighbours a point")
+    P = check_pool(n, r)
     if points.device.type == "cpu":
         idx, desc, dv = knn_descriptors_plain(points, valid, n, r, rot)
         return (idx if want_idx else None), desc, dv

@@ -35,6 +35,11 @@ each, so kernel and twin agree bit for bit on the card. Against the JAX
 package (whose matrix products and LU sum in other orders) the response
 agrees to float32 rounding.
 
+:func:`dog_detect_extract_batch` follows it with K19's masked form
+(:func:`..ops.descriptors.block_descriptors_batch`) on each block's
+candidate slots: the JAX package's fused detect-and-describe program, as
+a composition of kernels that adds none.
+
 :func:`dog_block_topk_batch` returns ``(idx, sub, val, valid, count)`` as
 the JAX function does. Rows past a block's candidates are invalid and hold
 flat index 0: ``idx`` (0, 0, 0), ``sub`` (0, 0, 0), ``val`` 0 (the JAX
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .descriptors import block_descriptors_batch, knn_descriptors_plain
 from .downsample import downsample_batch, downsample_block_plain
 from .fusion import _IN_CODE, _require, _stream
 
@@ -498,12 +504,18 @@ KERNEL_WRAPPERS = {
 # ---------------------------------------------------------------------------
 
 
-# the steps of the DoG program: K6 and K15-K18, or their twins
-_Stages = namedtuple("_Stages", "pool blur extrema topk localize")
+def _describe_plain(points, valid, n, r, rot):
+    _, desc, dv = knn_descriptors_plain(points, valid, n, r, rot)
+    return desc, dv
+
+
+# the steps of the DoG program: K6 and K15-K18, or their twins; and of the
+# detect-and-extract program, K19's masked form or its twin
+_Stages = namedtuple("_Stages", "pool blur extrema topk localize describe")
 KERNELS = _Stages(downsample_batch, dog_blur, dog_extrema, dog_topk,
-                  dog_localize)
+                  dog_localize, block_descriptors_batch)
 PLAIN = _Stages(downsample_block_plain, blur_plain, extrema_plain, topk_plain,
-                localize_plain)
+                localize_plain, _describe_plain)
 
 
 def _per_block(v, B: int, dtype, device) -> torch.Tensor:
@@ -588,6 +600,28 @@ def dog_block_topk_batch(blocks, min_i, max_i, threshold, origins, sigma,
     del cand_idx, cand_score
     sub, val = stages.localize(dog, idx, valid)
     return idx, sub, val, valid, count
+
+
+def dog_detect_extract_batch(blocks, min_i, max_i, threshold, origins, sigma,
+                             find_max=True, find_min=False, k=2048, halo=0,
+                             rel: Sequence[int] = (1, 1, 1), n_neighbors=3,
+                             redundancy=1, rotation_invariant=True,
+                             stages: _Stages = KERNELS):
+    """The JAX ``dog_detect_extract_batch``: :func:`dog_block_topk_batch`,
+    then the kNN-frame descriptors of each block's ``k`` candidate slots
+    (K19's masked form, ``descriptors.block_descriptors_batch``) on the
+    block-local subpixel coordinates ``sub`` (halo offset not removed:
+    descriptors are neighbour offsets) and ``valid``. The candidates stay
+    on the device, on one stream, with no host synchronisation between the
+    two. Returns (idx, sub, val, valid, count, desc (B, k, S, 3n) float32,
+    dvalid (B, k) bool); invalid slots and points without a full pool of
+    valid neighbours have all-zero descriptors."""
+    idx, sub, val, valid, count = dog_block_topk_batch(
+        blocks, min_i, max_i, threshold, origins, sigma, find_max, find_min,
+        k, halo, rel, stages)
+    desc, dvalid = stages.describe(sub, valid, int(n_neighbors),
+                                   int(redundancy), bool(rotation_invariant))
+    return idx, sub, val, valid, count, desc, dvalid
 
 
 def localize_quadratic(

@@ -7,10 +7,11 @@ takes a batch of same-shape boxes in their stored type and writes either the
 float32 means (:func:`downsample_batch`, :func:`downsample_block`: the JAX
 ``downsample_block`` and its vmap) or the next pyramid level in the storage
 type (:func:`downsample_level`: crop to dims * factors, edge-pad thin axes,
-mean, round half to even, clip). The plain versions take strided slices
-and sum them in the kernel's order; a wrapper takes its plain version only
-because its tensor lies on the CPU, and counts its kernel launches in its
-``launches`` attribute.
+mean, round half to even, clip). :func:`halfpixel_downsample2x_axis` (the
+JAX function of that name) is K6's float32 form with factor 2 on one axis.
+The plain versions take strided slices and sum them in the kernel's order;
+a wrapper takes its plain version only because its tensor lies on the CPU,
+and counts its kernel launches in its ``launches`` attribute.
 
 The means are taken per axis (x, then y, then z), each a left-to-right sum
 divided by the factor. For integer inputs and power-of-two factors every
@@ -157,6 +158,49 @@ def downsample_block(block: torch.Tensor,
     """The JAX ``downsample_block``: one (X, Y, Z) box -> float32 means
     (a batch of one through :func:`downsample_batch`)."""
     return downsample_batch(block[None], factors)[0]
+
+
+def _halfpixel_view(x, axis: int, device):
+    """``x`` on its device (an array on ``device``, ``cuda`` unless asked
+    otherwise) in a type K6 reads, as (1, before, n, after) with the axis
+    normalised; and the output shape."""
+    if not isinstance(x, torch.Tensor):
+        from ..utils.device import resolve_device
+
+        x = torch.as_tensor(np.asarray(x)).to(resolve_device(device))
+    if x.dim() < 1:
+        raise ValueError("halfpixel_downsample2x_axis needs at least one axis")
+    if x.dtype not in _IN_CODE:  # JAX casts each operand to float32 first
+        x = x.to(torch.float32)
+    ax = range(x.dim())[axis]
+    shape = tuple(int(s) for s in x.shape)
+    out = shape[:ax] + (shape[ax] // 2,) + shape[ax + 1:]
+    before, after = int(np.prod(shape[:ax])), int(np.prod(shape[ax + 1:]))
+    return x.reshape(1, before, shape[ax], after).contiguous(), out
+
+
+def halfpixel_downsample2x_axis_plain(x, axis: int,
+                                      device=None) -> torch.Tensor:
+    """The twin of :func:`halfpixel_downsample2x_axis`: K6's plain version
+    on the same (1, before, n, after) view."""
+    v, out = _halfpixel_view(x, axis, device)
+    return downsample_block_plain(v, (1, 2, 1)).reshape(out)
+
+
+def halfpixel_downsample2x_axis(x, axis: int, device=None) -> torch.Tensor:
+    """The JAX ``halfpixel_downsample2x_axis``: out[i] = (in[2i] +
+    in[2i+1]) / 2 along ``axis`` in float32, a trailing odd voxel dropped,
+    for any ndim >= 1 (a tensor stays on its device; an array goes to
+    ``device``, ``cuda`` unless asked otherwise). K6 with factors (1, 2, 1)
+    on the view (1, prod(before), n, prod(after)) on CUDA, its twin on the
+    CPU. K6 divides the pair sum by 2; a float32 division by 2 and JAX's
+    multiplication by 0.5 round the same real number once, so both equal
+    JAX's bit for bit. uint8, uint16, int16 and float32 go to K6 as they
+    are, other types as float32."""
+    v, out = _halfpixel_view(x, axis, device)
+    if v.device.type == "cpu" or not int(np.prod(out)):
+        return downsample_block_plain(v, (1, 2, 1)).reshape(out)
+    return downsample_batch(v, (1, 2, 1)).reshape(out)
 
 
 def to_kernel_dtype(a: np.ndarray) -> np.ndarray:

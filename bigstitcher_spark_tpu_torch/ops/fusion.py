@@ -1,4 +1,4 @@
-"""Affine-fusion device programs: five CUDA kernels and their plain-torch twins.
+"""Affine-fusion device programs: six CUDA kernels and their plain-torch twins.
 
 Port of ``bigstitcher_spark_tpu/ops/fusion.py``. Each JAX device program
 of the fusion path is a hand-written CUDA kernel for ``sm_90a`` (sources in
@@ -13,6 +13,7 @@ wrapper                   kernel (csrc/)               JAX program
 :func:`fuse_block`        ``gather.cu`` (K3)           fuse_block
 :func:`convert_intensity` ``convert.cu`` (K4)          convert_intensity
 :func:`fuse_block_sep`    ``sep.cu`` (K5)              fuse_block_sep
+:func:`fuse_volume_scan`  ``shift.cu`` (K27)           fuse_volume_scan
 ========================  ===========================  ====================
 
 K1 and K3 also apply per-view intensity-correction grids (Cx, Cy, Cz, 2)
@@ -320,6 +321,201 @@ def launch_fuse_block_shift(patches, fracs, tables, valid, block_shape,
 
 
 fuse_block_shift.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K27: fuse_volume_scan (translation views from device-resident tiles)
+# ---------------------------------------------------------------------------
+
+
+class VolumeScanInputs:
+    """The checked inputs of :func:`fuse_volume_scan` on one device: the
+    tiles (V, tx, ty, tz); per (block, slot) the tile index (B, K) int32,
+    the window ``clamp`` and ``delta`` (B, K, 3) int64 (``_one_view_device``:
+    clamp = clip(floor_off, 0, tshape - ps), delta = floor_off - clamp mod
+    ps), the fractions (B, K, 3), K2's weight tables (B, K, 2, bx+by+bz) and
+    the valid flags (B, K); the block offsets (B, 3) int64, clipped into
+    the volume as ``dynamic_update_slice`` clips them."""
+
+    def __init__(self, tiles, view_idx, floor_offs, fracs, lpos0, img_dims,
+                 borders, blend_ranges, valid, block_offsets, out_shape,
+                 block_shape, inside_offs=None, device=None):
+        from ..utils.device import resolve_device
+
+        dev = (tiles.device if isinstance(tiles, torch.Tensor)
+               else resolve_device(device))
+        tiles = torch.as_tensor(tiles).to(dev)
+        if tiles.dtype not in _IN_CODE:
+            tiles = tiles.to(torch.float32)
+        self.tiles = tiles.contiguous()
+        self.block_shape = tuple(int(s) for s in block_shape)
+        self.out_shape = tuple(int(s) for s in out_shape)
+        if tiles.dim() != 4 or len(self.block_shape) != 3 \
+                or len(self.out_shape) != 3:
+            raise ValueError("tiles must be (V, tx, ty, tz); block_shape and "
+                             "out_shape three ints")
+        ps = [b + 1 for b in self.block_shape]
+        tshape = [int(s) for s in tiles.shape[1:]]
+        if any(t < p for t, p in zip(tshape, ps)) or any(
+                o < b for o, b in zip(self.out_shape, self.block_shape)):
+            raise ValueError(f"tiles {tuple(tshape)} must hold a patch {ps} "
+                             f"and out_shape {self.out_shape} a block")
+        i64 = lambda a: torch.as_tensor(a).to(device=dev, dtype=torch.int64)
+        f32 = lambda a: torch.as_tensor(a).to(device=dev,
+                                              dtype=torch.float32)
+        vi = i64(view_idx)
+        B, K = (int(s) for s in vi.shape)
+        V = int(tiles.shape[0])
+        if vi.numel() and (int(vi.min()) < 0 or int(vi.max()) >= V):
+            raise ValueError(f"view_idx must index the {V} tiles")
+        self.view_idx = vi.to(torch.int32).contiguous()
+        fo = i64(floor_offs).reshape(B, K, 3)
+        psv = torch.tensor(ps, dtype=torch.int64, device=dev)
+        lim = torch.tensor(tshape, dtype=torch.int64, device=dev) - psv
+        self.clamp = torch.minimum(torch.clamp(fo, min=0), lim)
+        self.delta = torch.remainder(fo - self.clamp, psv)
+        self.fracs = f32(fracs).reshape(B, K, 3).contiguous()
+        rows = [f32(a).reshape(B * K, 3) for a in (
+            lpos0, img_dims, borders, blend_ranges)]
+        io = (torch.zeros_like(rows[2]) if inside_offs is None
+              else f32(inside_offs).reshape(B * K, 3))
+        self.tables = shift_axis_tables(*rows, io, self.block_shape).reshape(
+            B, K, 2, sum(self.block_shape)).contiguous()
+        self.valid = f32(valid).reshape(B, K).contiguous()
+        top = torch.tensor([o - b for o, b in zip(self.out_shape,
+                                                  self.block_shape)],
+                           dtype=torch.int64, device=dev)
+        self.block_offsets = torch.minimum(
+            torch.clamp(i64(block_offsets).reshape(B, 3), min=0), top)
+        self.device = dev
+
+
+def _blocks_overlap(offsets: torch.Tensor, block_shape) -> bool:
+    """Whether two of the (B, 3) block offsets place overlapping blocks."""
+    size = torch.tensor(block_shape, device=offsets.device)
+    B = int(offsets.shape[0])
+    for i0 in range(0, B, 1024):
+        rows = offsets[i0:i0 + 1024]
+        hit = ((rows[:, None, :] - offsets[None]).abs() < size).all(-1)
+        hit[torch.arange(len(rows)), torch.arange(i0, i0 + len(rows))] = False
+        if bool(hit.any()):
+            return True
+    return False
+
+
+def _realign(S: torch.Tensor, delta) -> torch.Tensor:
+    """patch[i] = S[(i + delta) mod n] per axis (ops/fusion.py _realign;
+    float32 input: torch rolls no uint16 on CUDA)."""
+    for ax in range(3):
+        S = torch.roll(S, -int(delta[ax]) % S.shape[ax], ax)
+    return S
+
+
+def _scan_convert(out, min_i, max_i, out_dtype, masks, convert):
+    _code, dtype, imax = _out_spec(out_dtype)
+    if masks:  # JAX's (out * imax).astype: a truncating cast
+        return (out * (1.0 if imax is None else imax)).to(dtype)
+    return convert(out, float(min_i), float(max_i), out_dtype)
+
+
+def _volume_scan_plain(sc: VolumeScanInputs, fusion_type, masks):
+    bx, by, bz = sc.block_shape
+    ps = (bx + 1, by + 1, bz + 1)
+    out = torch.zeros(sc.out_shape, dtype=torch.float32, device=sc.device)
+    vi, cl, de, bo = (t.tolist() for t in (sc.view_idx, sc.clamp, sc.delta,
+                                           sc.block_offsets))
+    for b in range(len(vi)):  # the JAX scan's block order
+        patches = torch.stack([_realign(sc.tiles[v][
+            c[0]:c[0] + ps[0], c[1]:c[1] + ps[1], c[2]:c[2] + ps[2]].to(
+                torch.float32), d) for v, c, d in zip(vi[b], cl[b], de[b])])
+        fused, wsum = _fuse_block_shift_tables(
+            patches, sc.fracs[b], sc.tables[b], sc.valid[b], sc.block_shape,
+            fusion_type)
+        x, y, z = bo[b]
+        out[x:x + bx, y:y + by, z:z + bz] = (
+            (wsum > 0).to(torch.float32) if masks else fused)
+    return out
+
+
+def fuse_volume_scan_plain(tiles, view_idx, floor_offs, fracs, lpos0,
+                           img_dims, borders, blend_ranges, valid,
+                           block_offsets, min_i, max_i, out_shape,
+                           block_shape, fusion_type="AVG_BLEND",
+                           out_dtype="float32", masks=False, inside_offs=None,
+                           device=None):
+    """K27's twin, the JAX ``fuse_volume_scan``: per block in order, each
+    view's (bx+1, by+1, bz+1) window sliced from its tile at the clamped
+    floor offset and rolled by ``delta`` (wrapped voxels are weighed 0 by
+    the inside test), K2's plain math, the result (or ``wsum > 0`` with
+    ``masks``) written at the block's offset; then the plain conversion
+    (or ``(out * imax).astype`` with ``masks``). Blocks written later win
+    where they overlap."""
+    sc = VolumeScanInputs(tiles, view_idx, floor_offs, fracs, lpos0,
+                          img_dims, borders, blend_ranges, valid,
+                          block_offsets, out_shape, block_shape, inside_offs,
+                          device)
+    return _scan_convert(_volume_scan_plain(sc, fusion_type, masks), min_i,
+                         max_i, out_dtype, masks, convert_intensity_plain)
+
+
+def fuse_volume_scan(tiles, view_idx, floor_offs, fracs, lpos0, img_dims,
+                     borders, blend_ranges, valid, block_offsets, min_i,
+                     max_i, out_shape, block_shape, fusion_type="AVG_BLEND",
+                     out_dtype="float32", masks=False, inside_offs=None,
+                     device=None):
+    """K27 (``csrc/shift.cu``) then K4 on CUDA, the twin on the CPU: the
+    JAX ``fuse_volume_scan``, whole-volume translation fusion from
+    resident tiles.
+
+    tiles (V, tx, ty, tz) uint8/uint16/int16/float32 (a tensor stays on
+    its device; an array goes to ``device``, ``cuda`` unless asked
+    otherwise); view_idx (B, K) into tiles; floor_offs (B, K, 3) int;
+    fracs, lpos0, img_dims, borders, blend_ranges, inside_offs (B, K, 3)
+    float32; valid (B, K) float32; block_offsets (B, 3) into the volume
+    ``out_shape`` (padded to whole blocks of ``block_shape``). Returns the
+    volume in ``out_dtype``. Unlike the JAX scan, K27 fuses every block at
+    once: overlapping blocks (after clipping into the volume) raise."""
+    sc = VolumeScanInputs(tiles, view_idx, floor_offs, fracs, lpos0,
+                          img_dims, borders, blend_ranges, valid,
+                          block_offsets, out_shape, block_shape, inside_offs,
+                          device)
+    if _blocks_overlap(sc.block_offsets, sc.block_shape):
+        raise ValueError("fuse_volume_scan fuses every block at once: the "
+                         "blocks must not overlap (fuse_volume_scan_plain "
+                         "keeps the JAX scan's last-block-wins)")
+    if sc.device.type == "cpu":
+        out = _volume_scan_plain(sc, fusion_type, masks)
+    else:
+        out = launch_fuse_volume_scan(sc, fusion_type, masks)
+    return _scan_convert(out, min_i, max_i, out_dtype, masks,
+                         convert_intensity)
+
+
+def launch_fuse_volume_scan(sc: VolumeScanInputs, fusion_type="AVG_BLEND",
+                            masks=False) -> torch.Tensor:
+    """K27 alone on checked inputs: the float32 volume (fused, or 1 where
+    wsum > 0 with ``masks``; 0 where no block writes)."""
+    out = torch.zeros(sc.out_shape, dtype=torch.float32, device=sc.device)
+    B, K = (int(s) for s in sc.view_idx.shape)
+    if B == 0 or K == 0:
+        return out
+    starts = torch.cat([sc.clamp, sc.delta], 2).to(torch.int32).contiguous()
+    offs = sc.block_offsets.to(torch.int32).contiguous()
+    _V, tx, ty, tz = (int(s) for s in sc.tiles.shape)
+    bx, by, bz = sc.block_shape
+    lib = _cuda.load("shift")
+    ret = lib.bst_fuse_volume_scan(
+        sc.tiles.data_ptr(), _IN_CODE[sc.tiles.dtype], tx, ty, tz,
+        sc.view_idx.data_ptr(), starts.data_ptr(), sc.fracs.data_ptr(),
+        sc.tables.data_ptr(), sc.valid.data_ptr(), offs.data_ptr(), B, K,
+        bx, by, bz, sc.out_shape[1], sc.out_shape[2], _ft_code(fusion_type),
+        int(bool(masks)), out.data_ptr(), _stream(sc.device))
+    _cuda.check(lib, ret, "fuse_volume_scan")
+    fuse_volume_scan.launches += 1
+    return out
+
+
+fuse_volume_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -984,6 +1180,7 @@ KERNEL_WRAPPERS = {
     "fuse_block": fuse_block,
     "convert_intensity": convert_intensity,
     "fuse_block_sep": fuse_block_sep,
+    "fuse_volume_scan": fuse_volume_scan,
 }
 
 

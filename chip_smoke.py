@@ -15,7 +15,11 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          256x256x128 uint16 boxes), beside torch's avg_pool3d on the same
          float32 input as the library yardstick; K6 also at route D's stage
          batch (4 x 256x256x45 uint16, factors 2,2,1: z takes the f == 1
-         path), bitwise. The phase-correlation kernels at route A's x-edge
+         path), bitwise; and K6's one-axis float32 form
+         (halfpixel_downsample2x_axis) along each axis of a route-A tile
+         (1024x1024x128 uint16), bitwise against its twin, beside
+         avg_pool3d with a window of 2 on that axis. The
+         phase-correlation kernels at route A's x-edge
          bucket at -ds 2,2,1 (2 pairs of 64x512x128 uint16 crops): K7
          window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
          (max|delta| <= 2e-5 x max|X| per pair against torch.fft, whose
@@ -111,6 +115,15 @@ Phase 8  detect-interestpoints through the port's CLI entry function on
          IO included) and the split (min/max, read, H2D, kernels by CUDA
          events, D2H, host tail, store). K15-K18 are timed at 8a's bucket
          beside their bounds, K17 beside torch.topk on the dense score.
+         8d, 8a's arguments through detect_interest_points with
+         extract_descriptors (K15-K18, then K19's masked form on each
+         block's 4,096 candidate slots): points and values identical to
+         8a's, every batch's descriptors and flags bitwise K19's twin's on
+         the same candidates, riders for every point, and K20's ratio test
+         (9a's ratio 3.0) on the riders of route A's six view pairs
+         joining the same true bead (< 5 px) for at least 0.7 of its
+         candidates (garbage descriptors give ~0); the masked K19 timed at
+         8a's bucket.
 Phase 9  match-interestpoints through the port's CLI entry function. 9a:
          a copy of route A's XML with 8b's points, at the reference
          defaults (FAST_ROTATION, -n 3 -r 1, -s 3.0, AFFINE regularised
@@ -180,6 +193,16 @@ Phase 11 nonrigid-fusion through the port's CLI entry functions on route
          and the idle share; K26 timed at the four-view block beside its
          twin and its bound (library none: grid_sample resamples one view
          by a flow field, without the 12-coefficient warp or the blend).
+Phase 12 fuse_volume_scan (K27, then K4) through the API: route A's four
+         tiles (1.07 GB uint16) resident on the card, route B's per-block
+         plan (192 blocks of 256x256x64 with views, 4 slots each, K2's
+         numbers through affine_fusion.shift_plan) as its arguments. The
+         uint16 volume must lie within |delta| <= 1 of route B's s0
+         (expected bitwise: the same K2 math; the scan's wrapped taps are
+         weighed 0 where route B stages zeros); K27 and its masks mode
+         bitwise equal to the twin on phase 2's picked blocks. Prints the
+         upload, K27 + K4 seconds and fused voxels/s, and K27 timed on
+         the whole plan beside the twin and its bound (library none).
 
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
@@ -194,10 +217,11 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-11 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-12 on the CPU with the
 plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
-cells and renderScale 0.5, 10b's large system on 3x3x2 views); it then
-exits 3 without a result.
+cells and renderScale 0.5, 10b's large system on 3x3x2 views; 8d's
+ratio-test gate printed, not applied: its 32x32x16 blocks split each
+view's neighbourhoods); it then exits 3 without a result.
 """
 
 from __future__ import annotations
@@ -246,6 +270,7 @@ KERNELS = {
     "cg_spmv": ("cg.cu", "ops/solve.py:527"),
     "cg_update": ("cg.cu", "ops/solve.py:527"),
     "nonrigid_fuse": ("nonrigid.cu", "ops/nonrigid.py:133"),
+    "fuse_volume_scan": ("shift.cu", "ops/fusion.py:379"),
 }
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
@@ -350,6 +375,8 @@ ROUTE_KERNELS.update({
     "10c uncorrected": ("composite_fuse",),
     "10c per-block": ("fuse_block", "fuse_block+coeff", "convert_intensity"),
     "11": ("nonrigid_fuse", "convert_intensity", "downsample_batch"),
+    "8d": DET_KERNELS + ("downsample_batch", "knn_descriptors"),
+    "12": ("fuse_volume_scan", "convert_intensity"),
 })
 
 
@@ -595,6 +622,45 @@ def downsample_times(x, factors, dev, level: bool):
                             + n_out * OPS["downsample_out"]))
 
 
+def halfpixel_times(x, card):
+    """K6's one-axis float32 form (halfpixel_downsample2x_axis) along each
+    axis of ``x``: bitwise against its twin, timed beside the twin and
+    avg_pool3d on the float32 input (window 2 on that axis; the library
+    yardstick, used nowhere in the port). Lists over the axes."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import downsample as D
+
+    xf = x.to(torch.float32)[None, None]
+    r = {k: [] for k in ("halfpixel_ms", "halfpixel_plain_ms",
+                         "halfpixel_library_ms", "halfpixel_bound_ms")}
+    r["halfpixel_err"] = 0.0
+    for axis in range(x.dim()):
+        run = lambda: D.halfpixel_downsample2x_axis(x, axis)
+        plain = lambda: D.halfpixel_downsample2x_axis_plain(x, axis)
+        win = tuple(2 if d == axis else 1 for d in range(3))
+        lib = lambda: torch.nn.functional.avg_pool3d(xf, win, win)
+        got, ref = run(), plain()
+        check(torch.equal(got, ref), f"K6 halfpixel_downsample2x_axis "
+              f"{tuple(x.shape)} {x.dtype} axis {axis} -> "
+              f"{tuple(got.shape)}: bitwise equal to the twin")
+        r["halfpixel_err"] = max(r["halfpixel_err"], max_abs(got, ref))
+        r["halfpixel_ms"].append(time_ms(run))
+        r["halfpixel_plain_ms"].append(time_ms(plain, reps=5))
+        r["halfpixel_library_ms"].append(time_ms(lib))
+        b = bound(x.numel() * x.element_size() + got.numel() * 4,
+                  x.numel() * OPS["downsample_in"]
+                  + got.numel() * OPS["downsample_out"])
+        r["halfpixel_bound_ms"].append(b[0])
+        print(f"  halfpixel_downsample2x_axis (K6) axis {axis} "
+              f"{tuple(x.shape)} -> {tuple(got.shape)} [{card}]: kernel "
+              f"{r['halfpixel_ms'][-1]} ms  plain "
+              f"{r['halfpixel_plain_ms'][-1]} ms  bound {b[0]:.4f} ms "
+              f"({b[1]})  library {r['halfpixel_library_ms'][-1]} ms "
+              "(avg_pool3d)", flush=True)
+    return r
+
+
 def fft_plain_roundtrip(w):
     """rfftn then irfftn of ``w`` through K8's plain twin, pass by pass."""
     from bigstitcher_spark_tpu_torch.ops import phasecorr as P
@@ -829,6 +895,10 @@ def phase1_kernels(dev, scale, card):
           f"K6 batch at route D's boxes {tuple(dboxes.shape)} / (2, 2, 1) -> "
           f"{tuple(got.shape)}: bitwise equal to the twin")
     del dboxes
+    # K6's one-axis form (halfpixel_downsample2x_axis) on a route-A tile
+    tile = c(rng.integers(0, 65536, cfg["tile"]).astype(np.uint16))
+    res["downsample_batch"].update(halfpixel_times(tile, card))
+    del tile
 
     # K7-K10: route A's x-edge bucket at -ds 2,2,1
     res.update(pcm_times(rng, c, cfg["pcm_bucket"]))
@@ -1172,6 +1242,7 @@ def route_b(work, scale, dev, card, launches, a):
     check_blocks("route B", vol_b, lambda b: plain_block(
         sd, loader, meta, b, compute_block, dev)[0], blocks)
     check_level_blocks("route B", mr, read, dev)
+    return out_b
 
 
 def route_c(work, scale, dev, card, launches):
@@ -2065,13 +2136,140 @@ def phase8_detection(proj, scale, dev, card, launches):
         check(len(p) > 0 and inside.all(),
               f"8c {det.view}: all {len(p)} points inside its "
               f"{len(boxes)} overlap boxes")
+    masked, gate = phase8d_extract(proj, run_a, scale, dev, card, launches)
     if dev.type != "cuda":
-        return {}, run_b.detections
+        return {}, run_b.detections, gate
     res = det_kernel_times(next(iter(rec_a.values())), card)
     for name, r in res.items():
         r["err"] = max(err_a.get(name, 0.0), err_b.get(name, 0.0),
                        err_c.get(name, 0.0))
-    return res, run_b.detections
+    res["knn_descriptors_masked"] = masked
+    return res, run_b.detections, gate
+
+
+def descriptor_cloud(det, dev):
+    """A view's valid riders as K20's input: (N * S, 3n) float32 and the
+    owner (point index) of each row."""
+    import numpy as np
+    import torch
+
+    keep = np.nonzero(det.descriptor_valid)[0]
+    d = torch.from_numpy(np.ascontiguousarray(det.descriptors[keep])).to(dev)
+    n, S, D = (int(v) for v in d.shape)
+    owner = torch.from_numpy(keep.astype(np.int32)).to(dev)
+    return d.reshape(n * S, D), owner.repeat_interleave(S)
+
+
+def phase8d_extract(proj, run_a, scale, dev, card, launches):
+    """Phase 8d: 8a's arguments through detect_interest_points with
+    extract_descriptors (K15-K18, then K19's masked form on each block's
+    candidate slots). The points and values must be 8a's; every batch's
+    descriptors and flags bitwise the twin's on the same candidates; every
+    view riders for all its points, some valid; and K20's ratio test on
+    the riders of route A's view pairs (9a's ratio, 3.0) must join the
+    same true bead (< 5 px) for at least 0.7 of its candidates. Returns
+    the masked K19's numbers at 8a's bucket and (candidates, joined)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch import ops
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import detection as TD
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    print("phase 8d (detection with descriptor extraction)", flush=True)
+    cfg = SCALES[scale]
+    block = ({} if cfg["det_block"] is None else
+             dict(block_size=tuple(cfg["det_block"])))
+    params = TD.DetectionParams(label="beads", sigma=1.8, threshold=0.008,
+                                downsample_xy=2, downsample_z=1,
+                                extract_descriptors=True, **block)
+    sd = SpimData.load(proj.xml_path)
+    records, program = [], TD.dog_detect_extract_batch
+
+    def spy(*a):
+        outs = program(*a)
+        records.append(outs)
+        return outs
+
+    stats = TD.DetectionStats()
+    TD.dog_detect_extract_batch = spy
+    try:
+        t0 = time.perf_counter()
+        dets = counted("8d", launches, dev, lambda: TD.detect_interest_points(
+            sd, ViewLoader(sd), [d.view for d in run_a.detections], params,
+            progress=False, device=dev, stats=stats))
+        wall = time.perf_counter() - t0
+    finally:
+        TD.dog_detect_extract_batch = program
+    n_k19 = ops.launch_counts()["knn_descriptors"]
+    t = stats.timings
+    print(f"  [detection 8d] {card}: {stats.blocks} blocks in "
+          f"{stats.batches} batches, {stats.points} points; wall {wall:.3f}s "
+          f"(8a {run_a.stats.seconds:.3f}s in detect_interest_points): "
+          f"read {t['read']:.3f}s h2d {t['h2d']:.3f}s kernels "
+          f"{t['kernels']:.4f}s d2h {t['d2h']:.3f}s tail {t['tail']:.3f}s; "
+          f"{n_k19} K19 launches", flush=True)
+    for da, dd in zip(run_a.detections, dets):
+        check(dd.view == da.view and np.array_equal(dd.points, da.points)
+              and np.array_equal(dd.values, da.values),
+              f"8d {dd.view}: {len(dd.points)} points and values identical "
+              "to 8a's")
+        check(dd.descriptors.shape[0] == len(dd.descriptor_valid)
+              == len(dd.points) and bool(dd.descriptor_valid.any()),
+              f"8d {dd.view}: descriptors {dd.descriptors.shape} for every "
+              f"point, {int(dd.descriptor_valid.sum())} valid")
+    err, same = 0.0, True
+    for outs in records:
+        sub, valid, desc, dv = outs[1], outs[3], outs[5], outs[6]
+        _, pdesc, pdv = DS.knn_descriptors_plain(sub, valid, 3, 1, True)
+        err = max(err, max_abs(desc, pdesc))
+        same &= torch.equal(desc, pdesc) and torch.equal(dv, pdv)
+    check(same, f"8d: in each of {len(records)} batches of "
+                f"{tuple(records[0][1].shape[:2])} slots K19's masked "
+                "descriptors and flags bitwise equal to the twin's on the "
+                "same candidates")
+    total = joined = 0
+    for da, db in itertools.combinations(dets, 2):
+        (a, oa), (b, ob) = descriptor_cloud(da, dev), descriptor_cloud(db, dev)
+        if not len(a) or not len(b):
+            continue
+        mb, acc = DS.match_ratio_test(a, oa, b, ob, 3.0)
+        pairs = np.unique(np.stack([oa[acc].cpu().numpy(),
+                                    mb[acc].cpu().numpy()], 1), axis=0)
+        wa = da.points[pairs[:, 0]] + proj.true_offsets[da.view.setup]
+        wb = db.points[pairs[:, 1]] + proj.true_offsets[db.view.setup]
+        ok = int((np.linalg.norm(wa - wb, axis=1) < 5.0).sum())
+        print(f"  8d ratio test {da.view.setup}-{db.view.setup}: "
+              f"{len(pairs)} candidates, {ok} join the same bead", flush=True)
+        total, joined = total + len(pairs), joined + ok
+    what = (f"8d: K20's ratio test on the riders gives {total} candidates, "
+            f"{joined} ({joined / max(total, 1):.3f} >= 0.7) join the same "
+            "true bead within 5 px")
+    if scale == "tiny":  # 32x32x16 blocks split each view's neighbourhoods
+        print(f"  (not gated at scale tiny) {what}", flush=True)
+    else:
+        check(total >= 20 and joined >= 0.7 * total, what)
+    if dev.type != "cuda":
+        return None, (total, joined)
+    sub, valid = records[0][1], records[0][3]
+    run = lambda: DS.knn_descriptors(sub, valid, 3, 1, True, want_idx=False)
+    plain = lambda: DS.knn_descriptors_plain(sub, valid, 3, 1, True)
+    B, K = (int(v) for v in sub.shape[:2])
+    nv = valid.sum(1).to(torch.float64)
+    S = int(records[0][5].shape[2])
+    r = dict(err=err, launches=n_k19, ms=time_ms(run, reps=10),
+             plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
+             bound=bound(B * K * (13 + S * 36 + 1),
+                         float((nv * nv).sum()) * OPS["knn_pair"]))
+    print(f"  knn_descriptors (K19, masked) at 8a's bucket {B} blocks x {K} "
+          f"slots ({int(nv.sum())} valid) [{card}]: kernel {r['ms']} ms  "
+          f"plain {r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]})  launches in 8d {n_k19}", flush=True)
+    return r, (total, joined)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2298,10 +2496,11 @@ def make_clouds(scale, seed=61):
     return wa, wb, np.hstack([rot, t[:, None]]), len(keep_a), common
 
 
-def phase9_matching(work, proj, det_b, scale, dev, card, launches):
+def phase9_matching(work, proj, det_b, scale, dev, card, launches, gate8d):
     """Phase 9: match-interestpoints. 9a on route A with 8b's points at the
     reference defaults, then solver -s IP; 9b a nucleus-scale pair through
     match_pair; 9c ICP, multi-consensus and search radius on route A.
+    ``gate8d``: 8d's ratio-test (candidates, joined), printed beside 9a's.
     Returns K19-K22's results."""
     import numpy as np
 
@@ -2336,6 +2535,10 @@ def phase9_matching(work, proj, det_b, scale, dev, card, launches):
     run_a = match_cli(xml_a, ["-l", "beads", *small], "9a", dev, card,
                       launches)
     check_links("9a", proj, xml_a, 5.0, 4 if tiny else 20)
+    print(f"  9a: {run_a.stats.candidates} candidates, "
+          f"{run_a.stats.inliers} inliers (8b's points); 8d's riders at "
+          f"-dsxy 2: {gate8d[0]} candidates, {gate8d[1]} join the same bead",
+          flush=True)
     srun, _calls = solver_cli(xml_a, ["-s", "IP", "-l", "beads"], "9a solver",
                               dev, card, launches)
     sd = SpimData.load(xml_a)
@@ -3376,21 +3579,184 @@ def phase11_nonrigid(work, proj, scale, dev, card, launches):
     return res
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def scan_plan(sd, loader, views, bbox, compute_block, block_size):
+    """Route B's per-block plan (the blocks with views; K2's numbers of
+    each, ``affine_fusion.shift_plan``) as the arguments of
+    fuse_volume_scan: (view_idx, floor_offs, fracs, lpos0, img_dims,
+    borders, blend_ranges, valid, block_offsets, inside_offs), the padded
+    out_shape and the grid blocks planned."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+    from bigstitcher_spark_tpu_torch.utils.geometry import Interval
+    from bigstitcher_spark_tpu_torch.utils.grid import create_grid
+
+    bs = tuple(int(b) for b in compute_block)
+    planned = []
+    for blk in create_grid(bbox.shape, bs, block_size):
+        bg = Interval.from_shape(bs, blk.offset).translate(bbox.min)
+        plans = A.plan_block(sd, loader, views, bg, None)
+        if plans:
+            planned.append((blk, bg, plans))
+    check(all(p.is_translation and p.level == 0
+              for _b, _g, plans in planned for p in plans),
+          f"{len(planned)} blocks with views, all translations at level 0")
+    K = max(F.bucket_views(len(p)) for _b, _g, p in planned)
+    rows = [A.shift_plan(loader, plans, bg, K, A.BlendParams(),
+                         (0.0, 0.0, 0.0)) for _b, bg, plans in planned]
+    view_idx = np.array([[views.index(p.view) for p in plans]
+                         + [0] * (K - len(plans))
+                         for _b, _g, plans in planned], np.int32)
+    cols = [np.stack([r[i] for r in rows]) for i in range(8)]
+    offsets = np.array([b.offset for b, _g, _p in planned], np.int64)
+    out_shape = tuple(-(-int(n) // b) * b for n, b in zip(bbox.shape, bs))
+    return ((view_idx, *cols[:7], offsets, cols[7]), out_shape,
+            [b for b, _g, _p in planned])
+
+
+def scan_bound(sc, itemsize, sector=32):
+    """K27's least bytes: the 32-byte tile sectors the valid slots'
+    windows cover (each once; z rows start on sector boundaries when tz x
+    itemsize is a multiple of 32) plus 4 B written a voxel of the volume;
+    its operations: K2's per valid view-voxel."""
+    import numpy as np
+    import torch
+
+    V, tx, ty, tz = (int(v) for v in sc.tiles.shape)
+    per_row = -(-tz * itemsize // sector)
+    hit = torch.zeros((V, tx, ty, per_row), dtype=torch.bool,
+                      device=sc.tiles.device)
+    ps = [b + 1 for b in sc.block_shape]
+    for (v, c), ok in zip(zip(sc.view_idx.reshape(-1).tolist(),
+                              sc.clamp.reshape(-1, 3).tolist()),
+                          sc.valid.reshape(-1).tolist()):
+        if ok:
+            z0, z1 = c[2] * itemsize // sector, -(-(c[2] + ps[2]) * itemsize
+                                                  // sector)
+            hit[v, c[0]:c[0] + ps[0], c[1]:c[1] + ps[1], z0:z1] = True
+    nbytes = int(hit.sum()) * sector + int(np.prod(sc.out_shape)) * 4
+    nvalid = int((sc.valid > 0).sum())
+    return bound(nbytes, nvalid * int(np.prod(sc.block_shape)) * OPS["shift"])
+
+
+def phase12_scan(scale, dev, card, launches, a, out_b):
+    """Phase 12: route A's project fused by fuse_volume_scan (K27 + K4)
+    from its tiles resident on the card, on route B's per-block plan; the
+    uint16 volume within |delta| <= 1 of route B's s0 (expected bitwise:
+    the same K2 math); K27 and its masks mode bitwise equal to the twin on
+    phase 2's picked blocks; K27 timed on the whole plan."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+
+    proj, _out_a, _vol_a, meta, blocks, sd, loader = a
+    print("phase 12 (volume scan fusion from resident tiles)", flush=True)
+    bs = compute_block_of(scale)
+    views = sd.view_ids()
+    t0 = time.perf_counter()
+    args, out_shape, planned = scan_plan(sd, loader, views, meta.bbox, bs,
+                                         meta.block_size)
+    t_plan = time.perf_counter() - t0
+    *cols, ioffs = args
+    t0 = time.perf_counter()
+    host = np.stack([loader.open(v).read_full() for v in views])
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiles = torch.from_numpy(host).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    del host
+
+    def fuse(c, **kw):
+        return F.fuse_volume_scan(tiles, *c, 0.0, 65535.0, out_shape, bs,
+                                  "AVG_BLEND", "uint16", inside_offs=ioffs,
+                                  **kw)
+
+    def fused_volume():
+        t0 = time.perf_counter()
+        out = fuse(cols)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, t_fuse = counted("12", launches, dev, fused_volume)
+    shape = tuple(int(n) for n in meta.bbox.shape)
+    vol = out[:shape[0], :shape[1], :shape[2]].cpu().numpy()
+    del out
+    voxels = int(np.prod(shape))
+    print(f"  [scan 12] {card}: {len(planned)} blocks of {bs} into "
+          f"{out_shape}, {cols[0].shape[1]} slots a block; plan "
+          f"{t_plan:.3f}s, tile read {t_read:.3f}s, upload of "
+          f"{tiles.numel() * tiles.element_size() / 1e9:.3f} GB "
+          f"{t_up:.3f}s, K27 + K4 {t_fuse:.4f}s -> "
+          f"{voxels / t_fuse:,.0f} fused voxels/s", flush=True)
+    from_b = read_volume(out_b)
+    err = max_abs_u16(vol, from_b, dev)
+    ndiff = int((vol != from_b).sum())
+    check(err <= 1, f"phase 12 volume {vol.shape}: |delta| {err} <= 1 of "
+                    f"route B's per-block s0 ({ndiff} voxels differ)")
+    del vol, from_b
+    # K27 and its masks mode against the twin on phase 2's picked blocks
+    pick = [i for i, b in enumerate(planned)
+            if any(b.offset == p.offset for _t, p in blocks)]
+    sub = [c[pick] for c in cols]
+    io = ioffs[pick]
+    sc = F.VolumeScanInputs(tiles, *sub, out_shape, bs, io)
+    ref = F._volume_scan_plain(sc, "AVG_BLEND", False)
+    got = F.launch_fuse_volume_scan(sc) if dev.type == "cuda" else ref
+    e27 = max_abs(got, ref)
+    check(torch.equal(got, ref), f"K27 on {len(pick)} picked blocks: "
+          "bitwise equal to its twin on the card")
+    del got, ref
+    m = F.fuse_volume_scan(tiles, *sub, 0.0, 65535.0, out_shape, bs,
+                           "AVG_BLEND", "uint16", True, io)
+    mp = F.fuse_volume_scan_plain(tiles, *sub, 0.0, 65535.0, out_shape, bs,
+                                  "AVG_BLEND", "uint16", True, io)
+    m, mp = m.to(torch.int32), mp.to(torch.int32)
+    check(torch.equal(m, mp) and int(m.max()) == 65535,
+          f"K27 masks on {len(pick)} picked blocks: equal to the twin's")
+    del m, mp
+    if dev.type != "cuda":
+        return {}
+    sc = F.VolumeScanInputs(tiles, *cols, out_shape, bs, ioffs)
+    r = dict(err=e27, ms=time_ms(lambda: F.launch_fuse_volume_scan(sc),
+                                 reps=3),
+             wrapper_ms=time_ms(lambda: fuse(cols), reps=3),
+             plain_ms=time_ms(lambda: F._volume_scan_plain(
+                 sc, "AVG_BLEND", False), reps=1, rounds=1),
+             library_ms=None, bound=scan_bound(sc, tiles.element_size()))
+    print(f"  fuse_volume_scan (K27) over {len(planned)} blocks [{card}]: "
+          f"kernel {r['ms']} ms (the volume's zero fill included)  wrapper "
+          f"(tables, K27, K4) {r['wrapper_ms']} ms  plain {r['plain_ms']} "
+          f"ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  library "
+          "none", flush=True)
+    return {"fuse_volume_scan": r}
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-11 through the CLI entry functions; returns route A's XML
-    and container paths and phases 7-11's kernel results."""
+    """Phases 2-12 through the CLI entry functions (8d and 12 through the
+    API); returns route A's XML and container paths and phases 7-12's
+    kernel results."""
     a = route_a(work, scale, dev, card, launches)
-    route_b(work, scale, dev, card, launches, a)
+    out_b = route_b(work, scale, dev, card, launches, a)
     proj_c = route_c(work, scale, dev, card, launches)
     route_d(work, scale, dev, card, launches, a)
     phase6_stitching(a[0], proj_c, dev, card, launches)
     relax = phase7_solver(work, scale, a[0], dev, card, launches)
-    det, det_b = phase8_detection(a[0], scale, dev, card, launches)
-    match = phase9_matching(work, a[0], det_b, scale, dev, card, launches)
+    det, det_b, gate8d = phase8_detection(a[0], scale, dev, card, launches)
+    match = phase9_matching(work, a[0], det_b, scale, dev, card, launches,
+                            gate8d)
     inten = phase10_intensity(work, scale, dev, card, launches)
     nonrigid = phase11_nonrigid(work, a[0], scale, dev, card, launches)
+    scan = phase12_scan(scale, dev, card, launches, a, out_b)
     return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
-                                 **nonrigid}
+                                 **nonrigid, **scan}
 
 
 # ---------------------------------------------------------------- main
@@ -3447,9 +3813,10 @@ def main(argv=None) -> int:
 
         *route, later = main_path(work, args.scale, dev, card, launches)
         coeff = later.pop("coeff")
+        masked = later.pop("knn_descriptors_masked")
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection, matching, intensity, nonrigid): "
+              f"detection, matching, intensity, nonrigid, scan): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -3485,6 +3852,14 @@ def main(argv=None) -> int:
                 "block_bound_ms": r["block_bound"][0],
                 "block_max_abs_err": r["block_err"]}
                if "block_ms" in r else {}),
+            # K6's one-axis form (phase 1) and K19's masked form (8d)
+            **{k: v for k, v in r.items() if k.startswith("halfpixel_")},
+            **({"masked_launches": masked["launches"],
+                "masked_ms": masked["ms"],
+                "masked_plain_ms": masked["plain_ms"],
+                "masked_bound_ms": masked["bound"][0],
+                "masked_max_abs_err": masked["err"]}
+               if name == "knn_descriptors" else {}),
             **({"coeff_launches": launches[f"{name}+coeff"],
                 "coeff_ms": coeff[name]["coeff_ms"],
                 "coeff_plain_ms": coeff[name]["coeff_plain_ms"],

@@ -438,9 +438,14 @@ def test_params_string_equals_jax():
 
 
 def test_not_yet_ported_paths_are_refused():
-    with pytest.raises(NotYetPorted, match="ROADMAP.md"):
+    # descriptor extraction is ported: it runs (here on no view), and only
+    # a pool beyond K19's 8 neighbours a point is refused
+    assert TD.detect_interest_points(None, None, [], TD.DetectionParams(
+        extract_descriptors=True), device="cpu") == []
+    with pytest.raises(ValueError, match="neighbours a point"):
         TD.detect_interest_points(None, None, [], TD.DetectionParams(
-            extract_descriptors=True), device="cpu")
+            extract_descriptors=True, descriptor_neighbors=6,
+            descriptor_redundancy=3), device="cpu")
     with pytest.raises(NotYetPorted, match="ROADMAP.md"):
         TD.detect_interest_points(None, None, [], devices=2, device="cpu")
 
@@ -454,3 +459,117 @@ def test_not_yet_ported_paths_are_refused():
 
     with pytest.raises(NotYetPorted, match="read_device"):
         TD._read_mirror(Loader(), None, 0, (0, 0, 0), (4, 4, 4))
+
+
+# ------------------------------------------------ detection with descriptors
+
+ROT_ATOL = 1e-4  # tests/test_torch_descriptors.py's frame tolerance
+
+
+def _bead_blocks(shape, n, seed):
+    """Two uint16 blocks of Gaussian beads (sigma 1.8, amplitude 1000) on
+    a noisy background of 100."""
+    rng = np.random.default_rng(seed)
+    grid = np.meshgrid(*(np.arange(s, dtype=np.float64) for s in shape),
+                       indexing="ij")
+    out = []
+    for _ in range(2):
+        vol = rng.normal(100.0, 2.0, shape)
+        for p in rng.uniform(0, np.array(shape) - 1, (n, 3)):
+            vol += 1000.0 * np.exp(-sum((g - c) ** 2 for g, c in zip(grid, p))
+                                   / (2 * 1.8 ** 2))
+        out.append(np.round(vol).astype(np.uint16))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("rel", [(1, 1, 1), (2, 2, 1)], ids=str)
+@pytest.mark.parametrize("find_min", [False, True], ids=["MAX", "BOTH"])
+def test_dog_detect_extract_batch_matches_jax(find_min, rel):
+    """The detect-and-extract program on 2 random bead blocks of 32x32x16
+    at detection resolution, k = 64: its DoG part is dog_block_topk_batch
+    bit for bit and meets this module's candidate contract against JAX's
+    (_compare_candidates); dvalid equals JAX's; the descriptors are within
+    ROT_ATOL of JAX's descriptor half run on the port's own candidates (the
+    fits differ from JAX's by up to the contract's bound, and a frame built
+    on offsets of a few px turns such differences into larger ones)."""
+    import jax.numpy as jnp
+    from bigstitcher_spark_tpu.ops import descriptors as JDS
+    from bigstitcher_spark_tpu.ops import dog as JO
+    from bigstitcher_spark_tpu_torch.ops import dog as TO
+
+    blocks = _bead_blocks((32 * rel[0], 32 * rel[1], 16 * rel[2]),
+                          14 * rel[0] * rel[1], 30)
+    args = (blocks, np.zeros(2, np.float32), np.full(2, 1100.0, np.float32),
+            np.full(2, 0.004, np.float32),
+            np.array([[-3, -3, -3], [29, -3, 13]], np.int32), 1.8, True,
+            find_min, 64, 3, rel)
+    want = [np.asarray(a) for a in JO.dog_detect_extract_batch(
+        *args, 3, 1, True)]
+    targs = (torch.from_numpy(blocks), *args[1:])
+    got = TO.dog_detect_extract_batch(*targs, 3, 1, True)
+    topk = TO.dog_block_topk_batch(*targs)
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], topk))
+    got = [t.numpy() for t in got]
+    _compare_candidates([(args, want[:5])], [(targs, got[:5])])
+    assert np.array_equal(got[3], want[3]) and np.array_equal(got[6], want[6])
+    assert got[6].sum() > 5 and not got[5][~got[6]].any()
+    jdesc, jdv = JDS.block_descriptors_batch(jnp.asarray(got[1]),
+                                             jnp.asarray(got[3]), 3, 1, True)
+    assert np.array_equal(got[6], np.asarray(jdv))
+    np.testing.assert_allclose(got[5], np.asarray(jdesc), rtol=0,
+                               atol=ROT_ATOL)
+
+
+@pytest.fixture(scope="module")
+def project_desc(tmp_path_factory):
+    """tests/test_megafusion.py's detect-and-extract fixture."""
+    return make_synthetic_project(
+        str(tmp_path_factory.mktemp("det_desc") / "proj"),
+        n_tiles=(2, 1, 1), tile_size=(64, 64, 32), overlap=16, jitter=1.0,
+        n_beads_per_tile=20, seed=7)
+
+
+DESC_CASES = {
+    "ds1": dict(downsample_xy=1, block_size=(64, 64, 32)),
+    "ds2 overlappingOnly": dict(downsample_xy=2, overlapping_only=True,
+                                block_size=(32, 32, 32)),
+    "maxSpots": dict(downsample_xy=1, block_size=(64, 64, 32), max_spots=12),
+    "medianFilter": dict(downsample_xy=2, median_radius=8, min_intensity=0.0,
+                         max_intensity=10.0, block_size=(32, 32, 32)),
+    "empty views, n 2 r 2": dict(downsample_xy=1, block_size=(64, 64, 32),
+                                 threshold=10.0, descriptor_neighbors=2,
+                                 descriptor_redundancy=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESC_CASES))
+def test_detect_with_descriptors_matches_jax(project_desc, case):
+    """detect_interest_points(extract_descriptors=True) against the JAX
+    package's (its fused program): points and values as in
+    test_detect_interest_points_matches_jax; each point's descriptors
+    (S, 3n) float32 within ROT_ATOL of JAX's and its validity equal; a
+    view without points carries JAX's (0, S, 3n) and (0,) riders."""
+    # 64 candidate slots a block (20 beads a tile), as test_megafusion.py
+    kw = dict(DESC_CASES[case], extract_descriptors=True,
+              max_candidates_per_block=64)
+    jd, td, stats, tsd = _run_both(project_desc.xml_path, **kw)
+    _compare(jd, td, tsd, kw)
+    p = TD.DetectionParams(**kw)
+    n = p.descriptor_neighbors
+    S = len(TD.subset_combinations(n + p.descriptor_redundancy, n))
+    for a, b in zip(jd, td):
+        assert b.descriptors.dtype == np.float32
+        assert b.descriptor_valid.dtype == bool
+        assert b.descriptors.shape == (len(b.points), S, 3 * n)
+        assert b.descriptors.shape == a.descriptors.shape
+        assert b.descriptor_valid.shape == a.descriptor_valid.shape
+        boxes = (_full_res_boxes(tsd, b.view, p.downsampling)
+                 if p.overlapping_only else None)
+        ia, ib = _match(a, b, boxes)
+        assert np.array_equal(b.descriptor_valid[ib], a.descriptor_valid[ia])
+        np.testing.assert_allclose(b.descriptors[ib], a.descriptors[ia],
+                                   rtol=0, atol=ROT_ATOL)
+    total = sum(len(d.points) for d in td)
+    assert (total == 0) == (p.threshold > 1.0)
+    if total:
+        assert sum(int(d.descriptor_valid.sum()) for d in td) > 0

@@ -201,3 +201,33 @@ def test_run_downsample_batches_by_shape(tmp_path):
         ref = np.asarray(JOps.downsample_block(read_job(b), (2, 2, 2)))
         np.testing.assert_array_equal(written[b.offset],
                                       JD._convert_to_dtype(ref, np.uint16))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int16", "float32"])
+@pytest.mark.parametrize("shape", [(9,), (6, 7), (5, 8, 7), (3, 4, 5, 9)],
+                         ids=str)
+def test_halfpixel_downsample2x_axis_matches_jax(dtype, shape):
+    """K6's one-axis float32 form (its twin on the CPU) against the JAX
+    halfpixel_downsample2x_axis, bitwise, along every axis (and axis -1),
+    odd lengths dropping their trailing voxel."""
+    rng = np.random.default_rng(len(shape))
+    if dtype == "int16":
+        x = rng.integers(-32768, 32768, shape).astype(np.int16)
+    elif dtype == "float32":
+        x = rng.normal(0, 1e3, shape).astype(np.float32)
+    else:
+        x = _data(rng, shape, dtype)
+    for axis in [*range(len(shape)), -1]:
+        want = np.asarray(JOps.halfpixel_downsample2x_axis(x, axis))
+        got = TOps.halfpixel_downsample2x_axis(torch.from_numpy(x), axis)
+        plain = TOps.halfpixel_downsample2x_axis_plain(x, axis, device="cpu")
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want)
+        assert torch.equal(got, plain)
+
+
+def test_halfpixel_downsample2x_axis_short_axis_is_empty_like_jax():
+    x = np.arange(12, dtype=np.uint16).reshape(4, 1, 3)
+    want = np.asarray(JOps.halfpixel_downsample2x_axis(x, 1))
+    got = TOps.halfpixel_downsample2x_axis(torch.from_numpy(x), 1)
+    assert tuple(got.shape) == want.shape == (4, 0, 3)

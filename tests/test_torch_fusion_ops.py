@@ -425,3 +425,120 @@ def test_grid_edge_rules_differ_and_each_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
     # past the last cell the gather's fraction is nonzero on equal taps
     assert float(torch.floor(torch.tensor(pos[-1])) - (C - 1)) > 0
+
+
+# --------------------------------------------------------------- K27 (scan)
+
+
+def _scan_case(rng, V=3, tshape=(40, 38, 20), bs=(16, 16, 8),
+               out_shape=(32, 32, 16), K=3, inside_off=True):
+    """Resident uint16 tiles and a grid of blocks, K view slots each; the
+    floor offsets reach below 0 and past tshape - ps on every axis, so the
+    windows clamp and wrap; one slot in four is invalid."""
+    tiles = rng.integers(0, 4000, (V, *tshape)).astype(np.uint16)
+    grid = [(x, y, z) for x in range(0, out_shape[0], bs[0])
+            for y in range(0, out_shape[1], bs[1])
+            for z in range(0, out_shape[2], bs[2])]
+    B = len(grid)
+    view_idx = rng.integers(0, V, (B, K)).astype(np.int32)
+    lim = np.array(tshape) - np.array(bs) - 1
+    floor_offs = rng.integers(-6, lim + 7, (B, K, 3)).astype(np.int32)
+    fracs = rng.uniform(0, 1, (B, K, 3)).astype(np.float32)
+    lpos0 = (floor_offs + fracs).astype(np.float32)
+    dims = np.broadcast_to(np.array(tshape, np.float32), (B, K, 3)).copy()
+    borders = rng.uniform(0, 3, (B, K, 3)).astype(np.float32)
+    ranges = rng.uniform(4, 12, (B, K, 3)).astype(np.float32)
+    valid = (rng.uniform(size=(B, K)) > 0.25).astype(np.float32)
+    ioffs = (rng.uniform(0, 1.5, (B, K, 3)) if inside_off
+             else np.zeros((B, K, 3))).astype(np.float32)
+    assert (floor_offs < 0).any(axis=(0, 1)).all()
+    assert (floor_offs > lim).any(axis=(0, 1)).all()
+    return (tiles, view_idx, floor_offs, fracs, lpos0, dims, borders, ranges,
+            valid, np.array(grid, np.int32)), ioffs
+
+
+@pytest.mark.parametrize("fusion_type,out_dtype,masks", [
+    *[(ft, "uint16", False) for ft in FTYPES],
+    ("AVG_BLEND", "uint8", False), ("AVG_BLEND", "float32", False),
+    ("AVG_BLEND", "uint16", True), ("MAX_INTENSITY", "float32", True)])
+def test_fuse_volume_scan_matches_jax(fusion_type, out_dtype, masks):
+    """K27's twin against the JAX scan on 3 uint16 tiles of 40x38x20 and 8
+    blocks of 16x16x8, windows clamped and wrapped: integers within 1,
+    float32 within rtol 1e-5 / atol 1e-3 (K2's tolerances)."""
+    args, ioffs = _scan_case(np.random.default_rng(11))
+    kw = dict(out_shape=(32, 32, 16), block_shape=(16, 16, 8),
+              fusion_type=fusion_type, out_dtype=out_dtype, masks=masks)
+    ref = JF.fuse_volume_scan(*args, np.float32(100.0), np.float32(3500.0),
+                              inside_offs=ioffs, **kw)
+    got = TF.fuse_volume_scan(*_t(*args), 100.0, 3500.0, inside_offs=_t(
+        ioffs)[0], **kw)
+    plain = TF.fuse_volume_scan_plain(*args, 100.0, 3500.0,
+                                      inside_offs=ioffs, device="cpu", **kw)
+    assert torch.equal(got, plain)
+    if out_dtype == "float32" and not masks:
+        _close_f32(got, ref)
+    else:
+        _close_int(got.to(torch.int64) if out_dtype == "uint16" else got,
+                   np.asarray(ref).astype(np.int64) if out_dtype == "uint16"
+                   else ref)
+    assert float(got.to(torch.float32).std()) > 0
+
+
+def test_fuse_volume_scan_wrap_is_masked_like_zero_padding():
+    """Where a window clamps, the scan reads wrapped tile voxels where the
+    per-block route stages zeros (models/affine_fusion.py _shift_inputs).
+    With tiles that are the images (img_dims = tile shape) and no
+    --maskOffset the inside test weighs every wrapped tap 0, and each
+    block equals K2's twin on zero-padded patches bit for bit; with an
+    inside offset (AVG: no blend ramp to zero the border) they differ
+    there."""
+    rng = np.random.default_rng(12)
+    (tiles, vidx, fo, fr, lp, dims, bo, rg, va, offs), _ = _scan_case(
+        rng, inside_off=False)
+    bs = (16, 16, 8)
+    lim = np.array(tiles.shape[1:]) - np.array(bs) - 1
+    clamped = ((fo < 0) | (fo > lim)).any(-1) & (va > 0)
+    assert clamped.sum() > 8
+    for ioff, same in ((0.0, True), (1.5, False)):
+        io = np.full(fo.shape, ioff, np.float32)
+        vol = TF.fuse_volume_scan_plain(
+            tiles, vidx, fo, fr, lp, dims, bo, rg, va, offs, 0.0, 1.0,
+            (32, 32, 16), bs, "AVG", out_dtype="float32", inside_offs=io,
+            device="cpu")
+        differ = 0
+        for b, (x, y, z) in enumerate(offs):
+            patches = np.zeros((vidx.shape[1], *(s + 1 for s in bs)),
+                               np.uint16)
+            for k, v in enumerate(vidx[b]):
+                src = [slice(max(o, 0), min(o + s + 1, t)) for o, s, t in
+                       zip(fo[b, k], bs, tiles.shape[1:])]
+                dst = tuple(slice(s.start - o, s.stop - o)
+                            for s, o in zip(src, fo[b, k]))
+                patches[k][dst] = tiles[v][tuple(src)]
+            fused, _ = TF.fuse_block_shift_plain(
+                *_t(patches, fr[b], lp[b], dims[b], bo[b], rg[b], va[b]), bs,
+                "AVG", torch.from_numpy(io[b]))
+            eq = torch.equal(vol[x:x + 16, y:y + 16, z:z + 8], fused)
+            assert eq or not same
+            differ += not eq
+        assert same or differ > 0
+
+
+def test_fuse_volume_scan_refuses_overlapping_blocks_the_twin_follows_jax():
+    """K27 fuses all blocks at once, so its wrapper refuses blocks that
+    overlap once clipped into the volume (here the last, moved past the
+    volume's edge onto the one before); the twin keeps the JAX scan's
+    order: the later block wins."""
+    args, ioffs = _scan_case(np.random.default_rng(13))
+    offs = args[-1].copy()
+    offs[-1] = (30, 40, 20)  # clipped to (16, 16, 8), where block -2 lies
+    offs[-2] = (16, 16, 8)
+    offs[-3] = (16, 16, 0)
+    args = (*args[:-1], offs)
+    kw = dict(out_shape=(32, 32, 16), block_shape=(16, 16, 8),
+              out_dtype="float32", inside_offs=ioffs)
+    with pytest.raises(ValueError, match="must not overlap"):
+        TF.fuse_volume_scan(*args, 0.0, 1.0, device="cpu", **kw)
+    ref = JF.fuse_volume_scan(*args, np.float32(0.0), np.float32(1.0), **kw)
+    got = TF.fuse_volume_scan_plain(*args, 0.0, 1.0, device="cpu", **kw)
+    _close_f32(got, ref)

@@ -11,6 +11,7 @@
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +48,10 @@ from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
     fuse_nonrigid_volume,
 )
 from bigstitcher_spark_tpu_torch.models.stitching import stitch_all_pairs
+from bigstitcher_spark_tpu_torch.ops.downsample import (
+    halfpixel_downsample2x_axis,
+)
+from bigstitcher_spark_tpu_torch.ops.fusion import fuse_volume_scan
 from bigstitcher_spark_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -134,6 +139,12 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         ["-o", "x"]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_main(["nonrigid-fusion", "-o", str(tmp_path / "missing.zarr")])
+    # the two device programs without a tool: arrays go to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fuse_volume_scan(np.zeros((1, 4, 4, 4), np.uint16), *[None] * 9,
+                         0.0, 1.0, (2, 2, 2), (2, 2, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        halfpixel_downsample2x_axis(np.zeros(4, np.float32), 0)
 
 
 def _click_spellings(cmd):

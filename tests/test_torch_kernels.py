@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K26) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K27) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -33,7 +33,9 @@ sum in another order, rounded once). K22 (refit, float64): masks and
 counts equal, models within rtol 1e-9 / atol 1e-9 (moments summed in
 another order). K26 (non-rigid fusion) at the fusion kernels' tolerances:
 it rounds where its twin rounds (the twin's fused multiply-adds in
-float64 may round twice where fmaf rounds once, in rare last bits).
+float64 may round twice where fmaf rounds once, in rare last bits). K27
+(volume scan fusion) takes K2's float32 operations in the same order as
+its twin on the same weight tables: bitwise.
 """
 
 import numpy as np
@@ -714,6 +716,35 @@ def test_dog_block_batch_kernels(dev):
     assert float(dog[1].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("rel", [(1, 1, 1), (2, 2, 1)], ids=str)
+def test_dog_detect_extract_batch_kernels(dev, rel):
+    """The detect-and-extract program on the kernels (K6, K15-K18, then
+    K19's masked form) against the same composition of the twins on the
+    card: candidates as in test_dog_block_topk_batch_kernels, descriptors
+    and dvalid bitwise on the kernels' own candidates (the twins' fits
+    may differ in the last bits), one K19 launch."""
+    rng = np.random.default_rng(46)
+    blocks = _beads(rng, 2, (48 * rel[0], 40 * rel[1], 32 * rel[2]), n=25,
+                    dtype=np.uint16).to(dev)
+    args = (blocks, np.zeros(2, np.float32), np.full(2, 1000.0, np.float32),
+            np.full(2, 0.004, np.float32),
+            np.array([[-8, -8, -8], [40, -8, 24]], np.int32), 1.8, True,
+            True, 4096, 8, rel, 3, 1, True)
+    ops.reset_launch_counts()
+    got = G.dog_detect_extract_batch(*args)
+    counts = ops.launch_counts()
+    ref = G.dog_detect_extract_batch(*args, stages=G.PLAIN)
+    assert counts["knn_descriptors"] == 1 and counts["dog_localize"] == 1
+    assert counts["dog_blur"] == 6, counts
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[0], ref[0])
+    assert torch.equal(got[3], ref[3])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+    _, desc, dv = DS.knn_descriptors_plain(got[1], got[3], 3, 1, True)
+    assert torch.equal(got[5], desc) and torch.equal(got[6], dv)
+    assert int(dv.sum()) > 10
+
+
 # --------------------------------------------------------------- K19-K22
 
 
@@ -1082,3 +1113,95 @@ def test_nonrigid_fuse_launch_counts_and_no_cpu_fallback(dev):
     with pytest.raises(ValueError):
         NR.nonrigid_fuse_block(*bad, bs, "AVG")
     assert ops.launch_counts()["nonrigid_fuse"] == 1
+
+
+# --------------------------------------------------------------- K27, K6
+
+
+def _scan_case(rng, dtype=np.uint16, V=3, tshape=(60, 52, 28),
+               bs=(24, 20, 12), grid=(2, 2, 2), K=4):
+    """Resident tiles and a grid of blocks, K view slots each: floor
+    offsets below 0 and past tshape - ps (clamped, wrapped windows), one
+    slot in four invalid, inside offsets up to 1.5."""
+    tiles = rng.integers(0, 4000, (V, *tshape)).astype(dtype)
+    offs = np.array([(x * bs[0], y * bs[1], z * bs[2])
+                     for x in range(grid[0]) for y in range(grid[1])
+                     for z in range(grid[2])], np.int32)
+    B = len(offs)
+    lim = np.array(tshape) - np.array(bs) - 1
+    fo = rng.integers(-6, lim + 7, (B, K, 3)).astype(np.int32)
+    fr = rng.uniform(0, 1, (B, K, 3)).astype(np.float32)
+    per = lambda lo, hi: rng.uniform(lo, hi, (B, K, 3)).astype(np.float32)
+    args = [tiles, rng.integers(0, V, (B, K)).astype(np.int32), fo, fr,
+            (fo + fr).astype(np.float32),
+            np.broadcast_to(np.array(tshape, np.float32), (B, K, 3)).copy(),
+            per(0, 3), per(4, 12),
+            (rng.uniform(size=(B, K)) > 0.25).astype(np.float32), offs]
+    out_shape = tuple(g * b for g, b in zip(grid, bs))
+    return [torch.from_numpy(a) for a in args], per(0, 1.5), out_shape, bs
+
+
+@pytest.mark.parametrize("fusion_type,out_dtype,masks", [
+    *[(ft, "uint16", False) for ft in FTYPES],
+    ("AVG_BLEND", "uint8", False), ("AVG_BLEND", "float32", False),
+    ("AVG_BLEND", "uint16", True), ("FIRST_WINS", "float32", True)])
+def test_fuse_volume_scan_kernel(dev, fusion_type, out_dtype, masks):
+    """K27 (+ K4) against its twin on the card, bitwise: the same K2 math
+    on the same weight tables, read through the wrapped windows."""
+    args, io, out_shape, bs = _scan_case(np.random.default_rng(47))
+    args = [a.to(dev) for a in args]
+    kw = dict(fusion_type=fusion_type, out_dtype=out_dtype, masks=masks,
+              inside_offs=torch.from_numpy(io).to(dev))
+    ops.reset_launch_counts()
+    got = F.fuse_volume_scan(*args, 100.0, 3500.0, out_shape, bs, **kw)
+    counts = ops.launch_counts()
+    ref = F.fuse_volume_scan_plain(*args, 100.0, 3500.0, out_shape, bs, **kw)
+    assert counts["fuse_volume_scan"] == 1
+    assert counts["convert_intensity"] == int(not masks)
+    assert got.dtype == ref.dtype
+    assert torch.equal(got.to(torch.float32), ref.to(torch.float32))
+    assert float(got.to(torch.float32).std()) > 0
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32], ids=str)
+def test_fuse_volume_scan_kernel_dtypes(dev, dtype):
+    args, io, out_shape, bs = _scan_case(np.random.default_rng(48), dtype)
+    args = [a.to(dev) for a in args]
+    got = F.fuse_volume_scan(*args, 0.0, 4000.0, out_shape, bs,
+                             out_dtype="float32")
+    ref = F.fuse_volume_scan_plain(*args, 0.0, 4000.0, out_shape, bs,
+                                   out_dtype="float32")
+    assert torch.equal(got, ref)
+
+
+def test_fuse_volume_scan_refuses_and_counts(dev):
+    args, _io, out_shape, bs = _scan_case(np.random.default_rng(49))
+    args = [a.to(dev) for a in args]
+    ops.reset_launch_counts()
+    bad = list(args)
+    bad[1] = bad[1] + 3  # past the tiles
+    with pytest.raises(ValueError, match="index the 3 tiles"):
+        F.fuse_volume_scan(*bad, 0.0, 1.0, out_shape, bs)
+    with pytest.raises(ValueError, match="must hold a patch"):
+        F.fuse_volume_scan(*args, 0.0, 1.0, out_shape, (60, 20, 12))
+    assert ops.launch_counts()["fuse_volume_scan"] == 0
+
+
+@pytest.mark.parametrize("shape", [(1001,), (33, 17), (5, 64, 9),
+                                   (3, 4, 65, 7)], ids=str)
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16, np.float32], ids=str)
+def test_halfpixel_downsample2x_axis_kernel(dev, shape, dtype):
+    """K6's one-axis form against its twin on the card, bitwise, along
+    every axis; one K6 launch each."""
+    rng = np.random.default_rng(50)
+    if dtype == np.float32:
+        a = rng.normal(0, 1e3, shape)
+    else:
+        a = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max + 1, shape)
+    x = torch.from_numpy(a.astype(dtype)).to(dev)
+    for axis in range(len(shape)):
+        ops.reset_launch_counts()
+        got = D.halfpixel_downsample2x_axis(x, axis)
+        assert ops.launch_counts()["downsample_batch"] == 1
+        ref = D.halfpixel_downsample2x_axis_plain(x, axis)
+        assert got.dtype == torch.float32 and torch.equal(got, ref)
