@@ -10,13 +10,15 @@
 // ops/solve.py assemble_cg), and one iteration is two launches on one
 // stream:
 //
-// K24 bst_cg_spmv: grid-stride over the unknowns, one thread a row:
-//   p_new[i] = r[i] + beta p_old[i], and Ap[i] = sum_k vals[k] p_new[cols[k]]
-//   in list order, each neighbour's p_new recomputed from r and p_old with
-//   the same two roundings (so no grid-wide barrier is needed between the
-//   direction update and the product). Each block sums p_new[i] Ap[i] in a
-//   fixed tree; the last block to finish (a ticket) sums the block partials
-//   in index order into dstate[3].
+// K24 bst_cg_spmv: G lanes a row: p_new[i] = r[i] + beta p_old[i], and
+//   Ap[i] = sum_k vals[k] p_new[cols[k]], each lane summing its terms in
+//   list order and a fixed xor-shuffle tree adding the lanes; each
+//   neighbour's p_new is recomputed from r and p_old with the same two
+//   roundings (so no grid-wide barrier is needed between the direction
+//   update and the product; r and p_old, 8 MB at the large system, stay in
+//   L2). Each block sums p_new[i] Ap[i] over its rows in a fixed order; the
+//   last block to finish (a ticket) sums the block partials in index order
+//   into dstate[3].
 // K25 bst_cg_update: alpha = rs / max(p.Ap, 1e-300); x += alpha p,
 //   r -= alpha Ap; r.r summed as above; the last block sets beta =
 //   rs_new / max(rs, 1e-300), rs, the iteration count and the done flag
@@ -32,13 +34,38 @@
 // Bound: bytes. K24 reads the lists (12 B a term), r and p_old (16 B an
 // unknown; neighbours' values come from L2) and writes p_new and Ap; K25
 // reads x, r, p, Ap and writes x and r (48 B an unknown).
+//
+// K24's design. At the large system (524,288 unknowns, 7.9 terms a row,
+// 4,154,768 terms) it moves ~69 MB. A thread a row chains two dependent
+// loads a term (cols[k], then r[c] and p_old[c]), ~16 serial latencies a
+// row, with a warp's list loads spread over 32 rows: latency, not bytes,
+// bounds it. So:
+//   * G lanes a row, a power of two <= 32 that the wrapper picks from the
+//     mean row length (ops/solve.py cg_lanes: 2 at the large system, the
+//     fastest of G = 1 to 16 there on an H100; 8, a lane a term, was 1.25x
+//     slower: a row's bounds, shuffles and stores then take 8 lanes).
+//     Lane l takes terms k0 + l, k0 + l + G, ..., its first two loaded
+//     together, so a warp's cols and vals loads are contiguous and a row
+//     is two or three short chains, not eight long ones.
+//   * The grid is sized to the rows: a block per kSweeps groups of 256 / G
+//     rows (1024 rows, 512 blocks at the large system; the wrapper sizes
+//     the partials buffer to it). A block's fixed costs (the state load,
+//     the partial's fence and ticket) are paid once per 1024 rows; a block
+//     per 256 / G rows ran 1.3-2x slower, its time growing ~3 ns a block.
+//   * The lists are loaded with an L2 evict-first policy: they pass through
+//     once a launch, and r, p_old (gathered) and p_new, Ap (read by K25)
+//     stay in L2.
+//   * Block sums (K25's too) by warp shuffles and one barrier; the last
+//     block reads the partials eight loads at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;  // the wrappers' partials buffer
+constexpr int kMaxBlocks = 1024;  // K25's grid at most
+// K24: groups of 256 / G rows a block (ops/solve.py CG_SWEEPS)
+constexpr int kSweeps = 8;
 // dstate: rs, beta, tol2, p.Ap; istate: iterations, done, cap, tickets
 enum { D_RS = 0, D_BETA = 1, D_TOL2 = 2, D_PAP = 3 };
 enum { I_ITERS = 0, I_DONE = 1, I_CAP = 2, I_TICKET_SPMV = 3,
@@ -49,21 +76,30 @@ int blocks_for(int n) {
   return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
 }
 
-// Fixed-order sum of one value per thread of the block (tree in shared
-// memory); the result is valid in thread 0.
+// K24's grid: a block per kSweeps x 256 / G rows (ops/solve.py cg_blocks)
+int spmv_blocks(int n, int lanes) {
+  const int rows = kThreads / lanes * kSweeps;
+  return (n + rows - 1) / rows;
+}
+
+// Fixed-order sum of one value per thread of the block, one barrier: each
+// warp's xor tree, then thread 0 adds the warps' sums in order; the result
+// is valid in thread 0.
 __device__ double block_sum(double v, double* sh) {
-  sh[threadIdx.x] = v;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = sh[threadIdx.x] + sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  return sh[0];
+  double t = 0.0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kThreads / 32; ++w) t = t + sh[w];
+  return t;
 }
 
 // Store this block's partial and take a ticket; true in every thread of the
 // last block to arrive, which then sums all partials in a fixed order
-// (each thread a stride of them in index order, then the tree) into
+// (each thread a stride of them in index order, then the block sum) into
 // *total. The ticket is reset for the next launch.
 __device__ bool last_block_total(double partial, double* partials, int* ticket,
                                  double* sh, double* total) {
@@ -77,6 +113,7 @@ __device__ bool last_block_total(double partial, double* partials, int* ticket,
   if (!am_last) return false;
   __threadfence();
   double v = 0.0;
+#pragma unroll 8
   for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads)
     v = v + __ldcg(partials + b);
   const double t = block_sum(v, sh);
@@ -87,6 +124,38 @@ __device__ bool last_block_total(double partial, double* partials, int* ticket,
   return true;
 }
 
+// a load of a list term, evicted first from L2: the lists pass through
+// once a launch, and r, p_old (gathered) and p_new, Ap (read by K25) stay
+// in L2
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ int load_stream(const int* p, uint64_t policy) {
+  int v;
+  asm volatile("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;\n"
+               : "=r"(v)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ double load_stream(const double* p,
+                                              uint64_t policy) {
+  double v;
+  asm volatile("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;\n"
+               : "=d"(v)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+// G lanes a row: lane l of row i sums terms k0 + l, k0 + l + G, ... of its
+// list in order, a fixed xor tree adds the G lane sums, and lane 0 writes
+// the row. A block takes kSweeps groups of 256 / G rows in turn; in each,
+// a lane loads its first two terms together, then any longer row's tail.
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 cg_spmv_kernel(int n, const int* __restrict__ row_ptr,
                const int* __restrict__ cols, const double* __restrict__ vals,
@@ -94,23 +163,44 @@ cg_spmv_kernel(int n, const int* __restrict__ row_ptr,
                double* __restrict__ p_new, double* __restrict__ ap,
                double* __restrict__ dstate, int* __restrict__ istate,
                double* __restrict__ partials) {
-  __shared__ double sh[kThreads];
+  constexpr int kRows = kThreads / G;
+  __shared__ double sh[kThreads / 32];
   if (istate[I_DONE]) return;
   const double beta = dstate[D_BETA];
+  const int lane = threadIdx.x & (G - 1);
+  const int first = blockIdx.x * kRows * kSweeps + threadIdx.x / G;
+  const uint64_t policy = evict_first();
   double dot = 0.0;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    const int k0 = row_ptr[i], k1 = row_ptr[i + 1];
-    double s = 0.0;
-    for (int k = k0; k < k1; ++k) {
-      const int c = cols[k];
-      const double pc = r[c] + beta * p_old[c];
-      s = k == k0 ? vals[k] * pc : s + vals[k] * pc;
+  for (int sw = 0; sw < kSweeps; ++sw) {
+    const int i = first + sw * kRows;
+    const bool live = i < n;
+    const int k = live ? row_ptr[i] + lane : 0;
+    const int k1 = live ? row_ptr[i + 1] : 0;
+    const double ri = live ? r[i] : 0.0, poi = live ? p_old[i] : 0.0;
+    int c[2];
+    double v[2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      c[t] = k + t * G < k1 ? load_stream(cols + k + t * G, policy) : 0;
+      v[t] = k + t * G < k1 ? load_stream(vals + k + t * G, policy) : 0.0;
     }
-    const double pi = r[i] + beta * p_old[i];
-    p_new[i] = pi;
-    ap[i] = s;
-    dot = dot + pi * s;
+    double s = 0.0;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+      if (k + t * G < k1) s = s + v[t] * (r[c[t]] + beta * p_old[c[t]]);
+    for (int kk = k + 2 * G; kk < k1; kk += G) {
+      const int cc = load_stream(cols + kk, policy);
+      s = s + load_stream(vals + kk, policy) * (r[cc] + beta * p_old[cc]);
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      s = s + __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0 && live) {
+      const double pi = ri + beta * poi;
+      p_new[i] = pi;
+      ap[i] = s;
+      dot = dot + pi * s;
+    }
   }
   const double part = block_sum(dot, sh);
   __syncthreads();
@@ -126,7 +216,7 @@ cg_update_kernel(int n, int init, const double* __restrict__ rhs,
                  const double* __restrict__ p, const double* __restrict__ ap,
                  double* __restrict__ dstate, int* __restrict__ istate,
                  double* __restrict__ partials) {
-  __shared__ double sh[kThreads];
+  __shared__ double sh[kThreads / 32];
   if (istate[I_DONE]) return;
   const double rs = dstate[D_RS];
   const double alpha = init ? 0.0 : rs / fmax(dstate[D_PAP], 1e-300);
@@ -157,21 +247,51 @@ cg_update_kernel(int n, int init, const double* __restrict__ rhs,
   }
 }
 
-}  // namespace
-
-extern "C" int bst_cg_spmv(int n, const void* row_ptr, const void* cols,
-                           const void* vals, const void* r, const void* p_old,
-                           void* p_new, void* ap, void* dstate, void* istate,
-                           void* partials, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  cg_spmv_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+template <int G>
+cudaError_t launch_spmv(int n, const void* row_ptr, const void* cols,
+                        const void* vals, const void* r, const void* p_old,
+                        void* p_new, void* ap, void* dstate, void* istate,
+                        void* partials, cudaStream_t stream) {
+  cg_spmv_kernel<G><<<spmv_blocks(n, G), kThreads, 0, stream>>>(
       n, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
       static_cast<const double*>(vals), static_cast<const double*>(r),
       static_cast<const double*>(p_old), static_cast<double*>(p_new),
       static_cast<double*>(ap), static_cast<double*>(dstate),
       static_cast<int*>(istate), static_cast<double*>(partials));
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// lanes: G lanes a row (a power of two, 1 to 32); partials: n_partials
+// doubles, at least one a block (spmv_blocks) and 1024 (K25's)
+extern "C" int bst_cg_spmv(int n, int lanes, const void* row_ptr,
+                           const void* cols, const void* vals, const void* r,
+                           const void* p_old, void* p_new, void* ap,
+                           void* dstate, void* istate, void* partials,
+                           int n_partials, void* stream) {
+  if (n <= 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      n_partials < spmv_blocks(n, lanes))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (lanes) {
+#define BST_CG_LANES(G)                                                     \
+  case G:                                                                   \
+    err = launch_spmv<G>(n, row_ptr, cols, vals, r, p_old, p_new, ap,      \
+                         dstate, istate, partials, s);                      \
+    break;
+    BST_CG_LANES(1)
+    BST_CG_LANES(2)
+    BST_CG_LANES(4)
+    BST_CG_LANES(8)
+    BST_CG_LANES(16)
+    BST_CG_LANES(32)
+#undef BST_CG_LANES
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int bst_cg_update(int n, int init, const void* rhs, void* x,

@@ -111,7 +111,7 @@ _SIGNATURES = {
                               + [_VP] * 6,
     },
     "cg": {
-        "bst_cg_spmv": [_I] + [_VP] * 11,
+        "bst_cg_spmv": [_I, _I] + [_VP] * 10 + [_I, _VP],
         "bst_cg_update": [_I, _I] + [_VP] * 9,
     },
     "nonrigid": {

@@ -42,7 +42,7 @@ import torch
 from . import _cuda
 from .fusion import _require, _stream
 
-# FFT lengths one K8 block holds in shared memory (8192 complex = 64 KB)
+# FFT lengths one K8 block holds (8192 complex: 1024 threads of 8 values)
 MAX_FFT_LEN = 8192
 # K10 keeps at most this many peaks per pair
 MAX_PEAKS = 256

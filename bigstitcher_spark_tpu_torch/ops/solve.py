@@ -845,9 +845,52 @@ def _check_cg(sysm: CGSystem, vecs: dict, dstate, istate):
     _require(istate, "istate", dev, _I32, (_CG_I,))
 
 
-def _cg_partials(dev) -> torch.Tensor:
-    """The kernels' per-block partial sums (at most 1024 blocks)."""
-    return torch.empty(1024, dtype=torch.float64, device=dev)
+CG_THREADS = 256       # K24/K25's block
+CG_UPDATE_BLOCKS = 1024  # K25's grid at most
+CG_LANES = (1, 2, 4, 8, 16, 32)  # K24's lanes a row
+CG_SWEEPS = 8          # K24's groups of 256 / lanes rows a block
+
+
+def cg_lanes(n: int, nnz: int) -> int:
+    """K24's lanes a row for ``n`` rows of ``nnz`` terms: the power of two
+    nearest a quarter of the mean row length (ties up), 1 to 32, so a lane
+    sums about four terms (two at once, then two)."""
+    quarter = nnz / max(int(n), 1) / 4
+    lanes = 1
+    while lanes < 32 and quarter >= 1.5 * lanes:
+        lanes *= 2
+    return lanes
+
+
+def cg_blocks(n: int, lanes: int) -> int:
+    """K24's grid: a block per ``CG_SWEEPS`` x 256 / ``lanes`` rows."""
+    return -(-int(n) // (CG_THREADS // lanes * CG_SWEEPS))
+
+
+def _cg_partials(n_blocks: int, dev) -> torch.Tensor:
+    """The kernels' per-block partial sums: ``n_blocks`` and at least K25's
+    grid."""
+    return torch.empty(max(n_blocks, CG_UPDATE_BLOCKS), dtype=torch.float64,
+                       device=dev)
+
+
+def launch_cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate,
+                   lanes: int | None = None) -> None:
+    """One K24 launch, ``lanes`` a row (default :func:`cg_lanes`'s
+    choice); no checks."""
+    if lanes is None:
+        lanes = cg_lanes(sysm.n, int(sysm.cols.numel()))
+    if lanes not in CG_LANES:
+        raise ValueError(f"K24 takes {CG_LANES} lanes a row, not {lanes}")
+    partials = _cg_partials(cg_blocks(sysm.n, lanes), r.device)
+    lib = _cuda.load("cg")
+    ret = lib.bst_cg_spmv(
+        sysm.n, int(lanes), sysm.row_ptr.data_ptr(), sysm.cols.data_ptr(),
+        sysm.vals.data_ptr(), r.data_ptr(), p_old.data_ptr(),
+        p_new.data_ptr(), ap.data_ptr(), dstate.data_ptr(),
+        istate.data_ptr(), partials.data_ptr(), int(partials.numel()),
+        _stream(r.device))
+    _cuda.check(lib, ret, "cg_spmv")
 
 
 def cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
@@ -856,14 +899,7 @@ def cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
         return cg_spmv_plain(sysm, r, p_old, p_new, ap, dstate, istate)
     _check_cg(sysm, {"r": r, "p_old": p_old, "p_new": p_new, "ap": ap},
               dstate, istate)
-    partials = _cg_partials(r.device)
-    lib = _cuda.load("cg")
-    ret = lib.bst_cg_spmv(
-        sysm.n, sysm.row_ptr.data_ptr(), sysm.cols.data_ptr(),
-        sysm.vals.data_ptr(), r.data_ptr(), p_old.data_ptr(),
-        p_new.data_ptr(), ap.data_ptr(), dstate.data_ptr(),
-        istate.data_ptr(), partials.data_ptr(), _stream(r.device))
-    _cuda.check(lib, ret, "cg_spmv")
+    launch_cg_spmv(sysm, r, p_old, p_new, ap, dstate, istate)
     cg_spmv.launches += 1
 
 
@@ -875,7 +911,7 @@ def cg_update(sysm: CGSystem, x, r, p, ap, dstate, istate, init=False):
     if r.device.type == "cpu":
         return cg_update_plain(sysm, x, r, p, ap, dstate, istate, init)
     _check_cg(sysm, {"x": x, "r": r, "p": p, "ap": ap}, dstate, istate)
-    partials = _cg_partials(r.device)
+    partials = _cg_partials(CG_UPDATE_BLOCKS, r.device)
     lib = _cuda.load("cg")
     ret = lib.bst_cg_update(
         sysm.n, int(bool(init)), sysm.rhs.data_ptr(), x.data_ptr(),

@@ -23,8 +23,8 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          bucket at -ds 2,2,1 (2 pairs of 64x512x128 uint16 crops): K7
          window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
          (max|delta| <= 2e-5 x max|X| per pair against torch.fft, whose
-         rfftn + irfftn is its library yardstick), K10 top-k (indices
-         equal).
+         rfftn + irfftn is its library yardstick; its six passes timed
+         alone too), K10 top-k (indices equal).
 Phase 2  route A, composite + pyramid epilogue: a synthetic 2x2x1 project
          of 1024x1024x128 uint16 tiles (the 2x2-binned frame of a 2048^2
          sCMOS light-sheet camera; ~10 % overlap, sub-pixel translations,
@@ -164,7 +164,8 @@ Phase 10 the intensity-correction chain through the port's CLI entry
          pairs); each CG held against cg_plain on the card (rtol 1e-9,
          iterations within 1) and by its residual |Ax - b| / |b| <= 1e-9
          with A from scipy.sparse; K24/K25 timed alone, K24 beside torch's
-         CSR product. 10c: affine-fusion --intensityN5 on the composite
+         CSR product on the same int32 lists (torch.mv), both one launch
+         at a time after a reset and back to back. 10c: affine-fusion --intensityN5 on the composite
          route (K1's coefficient branch; the whole volume within |delta|
          <= 1 of the twin on the card), the same without correction (the
          fused voxels/s of both), and forced per block (K3's branch + K4;
@@ -204,6 +205,11 @@ Phase 12 fuse_volume_scan (K27, then K4) through the API: route A's four
          upload, K27 + K4 seconds and fused voxels/s, and K27 timed on
          the whole plan beside the twin and its bound (library none).
 
+Kernel times are CUDA events around work queued behind a spin on the
+card (its rate measured in the run), so they hold the card's time and not
+the host's launch overhead. K8's and K24's wrapper times and their library
+calls' are also taken without the spin (wrapper_ms, library_wrapper_ms),
+the host's launch overhead included.
 In phases 2-5 three written compute blocks (one at the four-tile corner)
 are held against the plain-torch twins run on the card, and the host-read,
 H2D, kernel, D2H and write times and the fused voxels/s (and the rate
@@ -405,26 +411,87 @@ def card_line() -> str:
 # ---------------------------------------------------------------- timing
 
 
-def time_ms(fn, reps=20, rounds=3):
+_SPIN_RATE = []  # torch.cuda._sleep's cycles a second, measured once
+
+
+def spin(seconds):
+    """Hold the card's stream busy for about ``seconds``: torch.cuda._sleep
+    at its rate on this card, measured on the first call (a 1e7-cycle spin
+    between CUDA events)."""
+    import torch
+
+    if not _SPIN_RATE:
+        torch.cuda._sleep(1000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN_RATE.append(1e7 / (a.elapsed_time(b) / 1e3))
+    torch.cuda._sleep(max(int(seconds * _SPIN_RATE[0]), 1))
+
+
+def _timed(fn, calls, spin_s):
+    """``calls`` calls of ``fn`` between two CUDA events, behind a spin of
+    ``spin_s`` seconds (none if 0): (card ms, host seconds to enqueue the
+    calls, whether the card was still spinning when they were queued)."""
+    import torch
+
+    if spin_s:
+        spin(spin_s)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    b.record()
+    queued = not a.query()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), host_s, queued
+
+
+def _queued(fn, calls, spin_s, host, reset=None):
+    """:func:`_timed`, once more (after ``reset()``) behind a longer spin
+    (at most 50 ms) if the host enqueued more slowly than the spin ran;
+    card ms and the spin used. ``host``: no spin, so the events also hold
+    whatever time the card waited for the host."""
+    if host:
+        return _timed(fn, calls, 0.0)[0], spin_s
+    ms, host_s, queued = _timed(fn, calls, spin_s)
+    if not queued and spin_s < host_s and spin_s < 0.05:
+        spin_s = min(2 * host_s, 0.05)
+        if reset is not None:
+            reset()
+        ms = _timed(fn, calls, spin_s)[0]
+    return ms, spin_s
+
+
+def time_ms(fn, reps=20, rounds=3, host=False):
     """Milliseconds per call of ``fn`` on the card: ``reps`` calls back to
     back between two CUDA events, median over ``rounds`` (after a warm-up
-    call). None in a CPU rehearsal."""
+    call). A spin on the card precedes the first event, twice as long as
+    the host took to enqueue the warm-up call ``reps`` times (at most 50
+    ms), and longer if the host fell behind it, so the calls queue up and
+    run back to back: the events time the card's work, not the host's
+    launch overhead (a call that waits for the card inside, as a twin may,
+    still counts the host's time). ``host``: no spin, the events also hold
+    the card's waits for the host (a wrapper's time as its caller sees
+    it). None in a CPU rehearsal."""
     import torch
 
     if not torch.cuda.is_available():
         return None
+    t0 = time.perf_counter()
     fn()
+    spin_s = min(2 * reps * (time.perf_counter() - t0), 0.05)
     torch.cuda.synchronize()
     out = []
     for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / reps)
+        ms, spin_s = _queued(fn, reps, spin_s, host)
+        out.append(ms / reps)
     return sorted(out)[len(out) // 2]
 
 
@@ -433,26 +500,30 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_each(fn, reset, reps=50):
+def time_each(fn, reset, reps=50, host=False):
     """Milliseconds of one call of ``fn`` on the card, each call alone
     between two CUDA events with ``reset()`` run before it, outside the
-    events (for kernels that change their own inputs); the median. None
-    in a CPU rehearsal."""
+    events (for kernels that change their own inputs); the median. A spin
+    on the card precedes the first event, twice as long as the host took to
+    enqueue the first (discarded) call (at least 0.1 ms) and longer if the
+    host fell behind it, so the events time the card's work, not the host's
+    launch overhead. ``host``: no spin, as :func:`time_ms`. None in a CPU
+    rehearsal."""
     import torch
 
     if not torch.cuda.is_available():
         return None
+    reset()
+    t0 = time.perf_counter()
+    fn()
+    spin_s = min(max(2 * (time.perf_counter() - t0), 1e-4), 0.05)
+    torch.cuda.synchronize()
     out = []
-    for _ in range(reps + 1):
+    for _ in range(reps):
         reset()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    out = sorted(out[1:])
+        ms, spin_s = _queued(fn, 1, spin_s, host, reset)
+        out.append(ms)
+    out.sort()
     return out[len(out) // 2]
 
 
@@ -483,6 +554,8 @@ def max_abs_u16(a, b, dev) -> int:
 def print_times(what, r, card):
     lib = (f"  library {r['library_ms']} ms" if r.get("library_ms")
            is not None else "")
+    if r.get("library_wrapper_ms") is not None:
+        lib += f" (with the host's time {r['library_wrapper_ms']} ms)"
     print(f"  {what} [{card}]: max|delta| {r['err']:.3g}  kernel {r['ms']} ms"
           f"  wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  bound "
           f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){lib}", flush=True)
@@ -672,6 +745,31 @@ def fft_plain_roundtrip(w):
     return P.fft_pow2_plain(g, 3, "c2r", True, 1.0 / (X * Y * Z), n=Z)
 
 
+FFT_PASSES = ("r2c z", "c2c y", "c2c x", "inverse c2c x", "inverse c2c y",
+              "c2r z")
+
+
+def fft_pass_times(w):
+    """K8's six passes of the round trip at ``w``'s (B, X, Y, Z) shape, each
+    timed alone back to back (the c2c passes out of place, so every call
+    transforms the same spectrum): {pass: ms}."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    _, X, Y, Z = (int(s) for s in w.shape)
+    f = P.rfftn3(w)
+    g = torch.empty_like(f)
+    runs = (lambda: P.fft_pow2(w, 3, "r2c"),
+            lambda: P.fft_pow2(f, 2, "c2c", out=g),
+            lambda: P.fft_pow2(f, 1, "c2c", out=g),
+            lambda: P.fft_pow2(f, 1, "c2c", inverse=True, out=g),
+            lambda: P.fft_pow2(f, 2, "c2c", inverse=True, out=g),
+            lambda: P.fft_pow2(f, 3, "c2r", inverse=True,
+                               scale=1.0 / (X * Y * Z), n=Z))
+    return {name: time_ms(fn) for name, fn in zip(FFT_PASSES, runs)}
+
+
 def check_fft(got, ref, what):
     """K8's tolerance: max|delta| <= 2e-5 x max|ref| for every pair."""
     for k in range(int(ref.shape[0])):
@@ -725,11 +823,12 @@ def pcm_times(rng, c, bucket):
     err8 = max(max_abs(fa, ref), max_abs(pcm, pcm_ref))
     lib = lambda: torch.fft.irfftn(torch.fft.rfftn(w, dim=(1, 2, 3)),
                                    s=(X, Y, Z), dim=(1, 2, 3))
-    ms8 = time_ms(lambda: P.irfftn3(P.rfftn3(w), Z))
+    trip = lambda: P.irfftn3(P.rfftn3(w), Z)
     res["fft_pow2"] = dict(
-        err=err8, ms=ms8, wrapper_ms=ms8,
+        err=err8, ms=time_ms(trip), wrapper_ms=time_ms(trip, host=True),
         plain_ms=time_ms(lambda: fft_plain_roundtrip(w)),
-        library_ms=time_ms(lib),
+        library_ms=time_ms(lib), library_wrapper_ms=time_ms(lib, host=True),
+        passes_ms=fft_pass_times(w),
         bound=bound(2 * (n * 4 + m * 8),
                     2 * B * OPS["fft"] * (n // B) * np.log2(n // B)))
     ms9 = time_ms(lambda: P.pcm_cross_power(fa, fb))
@@ -904,6 +1003,9 @@ def phase1_kernels(dev, scale, card):
     res.update(pcm_times(rng, c, cfg["pcm_bucket"]))
     for k, r in res.items():
         print_times(k, r, card)
+    print(f"  fft_pow2 passes at {cfg['pcm_bucket']} [{card}]: " + ", ".join(
+        f"{k} {v} ms" for k, v in res["fft_pow2"]["passes_ms"].items()),
+        flush=True)
     return res
 
 
@@ -1745,7 +1847,7 @@ def relax_kernel_times(pr, args, what, card):
         err=err, ms=None if both is None else both - reset,
         plain_ms=time_each(lambda: R.relax_converge_plain(
             *nd_p, hist, st, pw, max_error, cap), lambda: st.zero_(),
-            reps=10),
+            reps=10, host=True),
         bound=bound(T * 16 + pw * 8, T * OPS["relax_converge"],
                     F64_OPS_PER_S))
     for name, r in res.items():
@@ -2908,10 +3010,13 @@ def large_intensity_system(grid, seed=73):
     return ncell * n_views, rows, smoothness_pairs(dims, n_views)
 
 
-def cg_times(sysm, card):
+def cg_times(sysm, card, lanes=()):
     """K24 and K25 alone at ``sysm``'s shapes (the state held open so every
     launch works), against their twin steps, beside their bounds; K24
-    beside torch's CSR product (``torch.mv`` on a sparse CSR tensor)."""
+    beside torch's CSR product (``torch.mv`` on a sparse CSR tensor).
+    ``lanes``: K24 also launched with each of these lanes a row, bitwise
+    the wrapper's p_new and within rtol 1e-12 of its Ap, and timed both
+    ways (``lanes_ms``: {G: [one at a time, back to back]})."""
     import torch
 
     from bigstitcher_spark_tpu_torch.ops import solve as R
@@ -2951,31 +3056,94 @@ def cg_times(sysm, card):
     check(max(errs) <= 1e-12 * scale,
           f"K24/K25 one step at {n} unknowns: within {max(errs):.3g} of "
           "their twins (rtol 1e-12 of the largest entry)")
-    csr = torch.sparse_csr_tensor(sysm.row_ptr.long(), sysm.cols.long(),
-                                  sysm.vals, (n, n))
     res = {
         "cg_spmv": dict(
-            err=max(errs[:2]), ms=time_each(spmv, reset),
+            err=max(errs[:2]),
             plain_ms=time_each(lambda: R.cg_spmv_plain(
-                sysm, r, p_old, pn2, ap2, d, i), reset, reps=10),
-            library_ms=time_ms(lambda: torch.mv(csr, p_old)),
+                sysm, r, p_old, pn2, ap2, d, i), reset, reps=10, host=True),
             bound=bound(nnz * 12 + (n + 1) * 4 + n * 32, nnz * 4 + n * 4,
-                        F64_OPS_PER_S)),
+                        F64_OPS_PER_S),
+            **spmv_yardsticks(sysm, spmv, reset, p_old)),
         "cg_update": dict(
             err=max(errs[2:]), ms=time_each(upd, reset),
             plain_ms=time_each(lambda: R.cg_update_plain(
-                sysm, x, r, p_new, ap, d, i), reset, reps=10),
+                sysm, x, r, p_new, ap, d, i), reset, reps=10, host=True),
             library_ms=None,
             bound=bound(n * 48, n * 7, F64_OPS_PER_S)),
     }
+    if lanes:
+        res["cg_spmv"]["lanes_ms"] = lane_times(sysm, spmv, reset, p_new, ap,
+                                                (r, p_old, d, i), lanes, card)
     for name, r_ in res.items():
-        r_["wrapper_ms"] = r_["ms"]
-        lib = (f"  library {r_['library_ms']} ms (torch.mv, CSR)"
+        r_.setdefault("wrapper_ms", r_["ms"])
+        lib = (f"  library {r_['library_ms']} ms (torch.mv, int32 CSR)"
                if r_["library_ms"] is not None else "  library none")
         print(f"  {name} at {n} unknowns, {nnz} CSR terms [{card}]: kernel "
               f"{r_['ms']} ms  plain {r_['plain_ms']} ms  bound "
               f"{r_['bound'][0]:.4f} ms ({r_['bound'][1]}){lib}", flush=True)
+    y = res["cg_spmv"]
+    print(f"  cg_spmv against torch.mv (int32 CSR) [{card}]: one launch "
+          f"after a reset {y['ms']} / {y['library_ms']} ms; back to back "
+          f"{y['b2b_ms']} / {y['library_b2b_ms']} ms (int64 indices "
+          f"{y['library_int64_b2b_ms']} ms); with the host's time, back to "
+          f"back {y['wrapper_ms']} / {y['library_wrapper_ms']} ms",
+          flush=True)
     return res
+
+
+def lane_times(sysm, spmv, reset, p_new, ap, state, lanes, card):
+    """K24 launched directly with each of ``lanes`` lanes a row on the
+    wrapper's inputs: checked against the wrapper's p_new (bitwise) and Ap
+    (rtol 1e-12), then timed one at a time and back to back."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    r, p_old, d, i = state
+    reset()
+    spmv()
+    want = (p_new.clone(), ap.clone())
+    out = {}
+    for g in lanes:
+        run = lambda: R.launch_cg_spmv(sysm, r, p_old, p_new, ap, d, i,
+                                       lanes=g)
+        reset()
+        run()
+        check(torch.equal(p_new, want[0]) and max_abs(ap, want[1])
+              <= 1e-12 * float(want[1].abs().max()),
+              f"K24 at {g} lanes a row: p_new bitwise, Ap within rtol 1e-12 "
+              "of the wrapper's")
+        out[g] = [time_each(run, reset), time_ms(run)]
+        print(f"  cg_spmv at {g} lanes a row [{card}]: one launch after a "
+              f"reset {out[g][0]} ms, back to back {out[g][1]} ms",
+              flush=True)
+    return out
+
+
+def spmv_yardsticks(sysm, spmv, reset, p):
+    """K24 (``spmv``, idempotent on fixed r and p_old) and torch.mv of the
+    CSR matrix with K24's int32 indices on ``p``, each timed one launch at
+    a time after ``reset`` (time_each: ``ms``, ``library_ms``) and back to
+    back (time_ms: ``b2b_ms``, ``library_b2b_ms``; with the host's time:
+    ``wrapper_ms``, ``library_wrapper_ms``); torch.mv with int64 indices
+    back to back beside them."""
+    import warnings
+
+    import torch
+
+    n = sysm.n
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # sparse CSR is "beta"
+        csr = torch.sparse_csr_tensor(sysm.row_ptr, sysm.cols, sysm.vals,
+                                      (n, n))
+        csr64 = torch.sparse_csr_tensor(sysm.row_ptr.long(),
+                                        sysm.cols.long(), sysm.vals, (n, n))
+    mv = lambda: torch.mv(csr, p)
+    return dict(ms=time_each(spmv, reset), library_ms=time_each(mv, reset),
+                b2b_ms=time_ms(spmv), library_b2b_ms=time_ms(mv),
+                wrapper_ms=time_ms(spmv, host=True),
+                library_wrapper_ms=time_ms(mv, host=True),
+                library_int64_b2b_ms=time_ms(lambda: torch.mv(csr64, p)))
 
 
 def cg_report(what, card, work, wall, out, cg_s):
@@ -3846,6 +4014,12 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms"),
             **({"plain_shape": r["plain_shape"]} if "plain_shape" in r
                else {}),
+            # K8's six passes (phase 1); K24's and torch.mv's back-to-back
+            # times beside the one-launch ones (10b); the library call's
+            # time with the host's (K8, K24)
+            **{k: r[k] for k in ("passes_ms", "b2b_ms", "library_b2b_ms",
+                                 "library_int64_b2b_ms",
+                                 "library_wrapper_ms") if k in r},
             **({"block_ms": r["block_ms"],
                 "block_wrapper_ms": r["block_wrapper_ms"],
                 "block_plain_ms": r["block_plain_ms"],

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no JAX package, cuda by default.
 
-* An AST walk over every module of ``bigstitcher_spark_tpu_torch`` and over
-  ``chip_smoke.py`` finds no import of ``jax`` or ``bigstitcher_spark_tpu``.
+* An AST walk over every module of ``bigstitcher_spark_tpu_torch``, over
+  ``chip_smoke.py`` and ``scripts/kernel_yardsticks.py`` finds no import of
+  ``jax`` or ``bigstitcher_spark_tpu``.
 * Entry points default to ``cuda`` and raise where there is none.
 * The port's argparse accepts every option spelling of the ten JAX click
   commands it ports; the options not yet ported are refused with a pointer
@@ -59,7 +60,8 @@ PKG = os.path.dirname(port.__file__)
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "kernel_yardsticks.py")]
     for d, _dirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

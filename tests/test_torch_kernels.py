@@ -314,6 +314,52 @@ def test_fft_pow2_kernel(dev, shape):
     _fft_close(P.irfftn3(h.clone(), shape[3]), ref)
 
 
+FFT_LENGTHS = [1, 2, 4, 8, 16, 32, 512, 1024, 2048, 8192]
+
+
+def _fft_max_close(got, ref):
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("inner", [1, 3, 65])
+@pytest.mark.parametrize("N", FFT_LENGTHS)
+def test_fft_pow2_c2c_lengths(dev, N, inner):
+    """One c2c pass at every radix remainder (16^a x 1, 2, 4 or 8) and
+    inner counts that are not a multiple of the block's 16 lines: forward
+    and inverse against torch.fft, in place equal to out of place, a
+    rerun bitwise equal."""
+    rng = np.random.default_rng(N + inner)
+    outer = max(1, 4096 // (N * inner))
+    x = torch.from_numpy((rng.normal(size=(outer, N, inner))
+                          + 1j * rng.normal(size=(outer, N, inner)))
+                         .astype(np.complex64)).to(dev)
+    f = P.fft_pow2(x, 1, "c2c")
+    _fft_max_close(f, torch.fft.fft(x, dim=1))
+    assert torch.equal(P.fft_pow2(x, 1, "c2c"), f)
+    g = P.fft_pow2(x, 1, "c2c", inverse=True, scale=0.5)
+    _fft_max_close(g, 0.5 * torch.fft.ifft(x, dim=1, norm="forward"))
+    y = x.clone()
+    assert P.fft_pow2(y, 1, "c2c", out=y) is y
+    assert torch.equal(y, f)
+
+
+@pytest.mark.parametrize("N", FFT_LENGTHS)
+def test_fft_pow2_real_lengths(dev, N):
+    """r2c and c2r through the half-length transform at every length (N =
+    1 and 2 included) against torch.fft, reruns bitwise equal."""
+    rng = np.random.default_rng(40 + N)
+    x = torch.from_numpy(rng.normal(size=(5, N)).astype(np.float32)).to(dev)
+    f = P.fft_pow2(x, 1, "r2c")
+    _fft_max_close(f, torch.fft.rfft(x, dim=-1))
+    assert torch.equal(P.fft_pow2(x, 1, "r2c"), f)
+    h = torch.fft.rfft(torch.from_numpy(
+        rng.normal(size=(5, N)).astype(np.float32)).to(dev), dim=-1)
+    y = P.fft_pow2(h, 1, "c2r", inverse=True, scale=0.25, n=N)
+    _fft_max_close(y, 0.25 * torch.fft.irfft(h, n=N, dim=-1, norm="forward"))
+    assert torch.equal(P.fft_pow2(h, 1, "c2r", inverse=True, scale=0.25,
+                                  n=N), y)
+
+
 def test_fft_pow2_refuses_longer_lines(dev):
     with pytest.raises(ValueError, match="8192"):
         P.fft_pow2(torch.zeros(1, 16384, dtype=torch.complex64, device=dev),
@@ -1022,6 +1068,94 @@ def test_cg_kernels_match_plain(dev, n_views, dims, n_matches):
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def _csr_system(dev, lengths, seed):
+    """A CGSystem with the given row lengths (random columns, values from
+    N(0, 1)), for K24 alone."""
+    rng = np.random.default_rng(seed)
+    n, nnz = len(lengths), int(np.sum(lengths))
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=row_ptr[1:])
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    return R.CGSystem(n, t(row_ptr, np.int32), t(lengths, np.int64),
+                      t(rng.integers(0, n, nnz), np.int32),
+                      t(rng.normal(size=nnz), np.float64),
+                      t(np.zeros(n), np.float64), t(np.zeros(n), np.float64),
+                      0.0, 10)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4, 8, 32])
+@pytest.mark.parametrize("case", ["ones", "mixed", "long", "many"])
+def test_cg_spmv_row_lengths(dev, case, lanes):
+    """K24 on rows of 1 term and of more than 32 terms, with the wrapper's
+    lanes a row (None) and with each lane count, n not a multiple of a
+    block's rows: p_new bitwise, Ap and p.Ap within rtol 1e-12 of the twin;
+    a rerun bitwise equal."""
+    rng = np.random.default_rng(7)
+    lengths = {
+        "ones": np.ones(777, np.int64),
+        "mixed": np.where(rng.random(1001) < 0.03, rng.integers(33, 41, 1001),
+                          rng.choice([1, 2, 7, 8, 9], 1001)),
+        "long": rng.integers(30, 71, 517),
+        "many": rng.integers(4, 12, 300_007)}[case]
+    sysm = _csr_system(dev, lengths, 3)
+    n = sysm.n
+    assert n % 256 != 0
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    r = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    p_old = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    kernel = (R.cg_spmv if lanes is None else
+              lambda *a: R.launch_cg_spmv(*a, lanes=lanes))
+    outs = []
+    for spmv in (kernel, kernel, R.cg_spmv_plain):
+        d, i = R.cg_state(sysm, dev)
+        d[1] = 0.375
+        pn, ap = torch.empty_like(r), torch.empty_like(r)
+        spmv(sysm, r, p_old, pn, ap, d, i)
+        outs.append((pn, ap, d[3:].clone()))
+    (pn, ap, pap), again, (pn2, ap2, pap2) = outs
+    assert all(torch.equal(a, b) for a, b in zip((pn, ap, pap), again))
+    assert torch.equal(pn, pn2)
+    torch.testing.assert_close(ap, ap2, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(pap, pap2, rtol=1e-12, atol=1e-12)
+
+
+def test_cg_spmv_offset_views(dev):
+    """K24 reads lists that are views at an odd offset into larger
+    tensors (no alignment beyond an element's own): within rtol 1e-12 of
+    the twin."""
+    lengths = np.random.default_rng(4).integers(1, 20, 3001)
+    base = _csr_system(dev, lengths, 5)
+    nnz = int(base.cols.numel())
+    cols = torch.zeros(nnz + 1, dtype=torch.int32, device=dev)
+    vals = torch.zeros(nnz + 3, dtype=torch.float64, device=dev)
+    cols[1:].copy_(base.cols)
+    vals[3:].copy_(base.vals)
+    sysm = R.CGSystem(base.n, base.row_ptr, base.row_len, cols[1:], vals[3:],
+                      base.rhs, base.x0, 0.0, 10)
+    r = torch.linspace(-1.0, 1.0, sysm.n, dtype=torch.float64, device=dev)
+    p_old = torch.cos(r)
+    got = []
+    for spmv in (R.cg_spmv, R.cg_spmv_plain):
+        d, i = R.cg_state(sysm, dev)
+        d[1] = 0.5
+        pn, ap = torch.empty_like(r), torch.empty_like(r)
+        spmv(sysm, r, p_old, pn, ap, d, i)
+        got.append((pn, ap, d[3:].clone()))
+    assert torch.equal(got[0][0], got[1][0])
+    for a, b in zip(got[0][1:], got[1][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 64])
+def test_cg_spmv_refuses_bad_lanes(dev, lanes):
+    sysm = _csr_system(dev, np.ones(10, np.int64), 1)
+    v = torch.zeros(10, dtype=torch.float64, device=dev)
+    d, i = R.cg_state(sysm, dev)
+    with pytest.raises(ValueError, match="lanes a row"):
+        R.launch_cg_spmv(sysm, v, v, v.clone(), v.clone(), d, i, lanes=lanes)
 
 
 # ---------------------------------------------------------------- K26
