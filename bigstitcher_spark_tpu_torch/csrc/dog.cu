@@ -11,11 +11,30 @@
 //   Gaussian of 2r+1 taps along one axis, the index mirrored as np.pad's
 //   "reflect" (i < 0 -> -i, i >= n -> 2n-2-i, repeated while out of
 //   range); acc = w[0] x[i-r], then acc = acc + w[q] x[i-r+q] for q = 1..2r.
-//   Reads uint8, uint16, int16 or float32, writes float32. A block's
-//   threads run along z and cover one (b, x) row of Y*Z outputs, so every
-//   tap's reads are coalesced; the 2r other rows a tap touches come from
-//   L2. Six passes make the two blurs. Bound: bytes (each pass reads the
-//   input once and writes the output once).
+//   Reads uint8, uint16, int16 or float32, writes float32. Six passes make
+//   the two blurs. Bound: bytes (each pass reads the input once and writes
+//   the output once: 0.19 ms a pass at 8a's bucket, 2 x 528 x 528 x 144
+//   float32). The first form, a thread an output issuing 2r+1 loads each
+//   behind a mirror loop, took 1.32-1.60 ms a pass: load-issue bound, the
+//   y and z passes re-reading each input 2r+1 times through L1/L2. Now
+//   two forms, chosen by ops/dog.py blur_plan:
+//   - run (x, y; z only where r > 480): a thread owns one line,
+//     neighbouring threads on neighbouring lines (coalesced along x and
+//     y), and walks a run of 16 outputs from a register window of 16 + 2r
+//     inputs: (16 + 2r) / 16 loads an output instead of 2r + 1, the mirror
+//     resolved only in runs that touch an axis end. For r = 6 or 7 (sigma
+//     1.8 and 1.8 * 2^(1/4)) the taps sit in registers; for any other r
+//     the window slides through two blocks of 16 registers while the taps
+//     are read in order, one tap load for 16 outputs;
+//   - row (z, r <= 480): a warp stages a chunk of <= 480 outputs of one
+//     row plus its mirrored 2r halo in shared memory, 8 loads in flight a
+//     lane, converted to float once; for r = 6 or 7 each lane computes 3
+//     neighbouring outputs from a register window of 3 + 2r staged values
+//     (lanes 3 words apart: no bank conflicts), else one output from 2r +
+//     1 shared reads.
+//   Each form takes the same products and sums in the same order, so all
+//   agree bit for bit with the twin, also where an axis is shorter than r
+//   and the mirror repeats.
 //
 // K16 dog_extrema (dog_block :184-217, the halo core :344-352, count
 //   :361): pass 1 dog = (b1 - b2) * scale[b] (scale = (1/(k-1)) * the
@@ -68,40 +87,200 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 // ----------------------------------------------------------------- K15
 
-template <typename T>
-__global__ void blur_kernel(const T* __restrict__ x, int X, int Y, int Z,
-                            int axis, const float* __restrict__ taps, int r,
-                            float* __restrict__ out) {
-  const int yz = Y * Z;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= yz) return;
-  const int i = blockIdx.y, b = blockIdx.z;
-  const int j = t / Z, k = t - j * Z;
-  const int64_t vol = static_cast<int64_t>(X) * yz;
-  const T* src = x + b * vol;
-  int c, n;
-  int64_t stride, base;
-  if (axis == 0) {
-    c = i; n = X; stride = yz; base = t;
-  } else if (axis == 1) {
-    c = j; n = Y; stride = Z; base = static_cast<int64_t>(i) * yz + k;
+constexpr int kBlurRun = 16;         // outputs a thread walks (run form)
+constexpr int kBlurRunThreads = 128;
+constexpr int kBlurRowWarps = 8;     // warps a block (row form)
+constexpr int kBlurMaxChunk = 480;   // z outputs a warp stages at a time
+constexpr int kBlurRowRun = 3;       // outputs a lane (row form, r 6 or 7)
+constexpr int kBlurStage = 8;        // loads in flight a lane when staging
+
+// The run form: a thread owns one line (neighbouring threads on
+// neighbouring lines, so along x and y every load is coalesced) and walks
+// kBlurRun outputs along it, each input of the run's kBlurRun + 2r window
+// read once (the 2r halo again by the neighbouring run); the mirror is
+// resolved only in runs that touch an end of the axis. R = 6 or 7: the
+// window and the taps in registers. R = 0 (the radius r at run time; any
+// axis, z only where r is too long for the row form): the window slides
+// through two register blocks of kBlurRun inputs while the taps are read
+// in order, so each output still takes w[0] x[o], then + w[q] x[o + q]
+// for q = 1..2r.
+template <typename T, int R>
+__global__ void __launch_bounds__(kBlurRunThreads)
+    blur_run_kernel(const T* __restrict__ x, int X, int Y, int Z, int axis,
+                    const float* __restrict__ taps, int r_rt,
+                    float* __restrict__ out) {
+  constexpr int L = kBlurRun;
+  const int r = R > 0 ? R : r_rt;
+  const int64_t yz = static_cast<int64_t>(Y) * Z;
+  const int64_t lines = axis == 0   ? yz
+                        : axis == 1 ? static_cast<int64_t>(X) * Z
+                                    : static_cast<int64_t>(X) * Y;
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (t >= lines) return;
+  const int n = axis == 0 ? X : axis == 1 ? Y : Z;
+  const int64_t stride = axis == 0 ? yz : axis == 1 ? Z : 1;
+  const int64_t base = blockIdx.z * static_cast<int64_t>(X) * yz +
+                       (axis == 0   ? t
+                        : axis == 1 ? (t / Z) * yz + t % Z
+                                    : t * Z);
+  const int c0 = blockIdx.y * L;
+  const bool inner = c0 >= r && c0 + L + r <= n;
+  const T* src = x + base;
+  float* dst = out + base;
+  if constexpr (R > 0) {
+    constexpr int W = L + 2 * R;
+    float w[2 * R + 1];
+#pragma unroll
+    for (int q = 0; q <= 2 * R; ++q) w[q] = taps[q];
+    float v[W];
+    if (inner) {
+#pragma unroll
+      for (int q = 0; q < W; ++q)
+        v[q] = static_cast<float>(src[(c0 - R + q) * stride]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < W; ++q)
+        v[q] = static_cast<float>(src[reflect(c0 - R + q, n) * stride]);
+    }
+#pragma unroll
+    for (int o = 0; o < L; ++o) {  // past n: computed, not stored
+      float acc = w[0] * v[o];
+#pragma unroll
+      for (int q = 1; q <= 2 * R; ++q) acc = acc + w[q] * v[o + q];
+      if (c0 + o < n) dst[(c0 + o) * stride] = acc;
+    }
   } else {
-    c = k; n = Z; stride = 1;
-    base = static_cast<int64_t>(i) * yz + static_cast<int64_t>(j) * Z;
+    // window input u is x[c0 - r + u], u < L + 2r; cur holds u0 .. u0 + L
+    // - 1 and nxt the next L, so tap q = u0 + qq of output o reads cur or
+    // nxt at a compile-time index
+    const int W = L + 2 * r;
+    auto load = [&](int u) {
+      if (u >= W) return 0.0f;
+      const int p = c0 - r + u;
+      return static_cast<float>(src[(inner ? p : reflect(p, n)) * stride]);
+    };
+    float cur[L], nxt[L], acc[L];
+#pragma unroll
+    for (int o = 0; o < L; ++o) cur[o] = load(o);
+    const float w0 = taps[0];
+#pragma unroll
+    for (int o = 0; o < L; ++o) acc[o] = w0 * cur[o];
+    for (int u0 = 0; u0 < 2 * r; u0 += L) {
+#pragma unroll
+      for (int o = 0; o < L; ++o) nxt[o] = load(u0 + L + o);
+#pragma unroll
+      for (int qq = 1; qq <= L; ++qq) {
+        if (u0 + qq <= 2 * r) {
+          const float w = taps[u0 + qq];
+#pragma unroll
+          for (int o = 0; o < L; ++o)
+            acc[o] = acc[o] + w * (o + qq < L ? cur[o + qq] : nxt[o + qq - L]);
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < L; ++o) cur[o] = nxt[o];
+    }
+#pragma unroll
+    for (int o = 0; o < L; ++o)  // past n: computed, not stored
+      if (c0 + o < n) dst[(c0 + o) * stride] = acc[o];
   }
-  float acc = taps[0] * static_cast<float>(src[base + reflect(c - r, n) * stride]);
-  for (int q = 1; q <= 2 * r; ++q)
-    acc = acc + taps[q] * static_cast<float>(
-                              src[base + reflect(c - r + q, n) * stride]);
-  out[b * vol + static_cast<int64_t>(i) * yz + t] = acc;
 }
 
+// The row form, z: a warp stages a chunk of one row plus its mirrored halo
+// in shared memory (coalesced loads, kBlurStage in flight a lane,
+// converted to float once). For r = 6 or 7 each lane then computes
+// kBlurRowRun neighbouring outputs from a register window of kBlurRowRun +
+// 2R staged values (lanes kBlurRowRun words apart, an odd stride: no bank
+// conflicts); R = 0 (the radius r at run time): a lane an output from its
+// 2r + 1 staged values.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * kBlurRowWarps)
+    blur_row_kernel(const T* __restrict__ x, int64_t rows, int Z, int r_rt,
+                    int chunk, const float* __restrict__ taps,
+                    float* __restrict__ out) {
+  extern __shared__ float blur_smem[];
+  const int r = R > 0 ? R : r_rt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = (Z + chunk - 1) / chunk;
+  const int64_t item = blockIdx.x * static_cast<int64_t>(kBlurRowWarps) + warp;
+  if (item >= rows * nch) return;
+  const int64_t row = item / nch;
+  const int z0 = static_cast<int>(item - row * nch) * chunk;
+  const int m = min(chunk, Z - z0);
+  float* s = blur_smem + warp * (chunk + 2 * r + kBlurRowRun);
+  const T* src = x + row * Z;
+  for (int q0 = lane; q0 < m + 2 * r; q0 += 32 * kBlurStage) {
+    float v[kBlurStage];
+#pragma unroll
+    for (int u = 0; u < kBlurStage; ++u) {
+      const int q = q0 + 32 * u;
+      v[u] = q < m + 2 * r ? static_cast<float>(src[reflect(z0 - r + q, Z)])
+                           : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBlurStage; ++u)
+      if (q0 + 32 * u < m + 2 * r) s[q0 + 32 * u] = v[u];
+  }
+  __syncwarp();
+  float* dst = out + row * Z + z0;
+  if (R > 0) {
+    constexpr int L = kBlurRowRun;
+    float w[2 * R + 1];
+#pragma unroll
+    for (int q = 0; q <= 2 * R; ++q) w[q] = taps[q];
+    for (int k0 = lane * L; k0 < m; k0 += 32 * L) {
+      float v[L + 2 * R];
+#pragma unroll
+      for (int q = 0; q < L + 2 * R; ++q) v[q] = s[k0 + q];
+#pragma unroll
+      for (int o = 0; o < L; ++o) {  // past m: computed, not stored
+        float acc = w[0] * v[o];
+#pragma unroll
+        for (int q = 1; q <= 2 * R; ++q) acc = acc + w[q] * v[o + q];
+        if (k0 + o < m) dst[k0 + o] = acc;
+      }
+    }
+  } else {
+    for (int k = lane; k < m; k += 32) {
+      float acc = taps[0] * s[k];
+      for (int q = 1; q <= 2 * r; ++q) acc = acc + taps[q] * s[k + q];
+      dst[k] = acc;
+    }
+  }
+}
+
+enum BlurRoute : int { BLUR_RUN = 0, BLUR_ROW = 1 };
+
 template <typename T>
-void launch_blur(const void* x, int B, int X, int Y, int Z, int axis,
-                 const float* taps, int r, float* out, cudaStream_t s) {
-  const dim3 grid((Y * Z + bst::kThreads - 1) / bst::kThreads, X, B);
-  blur_kernel<T><<<grid, bst::kThreads, 0, s>>>(static_cast<const T*>(x), X,
-                                                 Y, Z, axis, taps, r, out);
+cudaError_t launch_blur(const void* xv, int B, int X, int Y, int Z, int axis,
+                        const float* taps, int r, int route, dim3 grid,
+                        int chunk, float* out, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  if (route == BLUR_RUN) {
+    if (r == 6)
+      blur_run_kernel<T, 6><<<grid, kBlurRunThreads, 0, s>>>(x, X, Y, Z, axis,
+                                                             taps, r, out);
+    else if (r == 7)
+      blur_run_kernel<T, 7><<<grid, kBlurRunThreads, 0, s>>>(x, X, Y, Z, axis,
+                                                             taps, r, out);
+    else
+      blur_run_kernel<T, 0><<<grid, kBlurRunThreads, 0, s>>>(x, X, Y, Z, axis,
+                                                             taps, r, out);
+  } else {
+    const int64_t rows = static_cast<int64_t>(B) * X * Y;
+    const size_t smem =
+        sizeof(float) * kBlurRowWarps * (chunk + 2 * r + kBlurRowRun);
+    if (r == 6)
+      blur_row_kernel<T, 6><<<grid, 32 * kBlurRowWarps, smem, s>>>(
+          x, rows, Z, r, chunk, taps, out);
+    else if (r == 7)
+      blur_row_kernel<T, 7><<<grid, 32 * kBlurRowWarps, smem, s>>>(
+          x, rows, Z, r, chunk, taps, out);
+    else
+      blur_row_kernel<T, 0><<<grid, 32 * kBlurRowWarps, smem, s>>>(
+          x, rows, Z, r, chunk, taps, out);
+  }
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- K16
@@ -375,29 +554,52 @@ __global__ void localize_kernel(const float* __restrict__ dog, int B, int X,
 
 extern "C" int bst_dog_blur(const void* x, int in_dtype, int B, int X, int Y,
                             int Z, int axis, const float* taps, int r,
+                            int route, int gx, int gy, int gz, int chunk,
                             float* out, void* stream) {
+  const int64_t yz = static_cast<int64_t>(Y) * Z;
   if (B < 1 || B > 65535 || X < 1 || X > 65535 || Y < 1 || Z < 1 ||
-      static_cast<int64_t>(Y) * Z > 2147483647LL || axis < 0 || axis > 2 ||
-      r < 0)
+      yz > 2147483647LL || axis < 0 || axis > 2 || r < 0 || gx < 1 ||
+      gy < 1 || gz < 1 || gy > 65535 || gz > 65535)
     return cudaErrorInvalidValue;
+  // the plan of ops/dog.py blur_plan, checked to cover every output once
+  bool ok = false;
+  if (route == BLUR_RUN) {
+    const int64_t lines = axis == 0   ? yz
+                          : axis == 1 ? static_cast<int64_t>(X) * Z
+                                      : static_cast<int64_t>(X) * Y;
+    const int n = axis == 0 ? X : axis == 1 ? Y : Z;
+    ok = (axis < 2 || r > kBlurMaxChunk) && gz == B &&
+         static_cast<int64_t>(gx) * kBlurRunThreads >= lines &&
+         static_cast<int64_t>(gx - 1) * kBlurRunThreads < lines &&
+         static_cast<int64_t>(gy) * kBlurRun >= n &&
+         static_cast<int64_t>(gy - 1) * kBlurRun < n;
+  } else if (route == BLUR_ROW) {
+    const int64_t items =
+        static_cast<int64_t>(B) * X * Y * ((Z + chunk - 1) / (chunk > 0 ? chunk : 1));
+    ok = axis == 2 && chunk >= 1 && chunk <= kBlurMaxChunk && chunk <= Z &&
+         r <= kBlurMaxChunk && gy == 1 && gz == 1 &&
+         static_cast<int64_t>(gx) * kBlurRowWarps >= items &&
+         static_cast<int64_t>(gx - 1) * kBlurRowWarps < items;
+  }
+  if (!ok) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(gx, gy, gz);
   switch (in_dtype) {
     case bst::IN_U8:
-      launch_blur<uint8_t>(x, B, X, Y, Z, axis, taps, r, out, s);
-      break;
+      return launch_blur<uint8_t>(x, B, X, Y, Z, axis, taps, r, route, grid,
+                                  chunk, out, s);
     case bst::IN_U16:
-      launch_blur<uint16_t>(x, B, X, Y, Z, axis, taps, r, out, s);
-      break;
+      return launch_blur<uint16_t>(x, B, X, Y, Z, axis, taps, r, route, grid,
+                                   chunk, out, s);
     case bst::IN_I16:
-      launch_blur<int16_t>(x, B, X, Y, Z, axis, taps, r, out, s);
-      break;
+      return launch_blur<int16_t>(x, B, X, Y, Z, axis, taps, r, route, grid,
+                                  chunk, out, s);
     case bst::IN_F32:
-      launch_blur<float>(x, B, X, Y, Z, axis, taps, r, out, s);
-      break;
+      return launch_blur<float>(x, B, X, Y, Z, axis, taps, r, route, grid,
+                                chunk, out, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bst_dog_extrema(const float* b1, const float* b2, int B, int X,

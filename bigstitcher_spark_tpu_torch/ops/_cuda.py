@@ -91,7 +91,7 @@ _SIGNATURES = {
         "bst_relax_converge": [_VP, _VP, _I, _VP, _I, _D, _I, _VP, _VP],
     },
     "dog": {
-        "bst_dog_blur": [_VP] + [_I] * 6 + [_VP, _I, _VP, _VP],
+        "bst_dog_blur": [_VP] + [_I] * 6 + [_VP] + [_I] * 6 + [_VP, _VP],
         "bst_dog_extrema": [_VP, _VP] + [_I] * 4 + [_VP] * 3 + [_I] * 3
                            + [_VP] * 6,
         "bst_dog_topk": [_VP] * 3 + [_I] * 6 + [_VP] * 3,
@@ -99,7 +99,10 @@ _SIGNATURES = {
     },
     "descriptors": {
         "bst_knn_descriptors": [_VP, _VP] + [_I] * 5 + [_VP, _I] + [_VP] * 4,
-        "bst_ratio_match": [_VP, _I, _VP, _I, _I, _VP, _F] + [_VP] * 5,
+        "bst_ratio_center": [_VP, _I, _I, _VP, _I, _VP, _VP],
+        "bst_ratio_mma_probe": [_VP, _VP, _I, _I, _VP, _VP],
+        "bst_ratio_match": [_VP, _I, _VP, _I, _I, _VP, _F, _VP] + [_I] * 4
+                           + [_VP] * 9,
     },
     "ransac": {
         "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_VP] * 5,

@@ -44,8 +44,9 @@ tests):
 
 from __future__ import annotations
 
+import functools
 import time
-from collections import defaultdict
+from collections import defaultdict, namedtuple
 from contextlib import contextmanager
 from itertools import combinations
 
@@ -67,6 +68,13 @@ MAX_POOL = 8
 MAX_DIM = 24
 # K21 fits at most this many sample pairs a hypothesis
 MAX_SAMPLE = 8
+# K20's launch (csrc/descriptors.cu): a block of RATIO_ROWS rows of A, B
+# streamed in stages of RATIO_TILE columns
+RATIO_ROWS = 256
+RATIO_TILE = 128
+RatioPlan = namedtuple(
+    "RatioPlan", "row_blocks splits tiles_per_split tiles kp wa wb "
+                 "center_parts")
 # the twins' work tiles: at most this many float32 entries a step
 _TWIN_ENTRIES = 1 << 24
 
@@ -376,13 +384,63 @@ def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
 knn_descriptors.launches = 0
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def ratio_plan(Da: int, Db: int, D: int, sms: int = 132) -> RatioPlan:
+    """K20's launch for ``Da`` rows against ``Db`` columns of ``D`` values
+    on a card of ``sms`` multiprocessors: a block per RATIO_ROWS rows; B's
+    tiles of RATIO_TILE columns cut into ``splits`` runs of whole tiles,
+    as many as bring the blocks to two an SM (none empty), each split's
+    states merged in split order; the stored depth of B' ``kp`` (D + 1
+    padded to 16 or 32), the row widths of the centred A and B (``wa``:
+    D + 1, ``wb``: D + 2, padded to 4 floats) and the blocks of B's
+    mean."""
+    row_blocks = _cdiv(Da, RATIO_ROWS)
+    tiles = _cdiv(Db, RATIO_TILE)
+    splits = max(1, min(_cdiv(2 * sms, row_blocks), tiles))
+    per = _cdiv(tiles, splits)
+    return RatioPlan(row_blocks, _cdiv(tiles, per), per, tiles,
+                     16 if D + 1 <= 16 else 32, _cdiv(D + 1, 4) * 4,
+                     _cdiv(D + 2, 4) * 4,
+                     max(1, min(2 * sms, _cdiv(Db, 256))))
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(device: torch.device) -> int:
+    return int(torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def ratio_center(b: torch.Tensor, plan: RatioPlan | None = None):
+    """B's mean as K20 takes it: :func:`_center_plain` on the CPU; on CUDA
+    the float64 block sums of ``csrc/descriptors.cu`` summed in block
+    order and rounded once (the first step of every K20 launch)."""
+    if b.device.type == "cpu":
+        return _center_plain(b)
+    dev = b.device
+    Db, D = (int(v) for v in b.shape)
+    plan = plan or ratio_plan(1, Db, D, _sms(dev))
+    _require(b, "b", dev, _F32)
+    partials = torch.empty(plan.center_parts * D, dtype=torch.float64,
+                           device=dev)
+    center = torch.empty(D, dtype=torch.float32, device=dev)
+    lib = _cuda.load("descriptors")
+    ret = lib.bst_ratio_center(b.data_ptr(), Db, D, partials.data_ptr(),
+                               plan.center_parts, center.data_ptr(),
+                               _stream(dev))
+    _cuda.check(lib, ret, "ratio_center")
+    return center
+
+
 def ratio_match(a: torch.Tensor, b: torch.Tensor,
                 owner: torch.Tensor | None, ratio: float):
     """K20 on CUDA, :func:`ratio_match_plain` on the CPU. ``a`` (Da, D),
     ``b`` (Db, D) float32, ``owner`` (Db,) int32. Ratio mode: (best owner
     (Da,) int32, its squared distance (Da,) float32, accept (Da,) bool);
     nearest mode (``owner`` None): (best column, its squared distance,
-    None)."""
+    None). After a launch ``ratio_match.refined`` holds, on the card, the
+    number of pairs the filter passed to the exact refine (int64 (1,))."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError("a and b must be (Da, D) and (Db, D)")
     D = int(a.shape[1])
@@ -397,23 +455,61 @@ def ratio_match(a: torch.Tensor, b: torch.Tensor,
     _require(b, "b", dev, _F32)
     if owner is not None:
         _require(owner, "owner", dev, _I32, (Db,))
-    center = torch.empty(D, dtype=torch.float32, device=dev)
+    plan = ratio_plan(Da, Db, D, _sms(dev))
+    center = ratio_center(b, plan)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ae = torch.empty(Da * plan.wa, **f32)
+    be = torch.empty(Db * plan.wb, **f32)
+    bt = torch.empty(plan.tiles * RATIO_TILE * plan.kp, **f32)
+    part = torch.empty(plan.splits * Da * 4, **f32)
+    refined = torch.empty(1, dtype=torch.int64, device=dev)
     best = torch.empty(Da, dtype=torch.int32, device=dev)
-    bestd = torch.empty(Da, dtype=torch.float32, device=dev)
+    bestd = torch.empty(Da, **f32)
     accept = (torch.empty(Da, dtype=torch.uint8, device=dev)
               if owner is not None else None)
     lib = _cuda.load("descriptors")
     ret = lib.bst_ratio_match(
         a.data_ptr(), Da, b.data_ptr(), Db, D,
         None if owner is None else owner.data_ptr(), float(ratio),
-        center.data_ptr(), best.data_ptr(), bestd.data_ptr(),
-        None if accept is None else accept.data_ptr(), _stream(dev))
+        center.data_ptr(), plan.row_blocks, plan.splits,
+        plan.tiles_per_split, plan.tiles, ae.data_ptr(), be.data_ptr(),
+        bt.data_ptr(), part.data_ptr(), refined.data_ptr(), best.data_ptr(),
+        bestd.data_ptr(), None if accept is None else accept.data_ptr(),
+        _stream(dev))
     _cuda.check(lib, ret, "ratio_match")
     ratio_match.launches += 1
+    ratio_match.refined = refined
     return best, bestd, (None if accept is None else accept.bool())
 
 
 ratio_match.launches = 0
+ratio_match.refined = None
+
+
+def ratio_filter_dot(a: torch.Tensor, b: torch.Tensor, D: int):
+    """K20's filter dot alone, the tensor cores' sum whose error the
+    kernel's margin bounds: ``a`` (n, 16, kp) and ``b`` (n, 8, kp) float32
+    holding TF32 values (the low 13 bits zero), kp = ``ratio_plan(1, 1,
+    D).kp``; returns (n, 16, 8) a @ b^T as the filter sums it, its MMAs
+    over the first D + 1 of the kp terms. On the CPU the sum of the D + 1
+    terms in float64, rounded once."""
+    kp = ratio_plan(1, 1, D).kp
+    if a.dim() != 3 or tuple(a.shape[1:]) != (16, kp) or b.dim() != 3 \
+            or tuple(b.shape) != (a.shape[0], 8, kp) or a.shape[0] < 1:
+        raise ValueError(f"a and b must be (n, 16, {kp}) and (n, 8, {kp})")
+    if a.device.type == "cpu":
+        return (a[..., :D + 1].double()
+                @ b[..., :D + 1].double().transpose(1, 2)).float()
+    dev = a.device
+    _require(a, "a", dev, _F32)
+    _require(b, "b", dev, _F32)
+    out = torch.empty((a.shape[0], 16, 8), dtype=torch.float32, device=dev)
+    lib = _cuda.load("descriptors")
+    ret = lib.bst_ratio_mma_probe(a.data_ptr(), b.data_ptr(), D,
+                                  int(a.shape[0]), out.data_ptr(),
+                                  _stream(dev))
+    _cuda.check(lib, ret, "ratio_filter_dot")
+    return out
 
 
 def ransac_score(pa: torch.Tensor, pb: torch.Tensor, idx: torch.Tensor,

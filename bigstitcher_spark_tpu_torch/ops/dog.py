@@ -63,6 +63,17 @@ from .fusion import _IN_CODE, _require, _stream
 DOG_K = float(2.0 ** (1.0 / 4.0))
 # K17 keeps at most this many candidates per block (its shared buffer)
 MAX_TOPK = 8192
+# K15's launch plan (csrc/dog.cu): the run form walks BLUR_RUN outputs a
+# thread along a line (BLUR_RUN_THREADS threads a block), x and y, and z
+# where the radius exceeds BLUR_CHUNK; the row form stages at most
+# BLUR_CHUNK z outputs of a row a warp (BLUR_ROW_WARPS warps a block; a
+# multiple of the 96 outputs a warp computes at a time, 3 a lane)
+BLUR_RUN = 16
+BLUR_RUN_THREADS = 128
+BLUR_CHUNK = 480
+BLUR_ROW_WARPS = 8
+_BLUR_ROUTES = {"run": 0, "row": 1}
+BlurPlan = namedtuple("BlurPlan", "route grid chunk")
 _TB_SCALE = 2.0 ** -30
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
@@ -356,6 +367,27 @@ def _batch_shape(t: torch.Tensor, name: str) -> tuple[int, int, int, int]:
     return shape
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def blur_plan(B: int, X: int, Y: int, Z: int, axis: int, r: int) -> BlurPlan:
+    """K15's launch for one pass of radius ``r`` along ``axis`` of a (B, X,
+    Y, Z) batch: the form ("run" or "row"), its grid and, for the row
+    form, the z chunk a warp stages. Run: a thread per line of the other
+    two axes (the later one fastest), a block per BLUR_RUN_THREADS lines,
+    grid (lines / threads, runs of BLUR_RUN along the axis, B). Row (z,
+    r <= BLUR_CHUNK): a warp per chunk of a row, grid (rows x chunks /
+    BLUR_ROW_WARPS, 1, 1)."""
+    if axis == 2 and r <= BLUR_CHUNK:
+        chunk = min(int(Z), BLUR_CHUNK)
+        items = B * X * Y * _cdiv(Z, chunk)
+        return BlurPlan("row", (_cdiv(items, BLUR_ROW_WARPS), 1, 1), chunk)
+    lines, n = ((Y * Z, X), (X * Z, Y), (X * Y, Z))[axis]
+    return BlurPlan("run", (_cdiv(lines, BLUR_RUN_THREADS),
+                            _cdiv(n, BLUR_RUN), B), 0)
+
+
 def dog_blur(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """K15 (``csrc/dog.cu``) on CUDA, :func:`blur_plain` on the CPU: one
     mirrored 1-D Gaussian pass along ``axis`` of a (B, X, Y, Z) batch of
@@ -368,10 +400,13 @@ def dog_blur(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     if taps.ndim != 1 or taps.size % 2 != 1 or axis not in (0, 1, 2):
         raise ValueError("taps must be an odd-length 1-D kernel, axis 0-2")
     w = _taps_on(taps.tobytes(), str(x.device))
+    r = taps.size // 2
+    plan = blur_plan(B, X, Y, Z, int(axis), r)
     out = torch.empty((B, X, Y, Z), dtype=torch.float32, device=x.device)
     lib = _cuda.load("dog")
     ret = lib.bst_dog_blur(x.data_ptr(), _IN_CODE[x.dtype], B, X, Y, Z,
-                           int(axis), w.data_ptr(), taps.size // 2,
+                           int(axis), w.data_ptr(), r,
+                           _BLUR_ROUTES[plan.route], *plan.grid, plan.chunk,
                            out.data_ptr(), _stream(x.device))
     _cuda.check(lib, ret, "dog_blur")
     dog_blur.launches += 1

@@ -114,7 +114,8 @@ Phase 8  detect-interestpoints through the port's CLI entry function on
          prints its wall, det-res voxels/s (core voxels over the wall, host
          IO included) and the split (min/max, read, H2D, kernels by CUDA
          events, D2H, host tail, store). K15-K18 are timed at 8a's bucket
-         beside their bounds, K17 beside torch.topk on the dense score.
+         beside their bounds (K15 also each of its six passes alone), K17
+         beside torch.topk on the dense score.
          8d, 8a's arguments through detect_interest_points with
          extract_descriptors (K15-K18, then K19's masked form on each
          block's 4,096 candidate slots): points and values identical to
@@ -144,11 +145,14 @@ Phase 9  match-interestpoints through the port's CLI entry function. 9a:
          --ransacMultiConsensus and -sr 10 (each stores links that join
          the same bead). K19-K22 are held against their twins
          on the card at 9a's first pair and at 9b (K19 and K20 on 8,192
-         rows of A): K19 indices, descriptors and flags, K20 owners, flags
-         and distances, K21 counts, models and best bitwise; K22 masks and
-         counts equal, models within rtol 1e-9. They are timed at 9b's
-         shapes beside their bounds; no single PyTorch call computes any
-         of them (library none).
+         rows of A, K20 also on A's last 4,096 descriptor rows, its ragged
+         last row block): K19 indices, descriptors and flags, K20 owners,
+         flags and distances, K21 counts, models and best bitwise; K22
+         masks and counts equal, models within rtol 1e-9. They are timed
+         at 9b's shapes beside their bounds (K20's for the work of its
+         TF32 filter and exact refine, beside the exact SIMT work's; the
+         share of pairs its filter refined and B's mean alone printed); no
+         single PyTorch call computes any of them (library none).
 Phase 10 the intensity-correction chain through the port's CLI entry
          functions on route A's geometry (2x2x1 tiles of 1024x1024x128
          uint16, 102 px overlap, raw N5) built as the JAX intensity
@@ -245,6 +249,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 F64_OPS_PER_S = 34e12         # H100 SXM float64 vector (not tensor core)
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # kernel wrapper -> (its source under csrc/, the JAX device program it
 # replaces, file:line under bigstitcher_spark_tpu/)
@@ -369,7 +374,8 @@ ROUTE_KERNELS.update({
     "S 1,1,1": PCM_KERNELS,
     "S rendered": PCM_KERNELS + ("fuse_block",),
     "7a": RELAX_KERNELS, "7b": RELAX_KERNELS, "7c": RELAX_KERNELS,
-    "8a": DET_KERNELS + ("downsample_batch",), "8b": DET_KERNELS,
+    "8a": DET_KERNELS + ("downsample_batch",),
+    "8a again": DET_KERNELS + ("downsample_batch",), "8b": DET_KERNELS,
     "8c": DET_KERNELS + ("downsample_batch",),
     "9a": MATCH_KERNELS, "9a solver": RELAX_KERNELS, "9b": MATCH_KERNELS,
     "9c ICP": ("ratio_match", "ransac_score", "ransac_refit"),
@@ -2093,13 +2099,18 @@ def det_kernel_times(rec, card):
         plain_ms=time_ms(lambda: G.localize_plain(dog, idx, valid)),
         library_ms=None,
         bound=bound(nvalid * (19 * 4 + 13 + 16), nvalid * OPS["dog_fit"]))
-    taps = G.gaussian_kernel_1d(sigma)
-    one = [time_ms(lambda ax=ax: G.dog_blur(xp, taps, ax), reps=10)
-           for ax in range(3)]
-    print(f"  dog_blur one {len(taps)}-tap pass along x, y, z at 8a's bucket "
-          f"[{card}]: {one} ms; bound "
-          f"{bound(B * n * (xp.element_size() + 4), 0)[0]:.4f} ms a pass",
-          flush=True)
+    passes, b_in = {}, xp
+    for s in (sigma, sigma * G.DOG_K):
+        taps, b = G.gaussian_kernel_1d(s), b_in
+        for ax in range(3):
+            passes[f"{len(taps)}-tap {'xyz'[ax]}"] = time_ms(
+                lambda b=b, t=taps, a=ax: G.dog_blur(b, t, a), reps=10)
+            b = G.dog_blur(b, taps, ax)
+    res["dog_blur"]["passes_ms"] = passes
+    print(f"  dog_blur's six passes at 8a's bucket [{card}]: " + ", ".join(
+        f"{k} {v} ms" for k, v in passes.items()) + "; bound "
+        f"{bound(B * n * (xp.element_size() + 4), 0)[0]:.4f} ms a pass "
+        "(float32 in)", flush=True)
     for name, r in res.items():
         r["wrapper_ms"] = r["ms"]
         print(f"  {name} at 8a's bucket {B} x {shape} (k {k}, {cand} "
@@ -2197,6 +2208,16 @@ def phase8_detection(proj, scale, dev, card, launches):
     ref = ["-l", "beads", "-s", "1.8", "-t", "0.008", *block]
     run_a, rec_a, err_a = detect_run(
         proj, [*ref, "-dsxy", "2", "-dsz", "1"], "8a", dev, card, launches)
+    # 8a again in the same process, its launches not added to the main
+    # path's: its kernels column without the one-time costs of the first
+    # detection run (each kernel's module loaded at its first launch)
+    run_a2 = detect_run(proj, [*ref, "-dsxy", "2", "-dsz", "1"], "8a again",
+                        dev, card, {})[0]
+    for da, d2 in zip(run_a.detections, run_a2.detections):
+        check(np.array_equal(da.points, d2.points)
+              and np.array_equal(da.values, d2.values),
+              f"8a again {d2.view}: {len(d2.points)} points and values "
+              "identical to 8a's")
     run_b, _r, err_b = detect_run(
         proj, [*ref, "-dsxy", "1", "-dsz", "1"], "8b", dev, card, launches)
     # at the default block each view's overlap region is one block: a
@@ -2378,14 +2399,17 @@ def phase8d_extract(proj, run_a, scale, dev, card, launches):
 
 
 def match_kernel_checks(what, wa, wb, dev, rows=None, iterations=10000,
-                        seed=17):
+                        seed=17, tail_rows=0):
     """K19-K22 against their twins on the card at one pair's shapes: the
     clouds ``wa``, ``wb`` (world coordinates), their descriptors at the
     reference defaults (-n 3 -r 1, FAST_ROTATION), the candidates and
     ``iterations`` hypotheses drawn as the run draws them. ``rows`` (a
-    slice) limits the twins of K19 and K20 to those rows of A. K19: indices
-    and flags equal, descriptors bitwise; K20: owners and accept flags
-    equal, best distances bitwise; K21: counts and models bitwise, the
+    slice) limits the twins of K19 and K20 to those rows of A; with
+    ``tail_rows`` K20 is also held on A's last ``tail_rows`` descriptor
+    rows (its ragged last row block). K19: indices and flags equal,
+    descriptors bitwise; K20: owners and accept flags equal, best
+    distances bitwise, and in nearest mode (no owners) the columns equal
+    and the distances bitwise; K21: counts and models bitwise, the
     same best; K22: masks and counts equal, models within rtol 1e-9 /
     atol 1e-9 (float64 moments summed in another order). Returns (max
     |delta| per kernel, the inputs for timing)."""
@@ -2411,13 +2435,28 @@ def match_kernel_checks(what, wa, wb, dev, rows=None, iterations=10000,
                       ).repeat_interleave(s)
     drows = slice(rows.start * s, rows.stop * s)
     best, bestd, acc = DS.ratio_match(da, db, ob, 3.0)
-    pbest, pbestd, pacc = DS.ratio_match_plain(da, db, ob, 3.0, rows=drows)
-    err["ratio_match"] = max_abs(bestd[drows], pbestd)
-    check(torch.equal(best[drows], pbest) and torch.equal(acc[drows], pacc)
-          and err["ratio_match"] == 0.0,
-          f"{what}: K20 owners, accept flags and distances of descriptors "
-          f"{drows.start}-{drows.stop} of {len(da)} equal the twin's "
-          f"({len(db)} columns)")
+    err["ratio_match"] = 0.0
+    slices = [drows] + ([slice(len(da) - tail_rows, len(da))] if tail_rows
+                        else [])
+    for sl in slices:
+        pbest, pbestd, pacc = DS.ratio_match_plain(da, db, ob, 3.0, rows=sl)
+        e = max_abs(bestd[sl], pbestd)
+        err["ratio_match"] = max(err["ratio_match"], e)
+        check(torch.equal(best[sl], pbest) and torch.equal(acc[sl], pacc)
+              and e == 0.0,
+              f"{what}: K20 owners, accept flags and distances of "
+              f"descriptors {sl.start}-{sl.stop} of {len(da)} equal the "
+              f"twin's ({len(db)} columns)")
+    # nearest mode (ICP's), a filter of its own (the threshold on d1)
+    nbest, nbestd, _n = DS.ratio_match(da, db, None, 3.0)
+    for sl in slices:
+        pbest, pbestd, _p = DS.ratio_match_plain(da, db, None, 3.0, rows=sl)
+        e = max_abs(nbestd[sl], pbestd)
+        err["ratio_match"] = max(err["ratio_match"], e)
+        check(torch.equal(nbest[sl], pbest) and e == 0.0,
+              f"{what}: K20 nearest mode, columns and distances of "
+              f"descriptors {sl.start}-{sl.stop} of {len(da)} equal the "
+              f"twin's ({len(db)} columns)")
     oa = torch.arange(len(wa), device=dev).repeat_interleave(s)
     cand = torch.unique(torch.stack([oa[acc], best[acc].long()], 1), dim=0)
     ca = pa[cand[:, 0]].contiguous()
@@ -2477,15 +2516,19 @@ def match_kernel_times(t, card):
         plain_shape=f"rows {rows.start}-{rows.stop} of {n}",
         library_ms=None,
         bound=bound(n * (12 + 16 + 4 * 36), n * n * OPS["knn_pair"]))
+    DS.ratio_match(da, db, ob, 3.0)
+    refined = ratio_refined(DS)
     res["ratio_match"] = dict(
-        ms=time_ms(lambda: DS.ratio_match(da, db, ob, 3.0), reps=1),
+        ms=time_ms(lambda: DS.ratio_match(da, db, ob, 3.0), reps=2),
         plain_ms=time_ms(lambda: DS.ratio_match_plain(da, db, ob, 3.0,
                                                       rows=drows),
                          reps=1, rounds=1),
         plain_shape=f"rows {drows.start}-{drows.stop} of {len(da)}",
-        library_ms=None,
-        bound=bound((len(da) + len(db)) * 36 + len(db) * 4 + len(da) * 9,
-                    len(da) * len(db) * (2 * 9 + 3)))
+        library_ms=None, refined=refined,
+        refined_share=refined / (float(len(da)) * len(db)),
+        center_ms=time_ms(lambda: DS.ratio_center(db), reps=10))
+    res["ratio_match"]["bound"], res["ratio_match"]["simt_bound_ms"] = \
+        ratio_bound(len(da), len(db), 9, refined)
     res["ransac_score"] = dict(
         ms=time_ms(lambda: DS.ransac_score(t["ca"], t["cb"], t["idx"], 5.0,
                                            "AFFINE"), reps=5),
@@ -2505,13 +2548,128 @@ def match_kernel_times(t, card):
               "ratio_match": f"{len(da)} x {len(db)} descriptors of 9",
               "ransac_score": f"{iters} hypotheses x {m} candidates",
               "ransac_refit": f"{m} candidates"}
+    res["ratio_match"]["wrapper_ms"] = time_ms(
+        lambda: DS.ratio_match(da, db, ob, 3.0), reps=2, host=True)
     for name, r in res.items():
-        r["wrapper_ms"] = r["ms"]
+        r.setdefault("wrapper_ms", r["ms"])
         print(f"  {name} at 9b's {shapes[name]} [{card}]: kernel {r['ms']} "
               f"ms  plain {r['plain_ms']} ms ({r['plain_shape']})  bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
               flush=True)
+    r = res["ratio_match"]
+    print(f"  ratio_match at 9b [{card}]: {r['refined']} pairs refined "
+          f"exactly (share {r['refined_share']:.3e} of "
+          f"{len(da)} x {len(db)}); B's mean alone {r['center_ms']} ms; "
+          f"with the host's time {r['wrapper_ms']} ms; the exact SIMT "
+          f"work's bound {r['simt_bound_ms']:.4f} ms", flush=True)
     return res
+
+
+def ratio_bound(Da, Db, D, refined):
+    """K20's bound for the work of the filter-and-refine design: the TF32
+    dot of depth D + 1 (the D products and b2 folded in as one more term:
+    2 (D + 1) operations a pair; the zeros that pad the MMA's depth to 12
+    for D = 9 are the instruction shape's cost, not the function's) at
+    the tensor cores' dense rate, plus one float32 compare a pair and the
+    refined pairs' 2D + 3 exact operations at the float32 rate; beside it
+    the bound of the exact SIMT work alone (2D + 3 a pair, float32), the
+    one-thread-a-row form's. Bytes (A, B, owners, outputs) are far below
+    both. Returns ((ms, "operations"), simt ms)."""
+    pairs = float(Da) * float(Db)
+    ms = (pairs * 2 * (D + 1) / TF32_OPS_PER_S
+          + (pairs + float(refined) * (2 * D + 3)) / F32_OPS_PER_S) * 1e3
+    tb = bound((Da + Db) * D * 4 + Db * 4 + Da * 9, 0)[0]
+    simt = bound(0, pairs * (2 * D + 3))[0]
+    return (max(ms, tb), "operations" if ms >= tb else "bytes"), simt
+
+
+def ratio_refined(DS):
+    """The pairs K20's last launch refined exactly (None for a tree whose
+    K20 has no filter)."""
+    t = getattr(DS.ratio_match, "refined", None)
+    return None if t is None else int(t.item())
+
+
+def ratio_times(da, db, ob, card, check_rows=(slice(0, 4096),)):
+    """K20 at one shape (9b's: 400,000 x 400,000 descriptors of 9, owners
+    in runs of 4): bitwise against the twin on each row slice of
+    ``check_rows`` (owners, distances, accept flags, and in nearest mode
+    columns and distances), then its card time back to back, its time
+    with the host's (no spin), B's mean alone on the card, the pairs
+    refined and the bounds. Works on a tree whose K20 predates the filter
+    (no refined count, no mean alone)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    Da, D = (int(v) for v in da.shape)
+    Db = int(db.shape[0])
+    for own in (ob, None):
+        got = DS.ratio_match(da, db, own, 3.0)
+        for rows in check_rows:
+            ref = DS.ratio_match_plain(da, db, own, 3.0, rows=rows)
+            same = (torch.equal(got[0][rows], ref[0])
+                    and torch.equal(got[1][rows], ref[1])
+                    and (own is None or torch.equal(got[2][rows], ref[2])))
+            check(same, f"K20 ({'ratio' if own is not None else 'nearest'}"
+                        f" mode) rows {rows.start}-{rows.stop} of {Da} x "
+                        f"{Db}: bitwise the twin's")
+    DS.ratio_match(da, db, ob, 3.0)
+    refined = ratio_refined(DS)
+    r = dict(ms=time_ms(lambda: DS.ratio_match(da, db, ob, 3.0), reps=2),
+             wrapper_ms=time_ms(lambda: DS.ratio_match(da, db, ob, 3.0),
+                                reps=2, host=True),
+             refined=refined,
+             refined_share=(None if refined is None
+                            else refined / (float(Da) * Db)),
+             center_ms=(time_ms(lambda: DS.ratio_center(db), reps=10)
+                        if hasattr(DS, "ratio_center") else None))
+    r["bound"], r["simt_bound_ms"] = ratio_bound(Da, Db, D, refined or 0)
+    print(f"  ratio_match {Da} x {Db} descriptors of {D} [{card}]: kernel "
+          f"{r['ms']} ms  with the host's time {r['wrapper_ms']} ms  bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; the exact SIMT work "
+          f"alone {r['simt_bound_ms']:.4f} ms)  refined pairs {refined} "
+          f"(share {r['refined_share']})  B's mean alone "
+          f"{r['center_ms']} ms", flush=True)
+    return r
+
+
+def blur_times(xp, sigma, card):
+    """K15's six passes (sigma and sigma 2^(1/4), along x, y, z) on
+    ``xp``, each bitwise against the twin on the card, each timed alone
+    (card time, back to back), the six together, and the six with the
+    host's time; the bound a pass (its input read once, its float32
+    output written once)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+
+    B = int(xp.shape[0])
+    n = int(xp[0].numel())
+    passes, b_in = {}, []
+    for s in (sigma, sigma * G.DOG_K):
+        taps, b = G.gaussian_kernel_1d(s), xp
+        for ax in range(3):
+            nb = G.dog_blur(b, taps, ax)
+            check(torch.equal(nb, G.blur_plain(b, taps, ax)),
+                  f"K15 {len(taps)} taps along axis {ax} of "
+                  f"{tuple(xp.shape)}: bitwise the twin's")
+            key = f"{len(taps)}-tap {'xyz'[ax]}"
+            passes[key] = time_ms(lambda b=b, t=taps, a=ax: G.dog_blur(b, t, a),
+                                  reps=10)
+            b_in.append(b.element_size())
+            b = nb
+    six = lambda: G._blurs(G.KERNELS, xp, sigma)
+    r = dict(passes_ms=passes, ms=time_ms(six, reps=5),
+             wrapper_ms=time_ms(six, reps=5, host=True),
+             bound=bound(sum(B * n * (e + 4) for e in b_in), 0),
+             pass_bound_ms=bound(B * n * (4 + 4), 0)[0])
+    print(f"  dog_blur six passes at {tuple(xp.shape)} {xp.dtype} [{card}]: "
+          f"{r['ms']} ms (with the host's time {r['wrapper_ms']} ms), bound "
+          f"{r['bound'][0]:.4f} ms; a float32 pass's bound "
+          f"{r['pass_bound_ms']:.4f} ms; passes " + ", ".join(
+              f"{k} {v} ms" for k, v in passes.items()), flush=True)
+    return r
 
 
 def match_cli(xml, args, route, dev, card, launches):
@@ -2688,7 +2846,8 @@ def phase9_matching(work, proj, det_b, scale, dev, card, launches, gate8d):
           f"9b: model maps A within {rms:.4f} < 0.1 px RMS of the truth; "
           f"{len(pairs)} inliers >= 0.7 x {n_common} common points")
     e9b, inputs = match_kernel_checks(
-        "9b", wa, wb, dev, rows=slice(0, SCALES[scale]["twin_rows"]))
+        "9b", wa, wb, dev, rows=slice(0, SCALES[scale]["twin_rows"]),
+        tail_rows=SCALES[scale]["twin_rows"] // 2)
     for k, v in e9b.items():
         err[k] = max(err.get(k, 0.0), v)
 
@@ -4020,6 +4179,10 @@ def main(argv=None) -> int:
             **{k: r[k] for k in ("passes_ms", "b2b_ms", "library_b2b_ms",
                                  "library_int64_b2b_ms",
                                  "library_wrapper_ms") if k in r},
+            # K20 (9b): the pairs its filter refined, B's mean alone, the
+            # bound of the exact SIMT work alone
+            **{k: r[k] for k in ("refined", "refined_share", "center_ms",
+                                 "simt_bound_ms") if k in r},
             **({"block_ms": r["block_ms"],
                 "block_wrapper_ms": r["block_wrapper_ms"],
                 "block_plain_ms": r["block_plain_ms"],

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""K8 (FFT) and K24 (CG product) beside their library yardsticks, on one GPU.
+"""K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
+(ratio test) and K15 (blur pass) beside their bounds, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
-        [--buckets B,X,Y,Z;...] [--lanes G,G,...] [--only fft|cg]
+        [--buckets B,X,Y,Z;...] [--lanes G,G,...]
+        [--only fft|cg|ratio|blur] [--sigmas S,S,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
 in), so that two trees, e.g. a parent commit unpacked with ``git archive``
@@ -19,7 +21,16 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   8x8x8 cells: 524,288 unknowns): one K24 + K25 step held against the
   twins (rtol 1e-12), then K24 and torch.mv on the CSR matrix with
   K24's int32 indices, each one launch after a reset and back to back,
-  and with ``--lanes`` K24 launched directly at each lane count.
+  and with ``--lanes`` K24 launched directly at each lane count;
+- ``ratio_times`` at 9b's shape (K19's descriptors of the nucleus-scale
+  pair: 400,000 x 400,000 of 9, owners in runs of 4): K20 bitwise against
+  its twin on the first 4,096 rows and the last 2,048 (ratio and nearest
+  mode), then its card time, its time with the host's, the pairs its
+  filter refined and B's mean alone (trees that have them);
+- ``blur_times`` at 8a's bucket (2 x 528 x 528 x 144 float32): K15's six
+  passes each bitwise against its twin and timed alone, and together, at
+  sigma 1.8 (the reference's default: radii 6 and 7) or at each of
+  ``--sigmas`` (e.g. 3.0: radii 9 and 11, taken at run time).
 
 Prints the card (nvidia-smi name and power limit), then one JSON line
 ``{"root": ..., "kernels": {name: {...}}}``. Exits 2 without a card; with
@@ -47,7 +58,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", default="",
                     help="K24 also launched with these lanes a row, e.g. "
                          "1,4,8,16")
-    ap.add_argument("--only", choices=("fft", "cg"), default=None)
+    ap.add_argument("--only", choices=("fft", "cg", "ratio", "blur"),
+                    default=None)
+    ap.add_argument("--sigmas", default="1.8",
+                    help="K15's blur sigmas, S,S,... (default 1.8)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -60,6 +74,7 @@ def main(argv=None) -> int:
     import torch
 
     import bigstitcher_spark_tpu_torch as port
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
     from bigstitcher_spark_tpu_torch.ops import intensity as OI
     from bigstitcher_spark_tpu_torch.ops import solve as R
 
@@ -80,8 +95,27 @@ def main(argv=None) -> int:
                else [cfg["pcm_bucket"]])
     lanes = tuple(int(g) for g in args.lanes.split(",") if g)
     out = {}
+    only = (args.only,) if args.only else ("fft", "cg")
     try:
-        for bucket in buckets if args.only != "cg" else ():
+        if "blur" in only:
+            shape = (2, 528, 528, 144) if args.scale == "full" else (
+                2, 40, 36, 20)
+            x = c(np.random.default_rng(2024).normal(
+                100.0, 10.0, shape).astype(np.float32))
+            for s in (float(v) for v in args.sigmas.split(",")):
+                out["dog_blur" if s == 1.8 else f"dog_blur sigma {s}"] = \
+                    CS.blur_times(x, s, card)
+        if "ratio" in only:
+            wa, wb = CS.make_clouds(args.scale)[:2]
+            pa, pb = (c(w.astype(np.float32))[None] for w in (wa, wb))
+            da = DS.knn_descriptors(pa, None, 3, 1, True)[1].reshape(-1, 9)
+            db = DS.knn_descriptors(pb, None, 3, 1, True)[1].reshape(-1, 9)
+            ob = torch.arange(len(wb), dtype=torch.int32,
+                              device=dev).repeat_interleave(4)
+            Da = len(da)
+            rows = (slice(0, min(4096, Da)), slice(max(0, Da - 2048), Da))
+            out["ratio_match"] = CS.ratio_times(da, db, ob, card, rows)
+        for bucket in buckets if "fft" in only else ():
             res = CS.pcm_times(np.random.default_rng(2024), c, bucket)
             name = "fft_pow2 " + ",".join(map(str, bucket))
             CS.print_times(name, res["fft_pow2"], card)
@@ -89,7 +123,7 @@ def main(argv=None) -> int:
                 f"{k} {v} ms" for k, v in res["fft_pow2"]["passes_ms"].items()),
                 flush=True)
             out[name] = res["fft_pow2"]
-        if args.only != "fft":
+        if "cg" in only:
             C, matches, smooth = CS.large_intensity_system(cfg["ip_grid"])
             sysm = R.assemble_cg(
                 C, *OI.intensity_system(C, matches, 0.1, smooth), dev)

@@ -29,7 +29,8 @@ within 1e-5 px, val within rtol 1e-6. K19 (kNN descriptors), K20 (ratio
 test) and K21 (RANSAC scores) take the same float32 operations in the
 same order as their twins: indices, owners, flags and counts equal,
 descriptors, distances and models bitwise (K20's mean of B is a float64
-sum in another order, rounded once). K22 (refit, float64): masks and
+sum in another order, rounded once; its TF32 filter only decides which
+pairs it recomputes exactly). K22 (refit, float64): masks and
 counts equal, models within rtol 1e-9 / atol 1e-9 (moments summed in
 another order). K26 (non-rigid fusion) at the fusion kernels' tolerances:
 it rounds where its twin rounds (the twin's fused multiply-adds in
@@ -607,8 +608,9 @@ def _beads(rng, B, shape, n=12, amp=900.0, dtype=np.float32):
             r2 = sum((g - c) ** 2 for g, c in zip(grid, p))
             v += amp * np.exp(-r2 / (2 * 1.8 ** 2)).astype(np.float32)
         out[b] = v
-    if dtype == np.uint16:
-        out = np.round(out).astype(np.uint16)
+    if dtype != np.float32:
+        info = np.iinfo(dtype)
+        out = np.clip(np.round(out), info.min, info.max).astype(dtype)
     return torch.from_numpy(out)
 
 
@@ -622,8 +624,11 @@ def _cand_sets(cand_idx, cand_score, count):
     return out
 
 
+BLUR_DTYPES = [np.uint8, np.uint16, np.int16, np.float32]
+
+
 @pytest.mark.parametrize("axis", [0, 1, 2])
-@pytest.mark.parametrize("dtype", [np.uint16, np.float32], ids=str)
+@pytest.mark.parametrize("dtype", BLUR_DTYPES, ids=str)
 def test_dog_blur_kernel(dev, axis, dtype):
     """K15 and its twin take the same products and sums in the same order:
     bitwise equal, also where the mirror repeats (a 5-voxel axis under a
@@ -633,6 +638,40 @@ def test_dog_blur_kernel(dev, axis, dtype):
         taps = G.gaussian_kernel_1d(sigma)
         got, ref = G.dog_blur(x, taps, axis), G.blur_plain(x, taps, axis)
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 3), (2, 1, 17), (3, 19, 1),
+                                   (17, 33, 23), (5, 21, 600),
+                                   (40, 3, 129)], ids=str)
+@pytest.mark.parametrize("dtype", BLUR_DTYPES, ids=str)
+def test_dog_blur_kernel_shapes(dev, shape, dtype):
+    """K15's forms (run: radii 6 and 7 along x, y, and radii taken at run
+    time, sigma 0.9 and 5.5 (r 3 and 17: one and three register blocks of
+    the sliding window); row: z, one chunk or two, the same radii) bitwise
+    equal to the twin on shapes that are no multiple of the run (16) or
+    the line block (128), on axes of length 1 and 2 and shorter than r,
+    for every input type."""
+    x = _beads(np.random.default_rng(sum(shape)), 2, shape, n=3,
+               dtype=dtype).to(dev)
+    for sigma in (1.8, 1.8 * G.DOG_K, 0.9, 5.5):
+        taps = G.gaussian_kernel_1d(sigma)
+        for axis in range(3):
+            got, ref = G.dog_blur(x, taps, axis), G.blur_plain(x, taps, axis)
+            assert torch.equal(got, ref), (sigma, axis)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 7), (2, 3, 40)], ids=str)
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32], ids=str)
+def test_dog_blur_kernel_long_radius(dev, shape, dtype):
+    """A radius past the row form's chunk (sigma 161: r = 483) takes z in
+    the run form at run time, bitwise equal to the twin, the mirror
+    repeating many times over the short axis."""
+    x = _beads(np.random.default_rng(sum(shape)), 2, shape, n=3,
+               dtype=dtype).to(dev)
+    taps = G.gaussian_kernel_1d(161.0)
+    assert G.blur_plan(2, *shape, 2, taps.size // 2).route == "run"
+    got, ref = G.dog_blur(x, taps, 2), G.blur_plain(x, taps, 2)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("find_max,find_min", [(True, False), (False, True),
@@ -828,8 +867,11 @@ def test_knn_descriptors_row_slice_twin(dev):
         assert torch.equal(g[:, 1200:2200], e)
 
 
-@pytest.mark.parametrize("D", [3, 9, 24])
+@pytest.mark.parametrize("D", list(range(3, DS.MAX_DIM + 1, 3)))
 def test_ratio_match_kernel(dev, D):
+    """K20 bitwise equal to its twin at every descriptor width (the
+    filter's depth 16 up to D = 15, 32 above), in ratio and nearest mode;
+    its filter refines some pairs and never more than all."""
     rng = np.random.default_rng(24)
     b = torch.from_numpy(rng.normal(0, 5, (4000, D)).astype(np.float32) + 100)
     a = (b[::3] + torch.from_numpy(rng.normal(0, 0.1, (1334, D)).astype(
@@ -841,6 +883,131 @@ def test_ratio_match_kernel(dev, D):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         if own is not None:
             assert torch.equal(got[2], ref[2])
+        assert 0 < int(DS.ratio_match.refined) <= 1334 * 4000
+
+
+def _ratio_case(name, rng):
+    """Adversarial K20 inputs: (a, b, owner or None, ratio)."""
+    f = np.float32
+    if name == "ties across owners":
+        base = rng.integers(-4, 5, (40, 9)).astype(f)
+        b = np.concatenate([base, base, base[::-1]])
+        a = np.concatenate([base[:12], base[:6] + 1.0])
+        return a, b, np.arange(len(b), dtype=np.int32), 1.0
+    if name == "same-owner runs":
+        pts = rng.normal(0, 3, (750, 9)).astype(f)
+        b = np.repeat(pts, 4, 0) + rng.normal(0, 0.01, (3000, 9)).astype(f)
+        a = (b[::13] + rng.normal(0, 0.02, (231, 9))).astype(f)
+        return a, b, np.repeat(np.arange(750, dtype=np.int32), 4), 3.0
+    if name == "one owner":
+        b = rng.normal(0, 1, (2000, 6)).astype(f)
+        return (b[:300] + 0.1).astype(f), b, np.zeros(2000, np.int32), 3.0
+    if name == "Db not a multiple of the tile":
+        b = rng.normal(0, 1, (1001, 9)).astype(f)
+        return ((b[5:700] + 0.05).astype(f), b,
+                (np.arange(1001) // 3).astype(np.int32), 1.5)
+    if name == "Da below one tile":
+        b = rng.normal(0, 2, (129, 12)).astype(f)
+        return b[:5].copy(), b, (np.arange(129) % 40).astype(np.int32), 2.0
+    if name == "far clusters":
+        c = rng.normal(0, 1, 9) * 60.0
+        b = np.concatenate([c + rng.normal(0, 0.3, (900, 9)),
+                            -c + rng.normal(0, 0.3, (900, 9))]).astype(f)
+        a = (b[rng.choice(1800, 300, replace=False)]
+             + rng.normal(0, 0.05, (300, 9))).astype(f)
+        return a, b, (np.arange(1800) // 2).astype(np.int32), 3.0
+    if name == "nearest mode":
+        base = rng.integers(-3, 4, (1500, 3)).astype(f)
+        return base[:300].copy(), np.concatenate([base, base]), None, 1.0
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("case", [
+    "ties across owners", "same-owner runs", "one owner",
+    "Db not a multiple of the tile", "Da below one tile", "far clusters",
+    "nearest mode"])
+def test_ratio_match_kernel_cases(dev, case):
+    """K20 on the inputs of the CPU tests of its plan (equal distances
+    across owners, same-owner runs, one owner, ragged tiles, fewer rows
+    than a block, distances inside the TF32 error, nearest mode with
+    every distance tied), bitwise its twin's."""
+    a, b, owner, ratio = _ratio_case(case, np.random.default_rng(len(case)))
+    args = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            None if owner is None else torch.from_numpy(owner).to(dev), ratio)
+    got, ref = DS.ratio_match(*args), DS.ratio_match_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if owner is not None:
+        assert torch.equal(got[2], ref[2])
+    assert 0 < int(DS.ratio_match.refined) <= len(a) * len(b)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as K20's prologue does (nearest, ties away)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_operands(kind, D, kp, n, rng):
+    """(n, 16, kp) and (n, 8, kp) TF32 operands whose sums stress the
+    tensor cores' accumulation: "normal" rows over four decades; "cut
+    bits", one unit term and D terms of full 11-bit significands 2^-6 to
+    2^-16 below it, whose low bits fall below float32's significand once
+    aligned to the unit; "cancel", terms in +/- pairs a few bits apart
+    with small ones between; "filter", the filter's own operands A' =
+    (a - c, 1), B' = (-2 (b - c), (1 - 2^-7) b2) of two far clusters."""
+    f = np.float32
+    k = D + 1
+    a = np.zeros((n, 16, kp), f)
+    b = np.zeros((n, 8, kp), f)
+    if kind == "normal":
+        a[..., :k] = rng.normal(0, 1, (n, 16, k)) * 10.0 ** rng.uniform(
+            -2, 2, (n, 16, 1))
+        b[..., :k] = rng.normal(0, 1, (n, 8, k)) * 10.0 ** rng.uniform(
+            -2, 2, (n, 8, 1))
+    elif kind == "cut bits":
+        full = 2.0 - 2.0 ** -10  # every fraction bit of TF32 set
+        sa = rng.choice([-1.0, 1.0], (n, 16, k))
+        a[..., :k] = sa * full * 2.0 ** -rng.integers(3, 9, (n, 16, k))
+        b[..., :k] = full * 2.0 ** -rng.integers(3, 9, (n, 8, k))
+        a[..., 0], b[..., 0] = 1.0, 1.0
+    elif kind == "cancel":
+        v = rng.uniform(1, 2, (n, 16, k)) * 2.0 ** rng.integers(-4, 5,
+                                                                 (n, 16, k))
+        v[..., 1::2] = -v[..., 0:-1:2] * (1 - 2.0 ** -rng.integers(
+            4, 12, (n, 16, v[..., 1::2].shape[-1])))
+        a[..., :k] = v
+        b[..., :k] = rng.uniform(1, 2, (n, 8, k))
+    else:
+        c = rng.normal(0, 1, D) * 60.0
+        pa = c + rng.normal(0, 0.3, (n, 16, D)) * rng.choice([-1, 1],
+                                                            (n, 16, 1))
+        pb = rng.choice([-1, 1], (n, 8, 1)) * c + rng.normal(0, 0.3,
+                                                             (n, 8, D))
+        a[..., :D], a[..., D] = pa, 1.0
+        b[..., :D] = -2.0 * pb
+        b[..., D] = (1 - 2.0 ** -7) * np.sum(pb.astype(f) ** 2, -1)
+    return _tf32(a), _tf32(b)
+
+
+@pytest.mark.parametrize("kind", ["normal", "cut bits", "cancel", "filter"])
+@pytest.mark.parametrize("D", list(range(3, DS.MAX_DIM + 1, 3)))
+def test_ratio_filter_mma_error(dev, D, kind):
+    """The accumulation term of K20's margin measured on the card: the
+    filter's TF32 MMAs (its k8 and k4 steps) sum exact products of TF32
+    operands within 2^-17 of the terms' magnitude sum M, the bound the
+    source note's margin takes for them. The float64 reference is within
+    (D + 1) 2^-53 M of the exact sum, far inside the bound."""
+    kp = DS.ratio_plan(1, 1, D).kp
+    a, b = _mma_operands(kind, D, kp, 256, np.random.default_rng(D))
+    got = DS.ratio_filter_dot(torch.from_numpy(a).to(dev),
+                              torch.from_numpy(b).to(dev), D).cpu().numpy()
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    ref = np.einsum("nik,njk->nij", a64, b64)
+    mag = np.einsum("nik,njk->nij", np.abs(a64), np.abs(b64))
+    worst = float(np.max(np.abs(got - ref) / mag))
+    print(f"K20 filter MMAs, D {D}, {kind}: worst error "
+          f"{worst / 2.0 ** -23:.3f} x 2^-23 of M")
+    assert worst <= 2.0 ** -17, f"{worst / 2.0 ** -23:.2f} x 2^-23 of M"
 
 
 @pytest.mark.parametrize("kind", ["TRANSLATION", "RIGID", "AFFINE"])
