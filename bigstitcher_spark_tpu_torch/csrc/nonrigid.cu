@@ -19,19 +19,44 @@
 //     (apply_row);
 //   * the patch is sampled trilinearly, clamped at its edges, weighted by
 //     the inside test and the cosine blend at the level position, and the
-//     views combined by fusion type (bst::Combiner, as K3).
-// One thread per output voxel, z fastest, views looped inside the thread
-// (K3's layout); the 8 vertex records are read through the read-only cache
-// as three float4 each.
+//     views combined in view order by fusion type (bst::CombinerT, as K3).
+// The first form ran one thread per output voxel and redid, for every
+// voxel, the three grid taps (each with a divide) and the x and y stages
+// of the coefficient lerp (24 float4 vertex reads and ~250 flops a
+// view-voxel): 0.60 ms at the main path's block, 16x its bound. This
+// form takes K3's launch (ops/fusion.py resample_plan: a block a tile of
+// one i, tile_j columns along j, 4 lanes_z outputs along z; per-view
+// parameters staged in shared memory 8 views at a time; 32-bit patch
+// indices below 2^31 elements, each address one wide multiply-add; the
+// fusion type a template parameter), except that a thread's 4 voxels are
+// lanes_z apart along z, so that a warp's lanes read consecutive k (the
+// samples here are gathered per voxel, not in runs). It shares what the
+// parent recomputed:
+//   * the grid taps: x once a block (one i), y once a column of the tile,
+//     z once a block for each k of the tile, into shared memory;
+//   * the x and y lerps: the parent's voxel computes
+//       c = lerp4(lerp4(a00, a10, g1, f1), lerp4(a01, a11, g1, f1), g2, f2)
+//     with a00, a10 the x-lerps at (lo1, lo2), (hi1, lo2) and a01, a11 at
+//     (lo1, hi2), (hi1, hi2). So lerp4(a00, a10, g1, f1) is
+//     C_xy(lo2) = lerp4(x(lo1, lo2), x(hi1, lo2), g1, f1) and the second
+//     operand C_xy(hi2): values that depend only on the column (i, j) and
+//     the z vertex, and x(y, z) only on i and the vertex. A block computes
+//     x(yv, zv) once for each (y, z) vertex its tile reaches (~4 x 8 at
+//     -cpd 10), then C_xy(zv) once for each column and z vertex, into
+//     shared memory, in the parent's operations; a voxel does only the z
+//     lerp lerp4(C_xy(lo2), C_xy(hi2), g2, f2). The same operations on the
+//     same operands, so the same values: outputs bitwise equal to the
+//     first form's. The tables of as many views as fit (40 KB) are built
+//     between barriers (the main path's 4 views at once); a tile whose
+//     z range reaches more vertices than one view's tables hold (a spacing
+//     below ~1.6 voxels at 64 z outputs a tile) takes the parent's
+//     per-voxel lerps instead, with the shared taps.
 //
-// Bound: bytes at the main path's compute block (256x256x64, 4 uint16
-// views): the patches and the 32 MB of output dominate, the grids are
-// ~100 KB a view. The function needs ~150 flops per view-voxel (the z
-// lerp of 12 coefficients, the deform, the view affine, the sample and the
-// blend), a third of the time the bytes take. This kernel redoes the x and
-// y stages of the coefficient lerp for every voxel (~250 flops more) and
-// gathers 24 float4 a view-voxel from L1/L2; sharing those stages across a
-// z column, or staging the grid in shared memory, is the next step.
+// Bound: operations at the main path's compute block (256x256x64, 4
+// uint16 views): ~150 flops a view-voxel (the z lerp of 12 coefficients,
+// the deform, the view affine, the sample and the blend; the grid taps and
+// the x and y lerps are a column's), 0.038 ms at 67 TFLOP/s; the patches,
+// grids (~100 KB a view) and outputs, ~97 MB, take 0.029 ms.
 #include "fusion_common.cuh"
 
 namespace {
@@ -62,8 +87,59 @@ __device__ __forceinline__ float apply_row(const float* c, const float* x) {
   return fmaf(c[2], x[2], fmaf(c[0], x[0], c[1] * x[1])) + c[3];
 }
 
-template <typename T>
-__global__ void nonrigid_kernel(
+// One view's parameters in shared memory.
+struct NonrigidView {
+  float M[12];   // view world -> patch position, row-major 3x4
+  float off[3];  // patch -> level position
+  bst::AxisTerms ax[3];
+  float valid;
+};
+
+// One grid coordinate's taps (grid_taps) and weights.
+struct Taps {
+  int lo, hi;
+  float f, g;
+};
+
+__device__ __forceinline__ Taps taps_at(float w, float origin, float spacing,
+                                        int c) {
+  Taps t;
+  grid_taps((w - origin) / spacing, c, &t.lo, &t.hi, &t.f);
+  t.g = 1.0f - t.f;
+  return t;
+}
+
+// float4s of the C_xy tables (32 KB): tile_j columns x vertices x 3 quads
+// (+ 1 of padding a column) a view, for as many views as fit; and of the
+// x-lerped vertex rows they are built from (8 KB): the tile's y vertices x
+// z vertices x 3 quads a view
+constexpr int kTableF4 = 2048;
+constexpr int kRowsF4 = 512;
+
+// Quad q of the grid's vertex record (x, y, z).
+__device__ __forceinline__ float4 vertex(const float* __restrict__ G, int x,
+                                         int y, int z, int q, int gy,
+                                         int gz) {
+  const int64_t at = ((static_cast<int64_t>(x) * gy + y) * gz + z) * 12;
+  return __ldg(reinterpret_cast<const float4*>(G + at) + q);
+}
+
+// Quad q of one column's model at z vertex z: the x lerps at (y lo, z)
+// and (y hi, z), then their y lerp (the parent's a00 / a10 and their lerp).
+__device__ __forceinline__ float4 cxy(const float* __restrict__ G,
+                                      const Taps& tx, const Taps& ty, int z,
+                                      int q, int gy, int gz) {
+  const float4 a0 = lerp4(vertex(G, tx.lo, ty.lo, z, q, gy, gz),
+                          vertex(G, tx.hi, ty.lo, z, q, gy, gz), tx.g, tx.f);
+  const float4 a1 = lerp4(vertex(G, tx.lo, ty.hi, z, q, gy, gz),
+                          vertex(G, tx.hi, ty.hi, z, q, gy, gz), tx.g, tx.f);
+  return lerp4(a0, a1, ty.g, ty.f);
+}
+
+// 3 blocks an SM (80 registers): faster at the main path's block than 2
+// (128 registers, no spills) or 4 (64).
+template <typename T, typename Idx, int FT>
+__global__ void __launch_bounds__(bst::kResampleThreads, 3) nonrigid_kernel(
     const T* __restrict__ patches, int px, int py, int pz,
     const float* __restrict__ grids, int gx, int gy, int gz,
     const float* __restrict__ vaffs, const float* __restrict__ offsets,
@@ -71,108 +147,226 @@ __global__ void nonrigid_kernel(
     const float* __restrict__ ranges, const float* __restrict__ valid,
     const float* __restrict__ block_origin,
     const float* __restrict__ grid_origin,
-    const float* __restrict__ grid_spacing, int V, int bx, int by, int bz,
-    int ft, float* __restrict__ fused, float* __restrict__ wsum) {
-  const int64_t n = static_cast<int64_t>(bx) * by * bz;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int k = static_cast<int>(idx % bz);
-  const int64_t r = idx / bz;
-  const int j = static_cast<int>(r % by);
-  const int i = static_cast<int>(r / by);
-  const float li[3] = {static_cast<float>(i), static_cast<float>(j),
-                       static_cast<float>(k)};
-  const int gd[3] = {gx, gy, gz};
-  float w[3], f[3], g[3];
-  int lo[3], hi[3];
-  for (int d = 0; d < 3; ++d) {
-    w[d] = block_origin[d] + li[d];
-    grid_taps((w[d] - grid_origin[d]) / grid_spacing[d], gd[d], &lo[d],
-              &hi[d], &f[d]);
-    g[d] = 1.0f - f[d];
-  }
+    const float* __restrict__ grid_spacing, int V, int by, int bz, int ft,
+    int lanes_z, int n_jt, float* __restrict__ fused,
+    float* __restrict__ wsum) {
+  __shared__ NonrigidView sv[bst::kResampleViewChunk];
+  __shared__ Taps ztab[bst::kResampleMaxTileZ];
+  __shared__ Taps ytab[bst::kResampleThreads];
+  __shared__ float4 ctab[kTableF4];
+  __shared__ float4 xrows[kRowsF4];
+  const int tile_j = bst::kResampleThreads / lanes_z;
+  const int tile_z = bst::kResampleR * lanes_z;
+  const int lz = threadIdx.x % lanes_z;
+  const int lj = threadIdx.x / lanes_z;
+  const int i = blockIdx.x / n_jt;
+  const int j0 = (blockIdx.x % n_jt) * tile_j;
+  const int j = j0 + lj;
+  const int z0 = blockIdx.y * tile_z;
+  // the thread's voxel r is at k = z0 + r lanes_z + lz: a warp's lanes
+  // read consecutive k (the tile's k in any order are the plan's)
+  const bool active = j < by && z0 + lz < bz;
+  const int nzk = min(tile_z, bz - z0);  // >= 1: the plan's grid
+  const float bo[3] = {__ldg(block_origin), __ldg(block_origin + 1),
+                       __ldg(block_origin + 2)};
+  const float go[3] = {__ldg(grid_origin), __ldg(grid_origin + 1),
+                       __ldg(grid_origin + 2)};
+  const float gs[3] = {__ldg(grid_spacing), __ldg(grid_spacing + 1),
+                       __ldg(grid_spacing + 2)};
+
+  // grid taps: z for each k of the tile (a k past the block's end takes
+  // the last k's), y for each column, x of the row
+  for (int t = threadIdx.x; t < tile_z; t += bst::kResampleThreads)
+    ztab[t] = taps_at(bo[2] + static_cast<float>(z0 + min(t, nzk - 1)),
+                      go[2], gs[2], gz);
+  for (int t = threadIdx.x; t < tile_j; t += bst::kResampleThreads)
+    ytab[t] = taps_at(bo[1] + static_cast<float>(j0 + t), go[1], gs[1], gy);
+  const float w0 = bo[0] + static_cast<float>(i);
+  const float w1 = bo[1] + static_cast<float>(j);
+  const Taps xt = taps_at(w0, go[0], gs[0], gx);
+  __syncthreads();
+  const Taps yt = ytab[lj];
+  // the tile's y and z vertices (the taps are monotone in j and k)
+  const int vy0 = min(ytab[0].lo, ytab[tile_j - 1].lo);
+  const int ny = max(ytab[0].hi, ytab[tile_j - 1].hi) - vy0 + 1;
+  const int vz0 = min(ztab[0].lo, ztab[tile_z - 1].lo);
+  const int nz = max(ztab[0].hi, ztab[tile_z - 1].hi) - vz0 + 1;
+  // a view's tables: x-lerped rows, ny x nz x 3; the columns' models,
+  // tile_j x (3 nz + 1), a column's stride padded by a float4 (the two
+  // columns of a warp on other banks)
+  const int per_rows = ny * nz * 3;
+  const int col_stride = nz * 3 + 1;
+  const int per_view = tile_j * col_stride;
+  const bool tabled = per_view <= kTableF4 && per_rows <= kRowsF4;
+  const int group = tabled ? min(kTableF4 / per_view, kRowsF4 / per_rows)
+                           : bst::kResampleViewChunk;
+
   const int64_t gvol = static_cast<int64_t>(gx) * gy * gz * 12;
   const int64_t pvol = static_cast<int64_t>(px) * py * pz;
-  const int64_t syz = static_cast<int64_t>(py) * pz;
+  const Idx syz = static_cast<Idx>(py) * pz;
   const int pmax[3] = {px - 1, py - 1, pz - 1};
 
-  bst::Combiner comb(ft);
-  for (int v = 0; v < V; ++v) {
-    const float* G = grids + v * gvol;
-    auto vert = [&](int x, int y, int z, int q) {
-      const int64_t at = ((static_cast<int64_t>(x) * gy + y) * gz + z) * 12;
-      return __ldg(reinterpret_cast<const float4*>(G + at) + q);
-    };
-    float A[12];
-    for (int q = 0; q < 3; ++q) {
-      // x at the corners (y lo/hi, z lo/hi), then y, then z
-      const float4 a00 = lerp4(vert(lo[0], lo[1], lo[2], q),
-                               vert(hi[0], lo[1], lo[2], q), g[0], f[0]);
-      const float4 a10 = lerp4(vert(lo[0], hi[1], lo[2], q),
-                               vert(hi[0], hi[1], lo[2], q), g[0], f[0]);
-      const float4 a01 = lerp4(vert(lo[0], lo[1], hi[2], q),
-                               vert(hi[0], lo[1], hi[2], q), g[0], f[0]);
-      const float4 a11 = lerp4(vert(lo[0], hi[1], hi[2], q),
-                               vert(hi[0], hi[1], hi[2], q), g[0], f[0]);
-      const float4 c = lerp4(lerp4(a00, a10, g[1], f[1]),
-                             lerp4(a01, a11, g[1], f[1]), g[2], f[2]);
-      A[4 * q + 0] = c.x;
-      A[4 * q + 1] = c.y;
-      A[4 * q + 2] = c.z;
-      A[4 * q + 3] = c.w;
-    }
-    float dw[3];
-    for (int rr = 0; rr < 3; ++rr) dw[rr] = apply_row(A + 4 * rr, w);
-    const float* M = vaffs + 12 * v;
-    float p[3], fr[3];
-    int s0[3], s1[3];
-    for (int d = 0; d < 3; ++d) {
-      p[d] = apply_row(M + 4 * d, dw);
-      const float fl = floorf(p[d]);
-      fr[d] = p[d] - fl;
-      const int qd = static_cast<int>(fl);
-      s0[d] = min(max(qd, 0), pmax[d]);
-      s1[d] = min(max(qd + 1, 0), pmax[d]);
-    }
-    const T* P = patches + v * pvol;
-    auto s = [&](int x, int y, int z) {
-      return bst::ldf(P, static_cast<int64_t>(x) * syz +
-                             static_cast<int64_t>(y) * pz + z);
-    };
-    const float hx = 1.0f - fr[0], hy = 1.0f - fr[1], hz = 1.0f - fr[2];
-    const float c000 = s(s0[0], s0[1], s0[2]) * hx * hy * hz;
-    const float c100 = s(s1[0], s0[1], s0[2]) * fr[0] * hy * hz;
-    const float c010 = s(s0[0], s1[1], s0[2]) * hx * fr[1] * hz;
-    const float c110 = s(s1[0], s1[1], s0[2]) * fr[0] * fr[1] * hz;
-    const float c001 = s(s0[0], s0[1], s1[2]) * hx * hy * fr[2];
-    const float c101 = s(s1[0], s0[1], s1[2]) * fr[0] * hy * fr[2];
-    const float c011 = s(s0[0], s1[1], s1[2]) * hx * fr[1] * fr[2];
-    const float c111 = s(s1[0], s1[1], s1[2]) * fr[0] * fr[1] * fr[2];
-    const float val = c000 + c100 + c010 + c110 + c001 + c101 + c011 + c111;
+  bst::CombinerT<FT> comb[bst::kResampleR];
+#pragma unroll
+  for (int r = 0; r < bst::kResampleR; ++r) comb[r] = bst::CombinerT<FT>(ft);
 
-    float inside = 1.0f, blend = 1.0f;
-    for (int d = 0; d < 3; ++d) {
-      const float lpos = p[d] + offsets[3 * v + d];
-      const float dim = img_dims[3 * v + d];
-      inside = bst::inside_axis(lpos, dim, 0.0f) > 0.0f ? inside : 0.0f;
-      blend = blend * bst::blend_axis(lpos, dim, borders[3 * v + d],
-                                      ranges[3 * v + d]);
+  for (int c0 = 0; c0 < V; c0 += bst::kResampleViewChunk) {
+    const int nv = min(bst::kResampleViewChunk, V - c0);
+    __syncthreads();  // the previous chunk's parameters and tables are read
+    if (threadIdx.x < nv) {
+      const int v = c0 + threadIdx.x;
+      NonrigidView& s = sv[threadIdx.x];
+      for (int q = 0; q < 12; ++q) s.M[q] = vaffs[12 * v + q];
+      for (int d = 0; d < 3; ++d) {
+        s.off[d] = offsets[3 * v + d];
+        s.ax[d] = bst::axis_terms(img_dims[3 * v + d], 0.0f,
+                                  borders[3 * v + d], ranges[3 * v + d]);
+      }
+      s.valid = valid[v];
     }
-    comb.add(val, inside, blend, valid[v]);
+    __syncthreads();
+    for (int g0 = 0; g0 < nv; g0 += group) {
+      const int ng = min(group, nv - g0);
+      if (tabled) {
+        if (g0 > 0) __syncthreads();  // the previous group's tables are read
+        // the x lerps at the tile's (y, z) vertices, every view of the
+        // group (one round of vertex loads a thread)
+        for (int t = threadIdx.x; t < ng * per_rows;
+             t += bst::kResampleThreads) {
+          const int vt = t / per_rows, e = t - vt * per_rows;
+          const int yi = e / (3 * nz), rem = e - yi * 3 * nz;
+          const float* Gv = grids + static_cast<int64_t>(c0 + g0 + vt) * gvol;
+          const int zv = vz0 + rem / 3, q = rem % 3;
+          xrows[t] = lerp4(vertex(Gv, xt.lo, vy0 + yi, zv, q, gy, gz),
+                           vertex(Gv, xt.hi, vy0 + yi, zv, q, gy, gz), xt.g,
+                           xt.f);
+        }
+        __syncthreads();
+        // then each column's lanes lerp its entries along y
+        for (int vt = 0; vt < ng; ++vt) {
+          const float4* rows = xrows + vt * per_rows;
+          float4* col = ctab + vt * per_view + lj * col_stride;
+          for (int e = lz; e < 3 * nz; e += lanes_z)
+            col[e] = lerp4(rows[(yt.lo - vy0) * 3 * nz + e],
+                           rows[(yt.hi - vy0) * 3 * nz + e], yt.g, yt.f);
+        }
+        __syncthreads();
+      }
+      if (!active) continue;
+      for (int vv = g0; vv < g0 + ng; ++vv) {
+        const NonrigidView& s = sv[vv];
+        const float* G = grids + static_cast<int64_t>(c0 + vv) * gvol;
+        const float4* tab = ctab + (vv - g0) * per_view + lj * col_stride;
+        const T* P = patches + static_cast<int64_t>(c0 + vv) * pvol;
+        // each voxel of the run (one past the block's end takes the last
+        // k's z taps and is dropped); ``model`` gives quad q of a voxel's
+        // interpolated model from its z taps
+        auto run = [&](auto model) {
+#pragma unroll
+          for (int r = 0; r < bst::kResampleR; ++r) {
+            const int kt = r * lanes_z + lz;
+            const Taps zt = ztab[kt];
+            const float w[3] = {w0, w1, bo[2] + static_cast<float>(z0 + kt)};
+            float A[12];
+            for (int q = 0; q < 3; ++q) {
+              const float4 c = model(zt, q);
+              A[4 * q + 0] = c.x;
+              A[4 * q + 1] = c.y;
+              A[4 * q + 2] = c.z;
+              A[4 * q + 3] = c.w;
+            }
+            float dw[3], p[3], f[3], g[3];
+            int lo[3], hi[3];
+            for (int rr = 0; rr < 3; ++rr) dw[rr] = apply_row(A + 4 * rr, w);
+            for (int d = 0; d < 3; ++d) {
+              p[d] = apply_row(s.M + 4 * d, dw);
+              bst::sample_taps(p[d], pmax[d], &lo[d], &hi[d], &f[d]);
+              g[d] = 1.0f - f[d];
+            }
+            const Idx xo[2] = {lo[0] * syz, hi[0] * syz};
+            const Idx yo[2] = {static_cast<Idx>(lo[1]) * pz,
+                               static_cast<Idx>(hi[1]) * pz};
+            float c8[8];
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+              c8[n] = static_cast<float>(__ldg(bst::offset32(
+                  P, xo[n & 1] + yo[(n >> 1) & 1] + (n & 4 ? hi[2] : lo[2]))));
+            const float val = bst::trilinear8(c8, f, g);
+            float inside = 1.0f, blend = 1.0f;
+            for (int d = 0; d < 3; ++d) {
+              const float lpos = p[d] + s.off[d];
+              inside = bst::inside_at(lpos, s.ax[d]) ? inside : 0.0f;
+              blend = blend * bst::blend_at(lpos, s.ax[d]);
+            }
+            comb[r].add(val, inside, blend, s.valid);
+          }
+        };
+        if (tabled) {
+          run([&](const Taps& zt, int q) {
+            return lerp4(tab[(zt.lo - vz0) * 3 + q],
+                         tab[(zt.hi - vz0) * 3 + q], zt.g, zt.f);
+          });
+        } else {
+          run([&](const Taps& zt, int q) {
+            return lerp4(cxy(G, xt, yt, zt.lo, q, gy, gz),
+                         cxy(G, xt, yt, zt.hi, q, gy, gz), zt.g, zt.f);
+          });
+        }
+      }
+    }
   }
-  fused[idx] = comb.fused();
-  wsum[idx] = comb.wsum;
+  if (!active) return;
+  // lanes on consecutive k: each store is coalesced
+  const int64_t at = (static_cast<int64_t>(i) * by + j) * bz + z0 + lz;
+#pragma unroll
+  for (int r = 0; r < bst::kResampleR; ++r) {
+    if (z0 + r * lanes_z + lz < bz) {
+      fused[at + r * lanes_z] = comb[r].fused();
+      wsum[at + r * lanes_z] = comb[r].wsum;
+    }
+  }
+}
+
+template <typename T, typename Idx, int FT>
+cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
+                   int pz, const float* grids, int gx, int gy, int gz,
+                   const float* vaffs, const float* offsets,
+                   const float* img_dims, const float* borders,
+                   const float* ranges, const float* valid,
+                   const float* block_origin, const float* grid_origin,
+                   const float* grid_spacing, int V, int by, int bz, int ft,
+                   int lanes_z, int n_jt, float* fused, float* wsum) {
+  nonrigid_kernel<T, Idx, FT><<<grid, bst::kResampleThreads, 0, s>>>(
+      patches, px, py, pz, grids, gx, gy, gz, vaffs, offsets, img_dims,
+      borders, ranges, valid, block_origin, grid_origin, grid_spacing, V, by,
+      bz, ft, lanes_z, n_jt, fused, wsum);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+#define BST_NONRIGID_ARGS(T)                                                 \
+  grid, s, static_cast<const T*>(patches), px, py, pz,                       \
+      static_cast<const float*>(grids), gx, gy, gz,                          \
+      static_cast<const float*>(vaffs), static_cast<const float*>(offsets),  \
+      static_cast<const float*>(img_dims),                                   \
+      static_cast<const float*>(borders), static_cast<const float*>(ranges), \
+      static_cast<const float*>(valid),                                      \
+      static_cast<const float*>(block_origin),                               \
+      static_cast<const float*>(grid_origin),                                \
+      static_cast<const float*>(grid_spacing), V, by, bz, ft, lanes_z, n_jt, \
+      static_cast<float*>(fused), static_cast<float*>(wsum)
+
+// lanes_z, n_jt, grid_x, grid_y: ops/fusion.py resample_plan; idx64: a
+// patch of 2^31 elements or more.
 extern "C" int bst_nonrigid_fuse(
     const void* patches, int in_dtype, int px, int py, int pz,
     const void* grids, int gx, int gy, int gz, const void* vaffs,
     const void* offsets, const void* img_dims, const void* borders,
     const void* ranges, const void* valid, const void* block_origin,
     const void* grid_origin, const void* grid_spacing, int V, int bx, int by,
-    int bz, int ft, void* fused, void* wsum, void* stream) {
+    int bz, int ft, int lanes_z, int n_jt, int grid_x, int grid_y, int idx64,
+    void* fused, void* wsum, void* stream) {
   const int64_t n = static_cast<int64_t>(bx) * by * bz;
   if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0 || gx <= 0 ||
       gy <= 0 || gz <= 0)
@@ -180,19 +374,26 @@ extern "C" int bst_nonrigid_fuse(
   // vertex records are read as float4
   if (reinterpret_cast<uintptr_t>(grids) % 16 != 0)
     return cudaErrorMisalignedAddress;
+  if (lanes_z < 1 || lanes_z > 32 || (lanes_z & (lanes_z - 1)) != 0 ||
+      n_jt != (by + bst::kResampleThreads / lanes_z - 1) /
+                  (bst::kResampleThreads / lanes_z) ||
+      static_cast<int64_t>(grid_x) != static_cast<int64_t>(bx) * n_jt ||
+      static_cast<int64_t>(grid_y) * bst::kResampleR * lanes_z < bz ||
+      static_cast<int64_t>(grid_y - 1) * bst::kResampleR * lanes_z >= bz ||
+      grid_y > 65535)
+    return cudaErrorInvalidValue;
+  if (!idx64 && static_cast<int64_t>(px) * py * pz >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BST_DISPATCH_IN(in_dtype, T,
-      nonrigid_kernel<T><<<bst::grid_for(n), bst::kThreads, 0, s>>>(
-          static_cast<const T*>(patches), px, py, pz,
-          static_cast<const float*>(grids), gx, gy, gz,
-          static_cast<const float*>(vaffs),
-          static_cast<const float*>(offsets),
-          static_cast<const float*>(img_dims),
-          static_cast<const float*>(borders),
-          static_cast<const float*>(ranges), static_cast<const float*>(valid),
-          static_cast<const float*>(block_origin),
-          static_cast<const float*>(grid_origin),
-          static_cast<const float*>(grid_spacing), V, bx, by, bz, ft,
-          static_cast<float*>(fused), static_cast<float*>(wsum)));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (idx64) {
+    BST_DISPATCH_IN(in_dtype, T,
+        err = launch<T, int64_t, bst::kRuntimeFT>(BST_NONRIGID_ARGS(T)));
+  } else {
+    BST_DISPATCH_IN(in_dtype, T,
+        BST_DISPATCH_FT(ft, FT,
+            err = launch<T, int, FT>(BST_NONRIGID_ARGS(T))));
+  }
+  return static_cast<int>(err);
 }

@@ -64,7 +64,8 @@ _SIGNATURES = {
     },
     "gather": {
         "bst_fuse_block": [_VP, _I, _I, _I, _I] + [_VP] * 7 + [_I] * 5
-                          + [_VP, _VP, _I, _I, _I] + [_VP, _VP, _VP],
+                          + [_VP, _VP, _I, _I, _I] + [_I] * 5
+                          + [_VP, _VP, _VP],
     },
     "convert": {
         "bst_convert_intensity": [_VP, _I64, _F, _F, _I, _VP, _VP],
@@ -119,7 +120,8 @@ _SIGNATURES = {
     },
     "nonrigid": {
         "bst_nonrigid_fuse": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]
-                             + [_VP] * 9 + [_I] * 5 + [_VP, _VP, _VP],
+                             + [_VP] * 9 + [_I] * 5 + [_I] * 5
+                             + [_VP, _VP, _VP],
     },
 }
 

@@ -35,6 +35,7 @@ wins), LAST_WINS (highest view wins).
 from __future__ import annotations
 
 import math
+from collections import namedtuple
 from typing import Sequence
 
 import numpy as np
@@ -636,6 +637,54 @@ def fuse_block_plain(patches, affines, patch_offsets, img_dims, borders,
     return fused.reshape(tuple(block_shape)), wsum.reshape(tuple(block_shape))
 
 
+# K3's and K26's launch (csrc/fusion_common.cuh): a thread owns RESAMPLE_R
+# z outputs of one (i, j) column, consecutive in K3, lanes_z apart in K26;
+# a block of RESAMPLE_THREADS threads a tile of one i, tile_j columns along
+# j and tile_z outputs along z; the views' parameters are staged in shared
+# memory RESAMPLE_VIEW_CHUNK at a time; K26's tables of the columns'
+# x-y-lerped vertex models hold NONRIGID_TABLE_F4 float4 (3 a column and
+# vertex, and one of padding a column), its x-lerped rows NONRIGID_ROWS_F4
+# (3 a y and z vertex of the tile), for as many views at once as fit.
+RESAMPLE_R = 4
+RESAMPLE_THREADS = 256
+RESAMPLE_VIEW_CHUNK = 8
+NONRIGID_TABLE_F4 = 2048
+NONRIGID_ROWS_F4 = 512
+ResamplePlan = namedtuple(
+    "ResamplePlan", "lanes_z tile n_jt grid view_chunks idx64 table_vertices")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def resample_plan(block_shape, V: int, patch_shape) -> ResamplePlan:
+    """K3's and K26's launch for a block of ``block_shape`` outputs from V
+    views of ``patch_shape`` patches: ``lanes_z`` threads (the power of two
+    at or above the block's runs of RESAMPLE_R z outputs, at most 32) share
+    a column's z range; a block's ``tile`` (1, tile_j, tile_z) =
+    (1, RESAMPLE_THREADS / lanes_z, RESAMPLE_R lanes_z); ``n_jt`` column
+    tiles along j; ``grid`` (bx n_jt, z tiles); ``view_chunks`` the shared
+    memory stagings of the views; ``idx64`` a patch of 2^31 elements or
+    more (then 64-bit patch indices); ``table_vertices`` the z vertices
+    K26's table holds a column for one view (a tile reaching more takes
+    the per-voxel lerps)."""
+    bx, by, bz = (int(s) for s in block_shape)
+    if min(bx, by, bz) <= 0 or int(V) <= 0:
+        raise ValueError(f"empty resample: block {tuple(block_shape)}, V {V}")
+    lanes_z = min(32, 1 << (_cdiv(bz, RESAMPLE_R) - 1).bit_length())
+    tile_j = RESAMPLE_THREADS // lanes_z
+    tile_z = RESAMPLE_R * lanes_z
+    n_jt = _cdiv(by, tile_j)
+    grid = (bx * n_jt, _cdiv(bz, tile_z))
+    if grid[0] >= 2 ** 31 or grid[1] > 65535:
+        raise ValueError(f"block {tuple(block_shape)} exceeds the launch grid")
+    idx64 = math.prod(int(s) for s in patch_shape) >= 2 ** 31
+    return ResamplePlan(lanes_z, (1, tile_j, tile_z), n_jt, grid,
+                        _cdiv(V, RESAMPLE_VIEW_CHUNK), idx64,
+                        (NONRIGID_TABLE_F4 // tile_j - 1) // 3)
+
+
 def fuse_block(patches, affines, patch_offsets, img_dims, borders,
                blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
                inside_offs=None, coeffs=None, coeff_affines=None):
@@ -646,7 +695,7 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
     blend_ranges, inside_offs (V, 3) float32; valid (V,) float32; optional
     intensity grids ``coeffs`` (V, Cx, Cy, Cz, 2) float32 and their (V, 3,
     4) float32 level position -> grid coordinate affines. Returns (fused,
-    wsum), both ``block_shape`` float32."""
+    wsum), both ``block_shape`` float32. The launch: :func:`resample_plan`."""
     if (coeffs is None) != (coeff_affines is None):
         raise ValueError("coeffs and coeff_affines go together")
     if patches.device.type == "cpu":
@@ -675,6 +724,7 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
         _require(coeff_affines, "coeff_affines", dev, _F32, (V, 3, 4))
         cdims = tuple(int(c) for c in coeffs.shape[1:4])
         cptr, captr = coeffs.data_ptr(), coeff_affines.data_ptr()
+    plan = resample_plan((bx, by, bz), V, (px, py, pz))
     fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     lib = _cuda.load("gather")
@@ -683,7 +733,8 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
         affines.data_ptr(), patch_offsets.data_ptr(), img_dims.data_ptr(),
         borders.data_ptr(), blend_ranges.data_ptr(), valid.data_ptr(),
         inside_offs.data_ptr(), V, bx, by, bz, _ft_code(fusion_type),
-        cptr, captr, *cdims, fused.data_ptr(), wsum.data_ptr(), _stream(dev))
+        cptr, captr, *cdims, plan.lanes_z, plan.n_jt, *plan.grid,
+        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "fuse_block")
     fuse_block.launches += 1
     fuse_block.coeff_launches += coeffs is not None

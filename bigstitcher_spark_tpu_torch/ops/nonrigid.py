@@ -47,6 +47,7 @@ from .fusion import (
     _require,
     _stream,
     _trilinear_sample,
+    resample_plan,
 )
 
 
@@ -134,7 +135,8 @@ def nonrigid_fuse_block(patches, grids, view_affines, patch_offsets,
     3x4); view_affines (V, 3, 4) float32 (view world -> patch coords);
     patch_offsets, img_dims, borders, blend_ranges (V, 3) float32; valid
     (V,) float32; block_origin, grid_origin, grid_spacing (3,) float32.
-    Returns (fused, wsum), both ``block_shape`` float32."""
+    Returns (fused, wsum), both ``block_shape`` float32. The launch is
+    K3's (:func:`.fusion.resample_plan`)."""
     if patches.device.type == "cpu":
         return nonrigid_fuse_block_plain(
             patches, grids, view_affines, patch_offsets, img_dims, borders,
@@ -160,6 +162,7 @@ def nonrigid_fuse_block(patches, grids, view_affines, patch_offsets,
         _require(t, name, dev, _F32, (3,))
     gx, gy, gz = (int(s) for s in grids.shape[1:4])
     bx, by, bz = (int(s) for s in block_shape)
+    plan = resample_plan((bx, by, bz), V, (px, py, pz))
     fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
     lib = _cuda.load("nonrigid")
@@ -169,8 +172,8 @@ def nonrigid_fuse_block(patches, grids, view_affines, patch_offsets,
         patch_offsets.data_ptr(), img_dims.data_ptr(), borders.data_ptr(),
         blend_ranges.data_ptr(), valid.data_ptr(), block_origin.data_ptr(),
         grid_origin.data_ptr(), grid_spacing.data_ptr(), V, bx, by, bz,
-        _ft_code(fusion_type), fused.data_ptr(), wsum.data_ptr(),
-        _stream(dev))
+        _ft_code(fusion_type), plan.lanes_z, plan.n_jt, *plan.grid,
+        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "nonrigid_fuse")
     nonrigid_fuse_block.launches += 1
     return fused, wsum

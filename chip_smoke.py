@@ -557,6 +557,43 @@ def max_abs_u16(a, b, dev) -> int:
 # ---------------------------------------------------------------- phase 1
 
 
+def gather_inputs(rng, c, bs, V, dims, borders, ranges, valid, about="z"):
+    """K3's phase-1 inputs, the wrapper's first seven arguments: V uint16
+    patches of the block + 32, block -> patch affines rotated about
+    ``about`` (view 1 by 7 degrees, the others within 1; z: translations
+    and rotations about z, K3's separable form, as every view of the main
+    path; y: its general form, as views of a multi-angle acquisition) with
+    translations that reach past the patch, patch offsets in [0, 50)."""
+    import numpy as np
+
+    ps = tuple(s + 32 for s in bs)
+    patches = c(rng.integers(90, 4000, (V, *ps)).astype(np.uint16))
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        a = np.deg2rad(7.0 if v == 1 else rng.uniform(-1, 1))
+        cs, sn = np.cos(a), np.sin(a)
+        aff[v, :3, :3] = ([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]]
+                          if about == "z" else
+                          [[cs, 0, sn], [0, 1, 0], [-sn, 0, cs]])
+        aff[v, :, 3] = rng.uniform(-12, 40, 3)
+    offs = rng.uniform(0, 50, (V, 3)).astype(np.float32)
+    return [patches] + [c(a) for a in (aff, offs, dims, borders, ranges,
+                                       valid)]
+
+
+def resample_form(F, bs, V, pshape) -> str:
+    """K3's and K26's launch at a shape (``ops.fusion.resample_plan``), or
+    the first form's on a tree without it."""
+    if not hasattr(F, "resample_plan"):
+        return "one thread a voxel (the first form)"
+    p = F.resample_plan(bs, V, pshape)
+    return (f"R {F.RESAMPLE_R} z outputs a thread, tile {p.tile} "
+            f"({p.lanes_z} lanes a column), grid {p.grid}, {p.view_chunks} "
+            f"view chunk(s) of {F.RESAMPLE_VIEW_CHUNK}, "
+            f"{64 if p.idx64 else 32}-bit patch indices, K26's table "
+            f"{p.table_vertices} z vertices a column")
+
+
 def print_times(what, r, card):
     lib = (f"  library {r['library_ms']} ms" if r.get("library_ms")
            is not None else "")
@@ -903,16 +940,8 @@ def phase1_kernels(dev, scale, card):
         bound=bound(patches.numel() * 2 + 2 * n * 4, V * n * OPS["shift"]))
 
     # K3: general affines, one rotated 7 degrees, samples outside the patch
-    ps = tuple(s + 32 for s in bs)
-    gpatches = c(rng.integers(90, 4000, (V, *ps)).astype(np.uint16))
-    aff = np.zeros((V, 3, 4), np.float32)
-    for v in range(V):
-        a = np.deg2rad(7.0 if v == 1 else rng.uniform(-1, 1))
-        aff[v, :3, :3] = [[np.cos(a), -np.sin(a), 0],
-                          [np.sin(a), np.cos(a), 0], [0, 0, 1]]
-        aff[v, :, 3] = rng.uniform(-12, 40, 3)
-    gargs = [gpatches] + [c(a) for a in (aff, per_view(0, 50), dims, borders,
-                                          ranges, valid)]
+    gargs = gather_inputs(rng, c, bs, V, dims, borders, ranges, valid)
+    gpatches = gargs[0]
     run = lambda: F.fuse_block(*gargs, bs, "AVG_BLEND", io_d)
     plain = lambda: F.fuse_block_plain(*gargs, bs, "AVG_BLEND", io_d)
     got, ref = run(), plain()
@@ -922,7 +951,14 @@ def phase1_kernels(dev, scale, card):
     res["fuse_block"] = dict(
         err=max_abs(got[0], ref[0]), ms=ms, wrapper_ms=ms,
         plain_ms=time_ms(plain),
-        bound=bound(gpatches.numel() * 2 + 2 * n * 4, V * n * OPS["gather"]))
+        bound=bound(gpatches.numel() * 2 + 2 * n * 4, V * n * OPS["gather"]),
+        form=resample_form(F, bs, V, tuple(gpatches.shape[1:])),
+        ft_ms={ft: time_ms(lambda ft=ft: F.fuse_block(*gargs, bs, ft, io_d))
+               for ft in F.FUSION_TYPES})
+    print(f"  fuse_block (K3) form: {res['fuse_block']['form']}; by fusion "
+          f"type [{card}]: " + ", ".join(
+              f"{k} {v} ms" for k, v in res["fuse_block"]["ft_ms"].items()),
+          flush=True)
 
     # K4: float32 -> uint16 with rounding half to even and clipping
     x = c(rng.uniform(-100, 70000, bs).astype(np.float32))
@@ -2672,6 +2708,180 @@ def blur_times(xp, sigma, card):
     return r
 
 
+def coeff_block_inputs(rng, c, bs=(256, 256, 64)):
+    """K3's coefficient branch at 10c's tile-corner block: its geometry
+    (the block -> patch translations and patch offsets that route A's
+    registered views give the block at (768, 512, 0): 4 views of 1024 x
+    1024 x 128, parts of the block outside each, the first z taps clamped
+    in three), blend ranges 40, 4 uint16 patches of 288 x 288 x 96 and 8 x
+    8 x 8 grids of [scale, offset] drawn from ``rng``, with their level
+    position -> grid affines (``_coeff_grid_affine`` at level 0). Returns
+    (the wrapper's first seven arguments, inside offsets, coefficient
+    keywords)."""
+    import numpy as np
+
+    V, ps, view = 4, tuple(b + 32 for b in bs), np.array([1024, 1024, 128])
+    patches = c(rng.integers(90, 4000, (V, *ps)).astype(np.uint16))
+    aff = np.zeros((V, 3, 4), np.float32)
+    aff[:, :, :3] = np.eye(3)
+    aff[:, :, 3] = [[1, 1, 0], [-152, 1, -1], [1, -158, -1], [-153, -158, -2]]
+    offs = np.array([[767, 767, 0], [0, 767, 0], [766, 0, 0], [0, 0, 0]],
+                    np.float32)
+    cdims = (8, 8, 8)
+    grids = np.empty((V, *cdims, 2), np.float32)
+    grids[..., 0] = rng.uniform(0.7, 1.4, (V, *cdims))
+    grids[..., 1] = rng.uniform(-30, 30, (V, *cdims))
+    cs = view / np.array(cdims)
+    caff = np.zeros((V, 3, 4), np.float32)
+    caff[:, :, :3] = np.diag(1.0 / cs)
+    caff[:, :, 3] = 0.5 / cs - 0.5
+    dims = np.tile(view.astype(np.float32), (V, 1))
+    z3 = np.zeros((V, 3), np.float32)
+    args = [patches] + [c(a) for a in (aff, offs, dims, z3, z3 + 40.0,
+                                       np.ones(V, np.float32))]
+    return args, c(z3), dict(coeffs=c(grids), coeff_affines=c(caff))
+
+
+def nonrigid_block_inputs(rng, c, bs=(256, 256, 64), cpd=10.0):
+    """K26 at phase 11's tile-corner block, synthesised from ``rng``: 4
+    uint16 views of 288 x 288 x 96, (29, 29, 10) vertex grids at -cpd 10
+    fitted (``fit_control_grid``) to 40 points each displaced by ~1 px
+    from the block's world positions, view affines rotated by up to 0.15
+    rad about z, parts of the block outside each view. Returns the
+    wrapper's first eleven arguments."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
+        control_grid_dims)
+    from bigstitcher_spark_tpu_torch.ops.nonrigid import fit_control_grid
+
+    V, ps = 4, tuple(b + 32 for b in bs)
+    bo = np.array([900.0, 900.0, 32.0], np.float32)
+    go = bo - np.float32(cpd)
+    gdims = control_grid_dims(bs, cpd)
+    grids = np.zeros((V, *gdims, 12), np.float32)
+    vaff = np.zeros((V, 3, 4), np.float32)
+    offs = np.zeros((V, 3), np.float32)
+    for v in range(V):
+        t = bo + rng.uniform(-10, 266, (40, 3)) * np.array([1, 1, 0.25])
+        vw = t + rng.normal(0, 0.8, (40, 3)) + rng.uniform(-2, 2, 3)
+        grids[v] = fit_control_grid(t, vw, go.astype(np.float64), gdims, cpd)
+        ang = 0.05 * v
+        lin = np.array([[np.cos(ang), -np.sin(ang), 0],
+                        [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+        vaff[v, :, :3] = lin
+        vaff[v, :, 3] = -lin @ bo + 16.0 + rng.uniform(-0.5, 0.5, 3)
+        offs[v] = [0 if v & 1 else 800, 0 if v & 2 else 800, 0]
+    patches = rng.integers(90, 4000, (V, *ps)).astype(np.uint16)
+    dims = np.tile(np.array([1024, 1024, 128], np.float32), (V, 1))
+    arrays = (patches, grids, vaff, offs, dims, np.zeros((V, 3), np.float32),
+              np.full((V, 3), 40.0, np.float32), np.ones(V, np.float32), bo,
+              go, np.full(3, cpd, np.float32))
+    return [c(a) for a in arrays]
+
+
+def resample_yard(name, run, plain, nbytes, ops, form, card, outputs=None):
+    """One of K3's or K26's yardstick shapes: the kernel against its twin
+    on the card (fused rtol 1e-5 / atol 1e-3, wsum atol 1e-5), its card
+    time and its time with the host's (AVG_BLEND), its card time at each
+    fusion type, its bound; with ``outputs`` (a directory) the outputs are
+    saved there as ``<name>.pt`` or, where a file of that name is there
+    already (another tree's run on the same inputs), compared with it
+    bitwise. ``run`` and ``plain`` take the fusion type."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops.fusion import FUSION_TYPES
+
+    got, ref = run("AVG_BLEND"), plain("AVG_BLEND")
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    r = dict(err=max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1])),
+             ms=time_ms(lambda: run("AVG_BLEND"), reps=20),
+             wrapper_ms=time_ms(lambda: run("AVG_BLEND"), reps=20, host=True),
+             ft_ms={ft: time_ms(lambda ft=ft: run(ft), reps=20)
+                    for ft in FUSION_TYPES},
+             bound=bound(nbytes, ops), form=form)
+    del ref
+    if outputs:
+        os.makedirs(outputs, exist_ok=True)
+        path = os.path.join(outputs, name.replace(" ", "_") + ".pt")
+        if os.path.exists(path):
+            other = torch.load(path)
+            r["bitwise_vs_saved"] = all(
+                torch.equal(a.cpu(), b) for a, b in zip(got, other))
+            r["max_delta_vs_saved"] = max(max_abs(a.cpu(), b)
+                                          for a, b in zip(got, other))
+        else:
+            torch.save(tuple(a.cpu() for a in got), path)
+            r["saved"] = path
+    print(f"  {name} [{card}]: kernel {r['ms']} ms  with the host's time "
+          f"{r['wrapper_ms']} ms  bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}; "
+          f"{r['bound'][0] / r['ms'] if r['ms'] else float('nan'):.1%} of "
+          f"the kernel's time)  "
+          f"max|delta| vs twin {r['err']:.3g}  by fusion type: "
+          + ", ".join(f"{k} {v} ms" for k, v in r["ft_ms"].items())
+          + f"  form: {form}"
+          + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}, "
+             f"max|delta| {r['max_delta_vs_saved']:.3g}"
+             if "bitwise_vs_saved" in r else ""), flush=True)
+    return r
+
+
+def resample_yardsticks(kinds, dev, card, outputs=None, scale="full"):
+    """K3 at phase 1's shape (its views rotated about z, the separable
+    form, and about y, the general form), K3 with coefficients at 10c's
+    tile-corner block and K26 at phase 11's (``kinds``: "gather",
+    "nonrigid"), each through :func:`resample_yard`; ``scale`` tiny
+    rehearses on a 32 x 28 x 16 block."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bs = (256, 256, 64) if scale == "full" else (32, 28, 16)
+    n, V, out = int(np.prod(bs)), 4, {}
+    forms = (("z", "fuse_block", ""),
+             ("y", "fuse_block general", ", rotated about y"))
+    for about, key, what in forms if "gather" in kinds else ():
+        rng = np.random.default_rng(2024)
+        dims = np.tile(np.array([s + 80 for s in bs], np.float32), (V, 1))
+        pv = lambda lo, hi: rng.uniform(lo, hi, (V, 3)).astype(np.float32)
+        borders, ranges = pv(0, 3), pv(10, 40)
+        gargs = gather_inputs(rng, c, bs, V, dims, borders, ranges,
+                              np.ones(V, np.float32), about)
+        io = c(np.zeros((V, 3), np.float32))
+        out[key] = resample_yard(
+            f"fuse_block at phase 1's shape{what}",
+            lambda ft: F.fuse_block(*gargs, bs, ft, io),
+            lambda ft: F.fuse_block_plain(*gargs, bs, ft, io),
+            gargs[0].numel() * 2 + 2 * n * 4, V * n * OPS["gather"],
+            resample_form(F, bs, V, tuple(gargs[0].shape[1:])), card, outputs)
+        del gargs
+    if "gather" in kinds:
+        cargs, io, cf = coeff_block_inputs(np.random.default_rng(2025), c, bs)
+        out["fuse_block+coeff"] = resample_yard(
+            "fuse_block with coefficients at 10c's tile-corner block",
+            lambda ft: F.fuse_block(*cargs, bs, ft, io, **cf),
+            lambda ft: F.fuse_block_plain(*cargs, bs, ft, io, **cf),
+            cargs[0].numel() * 2 + cf["coeffs"].numel() * 4 + n * 8,
+            V * n * (OPS["gather"] + OPS["coeff_k3"]),
+            resample_form(F, bs, V, tuple(cargs[0].shape[1:])), card, outputs)
+        del cargs
+    if "nonrigid" in kinds:
+        ins = nonrigid_block_inputs(np.random.default_rng(2026), c, bs)
+        out["nonrigid_fuse"] = resample_yard(
+            "nonrigid_fuse at phase 11's block",
+            lambda ft: NR.nonrigid_fuse_block(*ins, bs, ft),
+            lambda ft: NR.nonrigid_fuse_block_plain(*ins, bs, ft),
+            sum(t.numel() * t.element_size() for t in ins) + n * 8,
+            V * n * OPS["nonrigid"],
+            resample_form(F, bs, V, tuple(ins[0].shape[1:])), card, outputs)
+    return out
+
+
 def match_cli(xml, args, route, dev, card, launches):
     """``match-interestpoints`` through the CLI entry function, launches
     counted as ``route``; prints the wall and its split."""
@@ -3477,6 +3687,9 @@ def phase10c(work, proj, scale, dev, card, launches):
         if dev.type == "cuda" and tag == "tile corner":
             V = int(ins[0].shape[0])
             nb = int(np.prod(staged.shape))
+            print(f"  fuse_block (K3) with coefficients form: "
+                  f"{resample_form(F, staged.shape, V, ins[0].shape[1:])}; "
+                  f"grids {tuple(cf['coeffs'].shape[1:4])}", flush=True)
             res["fuse_block"] = coeff_times(
                 f"fuse_block (K3) at a {staged.shape} block of {V} views",
                 lambda: F.fuse_block(*ins, staged.shape, "AVG_BLEND", ioffs,
@@ -3749,6 +3962,7 @@ def nonrigid_times(ins, nv, card):
     import numpy as np
     import torch
 
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
     from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
 
     bs = compute_block_of("full")
@@ -3769,7 +3983,9 @@ def nonrigid_times(ins, nv, card):
     nbytes = sum(t.numel() * t.element_size() for t in ins) + nb * 8
     r = dict(err=err, ms=time_ms(run, reps=10), wrapper_ms=wrapper_ms,
              plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
-             bound=bound(nbytes, nv * nb * OPS["nonrigid"]))
+             bound=bound(nbytes, nv * nb * OPS["nonrigid"]),
+             form=resample_form(F, bs, V, tuple(ins[0].shape[1:])))
+    print(f"  nonrigid_fuse (K26) form: {r['form']}", flush=True)
     print(f"  nonrigid_fuse (K26) at a {bs} block of {nv} views ({V} "
           f"staged, {tuple(ins[0].shape[1:])} {ins[0].dtype} patches, grids "
           f"{tuple(ins[1].shape[1:4])}) [{card}]: max|delta| {err:.3g}  "
@@ -4189,6 +4405,8 @@ def main(argv=None) -> int:
                 "block_bound_ms": r["block_bound"][0],
                 "block_max_abs_err": r["block_err"]}
                if "block_ms" in r else {}),
+            # K3's and K26's launch form, K3's time by fusion type
+            **{k: r[k] for k in ("form", "ft_ms") if k in r},
             # K6's one-axis form (phase 1) and K19's masked form (8d)
             **{k: v for k, v in r.items() if k.startswith("halfpixel_")},
             **({"masked_launches": masked["launches"],

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
-(ratio test) and K15 (blur pass) beside their bounds, on one GPU.
+(ratio test), K15 (blur pass), K3 (gather) and K26 (nonrigid) beside
+their bounds, and phase 10's walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
-        [--only fft|cg|ratio|blur] [--sigmas S,S,...]
+        [--only fft|cg|ratio|blur|gather|nonrigid|intensity[,...]]
+        [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
 in), so that two trees, e.g. a parent commit unpacked with ``git archive``
@@ -30,7 +32,24 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
 - ``blur_times`` at 8a's bucket (2 x 528 x 528 x 144 float32): K15's six
   passes each bitwise against its twin and timed alone, and together, at
   sigma 1.8 (the reference's default: radii 6 and 7) or at each of
-  ``--sigmas`` (e.g. 3.0: radii 9 and 11, taken at run time).
+  ``--sigmas`` (e.g. 3.0: radii 9 and 11, taken at run time);
+- ``resample_yardsticks``: ``gather`` is K3 at phase 1's shape (a
+  256x256x64 block of 4 uint16 views of 288x288x96, rotated about z: the
+  separable form), at the same shape rotated about y (the general form)
+  and K3 with coefficients at 10c's tile-corner block (its 4 translated
+  views' geometry, 8x8x8 grids), ``nonrigid`` K26 at phase 11's block (4
+  views, 29x29x10 vertex grids at -cpd 10); each against its twin, in
+  card time, with the host's time and at each fusion type. With
+  ``--outputs DIR`` the outputs are saved in DIR, or, where an earlier
+  run (another tree) saved them, compared with them bitwise: run parent,
+  change, change, parent with one DIR;
+- ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
+  gates) through the CLI, after every library of the tree is built, so
+  that no build lands in a timed window; prints each route's wall split.
+
+``--build-times`` builds the named libraries (``csrc/<name>.cu``) one at
+a time before anything else and prints each ``nvcc``'s seconds (a
+library the tree had built already is not rebuilt).
 
 Prints the card (nvidia-smi name and power limit), then one JSON line
 ``{"root": ..., "kernels": {name: {...}}}``. Exits 2 without a card; with
@@ -41,7 +60,9 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,11 +79,22 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", default="",
                     help="K24 also launched with these lanes a row, e.g. "
                          "1,4,8,16")
-    ap.add_argument("--only", choices=("fft", "cg", "ratio", "blur"),
-                    default=None)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated: fft, cg, ratio, blur, gather, "
+                         "nonrigid, intensity (default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
+    ap.add_argument("--outputs", default=None,
+                    help="K3's and K26's outputs saved here, or compared "
+                         "bitwise with those an earlier run saved here")
+    ap.add_argument("--build-times", default="",
+                    help="build these libraries one at a time first and "
+                         "print each nvcc's seconds, e.g. gather,nonrigid")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
+    kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "intensity")
+    if any(k not in kinds for k in only):
+        ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
@@ -95,8 +127,22 @@ def main(argv=None) -> int:
                else [cfg["pcm_bucket"]])
     lanes = tuple(int(g) for g in args.lanes.split(",") if g)
     out = {}
-    only = (args.only,) if args.only else ("fft", "cg")
+    if dev.type == "cuda" and args.build_times:
+        from bigstitcher_spark_tpu_torch.ops import _cuda
+
+        out["nvcc_s"] = {}
+        for name in args.build_times.split(","):
+            took = _cuda.build_all((name,))[name]
+            out["nvcc_s"][name] = took
+            print(f"  nvcc {name}.cu alone: " + (
+                f"{took:.1f} s" if took else "built before this run"),
+                flush=True)
     try:
+        if "intensity" in only:
+            out["phase 10"] = phase10(root, args.scale, dev, card, CS)
+        if "gather" in only or "nonrigid" in only:
+            out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
+                                              args.scale))
         if "blur" in only:
             shape = (2, 528, 528, 144) if args.scale == "full" else (
                 2, 40, 36, 20)
@@ -138,6 +184,25 @@ def main(argv=None) -> int:
     print(card)
     print(json.dumps({"root": root, "kernels": out}))
     return 0
+
+
+def phase10(root, scale, dev, card, CS):
+    """chip_smoke's phase 10 on the tree at ``root``, every library built
+    first; returns its launches."""
+    if dev.type == "cuda":
+        from bigstitcher_spark_tpu_torch.ops import _cuda
+
+        t0 = time.perf_counter()
+        _cuda.build_all()
+        print(f"  every library built in {time.perf_counter() - t0:.1f} s "
+              "before phase 10", flush=True)
+    work = os.path.join(root, "smoke_work")
+    launches = {}
+    try:
+        CS.phase10_intensity(work, scale, dev, card, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches}
 
 
 if __name__ == "__main__":

@@ -1144,6 +1144,114 @@ def test_fuse_block_gather_coeff_kernel(dev, fusion_type):
     assert (got[0] - plain[0]).abs().max() > 10  # the branch was taken
 
 
+def _gather_case(rng, V, bs, dtype="uint16", coeff=False):
+    """K3 inputs over a ``bs`` block: V views of the block + 9, rotated
+    about z (separable: the column and per-k form) and every other view
+    about x (a general affine: the per-voxel form), z steps of 0.7 (view
+    1: taps repeat) and 1.6 (view 2: taps skip), translations past the
+    patch (runs clamped at its ends), every fifth view invalid; with
+    ``coeff`` 4 x 3 x 5 grids, every other view's grid affine tilted in z
+    (its x taps per voxel)."""
+    ps = tuple(s + 9 for s in bs)
+    vmax = {"uint8": 255, "uint16": 4000, "int16": 3000, "float32": 4000}
+    patches = rng.uniform(0, vmax[dtype], (V, *ps)).astype(dtype)
+    aff = np.zeros((V, 3, 4), np.float32)
+    for v in range(V):
+        a = np.deg2rad(rng.uniform(-10, 10))
+        c, s_ = np.cos(a), np.sin(a)
+        aff[v, :3, :3] = ([[1, 0, 0], [0, c, -s_], [0, s_, c]] if v % 2 == 0
+                          else [[c, -s_, 0], [s_, c, 0], [0, 0, 1]])
+        aff[v, 2, 2] *= {1: 0.7, 2: 1.6}.get(v, 1.0)
+        aff[v, :, 3] = rng.uniform(-6, 12, 3)
+    dims = np.tile(np.array([p * 1.2 + 5 for p in ps], np.float32), (V, 1))
+    args = [torch.from_numpy(patches), torch.from_numpy(aff),
+            _per_view(rng, V, 0, 30), torch.from_numpy(dims),
+            _per_view(rng, V, 0, 3), _per_view(rng, V, 2, 12),
+            torch.from_numpy((np.arange(V) % 5 != 3).astype(np.float32)),
+            _per_view(rng, V, 0, 2)]
+    cf = {}
+    if coeff:
+        cd = (4, 3, 5)
+        g = np.empty((V, *cd, 2), np.float32)
+        g[..., 0] = rng.uniform(0.5, 1.5, (V, *cd))
+        g[..., 1] = rng.uniform(-50, 50, (V, *cd))
+        ca = np.zeros((V, 3, 4), np.float32)
+        for v in range(V):
+            ca[v, [0, 1, 2], [0, 1, 2]] = np.array(cd) / dims[v]
+            ca[v, :, 3] = rng.uniform(-0.5, 0.5, 3)
+            if v % 2:
+                ca[v, 0, 2] = 0.01
+        cf = dict(coeffs=torch.from_numpy(g), coeff_affines=torch.from_numpy(ca))
+    return args, cf
+
+
+def _gather_check(dev, args, cf, bs, fusion_type):
+    """K3 against its twin, both on the card: fused rtol 1e-5 / atol 1e-3,
+    wsum atol 1e-5."""
+    args = [a.to(dev) for a in args]
+    cf = {k: v.to(dev) for k, v in cf.items()}
+    ref = F.fuse_block_plain(*args[:7], bs, fusion_type, args[7], **cf)
+    ops.reset_launch_counts()
+    got = F.fuse_block(*args[:7], bs, fusion_type, args[7], **cf)
+    assert ops.launch_counts()["fuse_block"] == 1
+    assert got[0].shape == tuple(bs)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+# blocks that are not multiples of the run or the tile, one view to 33 (five
+# view chunks of 8), 130 z outputs (two z tiles, the second ragged)
+RESAMPLE_CASES = [((5, 3, 7), 1), ((1, 1, 1), 4), ((3, 40, 9), 9),
+                  ((2, 5, 64), 33), ((2, 3, 130), 4), ((4, 70, 66), 4)]
+_case_id = lambda c: "x".join(map(str, c[0])) + f"-V{c[1]}"
+
+
+@pytest.mark.parametrize("fusion_type", FTYPES)
+@pytest.mark.parametrize("case", RESAMPLE_CASES, ids=_case_id)
+@pytest.mark.parametrize("coeff", [False, True], ids=["plain", "coeff"])
+def test_fuse_block_gather_kernel_ragged(dev, coeff, case, fusion_type):
+    bs, V = case
+    args, cf = _gather_case(np.random.default_rng(33), V, bs, coeff=coeff)
+    _gather_check(dev, args, cf, bs, fusion_type)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int16", "float32"])
+@pytest.mark.parametrize("case", RESAMPLE_CASES[:3], ids=_case_id)
+@pytest.mark.parametrize("coeff", [False, True], ids=["plain", "coeff"])
+def test_fuse_block_gather_kernel_dtypes(dev, coeff, case, dtype):
+    bs, V = case
+    args, cf = _gather_case(np.random.default_rng(34), V, bs, dtype, coeff)
+    _gather_check(dev, args, cf, bs, "AVG_BLEND")
+
+
+@pytest.mark.parametrize("coeff", [False, True], ids=["plain", "coeff"])
+def test_fuse_block_gather_kernel_64bit_patch(dev, coeff):
+    """One uint8 view of 1300^3 (2.197e9 elements, past 2^31) and a small
+    block at its far corner: the 64-bit index instantiation, against the
+    twin."""
+    n = 1300
+    assert F.resample_plan((16, 12, 8), 1, (n, n, n)).idx64
+    g = torch.Generator(device=dev).manual_seed(35)
+    patches = torch.randint(0, 256, (1, n, n, n), dtype=torch.uint8,
+                            device=dev, generator=g)
+    rng = np.random.default_rng(35)
+    a = np.deg2rad(3.0)
+    aff = np.zeros((1, 3, 4), np.float32)
+    aff[0, :3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                      [0, 0, 1]]
+    aff[0, :, 3] = [n - 14.3, n - 11.6, n - 9.2]  # samples past the far edge
+    args = [patches, torch.from_numpy(aff),
+            torch.from_numpy(np.full((1, 3), 100.0, np.float32)),
+            torch.from_numpy(np.full((1, 3), n + 150.0, np.float32)),
+            _per_view(rng, 1, 0, 3), _per_view(rng, 1, 20, 40), torch.ones(1),
+            torch.zeros(1, 3)]
+    cf = {}
+    if coeff:
+        grids, caffs = _coeff_inputs(rng, 1, (n + 150,) * 3)
+        cf = dict(coeffs=grids, coeff_affines=caffs)
+    _gather_check(dev, args, cf, (16, 12, 8), "AVG_BLEND")
+
+
 @pytest.mark.parametrize("P,N,I", [(3, 256, 500), (64, 2048, 1000),
                                    (5, 16384, 300)])
 def test_linefit_ransac_kernel(dev, P, N, I):
@@ -1328,17 +1436,21 @@ def test_cg_spmv_refuses_bad_lanes(dev, lanes):
 # ---------------------------------------------------------------- K26
 
 
-def _nonrigid_case(rng, dtype, V=4, n_valid=3, bs=(24, 20, 16)):
+def _nonrigid_case(rng, dtype, V=4, n_valid=3, bs=(24, 20, 16), cpd=10.0,
+                   go_shift=0.0):
     """K26 inputs: V views (the last V - n_valid padded), fitted vertex
-    grids at the main path's spacing, a block origin near (1500, 900, 60);
+    grids at a spacing of ``cpd`` (the main path's 10 by default; below
+    ~1.5 a tile's z range reaches more vertices than K26's table holds),
+    the grid origin ``go_shift`` past the reference's (grid coordinates
+    clamped at one end or the other), a block origin near (1500, 900, 60);
     one view rotated, one image ending inside the block."""
     from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
         control_grid_dims)
     from bigstitcher_spark_tpu_torch.ops.nonrigid import fit_control_grid
 
     bo = np.array([1500.25, 900.5, 60.75], np.float32)
-    go = bo - np.float32(10.0)
-    gdims = control_grid_dims(bs, 10.0)
+    go = bo - np.float32(cpd) + np.float32(go_shift)
+    gdims = control_grid_dims(bs, cpd)
     grids = np.zeros((V, *gdims, 12), np.float32)
     grids[..., 0] = grids[..., 5] = grids[..., 10] = 1.0
     pshape = tuple(s + 24 for s in bs)
@@ -1349,7 +1461,7 @@ def _nonrigid_case(rng, dtype, V=4, n_valid=3, bs=(24, 20, 16)):
     for v in range(n_valid):
         t = bo + rng.uniform(-10, 30, (30, 3))
         vw = t + rng.normal(0, 0.8, (30, 3)) + rng.uniform(-2, 2, 3)
-        grids[v] = fit_control_grid(t, vw, go.astype(np.float64), gdims, 10.0)
+        grids[v] = fit_control_grid(t, vw, go.astype(np.float64), gdims, cpd)
         patches[v] = rng.uniform(0, vmax, pshape).astype(dtype)
         ang = 0.05 * v
         lin = np.array([[np.cos(ang), -np.sin(ang), 0],
@@ -1364,7 +1476,7 @@ def _nonrigid_case(rng, dtype, V=4, n_valid=3, bs=(24, 20, 16)):
     ranges = rng.uniform(4, 12, (V, 3)).astype(np.float32)
     valid = (np.arange(V) < n_valid).astype(np.float32)
     arrays = (patches, grids, vaff, offsets, dims, borders, ranges, valid, bo,
-              go, np.full(3, 10.0, np.float32))
+              go, np.full(3, cpd, np.float32))
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays], bs
 
 
@@ -1414,6 +1526,58 @@ def test_nonrigid_fuse_launch_counts_and_no_cpu_fallback(dev):
     with pytest.raises(ValueError):
         NR.nonrigid_fuse_block(*bad, bs, "AVG")
     assert ops.launch_counts()["nonrigid_fuse"] == 1
+
+
+# ragged blocks, one view to 33, spacings whose tiles overflow K26's table
+# (0.5 at 64 z outputs a tile, 1.0 at 128) and grid origins that clamp the
+# grid coordinates above the last vertex (-35) and below 0 (+50)
+NONRIGID_CASES = [((5, 3, 7), 1, 1, 10.0, 0.0), ((1, 1, 1), 4, 3, 10.0, 0.0),
+                  ((3, 40, 9), 9, 9, 10.0, -35.0),
+                  ((2, 5, 64), 33, 20, 10.0, 0.0),
+                  ((2, 17, 33), 4, 4, 0.5, 0.0),
+                  ((2, 3, 130), 4, 4, 1.0, 50.0)]
+
+
+@pytest.mark.parametrize("fusion_type", FTYPES)
+@pytest.mark.parametrize("case", NONRIGID_CASES, ids=lambda c: "x".join(
+    map(str, c[0])) + f"-V{c[1]}-cpd{c[3]:g}-shift{c[4]:g}")
+def test_nonrigid_fuse_kernel_ragged(dev, case, fusion_type):
+    bs, V, n_valid, cpd, shift = case
+    args, bs = _nonrigid_case(np.random.default_rng(45), "uint16", V,
+                              n_valid, bs, cpd, shift)
+    _nonrigid_check(dev, args, bs, fusion_type)
+
+
+def test_nonrigid_fuse_kernel_64bit_patch(dev):
+    """One uint8 view of 1300^3 (past 2^31 elements) and a small block at
+    its far corner: the 64-bit index instantiation, against the twin."""
+    from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
+        control_grid_dims)
+    from bigstitcher_spark_tpu_torch.ops.nonrigid import fit_control_grid
+
+    n, bs = 1300, (16, 12, 8)
+    assert F.resample_plan(bs, 1, (n, n, n)).idx64
+    rng = np.random.default_rng(46)
+    bo = np.array([5000.5, 3000.25, 700.75], np.float32)
+    go = bo - np.float32(10.0)
+    gdims = control_grid_dims(bs, 10.0)
+    t = bo + rng.uniform(-10, 20, (30, 3))
+    vw = t + rng.normal(0, 0.5, (30, 3))
+    grid = fit_control_grid(t, vw, go.astype(np.float64), gdims, 10.0)
+    vaff = np.zeros((1, 3, 4), np.float32)
+    vaff[0, :, :3] = np.eye(3)
+    vaff[0, :, 3] = -bo + np.array([n - 14.5, n - 11.5, n - 9.5])
+    g = torch.Generator(device=dev).manual_seed(46)
+    patches = torch.randint(0, 256, (1, n, n, n), dtype=torch.uint8,
+                            device=dev, generator=g)
+    arrays = (grid[None], vaff, np.full((1, 3), 100.0, np.float32),
+              np.full((1, 3), n + 150.0, np.float32),
+              rng.uniform(0, 2, (1, 3)).astype(np.float32),
+              rng.uniform(4, 12, (1, 3)).astype(np.float32),
+              np.ones(1, np.float32), bo, go, np.full(3, 10.0, np.float32))
+    args = [patches] + [torch.from_numpy(np.ascontiguousarray(a))
+                        for a in arrays]
+    _nonrigid_check(dev, args, bs, "AVG_BLEND")
 
 
 # --------------------------------------------------------------- K27, K6
