@@ -25,18 +25,30 @@
 //   equations of 2048-px tiles ~30,000 px out reach condition numbers of
 //   1e11-1e13; about o they are well conditioned. Bound: bytes (64 B a
 //   row: p, q, other, w, link_id; the gathered models stay in L2).
-// K12 relax_fit: one thread per tile. The model from the moments
-//   (_fit_from_moments_jnp, ops/solve.py:273), then the regulariser's, then
-//   (1 - lam) m + lam r, shifted back from o to world coordinates (t = (t'
-//   + o) - A o); identity where sw <= 0 or the tile is fixed; then cur =
-//   (1 - damping) cur + damping new, in place. TRANSLATION in closed
-//   form; AFFINE by Gaussian elimination with partial pivoting on the 4x4
-//   spp + 1e-9 I (that ridge carried to o) with 3 right-hand sides; RIGID
-//   the weighted Kabsch fit from
-//   the 3x3 H through a one-sided Jacobi SVD, singular values sorted in
-//   descending order (the JAX code flips the LAST singular vector, which in
-//   LAPACK's order is the smallest). Bound: operations (a few hundred
-//   float64 flops a tile).
+// K12 relax_fit: the model from the moments (_fit_from_moments_jnp,
+//   ops/solve.py:273), and the regulariser's, then (1 - lam) m + lam r,
+//   shifted back from o to world coordinates (t = (t' + o) - A o); identity
+//   where sw <= 0 or the tile is fixed; then cur = (1 - damping) cur +
+//   damping new, in place. TRANSLATION in closed form; AFFINE by Gaussian
+//   elimination with partial pivoting on the 4x4 spp + 1e-9 I (that ridge
+//   carried to o) with 3 right-hand sides; RIGID the weighted Kabsch fit
+//   from the 3x3 H through a one-sided Jacobi SVD, singular values sorted
+//   in descending order (the JAX code flips the LAST singular vector, which
+//   in LAPACK's order is the smallest). Bound: operations (a few hundred
+//   float64 flops a tile), but a tile's fit is one long dependent chain of
+//   float64 divides and square roots (each a multi-instruction sequence):
+//   latency, not throughput, sets the time. The first form gave a
+//   thread a tile and ran both fits one after the other, every fit kind
+//   compiled into one body, the moments loaded 288 B apart, the singular
+//   vectors indexed by a run-time permutation (a 256-byte local stack).
+//   This form: a block of 32 tiles, templated on the (model, regulariser)
+//   pair so that only the fits it needs are compiled; warp 0 fits the
+//   model while warp 1 fits the regulariser (two chains at once, on two
+//   schedulers), its results handed over in shared memory; warp 0 blends,
+//   shifts back and writes; the sort and the pivoting move values between
+//   registers (no local stack). Every divide, square root and sum is the
+//   first form's, in its order (-fmad=false): bitwise the first form's
+//   models.
 // K13 relax_error: per segment, sum ||M_own p - M_other q|| w_eff and
 //   sum w_eff. Segments are tiles (rows contiguous, for the mean error of
 //   K14), or links (rows listed by index: the A-side rows of each link, for
@@ -179,18 +191,28 @@ __device__ void fit_affine(const double* mo, const double* o, double* out) {
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
+    // the pivot row p and its swap by compile-time indices, so that a and
+    // b stay in registers
     int p = c;
+    double best = fabs(a[c][c]);
 #pragma unroll
-    for (int r = c + 1; r < 4; ++r)
-      if (fabs(a[r][c]) > fabs(a[p][c])) p = r;
-    if (p != c) {
+    for (int r = c + 1; r < 4; ++r) {
+      const double x = fabs(a[r][c]);
+      if (x > best) {
+        best = x;
+        p = r;
+      }
+    }
+#pragma unroll
+    for (int r = c + 1; r < 4; ++r) {
+      if (p != r) continue;
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
-        const double t = a[c][l]; a[c][l] = a[p][l]; a[p][l] = t;
+        const double t = a[c][l]; a[c][l] = a[r][l]; a[r][l] = t;
       }
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const double t = b[c][j]; b[c][j] = b[p][j]; b[p][j] = t;
+        const double t = b[c][j]; b[c][j] = b[r][j]; b[r][j] = t;
       }
     }
 #pragma unroll
@@ -270,25 +292,33 @@ __device__ void fit_rigid(const double* mo, double* out) {
     if (!rotated) break;
   }
   double sig[3];
-  int ord[3] = {0, 1, 2};
 #pragma unroll
   for (int k = 0; k < 3; ++k)
     sig[k] = sqrt((a[0][k] * a[0][k] + a[1][k] * a[1][k]) + a[2][k] * a[2][k]);
-  // descending, stable
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && sig[ord[j]] > sig[ord[j - 1]]; --j) {
-      const int t = ord[j]; ord[j] = ord[j - 1]; ord[j - 1] = t;
+  // descending and stable: the first form's insertion sort over (0, 1, 2)
+  // as three compare-exchanges, each moving a column pair of a and v with
+  // its singular values, in registers (the third pass exchanges only where
+  // the second did: otherwise its pair is the first pass's, in order)
+  auto cswap = [&](int p, int q) {
+    if (sig[q] > sig[p]) {
+      const double t = sig[p]; sig[p] = sig[q]; sig[q] = t;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const double ta = a[i][p]; a[i][p] = a[i][q]; a[i][q] = ta;
+        const double tv = v[i][p]; v[i][p] = v[i][q]; v[i][q] = tv;
+      }
     }
-  double u[3][3], vs[3][3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) vs[i][k] = v[i][ord[k]];
+  };
+  cswap(0, 1);
+  cswap(1, 2);
+  cswap(0, 1);
+  double u[3][3];
+  const double (&vs)[3][3] = v;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const double s = sig[ord[k]];
+    const double s = sig[k];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) u[i][k] = s > 0.0 ? a[i][ord[k]] / s : 0.0;
+    for (int i = 0; i < 3; ++i) u[i][k] = s > 0.0 ? a[i][k] / s : 0.0;
   }
   u[0][2] = u[1][0] * u[2][1] - u[2][0] * u[1][1];
   u[1][2] = u[2][0] * u[0][1] - u[0][0] * u[2][1];
@@ -311,41 +341,70 @@ __device__ void fit_rigid(const double* mo, double* out) {
   }
 }
 
-__device__ void fit_kind(int kind, const double* mo, const double* o,
-                         double* out) {
+// A fit of kind KIND about the tile's origin o (identity for IDENTITY).
+template <int KIND>
+__device__ __forceinline__ void fit_kind(const double* mo, const double* o,
+                                         double* out) {
   set_identity(out);
-  if (kind == TRANSLATION) {
+  if constexpr (KIND == TRANSLATION) {
     const double sw = fmax(mo[0], kEpsFit);
 #pragma unroll
     for (int j = 0; j < 3; ++j) out[4 * j + 3] = (mo[5 + j] - mo[1 + j]) / sw;
-  } else if (kind == AFFINE) {
+  } else if constexpr (KIND == AFFINE) {
     fit_affine(mo, o, out);
-  } else if (kind == RIGID) {
+  } else if constexpr (KIND == RIGID) {
     fit_rigid(mo, out);
   }
 }
 
-__global__ void fit_kernel(const double* __restrict__ moments,
-                           const uint8_t* __restrict__ fixed,
-                           const double* __restrict__ origin, int T, int model,
-                           int reg, double lam, double damping,
-                           const int* __restrict__ state,
-                           double* __restrict__ cur) {
+constexpr int kFitTiles = 32;  // tiles a block: a warp's lanes
+
+template <int MODEL, int REG>
+__global__ void __launch_bounds__(2 * kFitTiles)
+    fit_kernel(const double* __restrict__ moments,
+               const uint8_t* __restrict__ fixed,
+               const double* __restrict__ origin, int T, double lam,
+               double damping, const int* __restrict__ state,
+               double* __restrict__ cur) {
+  constexpr bool kReg = REG != NONE;
   if (finished(state)) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  double mo[kM];
+  __shared__ double sreg[kReg ? kFitTiles : 1][13];
+  const int base = blockIdx.x * kFitTiles;
+  const int nt = min(kFitTiles, T - base);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool live = lane < nt;
+  // each warp loads its lanes' tiles' moments, every load issued before
+  // the fit (staging them in shared memory by coalesced loads first took
+  // 1-2 us longer a launch: one more round trip and a barrier)
+  double mo[kM], o[3];
+  if (live) {
+    const double* mg = moments + static_cast<int64_t>(base + lane) * kM;
 #pragma unroll
-  for (int v = 0; v < kM; ++v) mo[v] = moments[static_cast<int64_t>(t) * kM + v];
-  const double* o = origin + 3 * static_cast<int64_t>(t);
-  double m[12];
-  fit_kind(model, mo, o, m);
-  if (reg != NONE) {
-    double rm[12];
-    fit_kind(reg, mo, o, rm);
+    for (int v = 0; v < kM; ++v) mo[v] = mg[v];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) m[i] = (1.0 - lam) * m[i] + lam * rm[i];
+    for (int d = 0; d < 3; ++d)
+      o[d] = origin[3 * static_cast<int64_t>(base + lane) + d];
   }
+  double m[12];
+  if (warp == 0) {
+    if (live) fit_kind<MODEL>(mo, o, m);
+  } else if (kReg && live) {
+    // the regulariser's fit, at the same time as warp 0's
+    double rm[12];
+    fit_kind<REG>(mo, o, rm);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) sreg[lane][i] = rm[i];
+  }
+  if (kReg) {
+    __syncthreads();
+    if (warp == 0 && live) {
+#pragma unroll
+      for (int i = 0; i < 12; ++i)
+        m[i] = (1.0 - lam) * m[i] + lam * sreg[lane][i];
+    }
+  }
+  if (warp != 0 || !live) return;
+  const int t = base + lane;
 #pragma unroll
   for (int j = 0; j < 3; ++j)
     m[4 * j + 3] = (m[4 * j + 3] + o[j]) -
@@ -477,6 +536,25 @@ bool bad_wpt(int wpt) {
   return wpt != 1 && wpt != 2 && wpt != 4 && wpt != 8;
 }
 
+struct FitArgs {
+  const double* moments;
+  const uint8_t* fixed;
+  const double* origin;
+  const int* state;
+  double* cur;
+  cudaStream_t stream;
+};
+
+// K12 for one (model, regulariser) pair: a block of kFitTiles tiles, one
+// warp, or two with a regulariser.
+template <int MODEL, int REG>
+cudaError_t launch_fit(int T, double lam, double damping, const FitArgs& a) {
+  fit_kernel<MODEL, REG><<<blocks_for(T, kFitTiles),
+                           REG == NONE ? 32 : 2 * kFitTiles, 0, a.stream>>>(
+      a.moments, a.fixed, a.origin, T, lam, damping, a.state, a.cur);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int bst_relax_moments(const void* local, const void* target,
@@ -498,19 +576,43 @@ extern "C" int bst_relax_moments(const void* local, const void* target,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The (model, regulariser) pairs compiled: every model but NONE, with
+// every regulariser (ops/solve.py fit_pair).
+#define BST_FIT_REG(M)                                                  \
+  switch (reg) {                                                        \
+    case NONE: err = launch_fit<M, NONE>(T, lam, damping, args); break; \
+    case IDENTITY:                                                      \
+      err = launch_fit<M, IDENTITY>(T, lam, damping, args); break;      \
+    case TRANSLATION:                                                   \
+      err = launch_fit<M, TRANSLATION>(T, lam, damping, args); break;   \
+    case RIGID: err = launch_fit<M, RIGID>(T, lam, damping, args); break; \
+    case AFFINE:                                                        \
+      err = launch_fit<M, AFFINE>(T, lam, damping, args); break;        \
+    default: return cudaErrorInvalidValue;                              \
+  }
+
 extern "C" int bst_relax_fit(const void* moments, const void* fixed,
                              const void* origin, int T, int model, int reg,
                              double lam, double damping, const void* state,
                              void* cur, void* stream) {
-  if (T <= 0 || model < IDENTITY || model > AFFINE || reg < NONE ||
-      reg > AFFINE)
-    return cudaErrorInvalidValue;
-  fit_kernel<<<blocks_for(T, 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(moments), static_cast<const uint8_t*>(fixed),
-      static_cast<const double*>(origin), T, model, reg, lam, damping,
-      static_cast<const int*>(state), static_cast<double*>(cur));
-  return static_cast<int>(cudaGetLastError());
+  if (T <= 0) return cudaErrorInvalidValue;
+  const FitArgs args{static_cast<const double*>(moments),
+                     static_cast<const uint8_t*>(fixed),
+                     static_cast<const double*>(origin),
+                     static_cast<const int*>(state), static_cast<double*>(cur),
+                     static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaSuccess;
+  switch (model) {
+    case IDENTITY: BST_FIT_REG(IDENTITY); break;
+    case TRANSLATION: BST_FIT_REG(TRANSLATION); break;
+    case RIGID: BST_FIT_REG(RIGID); break;
+    case AFFINE: BST_FIT_REG(AFFINE); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
+
+#undef BST_FIT_REG
 
 extern "C" int bst_relax_error(const void* local, const void* target,
                                const void* other, const void* w,

@@ -38,23 +38,21 @@ _D = ctypes.c_double
 
 
 class BstCompositeView(ctypes.Structure):
-    """Mirror of ``struct BstCompositeView`` in ``csrc/composite.cu``."""
+    """Mirror of ``struct BstCompositeView`` in ``csrc/composite.cu`` (144
+    bytes: two pointers, then 4-byte fields)."""
 
-    _fields_ = [(name, t * 3) for name, t in (
-        ("a", _I), ("L", _I), ("n", _I), ("pad", _I), ("tshape", _I))]
-    _fields_ += [("kind", _I), ("table_off", _I), ("cdims", _I * 3),
-                 ("ctab_off", _I)]
+    _fields_ = [("tile", _VP), ("grid", _VP)]
+    _fields_ += [(name, _I * 3) for name in ("a", "b", "n", "pad", "tshape")]
+    _fields_ += [("kind", _I), ("table_off", _I), ("ctab_off", _I)]
     _fields_ += [(name, _F * 3) for name in ("frac", "diag", "off")]
+    _fields_ += [("unused", _I * 4)]
 
 
 # C signatures of the launchers: every pointer and the stream are c_void_p
 _SIGNATURES = {
     "composite": {
-        "bst_composite_init": [_VP, _VP, _I64, _I, _VP],
-        "bst_composite_view": [_VP, _I, ctypes.POINTER(BstCompositeView),
-                               _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP],
-        "bst_composite_finalize": [_VP, _VP, _I64, _I, _I, _I, _F, _F, _VP,
-                                   _VP],
+        "bst_composite": [_VP] + [_I] * 3 + [_VP, _VP] + [_I] * 8
+                         + [_F, _F] + [_I] * 6 + [_VP, _VP],
     },
     "shift": {
         "bst_fuse_block_shift": [_VP, _I, _VP, _VP, _VP] + [_I] * 5

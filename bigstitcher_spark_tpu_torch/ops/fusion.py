@@ -34,6 +34,7 @@ wins), LAST_WINS (highest view wins).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from collections import namedtuple
 from typing import Sequence
@@ -1161,63 +1162,144 @@ def composite_fuse(tiles, fracs, img_dims, borders, ranges, inside_offs,
                             ctab=ctab, coffs=coffs)
 
 
+# K1's launch (csrc/composite.cu): a thread owns COMPOSITE_R consecutive z
+# outputs of one (i, j) column, a run; a block owns tile_j columns of
+# tile_i consecutive i, whole where a column has at most COMPOSITE_MAX_RUNS
+# runs (tile_runs = a column's runs), else cut into z tiles of
+# COMPOSITE_MAX_RUNS runs; at most COMPOSITE_THREADS threads; grid (x
+# tiles n_jt, z tiles). tile_i is the largest power of two up to
+# COMPOSITE_MAX_TILE_I that leaves COMPOSITE_MIN_BLOCKS blocks (4 waves of
+# 5 blocks an SM on 132 SMs): long x tiles share a block's staging, short
+# ones fill the card on a small volume.
+COMPOSITE_R = 8
+COMPOSITE_THREADS = 128
+COMPOSITE_MAX_RUNS = 32
+COMPOSITE_MAX_TILE_I = 16
+COMPOSITE_MIN_BLOCKS = 4 * 5 * 132
+CompositeLaunch = namedtuple("CompositeLaunch",
+                             "tile_i tile_j tile_runs n_jt grid")
+
+
+def composite_plan(out_shape) -> CompositeLaunch:
+    """K1's launch over a volume of ``out_shape``: ``tile_runs`` runs of
+    COMPOSITE_R z outputs along z, ``tile_j`` columns along j and
+    ``tile_i`` x slices a block, ``n_jt`` column tiles along j, ``grid`` (x
+    tiles n_jt, z tiles). Whole columns where they hold at most
+    COMPOSITE_MAX_RUNS runs (no idle z tail: route A's 132 planes are 17
+    runs, 7 columns a block); longer columns in z tiles of
+    COMPOSITE_MAX_RUNS runs, 4 columns a block."""
+    X, Y, Z = (int(s) for s in out_shape)
+    if min(X, Y, Z) <= 0:
+        raise ValueError(f"empty composite volume {tuple(out_shape)}")
+    runs = _cdiv(Z, COMPOSITE_R)
+    tile_runs = min(runs, COMPOSITE_MAX_RUNS)
+    tile_j = min(COMPOSITE_THREADS // tile_runs, Y)
+    n_jt = _cdiv(Y, tile_j)
+    n_zt = _cdiv(runs, tile_runs)
+    tile_i = COMPOSITE_MAX_TILE_I
+    while tile_i > 1 and _cdiv(X, tile_i) * n_jt * n_zt < COMPOSITE_MIN_BLOCKS:
+        tile_i //= 2
+    grid = (_cdiv(X, tile_i) * n_jt, n_zt)
+    if grid[0] >= 2 ** 31 or grid[1] > 65535:
+        raise ValueError(f"volume {tuple(out_shape)} exceeds the launch grid")
+    return CompositeLaunch(tile_i, tile_j, tile_runs, n_jt, grid)
+
+
+def composite_block_boxes(plan: CompositeLaunch, out_shape) -> np.ndarray:
+    """Each block's box of output voxels, (blocks, 2, 3) [start, end) in
+    (x, y, z), block b = (b % grid_x, b // grid_x), as K1 derives it from
+    its block index: the views whose window misses the box at an x slice
+    are skipped there by the whole block."""
+    X, Y, Z = (int(s) for s in out_shape)
+    bx = np.arange(plan.grid[0], dtype=np.int64)
+    by = np.arange(plan.grid[1], dtype=np.int64)
+    it = bx // plan.n_jt
+    jlo = (bx - it * plan.n_jt) * plan.tile_j
+    zn = COMPOSITE_R * plan.tile_runs
+    box = np.empty((plan.grid[1], plan.grid[0], 2, 3), np.int64)
+    box[:, :, 0, 0] = it * plan.tile_i
+    box[:, :, 1, 0] = np.minimum(X, (it + 1) * plan.tile_i)
+    box[:, :, 0, 1], box[:, :, 1, 1] = jlo, np.minimum(Y, jlo + plan.tile_j)
+    box[:, :, 0, 2] = (by * zn)[:, None]
+    box[:, :, 1, 2] = np.minimum(Z, (by + 1) * zn)[:, None]
+    return box.reshape(-1, 2, 3)
+
+
+def composite_records(tiles, starts, windows, n_offs, pad, kinds, fracs,
+                      diags, offs, fusion_type, coeffs=None, coffs=None):
+    """K1's view records (``struct BstCompositeView``), in the order the
+    views are combined (:func:`_composite_view_order`: reversed for
+    FIRST_WINS), views with an empty window left out. Returns (the records'
+    bytes, the view index of each record). ``starts`` and ``coffs``: the
+    views' offsets in the tables of :func:`composite_axis_tables` and
+    :func:`composite_coeff_tables`; ``coeffs`` (V, Cx, Cy, Cz, 2): the grids,
+    each record pointing at its view's."""
+    host = lambda x: np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(),
+                                np.float32)
+    fracs, diags, offs = host(fracs), host(diags), host(offs)
+    order = [v for v in _composite_view_order(len(windows), fusion_type)
+             if starts[v] is not None]
+    recs = (_cuda.BstCompositeView * max(len(order), 1))()
+    for rec, v in zip(recs, order):
+        (a, b), nv = windows[v], n_offs[v]
+        rec.tile = tiles[v].data_ptr()
+        rec.grid = None if coeffs is None else coeffs[v].data_ptr()
+        rec.a[:] = [int(x) for x in a]
+        rec.b[:] = [int(x) for x in b]
+        rec.n[:] = [int(x) for x in nv]
+        rec.pad[:] = [int(x) for x in pad]
+        rec.tshape[:] = [int(x) for x in tiles[v].shape]
+        rec.kind = 1 if kinds[v] == "sep" else 0
+        rec.table_off = starts[v]
+        rec.ctab_off = 0 if coffs is None else coffs[v]
+        rec.frac[:] = [float(x) for x in fracs[v]]
+        rec.diag[:] = [float(x) for x in diags[v]]
+        rec.off[:] = [float(x) for x in offs[v]]
+    return bytes(recs)[:len(order) * ctypes.sizeof(_cuda.BstCompositeView)], order
+
+
 def launch_composite(tiles, tables, starts, fracs, diags, offs, min_i, max_i,
                      *, out_shape, windows, n_offs, pad, fusion_type,
                      out_dtype, masks, kinds, coeffs=None, ctab=None,
                      coffs=None):
-    """K1 alone (init, one launch per view, finalize) on checked tiles and
-    the tables :func:`composite_axis_tables` (and, with ``coeffs``,
-    :func:`composite_coeff_tables`) built."""
+    """K1 alone (one launch: :func:`composite_plan`, the records of
+    :func:`composite_records`) on checked tiles and the tables
+    :func:`composite_axis_tables` (and, with ``coeffs``,
+    :func:`composite_coeff_tables`) built. Tiles of mixed element types are
+    widened to float32 first (exactly: every input type converts to
+    float32 without rounding)."""
     dev = tiles[0].device
-    host = lambda x: np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(),
-                                np.float32)
-    fracs, diags, offs = host(fracs), host(diags), host(offs)
-    ft = _ft_code(fusion_type)
-    code, dtype, _imax = _out_spec(out_dtype)
+    if len({t.dtype for t in tiles}) > 1:
+        tiles = [t.to(torch.float32) for t in tiles]
     X, Y, Z = (int(s) for s in out_shape)
-    n = X * Y * Z
-    acc = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
-    wsum = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    for v, st in enumerate(starts):
+        a, b = windows[v]
+        if st is not None and any(int(a[d]) < 0 or int(b[d]) > (X, Y, Z)[d]
+                                  for d in range(3)):
+            raise ValueError(f"view {v}'s window {windows[v]} leaves the "
+                             f"volume {(X, Y, Z)}")
+    code, dtype, _imax = _out_spec(out_dtype)
+    plan = composite_plan((X, Y, Z))
+    recs, order = composite_records(tiles, starts, windows, n_offs, pad,
+                                    kinds, fracs, diags, offs, fusion_type,
+                                    coeffs, coffs)
+    views = (torch.frombuffer(bytearray(recs), dtype=torch.uint8).to(dev)
+             if order else None)
     out = torch.empty((X, Y, Z), dtype=dtype, device=dev)
+    cdims = (0, 0, 0) if coeffs is None else tuple(int(c) for c in
+                                                  coeffs.shape[1:4])
     lib = _cuda.load("composite")
-    stream = _stream(dev)
-    _cuda.check(lib, lib.bst_composite_init(acc.data_ptr(), wsum.data_ptr(),
-                                            n, ft, stream), "composite init")
+    ret = lib.bst_composite(
+        None if views is None else views.data_ptr(), len(order),
+        _IN_CODE[tiles[0].dtype], int(coeffs is not None), tables.data_ptr(),
+        None if ctab is None else ctab.data_ptr(), cdims[1], cdims[2], X, Y,
+        Z, _ft_code(fusion_type), int(bool(masks)), code,
+        float(np.float32(min_i)), float(np.float32(max_i)), plan.tile_i,
+        plan.tile_j, plan.tile_runs, plan.n_jt, *plan.grid, out.data_ptr(),
+        _stream(dev))
+    _cuda.check(lib, ret, "composite")
     composite_fuse.launches += 1
-    for v in _composite_view_order(len(windows), fusion_type):
-        if starts[v] is None:
-            continue
-        (a, b), nv = windows[v], n_offs[v]
-        vp = _cuda.BstCompositeView()
-        vp.a[:] = [int(x) for x in a]
-        vp.L[:] = [int(b[d]) - int(a[d]) for d in range(3)]
-        vp.n[:] = [int(x) for x in nv]
-        vp.pad[:] = [int(x) for x in pad]
-        vp.tshape[:] = [int(s) for s in tiles[v].shape]
-        vp.kind = 1 if kinds[v] == "sep" else 0
-        vp.table_off = starts[v]
-        vp.frac[:] = [float(x) for x in fracs[v]]
-        vp.diag[:] = [float(x) for x in diags[v]]
-        vp.off[:] = [float(x) for x in offs[v]]
-        grid = None
-        if coeffs is not None:
-            vp.cdims[:] = [int(c) for c in coeffs.shape[1:4]]
-            vp.ctab_off = coffs[v]
-            grid = coeffs[v].data_ptr()
-        ret = lib.bst_composite_view(
-            tiles[v].data_ptr(), _IN_CODE[tiles[v].dtype], vp,
-            tables.data_ptr(), grid,
-            None if grid is None else ctab.data_ptr(), ft, acc.data_ptr(),
-            wsum.data_ptr(), X, Y, Z, stream)
-        _cuda.check(lib, ret, f"composite view {v}")
-        composite_fuse.launches += 1
-        composite_fuse.coeff_launches += grid is not None
-    ret = lib.bst_composite_finalize(
-        acc.data_ptr(), wsum.data_ptr(), n, ft, int(bool(masks)), code,
-        float(np.float32(min_i)), float(np.float32(max_i)), out.data_ptr(),
-        stream)
-    _cuda.check(lib, ret, "composite finalize")
-    composite_fuse.launches += 1
+    composite_fuse.coeff_launches += coeffs is not None
     return out
 
 

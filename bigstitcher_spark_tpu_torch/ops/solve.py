@@ -415,6 +415,22 @@ def relax_fit_plain(mom: torch.Tensor, fixed: torch.Tensor,
     return cur.copy_((1 - damping) * cur + damping * new)
 
 
+# K12's compiled (model, regulariser) pairs: each model with each regulariser
+FIT_MODELS = (M.IDENTITY, M.TRANSLATION, M.RIGID, M.AFFINE)
+FIT_REGS = (M.NONE,) + FIT_MODELS
+
+
+def fit_pair(model: str, reg: str) -> tuple[int, int]:
+    """K12's instantiation for a (model, regulariser) pair: the codes its
+    launcher dispatches on (``csrc/solve.cu`` bst_relax_fit)."""
+    if model == M.NONE:
+        raise ValueError("NONE is a regulariser, not a model")
+    if model not in FIT_MODELS or reg not in FIT_REGS:
+        raise ValueError(f"no relax fit for model {model!r} regularised by "
+                         f"{reg!r}")
+    return _KIND[model], _KIND[reg]
+
+
 def relax_fit(mom: torch.Tensor, fixed: torch.Tensor, origin: torch.Tensor,
               model: str, reg: str, lam: float, damping: float,
               state: torch.Tensor | None, cur: torch.Tensor) -> torch.Tensor:
@@ -424,16 +440,15 @@ def relax_fit(mom: torch.Tensor, fixed: torch.Tensor, origin: torch.Tensor,
         return relax_fit_plain(mom, fixed, origin, model, reg, lam, damping,
                                state, cur)
     dev, T = cur.device, int(cur.shape[0])
-    if model == M.NONE:
-        raise ValueError("NONE is a regulariser, not a model")
+    model_code, reg_code = fit_pair(model, reg)
     _require(mom, "moments", dev, _F64, (T, N_MOMENTS))
     _require(fixed, "fixed", dev, (torch.uint8,), (T,))
     _require(origin, "origin", dev, _F64, (T, 3))
     _require(cur, "cur", dev, _F64, (T, 3, 4))
     lib = _cuda.load("solve")
     ret = lib.bst_relax_fit(mom.data_ptr(), fixed.data_ptr(),
-                            origin.data_ptr(), T, _KIND[model],
-                            _KIND[reg], float(lam), float(damping),
+                            origin.data_ptr(), T, model_code, reg_code,
+                            float(lam), float(damping),
                             _ptr(state), cur.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "relax_fit")
     relax_fit.launches += 1

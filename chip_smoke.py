@@ -222,7 +222,12 @@ power limit. Each route runs with every launch count set to 0 just before
 it and read just after it: a kernel of that route launched no time fails
 the run (phases 6, 7 and 8 count each stitching, solver and detection
 run so). K1 then runs again, timed and held against its twin, on route A's
-whole volume: the one shape the main path gives it. The second-to-last line
+whole volume: the one shape the main path gives it; K1 is one launch a
+composite (checked there), and the device memory one composite call
+allocates at its peak is printed (the output and the tables: K1's first
+form also held a float32 accumulator and weight sum of the whole volume,
+4 GB at route A). K12 (the relax fits) runs its model and its
+regulariser in two warps of a block at once. The second-to-last line
 of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
@@ -296,7 +301,12 @@ KERNELS = {
 # K12 per tile (float64): the fit of each kind, plus 36 for the blend and
 # 36 for the damped update; the rigid fit counts 6 Jacobi sweeps of 3
 # rotations (~40 each) and the rest of the Kabsch fit, the affine one the
-# 4x4 elimination with 3 right-hand sides and the back substitution. K14:
+# 4x4 elimination with 3 right-hand sides and the back substitution (its
+# time is the latency of the rigid fit's chain of float64 divides and
+# square roots, which no count of operations shows). K1 per (view, voxel):
+# 8 products and 8 sums of the corners, the x-y-z products of the inside
+# test and blend ramp and the combine; per output voxel the finalize and
+# conversion (two divides, the clamp and the rounding). K14:
 # two sums per tile. K16: an add and a max per neighbour of the 27-voxel
 # window of each voxel past the threshold; K18: per round of a candidate
 # ~90 (gradient, Hessian, the pivoted 3x3 LU and solve, clip, value).
@@ -622,12 +632,32 @@ def composite_times(tiles, params, kw, dev, plain_reps=20):
     run = lambda: F.composite_fuse(tiles, *params, out_dtype="uint16", **kw)
     plain = lambda: F.composite_fuse_plain(tiles, *params, out_dtype="uint16",
                                            **kw)
+    import torch
+
+    from bigstitcher_spark_tpu_torch import ops
+
     n = int(np.prod(kw["out_shape"]))
     view_steps = sum(int(np.prod([b - a for a, b in zip(*w)]))
                      for w, st in zip(kw["windows"], starts) if st is not None)
+    # one wrapper call: K1's launches and the device memory it allocates at
+    # its peak (the output, the tables, nothing of the volume's size else)
+    on_card = tiles[0].device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    got = run()
+    launches = ops.launch_counts()["composite_fuse"]
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(launches == 1, f"K1: {launches} launch a composite")
     return dict(
-        err=max_abs(run(), plain()), ms=time_ms(bare), wrapper_ms=time_ms(run),
-        plain_ms=time_ms(plain, reps=plain_reps),
+        err=max_abs(got, plain()), ms=time_ms(bare), wrapper_ms=time_ms(run),
+        plain_ms=time_ms(plain, reps=plain_reps), launches_per_call=launches,
+        peak_bytes=peak,
         bound=bound(sum(t.numel() * t.element_size() for t in tiles) + n * 2,
                     view_steps * OPS["composite_view"]
                     + n * OPS["composite_final"]))
@@ -1271,6 +1301,11 @@ def composite_at_route_a(xml_path, out_a, dev):
     r = composite_times(tiles, params, kw, dev, plain_reps=2)
     check(r["err"] <= 1, f"K1 at route A's shape {kw['out_shape']}: |delta| "
                          f"{r['err']} <= 1 vs the plain composite")
+    print(f"  composite_fuse at route A's shape {kw['out_shape']}: "
+          f"{r['launches_per_call']} K1 launch a composite, device memory "
+          f"peak of one call {r['peak_bytes']} B (tiles "
+          f"{sum(t.numel() * t.element_size() for t in tiles)} B resident "
+          "before it)", flush=True)
     return r
 
 
@@ -2882,6 +2917,286 @@ def resample_yardsticks(kinds, dev, card, outputs=None, scale="full"):
     return out
 
 
+def output_digest(t) -> tuple:
+    """Two linear hashes, modulo the prime 2^31 - 1, of a tensor's bytes read
+    as 32-bit words (zero-padded), weighted by two affine functions of the
+    word's index, computed on its device: two runs whose outputs have equal
+    digests have equal bits but for a chance of order 1e-18."""
+    import torch
+
+    P = 2 ** 31 - 1
+    b = t.contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    words = b.view(torch.int32)
+    out = [0, 0]
+    step = 1 << 26
+    for at in range(0, words.numel(), step):
+        w = words[at:at + step].to(torch.int64) & 0xFFFFFFFF
+        idx = torch.arange(at, at + w.numel(), dtype=torch.int64,
+                           device=w.device)
+        for h, (mul, add) in enumerate(((48271, 11), (69621, 7))):
+            out[h] = (out[h] + int(((w * ((idx * mul + add) % P)) % P)
+                                   .sum())) % P
+    return tuple(out)
+
+
+def composite_yard_inputs(rng, c, scale="full", kind="shift", coeff=False):
+    """K1's yardstick inputs, planned as plan_composite_volume plans them:
+    route A's geometry (a 2 x 2 x 1 grid of uint16 tiles of 1024 x 1024 x
+    128, 102 px overlap, sub-pixel translations, z offsets within 4 planes,
+    blend ranges 40) drawn from ``rng``; ``kind`` "sep": every view a
+    diagonal affine with steps within 2 % of 1; ``coeff``: 10c's 8 x 8 x 8
+    grids of [scale, offset] with their level position -> grid affines.
+    ``scale`` tiny: tiles of 40 x 36 x 20, 8 px overlap. Returns (tiles,
+    params, keywords without fusion_type and out_dtype, coefficient
+    keywords)."""
+    import numpy as np
+
+    S = np.array((1024, 1024, 128) if scale == "full" else (40, 36, 20))
+    overlap, V = (102 if scale == "full" else 8), 4
+    P = np.array([[ix * (S[0] - overlap), iy * (S[1] - overlap), 0]
+                  for ix in (0, 1) for iy in (0, 1)], np.float64)
+    P += rng.uniform(0, [3, 3, 4], (V, 3))
+    dg = (rng.uniform(0.98, 1.02, (V, 3)) if kind == "sep"
+          else np.ones((V, 3)))
+    out_shape = tuple(int(np.ceil((P + S / dg)[:, d].max()))
+                      for d in range(3))
+    tiles = [c(rng.integers(90, 4000, tuple(S), dtype=np.uint16))
+             for _ in range(V)]
+    fracs = np.zeros((V, 3), np.float32)
+    offs = np.zeros((V, 3), np.float32)
+    windows, n_offs = [], []
+    for v in range(V):
+        # output voxel x samples the tile at dg x + g
+        g = -dg[v] * P[v]
+        if kind == "sep":
+            a = [int(max(0, np.floor((-1.0 - g[d]) / dg[v, d])))
+                 for d in range(3)]
+            b = [int(min(out_shape[d], np.ceil((S[d] - g[d]) / dg[v, d]) + 1))
+                 for d in range(3)]
+            n_offs.append((0, 0, 0))
+            offs[v] = g
+        else:
+            n = np.floor(g).astype(np.int64)
+            fracs[v] = g - n
+            a = [int(max(0, -n[d] - 1)) for d in range(3)]
+            b = [int(min(out_shape[d], S[d] - n[d])) for d in range(3)]
+            n_offs.append(tuple(int(x) for x in n))
+        windows.append((tuple(a), tuple(b)))
+    z3 = np.zeros((V, 3), np.float32)
+    params = (fracs, np.tile(S.astype(np.float32), (V, 1)), z3, z3 + 40.0,
+              z3, 0.0, 65535.0, dg.astype(np.float32), offs)
+    kw = dict(out_shape=out_shape, windows=tuple(windows),
+              n_offs=tuple(n_offs), pad=(1, 1, 1), kinds=(kind,) * V)
+    cf = {}
+    if coeff:
+        cdims = (8, 8, 8)
+        grids = np.empty((V, *cdims, 2), np.float32)
+        grids[..., 0] = rng.uniform(0.7, 1.4, (V, *cdims))
+        grids[..., 1] = rng.uniform(-30, 30, (V, *cdims))
+        cs = S / np.array(cdims)
+        caff = np.zeros((V, 3, 4), np.float32)
+        caff[:, :, :3] = np.diag(1.0 / cs)
+        caff[:, :, 3] = 0.5 / cs - 0.5
+        cf = dict(coeffs=c(grids), coeff_affs=caff)
+    return tiles, params, kw, cf
+
+
+def composite_yard(name, tiles, params, kw, cf, card, outputs=None,
+                   check_twin=True):
+    """K1 at one of its yardstick cases: held against its twin on the card
+    (uint |delta| <= 1, float32 rtol 1e-5 / atol 1e-3), its card time
+    alone on prepared tables, its time with the host's (the wrapper, tables
+    included), the device memory one wrapper call allocates at its peak,
+    and the output's digest (:func:`output_digest`). With ``outputs`` (a
+    directory) the digest and the output's first 64 x 64 x Z corner are
+    saved there or, where another tree's run saved them, compared bit for
+    bit."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+
+    fracs, img_dims, borders, ranges, ioffs, mn, mx, diags, offs = params
+    dev = tiles[0].device
+    run = lambda: F.composite_fuse(tiles, *params, **kw, **cf)
+    tables, starts = F.composite_axis_tables(
+        kw["windows"], kw["n_offs"], kw["kinds"], fracs, diags, offs,
+        img_dims, borders, ranges, ioffs, dev)
+    ct = {}
+    if cf:
+        ctab, coffs = F.composite_coeff_tables(
+            kw["windows"], kw["n_offs"], fracs, cf["coeff_affs"],
+            cf["coeffs"].shape[1:4], starts, dev)
+        ct = dict(coeffs=cf["coeffs"], ctab=ctab, coffs=coffs)
+    bare = lambda: F.launch_composite(tiles, tables, starts, fracs, diags,
+                                      offs, mn, mx, **kw, **ct)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    got = run()
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    r = dict(ms=time_ms(bare, reps=10), wrapper_ms=time_ms(run, reps=10,
+                                                           host=True),
+             peak_bytes=peak, digest=output_digest(got), err=None)
+    if check_twin:
+        ref = F.composite_fuse_plain(tiles, *params, **kw, **cf)
+        r["err"] = max_abs(got, ref)
+        if kw["out_dtype"] == "float32":
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+        else:
+            check(r["err"] <= 1, f"{name}: |delta| {r['err']} <= 1 vs the "
+                                 "twin")
+        del ref
+    if outputs:
+        os.makedirs(outputs, exist_ok=True)
+        path = os.path.join(outputs, "composite " + name + ".pt")
+        corner = got[:64, :64].cpu()
+        if os.path.exists(path):
+            other = torch.load(path)
+            r["bitwise_vs_saved"] = (tuple(other["digest"]) == r["digest"]
+                                     and torch.equal(other["corner"], corner))
+        else:
+            torch.save(dict(digest=r["digest"], corner=corner), path)
+            r["saved"] = path
+    print(f"  composite {name} [{card}]: kernel {r['ms']} ms  with the "
+          f"host's time {r['wrapper_ms']} ms  device memory peak "
+          f"{r['peak_bytes']} B  max|delta| vs twin {r['err']}"
+          f"  digest {r['digest']}" + (
+              f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+              if "bitwise_vs_saved" in r else ""), flush=True)
+    return r
+
+
+def composite_yardsticks(dev, card, outputs=None, scale="full"):
+    """K1 at route A's geometry (:func:`composite_yard_inputs`) at each
+    fusion type (uint16), with masks, with uint8 and float32 output; with
+    10c's coefficient grids; on "sep" views. Each through
+    :func:`composite_yard`; the twin held at AVG_BLEND, masks, uint8,
+    float32, coefficients and "sep"."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops.fusion import FUSION_TYPES
+
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    out = {}
+    tiles, params, kw, _ = composite_yard_inputs(
+        np.random.default_rng(2027), c, scale)
+    print(f"  composite yardstick volume {kw['out_shape']}", flush=True)
+    cases = [(ft, "uint16", False) for ft in FUSION_TYPES]
+    cases += [("AVG", "uint16", True), ("AVG_BLEND", "uint8", False),
+              ("AVG_BLEND", "float32", False)]
+    for ft, od, masks in cases:
+        name = f"{ft} {od}" + (" masks" if masks else "")
+        out[f"composite {name}"] = composite_yard(
+            name, tiles, params,
+            {**kw, "fusion_type": ft, "out_dtype": od, "masks": masks}, {},
+            card, outputs, check_twin=ft == "AVG_BLEND" or masks)
+    del tiles
+    for name, kind, coeff in (("coeff AVG_BLEND uint16", "shift", True),
+                              ("sep AVG_BLEND uint16", "sep", False)):
+        tiles, params, kw, cf = composite_yard_inputs(
+            np.random.default_rng(2028), c, scale, kind, coeff)
+        out[f"composite {name}"] = composite_yard(
+            name, tiles, params,
+            {**kw, "fusion_type": "AVG_BLEND", "out_dtype": "uint16",
+             "masks": False}, cf,
+            card, outputs)
+        del tiles
+    return out
+
+
+# K12's yardstick pairs (tests/test_torch_kernels.py's)
+FIT_PAIRS = (("TRANSLATION", "NONE"), ("RIGID", "NONE"), ("AFFINE", "NONE"),
+             ("AFFINE", "RIGID"), ("RIGID", "TRANSLATION"),
+             ("TRANSLATION", "IDENTITY"))
+
+
+def fit_moments(rng, T, n=30):
+    """K12's inputs: moments (T, 36) of ``n`` weighted point pairs a tile
+    under a noisy rotation (every third a reflection) about the tile's
+    origin, origins (T, 3) up to 30,000 px out, fixed (T,) uint8 (every
+    50th tile); tile 5 without matches, tile 7 with sw < 0."""
+    import numpy as np
+
+    p = rng.uniform(-50, 50, (T, n, 3)) * rng.uniform(0.05, 1.0, (T, 1, 3))
+    rot = np.linalg.qr(rng.normal(size=(T, 3, 3)))[0]
+    rot[1::3] = rot[1::3] @ np.diag([1.0, 1.0, -1.0])
+    q = (np.einsum("tij,tnj->tni", rot, p) + rng.normal(0, 0.5, p.shape)
+         + rng.uniform(-20, 20, (T, 1, 3)))
+    w = rng.uniform(0.5, 2.0, (T, n))
+    ph = np.concatenate([p, np.ones((T, n, 1))], 2)
+    mom = np.zeros((T, 36))
+    mom[:, 0] = w.sum(1)
+    mom[:, 1:5] = np.einsum("tn,tni->ti", w, ph)
+    mom[:, 5:8] = np.einsum("tn,tni->ti", w, q)
+    mom[:, 8:24] = np.einsum("tn,tni,tnj->tij", w, ph, ph).reshape(T, 16)
+    mom[:, 24:36] = np.einsum("tn,tni,tnj->tij", w, ph, q).reshape(T, 12)
+    mom[5] = 0.0
+    mom[7, 0] = -1.0
+    fixed = (np.arange(T) % 50 == 0).astype(np.uint8)
+    return mom, rng.uniform(0, 30000, (T, 3)), fixed
+
+
+def fit_yardsticks(dev, card, outputs=None, scale="full"):
+    """K12 at T = 512 (7c's tiles) and 4,096 (7b's) on :func:`fit_moments`,
+    for each of FIT_PAIRS (lam 0.1, damping 0.7): held against its twin
+    (rtol 1e-10 of fit_scale / atol 1e-12), its card time and its time with
+    the host's, its bound; with ``outputs`` the models are saved there or
+    compared bit for bit with another tree's."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    out = {}
+    for T in (512, 4096) if scale == "full" else (45, 70):
+        mom, o, fixed = (torch.from_numpy(a).to(dev) for a in fit_moments(
+            np.random.default_rng(T), T))
+        cur0 = torch.zeros((T, 3, 4), dtype=torch.float64, device=dev)
+        cur0[:, :, :3] = torch.eye(3, dtype=torch.float64, device=dev)
+        for model, reg in FIT_PAIRS:
+            name = f"fit {model} {reg} T {T}"
+            got = R.relax_fit(mom, fixed, o, model, reg, 0.1, 0.7, None,
+                              cur0.clone())
+            ref = R.relax_fit_plain(mom, fixed, o, model, reg, 0.1, 0.7, None,
+                                    cur0.clone())
+            scale_ = R.fit_scale(ref, o)
+            bad = int(((got - ref).abs() > 1e-12 + 1e-10 * scale_).sum())
+            check(bad == 0, f"{name}: within rtol 1e-10 (of fit_scale) / "
+                            "atol 1e-12 of the twin")
+            scratch = cur0.clone()
+            call = lambda: R.relax_fit(mom, fixed, o, model, reg, 0.1, 0.7,
+                                       None, scratch)
+            ops = OPS["fit"][model] + OPS["fit"][reg] + OPS["fit_blend"]
+            r = dict(err=float((got - ref).abs().max()),
+                     ms=time_ms(call, reps=50), wrapper_ms=time_ms(
+                         call, reps=50, host=True),
+                     bound=bound(T * (288 + 24 + 2 * 96 + 1), T * ops,
+                                 F64_OPS_PER_S))
+            if outputs:
+                os.makedirs(outputs, exist_ok=True)
+                path = os.path.join(outputs, name.replace(" ", "_") + ".pt")
+                if os.path.exists(path):
+                    r["bitwise_vs_saved"] = torch.equal(torch.load(path),
+                                                        got.cpu())
+                else:
+                    torch.save(got.cpu(), path)
+            print(f"  {name} [{card}]: kernel {r['ms']} ms  with the host's "
+                  f"time {r['wrapper_ms']} ms  bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]})  max|delta| vs twin {r['err']:.3g}" + (
+                      f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+                      if "bitwise_vs_saved" in r else ""), flush=True)
+            out[name] = r
+    return out
+
+
 def match_cli(xml, args, route, dev, card, launches):
     """``match-interestpoints`` through the CLI entry function, launches
     counted as ``route``; prints the wall and its split."""
@@ -4389,6 +4704,9 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms"),
             **({"plain_shape": r["plain_shape"]} if "plain_shape" in r
                else {}),
+            # K1: its launches a composite and one call's device memory peak
+            **{k: r[k] for k in ("launches_per_call", "peak_bytes")
+               if k in r},
             # K8's six passes (phase 1); K24's and torch.mv's back-to-back
             # times beside the one-launch ones (10b); the library call's
             # time with the host's (K8, K24)

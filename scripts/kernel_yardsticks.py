@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
-(ratio test), K15 (blur pass), K3 (gather) and K26 (nonrigid) beside
-their bounds, and phase 10's walls, on one GPU.
+(ratio test), K15 (blur pass), K3 (gather), K26 (nonrigid), K1 (composite)
+and K12 (relax fits) beside their bounds, and phase 10's walls, on one
+GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
-        [--only fft|cg|ratio|blur|gather|nonrigid|intensity[,...]]
+        [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|intensity[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -43,6 +44,19 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   ``--outputs DIR`` the outputs are saved in DIR, or, where an earlier
   run (another tree) saved them, compared with them bitwise: run parent,
   change, change, parent with one DIR;
+- ``composite_yardsticks``: ``composite`` is K1 at route A's geometry
+  (synthetic tiles from a seed: 2x2x1 uint16 tiles of 1024x1024x128, 102
+  px overlap, sub-pixel translations) at each fusion type, with masks,
+  with uint8 and float32 output, with 10c's 8x8x8 coefficient grids and on
+  "sep" (diagonal) views: card time, time with the host's (the wrapper),
+  the device memory peak of one wrapper call and the output's digest; with
+  ``--outputs DIR`` the digests and a corner of each output are saved or
+  compared bitwise;
+- ``fit_yardsticks``: ``fit`` is K12 on moments made from a seed at T =
+  512 (7c's tiles) and 4,096 (7b's) for six (model, regulariser) pairs,
+  tiles with sw <= 0, fixed tiles and reflections among them: card time,
+  time with the host's, bound; with ``--outputs DIR`` the models are saved
+  or compared bitwise;
 - ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
   gates) through the CLI, after every library of the tree is built, so
   that no build lands in a timed window; prints each route's wall split.
@@ -81,18 +95,21 @@ def main(argv=None) -> int:
                          "1,4,8,16")
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
-                         "nonrigid, intensity (default fft,cg)")
+                         "nonrigid, composite, fit, intensity (default "
+                         "fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
-                    help="K3's and K26's outputs saved here, or compared "
-                         "bitwise with those an earlier run saved here")
+                    help="K3's, K26's, K1's and K12's outputs saved here, or "
+                         "compared bitwise with those an earlier run saved "
+                         "here")
     ap.add_argument("--build-times", default="",
                     help="build these libraries one at a time first and "
                          "print each nvcc's seconds, e.g. gather,nonrigid")
     args = ap.parse_args(argv)
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
-    kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "intensity")
+    kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
+             "fit", "intensity")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -140,6 +157,12 @@ def main(argv=None) -> int:
     try:
         if "intensity" in only:
             out["phase 10"] = phase10(root, args.scale, dev, card, CS)
+        if "composite" in only:
+            out.update(CS.composite_yardsticks(dev, card, args.outputs,
+                                               args.scale))
+        if "fit" in only:
+            out.update(CS.fit_yardsticks(dev, card, args.outputs,
+                                         args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))

@@ -463,6 +463,131 @@ def _close_scaled(got, ref, scale, rtol=1e-10, atol=1e-12):
         f"{float(((got - ref).abs() / scale.clamp(min=1e-300)).max()):.3g}")
 
 
+def _composite_grid(rng, gap=False, empty=True, S=(20, 18, 28), cdims=None):
+    """Nine translated uint16 tiles on a 3 x 3 grid (5 px overlap, or a
+    2 px gap between the tiles, so that voxels are covered by no view),
+    windows clipped at the volume's faces, the middle view's window empty
+    (``empty``); with ``cdims`` intensity grids of that shape."""
+    nx = ny = 3
+    V, step = nx * ny, (S[0] + 2, S[1] + 2) if gap else (S[0] - 5, S[1] - 5)
+    out_shape = (step[0] * 2 + S[0], step[1] * 2 + S[1], S[2] + 2)
+    tiles, windows, n_offs = [], [], []
+    fr = np.zeros((V, 3), np.float32)
+    for v in range(V):
+        ix, iy = divmod(v, ny)
+        tiles.append(torch.from_numpy(
+            rng.integers(0, 4000, S).astype(np.uint16)))
+        g = rng.uniform(-0.5, 0.5, 3) - np.array([ix * step[0],
+                                                  iy * step[1], 1.0])
+        n = np.floor(g).astype(int)
+        fr[v] = g - n
+        a = [max(0, -n[d] - 1) for d in range(3)]
+        b = [min(out_shape[d], S[d] - n[d]) for d in range(3)]
+        if empty and v == V // 2:
+            b = list(a)
+        windows.append((tuple(int(x) for x in a), tuple(int(x) for x in b)))
+        n_offs.append(tuple(int(x) for x in n))
+    kw = dict(out_shape=out_shape, windows=tuple(windows),
+              n_offs=tuple(n_offs), pad=(1, 1, 1), kinds=("shift",) * V)
+    params = (fr, np.tile(np.array(S, np.float32), (V, 1)),
+              rng.uniform(0, 2, (V, 3)).astype(np.float32),
+              rng.uniform(3, 9, (V, 3)).astype(np.float32),
+              np.zeros((V, 3), np.float32), 0.0, 3000.0,
+              np.ones((V, 3), np.float32), np.zeros((V, 3), np.float32))
+    cf = {}
+    if cdims is not None:
+        coeffs, affs = _coeff_inputs(rng, V, S, cdims)
+        cf = dict(coeffs=coeffs, coeff_affs=affs)
+    return tiles, params, kw, cf
+
+
+@pytest.mark.parametrize("fusion_type,out_dtype,masks,gap,cdims", [
+    ("AVG_BLEND", "float32", False, False, None),
+    ("AVG", "uint16", False, False, None),
+    ("MAX_INTENSITY", "float32", False, True, None),
+    ("FIRST_WINS", "uint16", False, False, None),
+    ("LAST_WINS", "uint8", False, True, None),
+    ("AVG", "uint16", True, True, None),
+    ("AVG_BLEND", "float32", False, False, (3, 4, 9)),
+    ("MAX_INTENSITY", "uint16", False, True, (3, 4, 9)),
+], ids=str)
+def test_composite_grid_kernel(dev, fusion_type, out_dtype, masks, gap,
+                               cdims):
+    """K1 on nine views of a 3 x 3 grid: windows at the volume's faces, an
+    empty window, voxels no view covers (gap), masks, coefficient grid
+    cells of ~3 planes, fewer than a thread's 8 z outputs; one launch.
+    uint |delta| <= 1, float32 rtol 1e-5 / atol 1e-3."""
+    rng = np.random.default_rng(41)
+    tiles, params, kw, cf = _composite_grid(rng, gap, cdims=cdims)
+    tiles = [t.to(dev) for t in tiles]
+    cf = {k: (v.to(dev) if k == "coeffs" else v) for k, v in cf.items()}
+    kw.update(fusion_type=fusion_type, out_dtype=out_dtype, masks=masks)
+    ref = F.composite_fuse_plain(tiles, *params, **kw, **cf)
+    ops.reset_launch_counts()
+    got = F.composite_fuse(tiles, *params, **kw, **cf)
+    assert ops.launch_counts()["composite_fuse"] == 1
+    assert ops.coeff_launch_counts()["composite_fuse+coeff"] == (
+        cdims is not None)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if out_dtype == "float32":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+    else:
+        d = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+        assert d.max() <= 1
+    if gap:
+        assert bool((ref == 0).any()), "some voxels lie outside every view"
+
+
+def _fit_moments(rng, T):
+    """Moments (T, 36) of weighted noisy rigid maps (every third one a
+    reflection) about each tile's origin; tile 5 empty, tile 7 sw < 0."""
+    mom = np.zeros((T, R.N_MOMENTS))
+    for t in range(T):
+        p = rng.uniform(-50, 50, (30, 3)) * rng.uniform(0.05, 1.0, 3)
+        refl = np.diag([1.0, 1.0, -1.0]) if t % 3 == 1 else np.eye(3)
+        q = (p @ (refl @ np.linalg.qr(rng.normal(size=(3, 3)))[0]).T
+             + rng.normal(0, 0.5, p.shape) + rng.uniform(-20, 20, 3))
+        w = rng.uniform(0.5, 2.0, 30)
+        ph = np.c_[p, np.ones(30)]
+        mom[t, 0] = w.sum()
+        mom[t, 1:5] = (w[:, None] * ph).sum(0)
+        mom[t, 5:8] = (w[:, None] * q).sum(0)
+        mom[t, 8:24] = (ph.T @ (w[:, None] * ph)).ravel()
+        mom[t, 24:36] = (ph.T @ (w[:, None] * q)).ravel()
+    mom[5] = 0.0
+    mom[7, 0] = -1.0
+    return mom
+
+
+@pytest.mark.parametrize("T", [45, 70])
+def test_relax_fit_pairs_kernel(dev, T):
+    """K12 for every (model, regulariser) pair the solver CLI accepts, T not
+    a multiple of its 32-tile blocks, tiles with sw <= 0 and a fixed tile:
+    models within rtol 1e-10 (of fit_scale) / atol 1e-12 of the twin; with
+    the done flag set nothing is written."""
+    rng = np.random.default_rng(T)
+    mom = torch.from_numpy(_fit_moments(rng, T)).to(dev)
+    origin = torch.from_numpy(rng.uniform(-5, 5, (T, 3))).to(dev)
+    fixed = torch.zeros(T, dtype=torch.uint8, device=dev)
+    fixed[2] = 1
+    cur0 = torch.from_numpy(np.eye(3, 4)[None].repeat(T, 0)
+                            + rng.normal(0, 0.01, (T, 3, 4))).to(dev)
+    done = torch.tensor([0, 0, 1, 0], dtype=torch.int32, device=dev)
+    for model in ("TRANSLATION", "RIGID", "AFFINE"):
+        for reg in ("NONE", "IDENTITY", "TRANSLATION", "RIGID", "AFFINE"):
+            got = R.relax_fit(mom, fixed, origin, model, reg, 0.1, 0.7, None,
+                              cur0.clone())
+            ref = R.relax_fit_plain(mom, fixed, origin, model, reg, 0.1, 0.7,
+                                    None, cur0.clone())
+            _close_scaled(got, ref, R.fit_scale(ref, origin))
+            for t in (2, 5, 7):  # fixed and empty tiles step to identity
+                _close(got[t], 0.3 * cur0[t] + 0.7 * torch.eye(
+                    3, 4, dtype=torch.float64, device=dev))
+            kept = cur0.clone()
+            R.relax_fit(mom, fixed, origin, model, reg, 0.1, 0.7, done, kept)
+            assert torch.equal(kept, cur0), "a launch after done writes"
+
+
 @pytest.mark.parametrize("per_pair", [20, 3000], ids=["warp", "block"])
 def test_relax_moments_kernel(dev, tmp_path, per_pair):
     _, _, rows = _relax_graph(tmp_path, per_pair)
@@ -1099,8 +1224,8 @@ def test_composite_coeff_kernel(dev, fusion_type, out_dtype):
     ops.reset_launch_counts()
     got = F.composite_fuse(tiles, *params, coeffs=coeffs.to(dev),
                            coeff_affs=affs, **kw)
-    assert ops.launch_counts()["composite_fuse"] == V + 2
-    assert ops.coeff_launch_counts()["composite_fuse+coeff"] == V
+    assert ops.launch_counts()["composite_fuse"] == 1
+    assert ops.coeff_launch_counts()["composite_fuse+coeff"] == 1
     if out_dtype == "float32":
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
     else:
