@@ -73,7 +73,7 @@ _SIGNATURES = {
                               + [_VP, _VP, _VP],
     },
     "downsample": {
-        "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP, _VP],
+        "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP] + [_I] * 7 + [_VP],
     },
     "pcm": {
         "bst_pcm_window": [_VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _VP],
@@ -104,7 +104,8 @@ _SIGNATURES = {
                            + [_VP] * 9,
     },
     "ransac": {
-        "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_VP] * 5,
+        "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_I] * 4
+                            + [_VP] * 5,
         "bst_ransac_refit": [_VP, _VP, _I, _VP, _D, _I, _I, _I, _D]
                             + [_VP] * 4,
     },

@@ -75,6 +75,12 @@ RATIO_TILE = 128
 RatioPlan = namedtuple(
     "RatioPlan", "row_blocks splits tiles_per_split tiles kp wa wb "
                  "center_parts")
+# K21's launch (csrc/ransac.cu): hypotheses a block (32 lanes x 4 slots),
+# candidates staged a time, blocks an SM holds (its __launch_bounds__)
+RANSAC_GROUP = 128
+RANSAC_TILE = 256
+RANSAC_BLOCKS_PER_SM = 2
+RansacPlan = namedtuple("RansacPlan", "groups splits per_split vec")
 # the twins' work tiles: at most this many float32 entries a step
 _TWIN_ENTRIES = 1 << 24
 
@@ -407,6 +413,38 @@ def ratio_plan(Da: int, Db: int, D: int, sms: int = 132) -> RatioPlan:
                      max(1, min(2 * sms, _cdiv(Db, 256))))
 
 
+def ransac_plan(M: int, I: int, sms: int = 132,
+                addr: int = 0) -> RansacPlan:
+    """K21's launch for ``I`` hypotheses against ``M`` candidates on a card
+    of ``sms`` multiprocessors: ``groups`` blocks of RANSAC_GROUP
+    hypotheses along x; the candidates cut into ``splits`` runs of
+    ``per_split`` (a multiple of 4, none empty) along y, each at least a
+    tile of RANSAC_TILE where M allows more than one: of the split counts
+    that fill the card's RANSAC_BLOCKS_PER_SM x ``sms`` block slots once or
+    more (up to four times the least), the one whose last wave of blocks
+    is the fullest, the fewest on ties (each split refits its group's
+    hypotheses); ``vec``: the candidate arrays 16-byte aligned (``addr``,
+    their addresses or'd together), so that a tile's rows load as
+    float4s."""
+    M, I = int(M), int(I)
+    if M < 1 or I < 1:
+        raise ValueError(f"K21 needs candidates and hypotheses, got M {M}, "
+                         f"I {I}")
+    groups = _cdiv(I, RANSAC_GROUP)
+    slots = RANSAC_BLOCKS_PER_SM * sms
+    most = max(1, M // RANSAC_TILE)
+    least = min(most, _cdiv(slots, groups))
+
+    def fill(s):
+        n = groups * s
+        return n / (slots * _cdiv(n, slots))
+
+    splits = max(range(least, min(most, 4 * least) + 1),
+                 key=lambda s: (fill(s), -s))
+    per = _cdiv(_cdiv(M, splits), 4) * 4
+    return RansacPlan(groups, _cdiv(M, per), per, int(addr) % 16 == 0)
+
+
 @functools.lru_cache(maxsize=8)
 def _sms(device: torch.device) -> int:
     return int(torch.cuda.get_device_properties(device).multi_processor_count)
@@ -519,7 +557,7 @@ def ransac_score(pa: torch.Tensor, pb: torch.Tensor, idx: torch.Tensor,
     int32 of the candidates ``pa``, ``pb`` (M, 3) float32, its inlier
     count over all candidates, and the first best: counts (I,) int32,
     models (I, 3, 4) float32, best (2,) int32 (index, count), best model
-    (3, 4) float64."""
+    (3, 4) float64. The launch: :func:`ransac_plan`."""
     code = M.fit_code(kind)
     if code < 0:
         raise ValueError("RANSAC needs a model, not NONE")
@@ -537,12 +575,13 @@ def ransac_score(pa: torch.Tensor, pb: torch.Tensor, idx: torch.Tensor,
     models = torch.empty((I, 3, 4), dtype=torch.float32, device=dev)
     best = torch.empty(2, dtype=torch.int32, device=dev)
     best_model = torch.empty((3, 4), dtype=torch.float64, device=dev)
+    plan = ransac_plan(Mc, I, _sms(dev), pa.data_ptr() | pb.data_ptr())
     lib = _cuda.load("ransac")
     ret = lib.bst_ransac_score(pa.data_ptr(), pb.data_ptr(), Mc,
                                idx.data_ptr(), I, sample, code, float(eps),
-                               counts.data_ptr(), models.data_ptr(),
-                               best.data_ptr(), best_model.data_ptr(),
-                               _stream(dev))
+                               *plan[:3], int(plan.vec), counts.data_ptr(),
+                               models.data_ptr(), best.data_ptr(),
+                               best_model.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "ransac_score")
     ransac_score.launches += 1
     return counts, models, best, best_model

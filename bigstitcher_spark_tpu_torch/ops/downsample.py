@@ -21,6 +21,7 @@ bit; otherwise float32 rounding order may differ from XLA's.
 
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Sequence
 
 import numpy as np
@@ -28,6 +29,14 @@ import torch
 
 from . import _cuda
 from .fusion import _IN_CODE, _out_spec, _require, _stream
+
+# K6's launch (csrc/downsample.cu): z outputs a thread on its fast path,
+# threads a block, and the largest fx, fy that path takes
+DOWNSAMPLE_R = 8
+DOWNSAMPLE_THREADS = 256
+DOWNSAMPLE_MAX_FAST = 1 << 20
+DownsamplePlan = namedtuple("DownsamplePlan",
+                            "shape factors dims fast vb vs block grid")
 
 
 def _factors(factors: Sequence[int]) -> tuple[int, int, int]:
@@ -94,15 +103,69 @@ def downsample_level_plain(prev: torch.Tensor, factors: Sequence[int],
                                                   f), out_dtype)
 
 
+def _pow2(v: int) -> int:
+    """The largest power of two dividing ``v``, at most 16 (16 for 0)."""
+    v = int(v)
+    return 16 if v == 0 else min(16, v & -v)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def downsample_plan(shape, factors, dims, in_itemsize: int,
+                    out_itemsize: int, in_addr: int = 0,
+                    out_addr: int = 0) -> DownsamplePlan:
+    """K6's launch for a (B, X, Y, Z) batch at ``in_addr`` of
+    ``in_itemsize``-byte elements, ``factors`` and output ``dims`` written
+    at ``out_addr`` in ``out_itemsize``-byte elements. ``shape``,
+    ``factors``, ``dims``: what the kernel is given, a trailing size-1 axis
+    with factor 1 re-viewed as (B, 1, X, Y) with factors (1, fx, fy) so that
+    a wide axis is fastest (the same memory, the same sums in the same
+    order). ``fast``: fz of 1 or 2 and fx, fy at most DOWNSAMPLE_MAX_FAST,
+    the kernel's fast path, DOWNSAMPLE_R z outputs a thread (else one,
+    the general path). ``vb`` / ``vs``: the vector bytes of its loads and
+    stores, the largest power of two (at most 16, at least 4, else 0 for
+    element access) dividing the address, the row's bytes and a thread's
+    run of inputs / outputs. ``block`` (runs along z, rows along j), at
+    most DOWNSAMPLE_THREADS threads; ``grid`` (B OX, j tiles, run tiles),
+    each cut to the card's limit (the kernel strides over the rest)."""
+    B, X, Y, Z = (int(v) for v in shape)
+    fx, fy, fz = _factors(factors)
+    OX, OY, OZ = (int(d) for d in dims)
+    if min(B, X, Y, Z, OX, OY, OZ) < 1:
+        raise ValueError(f"empty downsample: {tuple(shape)} -> {tuple(dims)}")
+    if Z == 1 and fz == 1 and OZ == 1:
+        X, Y, Z, fx, fy, fz, OX, OY, OZ = 1, X, Y, 1, fx, fy, 1, OX, OY
+    if B * OX > 2 ** 31 - 1:
+        raise ValueError(f"{B} x {OX} output slices exceed the launch grid")
+    fast = fz in (1, 2) and max(fx, fy) <= DOWNSAMPLE_MAX_FAST
+    R = DOWNSAMPLE_R if fast else 1
+    vb = vs = 0
+    if fast:
+        vb = min(_pow2(Z * in_itemsize | in_addr), _pow2(R * fz * in_itemsize))
+        vs = min(_pow2(OZ * out_itemsize | out_addr), _pow2(R * out_itemsize))
+        vb, vs = (vb if vb >= 4 else 0), (vs if vs >= 4 else 0)
+    runs = _cdiv(OZ, R)
+    tx = min(runs, DOWNSAMPLE_THREADS)
+    ty = min(DOWNSAMPLE_THREADS // tx, OY)
+    grid = (B * OX, min(_cdiv(OY, ty), 65535), min(_cdiv(runs, tx), 65535))
+    return DownsamplePlan((B, X, Y, Z), (fx, fy, fz), (OX, OY, OZ), fast,
+                          vb, vs, (tx, ty), grid)
+
+
 def _launch(x, B, f, dims, out_dtype):
-    """K6 on a contiguous (B, X, Y, Z) batch; returns (B, *dims)."""
+    """K6 on a contiguous (B, X, Y, Z) batch; returns (B, *dims). The
+    launch: :func:`downsample_plan`."""
     code, dtype, _imax = _out_spec(out_dtype)
-    X, Y, Z = (int(s) for s in x.shape[-3:])
     out = torch.empty((B, *dims), dtype=dtype, device=x.device)
+    plan = downsample_plan((B, *x.shape[-3:]), f, dims, x.element_size(),
+                           out.element_size(), x.data_ptr(), out.data_ptr())
     lib = _cuda.load("downsample")
     ret = lib.bst_downsample(
-        x.data_ptr(), _IN_CODE[x.dtype], B, X, Y, Z, *f, *dims, code,
-        out.data_ptr(), _stream(x.device))
+        x.data_ptr(), _IN_CODE[x.dtype], *plan.shape, *plan.factors,
+        *plan.dims, code, out.data_ptr(), plan.vb, plan.vs, *plan.block,
+        *plan.grid, _stream(x.device))
     _cuda.check(lib, ret, "downsample")
     return out
 

@@ -138,7 +138,10 @@ def centred_moments(p: torch.Tensor, q: torch.Tensor,
     """(pc, qc, A, H) of point sets (..., N, 3) summed over N in order, one
     rounding each: pc = (sum w p) / sum w, A = sum w (p-pc)(p-pc)^T, H =
     sum w (p-pc)(q-qc)^T, as K21 sums its sample (with w = None, where it
-    multiplies by no weight)."""
+    multiplies by no weight). The divisor is a tensor on the points'
+    device: on the card PyTorch divides by a Python number as a
+    multiplication by its rounded reciprocal, which for N = 3 is not K21's
+    division."""
     n = p.shape[-2]
 
     def wsum(f):
@@ -148,7 +151,7 @@ def centred_moments(p: torch.Tensor, q: torch.Tensor,
         return s
 
     if w is None:
-        sw = float(n)
+        sw = torch.tensor(float(n), dtype=p.dtype, device=p.device)
         pc = wsum(lambda k: p[..., k, :]) / sw
         qc = wsum(lambda k: q[..., k, :]) / sw
         wk = lambda k, x: x

@@ -15,7 +15,8 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          256x256x128 uint16 boxes), beside torch's avg_pool3d on the same
          float32 input as the library yardstick; K6 also at route D's stage
          batch (4 x 256x256x45 uint16, factors 2,2,1: z takes the f == 1
-         path), bitwise; and K6's one-axis float32 form
+         path; rows only 2-byte aligned), bitwise and timed the same way;
+         and K6's one-axis float32 form
          (halfpixel_downsample2x_axis) along each axis of a route-A tile
          (1024x1024x128 uint16), bitwise against its twin, beside
          avg_pool3d with a window of 2 on that axis. The
@@ -149,7 +150,8 @@ Phase 9  match-interestpoints through the port's CLI entry function. 9a:
          last row block): K19 indices, descriptors and flags, K20 owners,
          flags and distances, K21 counts, models and best bitwise; K22
          masks and counts equal, models within rtol 1e-9. They are timed
-         at 9b's shapes beside their bounds (K20's for the work of its
+         at 9b's shapes beside their bounds, K21 also at 9a's (K20's for
+         the work of its
          TF32 filter and exact refine, beside the exact SIMT work's; the
          share of pairs its filter refined and B's mean alone printed); no
          single PyTorch call computes any of them (library none).
@@ -609,9 +611,13 @@ def print_times(what, r, card):
            is not None else "")
     if r.get("library_wrapper_ms") is not None:
         lib += f" (with the host's time {r['library_wrapper_ms']} ms)"
+    extra = (f"  with the host's time {r['host_ms']} ms" if "host_ms" in r
+             else "")
+    if "bitwise_vs_saved" in r:
+        extra += f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
     print(f"  {what} [{card}]: max|delta| {r['err']:.3g}  kernel {r['ms']} ms"
           f"  wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  bound "
-          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){lib}", flush=True)
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){lib}{extra}", flush=True)
 
 
 def composite_times(tiles, params, kw, dev, plain_reps=20):
@@ -730,11 +736,13 @@ def sep_times(rng, c, bs, patch, V, per_view, dev):
                             + 2 * n * 4, V * n * OPS["sep"]))
 
 
-def downsample_times(x, factors, dev, level: bool):
+def downsample_times(x, factors, dev, level: bool, outputs=None, name=""):
     """K6 against its plain twin (bitwise) and torch's avg_pool3d on the
     float32 input (the library yardstick, used nowhere in the port):
     ``level`` True times downsample_level (uint16 out), else
-    downsample_batch (float32 out) on the (B, X, Y, Z) batch ``x``."""
+    downsample_batch (float32 out) on the (B, X, Y, Z) batch ``x``; the
+    wrapper's time with the host's (``host_ms``); with ``outputs`` the
+    output held as ``name`` (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
@@ -760,26 +768,32 @@ def downsample_times(x, factors, dev, level: bool):
           f"(uint16 rounding for levels)", flush=True)
     ms = time_ms(run)
     n_out = int(np.prod(got.shape))
-    return dict(err=max_abs(got, ref), ms=ms, wrapper_ms=ms,
-                plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
-                bound=bound(x.numel() * x.element_size()
-                            + n_out * got.element_size(),
-                            x.numel() * OPS["downsample_in"]
-                            + n_out * OPS["downsample_out"]))
+    r = dict(err=max_abs(got, ref), ms=ms, wrapper_ms=ms,
+             host_ms=time_ms(run, host=True),
+             plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+             bound=bound(x.numel() * x.element_size()
+                         + n_out * got.element_size(),
+                         x.numel() * OPS["downsample_in"]
+                         + n_out * OPS["downsample_out"]))
+    hold_outputs(outputs, "downsample " + name, (got,), r)
+    return r
 
 
-def halfpixel_times(x, card):
+def halfpixel_times(x, card, outputs=None):
     """K6's one-axis float32 form (halfpixel_downsample2x_axis) along each
     axis of ``x``: bitwise against its twin, timed beside the twin and
     avg_pool3d on the float32 input (window 2 on that axis; the library
-    yardstick, used nowhere in the port). Lists over the axes."""
+    yardstick, used nowhere in the port), and with the host's time; with
+    ``outputs`` each output held (:func:`hold_outputs`). Lists over the
+    axes."""
     import torch
 
     from bigstitcher_spark_tpu_torch.ops import downsample as D
 
     xf = x.to(torch.float32)[None, None]
-    r = {k: [] for k in ("halfpixel_ms", "halfpixel_plain_ms",
-                         "halfpixel_library_ms", "halfpixel_bound_ms")}
+    r = {k: [] for k in ("halfpixel_ms", "halfpixel_host_ms",
+                         "halfpixel_plain_ms", "halfpixel_library_ms",
+                         "halfpixel_bound_ms", "halfpixel_bitwise_vs_saved")}
     r["halfpixel_err"] = 0.0
     for axis in range(x.dim()):
         run = lambda: D.halfpixel_downsample2x_axis(x, axis)
@@ -792,7 +806,11 @@ def halfpixel_times(x, card):
               f"{tuple(got.shape)}: bitwise equal to the twin")
         r["halfpixel_err"] = max(r["halfpixel_err"], max_abs(got, ref))
         r["halfpixel_ms"].append(time_ms(run))
+        r["halfpixel_host_ms"].append(time_ms(run, host=True))
         r["halfpixel_plain_ms"].append(time_ms(plain, reps=5))
+        held = {}
+        hold_outputs(outputs, f"downsample one-axis {axis}", (got,), held)
+        r["halfpixel_bitwise_vs_saved"].append(held.get("bitwise_vs_saved"))
         r["halfpixel_library_ms"].append(time_ms(lib))
         b = bound(x.numel() * x.element_size() + got.numel() * 4,
                   x.numel() * OPS["downsample_in"]
@@ -800,10 +818,13 @@ def halfpixel_times(x, card):
         r["halfpixel_bound_ms"].append(b[0])
         print(f"  halfpixel_downsample2x_axis (K6) axis {axis} "
               f"{tuple(x.shape)} -> {tuple(got.shape)} [{card}]: kernel "
-              f"{r['halfpixel_ms'][-1]} ms  plain "
+              f"{r['halfpixel_ms'][-1]} ms  with the host's time "
+              f"{r['halfpixel_host_ms'][-1]} ms  plain "
               f"{r['halfpixel_plain_ms'][-1]} ms  bound {b[0]:.4f} ms "
               f"({b[1]})  library {r['halfpixel_library_ms'][-1]} ms "
-              "(avg_pool3d)", flush=True)
+              "(avg_pool3d)" + ("" if held.get("bitwise_vs_saved") is None
+                                else "  vs the saved run: bitwise "
+                                f"{held['bitwise_vs_saved']}"), flush=True)
     return r
 
 
@@ -1058,13 +1079,15 @@ def phase1_kernels(dev, scale, card):
     boxes = c(rng.integers(0, 65536, (4, *cfg["batch_box"])).astype(np.uint16))
     res["downsample_batch"] = downsample_times(boxes, (2, 2, 2), dev, False)
     del boxes
+    # and at route D's boxes (rows of 45 uint16: 2-byte aligned)
     dboxes = c(rng.integers(0, 65536, (4, *cfg["batch_box_d"]))
                .astype(np.uint16))
-    got = D.downsample_batch(dboxes, (2, 2, 1))
-    ref = D.downsample_block_plain(dboxes, (2, 2, 1))
-    check(got.dtype == ref.dtype and torch.equal(got, ref),
-          f"K6 batch at route D's boxes {tuple(dboxes.shape)} / (2, 2, 1) -> "
-          f"{tuple(got.shape)}: bitwise equal to the twin")
+    rd = downsample_times(dboxes, (2, 2, 1), dev, False)
+    print_times("downsample_batch at route D's boxes", rd, card)
+    res["downsample_batch"].update(
+        route_d_ms=rd["ms"], route_d_plain_ms=rd["plain_ms"],
+        route_d_library_ms=rd["library_ms"], route_d_bound_ms=rd["bound"][0],
+        route_d_max_abs_err=rd["err"])
     del dboxes
     # K6's one-axis form (halfpixel_downsample2x_axis) on a route-A tile
     tile = c(rng.integers(0, 65536, cfg["tile"]).astype(np.uint16))
@@ -2564,12 +2587,14 @@ def match_kernel_checks(what, wa, wb, dev, rows=None, iterations=10000,
                      idx=idx, model=got[3], rows=rows, drows=drows)
 
 
-def match_kernel_times(t, card):
+def match_kernel_times(t, card, at_9a=None):
     """K19-K22 alone at 9b's shapes, timed with CUDA events beside their
     bounds; the twins of K19 and K20 on the checked row slice of A (the
     whole cloud's twin would take minutes), those of K21 and K22 at the
-    full shape. No single PyTorch call computes any of the four (K20's
-    owner-aware second best least of all): library "none"."""
+    full shape; K21 also at 9a's shape (``at_9a``: the inputs
+    :func:`match_kernel_checks` returned for 9a's pair). No single PyTorch
+    call computes any of the four (K20's owner-aware second best least of
+    all): library "none"."""
     import torch
 
     from bigstitcher_spark_tpu_torch.ops import descriptors as DS
@@ -2621,6 +2646,22 @@ def match_kernel_times(t, card):
               "ransac_refit": f"{m} candidates"}
     res["ratio_match"]["wrapper_ms"] = time_ms(
         lambda: DS.ratio_match(da, db, ob, 3.0), reps=2, host=True)
+    if at_9a is not None:
+        m9, i9 = len(at_9a["ca"]), len(at_9a["idx"])
+        args9 = (at_9a["ca"], at_9a["cb"], at_9a["idx"], 5.0, "AFFINE")
+        run9 = lambda: DS.ransac_score(*args9)
+        r = res["ransac_score"]
+        r.update(at_9a_ms=time_ms(run9, reps=50),
+                 at_9a_wrapper_ms=time_ms(run9, reps=50, host=True),
+                 at_9a_plain_ms=time_ms(
+                     lambda: DS.ransac_score_plain(*args9), reps=5),
+                 at_9a_bound_ms=bound(m9 * 24 + i9 * (16 + 4 + 48),
+                                      i9 * m9 * OPS["ransac_apply"])[0],
+                 at_9a_shape=f"{i9} hypotheses x {m9} candidates")
+        print(f"  ransac_score at 9a's {r['at_9a_shape']} [{card}]: kernel "
+              f"{r['at_9a_ms']} ms  with the host's time "
+              f"{r['at_9a_wrapper_ms']} ms  plain {r['at_9a_plain_ms']} ms  "
+              f"bound {r['at_9a_bound_ms']:.5f} ms", flush=True)
     for name, r in res.items():
         r.setdefault("wrapper_ms", r["ms"])
         print(f"  {name} at 9b's {shapes[name]} [{card}]: kernel {r['ms']} "
@@ -3197,6 +3238,152 @@ def fit_yardsticks(dev, card, outputs=None, scale="full"):
     return out
 
 
+def hold_outputs(outputs, name, tensors, r):
+    """With ``outputs`` (a directory): each tensor's digest
+    (:func:`output_digest`) and its first 65,536 elements saved there as
+    ``<name>.pt`` or, where another tree's run saved them, compared bit for
+    bit (``r["bitwise_vs_saved"]``; NaNs compare by their bits)."""
+    import torch
+
+    if not outputs:
+        return
+    os.makedirs(outputs, exist_ok=True)
+    path = os.path.join(outputs, name.replace(" ", "_").replace("/", "_")
+                        + ".pt")
+    mine = [(output_digest(t), tuple(t.shape), str(t.dtype),
+             t.contiguous().reshape(-1)[:65536].cpu().view(torch.uint8))
+            for t in tensors]
+    if os.path.exists(path):
+        other = torch.load(path)
+        r["bitwise_vs_saved"] = len(other) == len(mine) and all(
+            a[:3] == b[:3] and torch.equal(a[3], b[3])
+            for a, b in zip(mine, other))
+    else:
+        torch.save(mine, path)
+        r["saved"] = path
+
+
+def ransac_yard_inputs(rng, m, sample, dev, outliers=0.009):
+    """K21's yardstick candidates: ``m`` pairs as 9b's (A uniform in 9b's
+    cube, B = R A + t, 10 degrees about z, + N(0, 0.05)), ``outliers`` of
+    them replaced by uniform points (9b: 523 of 58,274 outside eps), and
+    10,000 hypotheses of ``sample`` pairs drawn as ``ransac`` draws them
+    (seed 17)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    ext = SCALES["full"]["cloud_extent"]
+    a = rng.uniform(0, ext, (m, 3))
+    ang = np.deg2rad(10.0)
+    rot = np.array([[np.cos(ang), -np.sin(ang), 0.0],
+                    [np.sin(ang), np.cos(ang), 0.0], [0.0, 0.0, 1.0]])
+    b = a @ rot.T + np.array([35.0, -20.0, 12.0]) + rng.normal(0, 0.05,
+                                                              a.shape)
+    bad = rng.permutation(m)[: int(round(outliers * m))]
+    b[bad] = rng.uniform(0, ext, (len(bad), 3))
+    pa, pb = (torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+              for v in (a, b))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    return pa, pb, DS.draw_hypotheses(m, 10000, sample, gen)
+
+
+# K21's yardstick cases: (name, candidates, sample, model); 9b's and 9a's
+# (AFFINE, sample 4: -m AFFINE -rm RIGID) and the other two sample sizes
+RANSAC_YARDS = (("9b AFFINE", 58274, 4, "AFFINE"), ("9a AFFINE", 155, 4,
+                                                    "AFFINE"),
+                ("9b TRANSLATION", 58274, 1, "TRANSLATION"),
+                ("9b RIGID", 58274, 3, "RIGID"))
+
+
+def ransac_yardsticks(dev, card, outputs=None, scale="full"):
+    """K21 at each of RANSAC_YARDS (10,000 hypotheses; ``scale`` tiny: 600
+    and 155 candidates, 300 hypotheses): counts, models, best and best
+    model held against the twin on the card bit for bit (NaN-aware), card
+    time, time with the host's (the wrapper as a caller sees it), bound;
+    with ``outputs`` the four outputs are saved or compared bit for bit
+    (:func:`hold_outputs`)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    out = {}
+    for name, m, sample, kind in RANSAC_YARDS:
+        if scale != "full":
+            m = min(m, 600)
+        pa, pb, idx = ransac_yard_inputs(np.random.default_rng(m + sample),
+                                         m, sample, dev)
+        if scale != "full":
+            idx = idx[:300].contiguous()
+        iters = len(idx)
+        run = lambda: DS.ransac_score(pa, pb, idx, 5.0, kind)
+        got = run()
+        ref = DS.ransac_score_plain(pa, pb, idx, 5.0, kind)
+        # recorded, not gated: in a tree whose twin divides its sample sum
+        # by a Python number, the card divides a sample of 3 by a rounded
+        # reciprocal there, and the twin, not the kernel, is off
+        same = all(torch.equal(g.isnan(), f.isnan())
+                   and torch.equal(g.nan_to_num(), f.nan_to_num())
+                   for g, f in zip(got, ref))
+        fin = torch.isfinite(ref[1])
+        reps = 50 if m < 1000 else 10
+        r = dict(err=max_abs(got[1][fin], ref[1][fin]) if bool(fin.any())
+                 else 0.0,
+                 ms=time_ms(run, reps=reps),
+                 wrapper_ms=time_ms(run, reps=reps, host=True),
+                 bound=bound(m * 24 + iters * (16 + 4 + 48),
+                             iters * m * OPS["ransac_apply"]),
+                 best=[int(v) for v in got[2]], shape=(iters, m, sample),
+                 twin_bitwise=same)
+        if hasattr(DS, "ransac_plan") and dev.type == "cuda":
+            r["plan"] = str(DS.ransac_plan(m, iters, DS._sms(dev),
+                                           pa.data_ptr() | pb.data_ptr()))
+        hold_outputs(outputs, "ransac " + name, got, r)
+        print(f"  ransac_score {name} ({iters} x {m}, sample {sample}) "
+              f"[{card}]: kernel {r['ms']} ms  with the host's time "
+              f"{r['wrapper_ms']} ms  bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})  best #{r['best'][0]} ({r['best'][1]})  "
+              f"bitwise the twin's: {same}"
+              + (f"  plan {r['plan']}" if "plan" in r else "")
+              + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+                 if "bitwise_vs_saved" in r else ""), flush=True)
+        out[f"ransac_score {name}"] = r
+    return out
+
+
+def downsample_yardsticks(dev, card, outputs=None, scale="full"):
+    """K6's three forms at phase 1's shapes (uint16 from a seed): the level
+    form at route A's first pyramid step (1952 x 1952 x 132 -> 976 x 976 x
+    66 uint16), the batch form at the downsample stage's boxes (4 of 256 x
+    256 x 128: level blocks of 128 x 128 x 64 x rel (2, 2, 2)) and at route
+    D's (4 x 256 x 256 x 45 / (2, 2, 1)), the one-axis form along each axis
+    of a route-A tile (1024 x 1024 x 128), through
+    :func:`downsample_times` and :func:`halfpixel_times` with their
+    outputs held. ``scale`` tiny rehearses at SCALES' tiny shapes."""
+    import numpy as np
+    import torch
+
+    cfg = SCALES[scale]
+    rng = np.random.default_rng(2029)
+    c = lambda *shape: torch.from_numpy(
+        rng.integers(0, 65536, shape).astype(np.uint16)).to(dev)
+    out = {}
+    for key, x, f, level in (
+            ("level route A", c(*cfg["level_shape"]), (2, 2, 2), True),
+            ("batch", c(4, *cfg["batch_box"]), (2, 2, 2), False),
+            ("batch route D", c(4, *cfg["batch_box_d"]), (2, 2, 1), False)):
+        out[f"downsample {key}"] = downsample_times(x, f, dev, level,
+                                                    outputs, key)
+        print_times(f"downsample {key}", out[f"downsample {key}"], card)
+        del x
+    out["downsample one-axis"] = halfpixel_times(c(*cfg["tile"]), card,
+                                                 outputs)
+    return out
+
+
 def match_cli(xml, args, route, dev, card, launches):
     """``match-interestpoints`` through the CLI entry function, launches
     counted as ``route``; prints the wall and its split."""
@@ -3341,7 +3528,7 @@ def phase9_matching(work, proj, det_b, scale, dev, card, launches, gate8d):
     st0 = InterestPointStore.for_project(sd0)
     wa, wb = (apply_affine(sd0.model(v), st0.load_points(v, "beads")[1])
               for v in (first.view_a, first.view_b))
-    err, _t = match_kernel_checks(
+    err, at_9a = match_kernel_checks(
         f"9a pair {first.view_a.setup}-{first.view_b.setup}", wa, wb, dev)
 
     # 9b: the nucleus-scale pair
@@ -3393,7 +3580,7 @@ def phase9_matching(work, proj, det_b, scale, dev, card, launches, gate8d):
         check_links(route, proj, xml_c, 5.0, 4 if tiny else 20)
     if dev.type != "cuda":
         return {}
-    res = match_kernel_times(inputs, card)
+    res = match_kernel_times(inputs, card, at_9a)
     for name, r in res.items():
         r["err"] = err.get(name, 0.0)
     return res
@@ -4725,8 +4912,11 @@ def main(argv=None) -> int:
                if "block_ms" in r else {}),
             # K3's and K26's launch form, K3's time by fusion type
             **{k: r[k] for k in ("form", "ft_ms") if k in r},
-            # K6's one-axis form (phase 1) and K19's masked form (8d)
-            **{k: v for k, v in r.items() if k.startswith("halfpixel_")},
+            # K6's one-axis form and its batch form at route D's boxes
+            # (phase 1), K21 at 9a's shape beside 9b's, K19's masked form
+            # (8d)
+            **{k: v for k, v in r.items()
+               if k.startswith(("halfpixel_", "route_d_", "at_9a_"))},
             **({"masked_launches": masked["launches"],
                 "masked_ms": masked["ms"],
                 "masked_plain_ms": masked["plain_ms"],

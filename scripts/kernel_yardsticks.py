@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
-(ratio test), K15 (blur pass), K3 (gather), K26 (nonrigid), K1 (composite)
-and K12 (relax fits) beside their bounds, and phase 10's walls, on one
-GPU.
+(ratio test), K15 (blur pass), K3 (gather), K26 (nonrigid), K1 (composite),
+K12 (relax fits), K21 (RANSAC scores) and K6 (downsampling) beside their
+bounds, and phase 10's walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
-        [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|intensity[,...]]
+        [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
+                downsample|intensity[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -57,6 +58,19 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   tiles with sw <= 0, fixed tiles and reflections among them: card time,
   time with the host's, bound; with ``--outputs DIR`` the models are saved
   or compared bitwise;
+- ``ransac_yardsticks``: ``ransac`` is K21 at 9b's shape (10,000
+  hypotheses of 4 pairs against 58,274 candidates, 9b's outlier share, an
+  AFFINE fit), at 9a's (155 candidates) and at 9b's with sample 1
+  (TRANSLATION) and 3 (RIGID): each held bitwise against its twin, card
+  time, time with the host's, bound; with ``--outputs DIR`` counts,
+  models, best and best model saved or compared bitwise;
+- ``downsample_yardsticks``: ``downsample`` is K6's level form at route
+  A's first pyramid step (1952x1952x132 uint16), its batch form at the
+  downsample stage's boxes (4 x 256x256x128 / (2,2,2)) and at route D's
+  (4 x 256x256x45 / (2,2,1)), its one-axis form along each axis of a
+  route-A tile: each bitwise against its twin, card time, time with the
+  host's, avg_pool3d's time, bound; with ``--outputs DIR`` saved or
+  compared bitwise (digests and the first 65,536 values);
 - ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
   gates) through the CLI, after every library of the tree is built, so
   that no build lands in a timed window; prints each route's wall split.
@@ -95,12 +109,13 @@ def main(argv=None) -> int:
                          "1,4,8,16")
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
-                         "nonrigid, composite, fit, intensity (default "
-                         "fft,cg)")
+                         "nonrigid, composite, fit, ransac, downsample, "
+                         "intensity (default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
-                    help="K3's, K26's, K1's and K12's outputs saved here, or "
+                    help="K3's, K26's, K1's, K12's, K21's and K6's outputs "
+                         "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
     ap.add_argument("--build-times", default="",
@@ -109,7 +124,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
-             "fit", "intensity")
+             "fit", "ransac", "downsample", "intensity")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -163,6 +178,12 @@ def main(argv=None) -> int:
         if "fit" in only:
             out.update(CS.fit_yardsticks(dev, card, args.outputs,
                                          args.scale))
+        if "ransac" in only:
+            out.update(CS.ransac_yardsticks(dev, card, args.outputs,
+                                            args.scale))
+        if "downsample" in only:
+            out.update(CS.downsample_yardsticks(dev, card, args.outputs,
+                                                args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))

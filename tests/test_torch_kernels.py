@@ -176,6 +176,56 @@ def test_downsample_batch_kernel(dev, factors):
                        ref[1])
 
 
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (NaNs compare by their bits)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _k6_data(rng, shape, dtype):
+    if dtype == np.float32:
+        a = rng.normal(0, 1e3, shape).astype(np.float32)
+        flat = a.reshape(-1)
+        for step, v in ((7, 0.0), (11, -0.0), (13, 1e-30), (17, 1e-40),
+                        (19, 3e38)):
+            flat[::step] = v
+        return torch.from_numpy(a)
+    info = np.iinfo(dtype)
+    return torch.from_numpy(rng.integers(info.min, info.max + 1,
+                                         shape).astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16,
+                                   np.float32], ids=str)
+@pytest.mark.parametrize("factors", [(2, 2, 1), (4, 4, 2), (1, 1, 3)],
+                         ids=str)
+@pytest.mark.parametrize("Z", [45, 1, 132])
+def test_downsample_kernel_forms(dev, Z, factors, dtype):
+    """K6 bitwise against its twin at route D's row length (45: rows only
+    2-byte aligned), a trailing size-1 axis (re-viewed) and the level's
+    (132: 8-byte aligned uint16 rows): the batch form from an aligned base
+    and from one element past it (element loads), where the box holds a
+    window; the level form padding every thin axis (ceil dims) into uint16
+    and float32; float32 inputs with signed zeros, denormals and sums that
+    overflow."""
+    rng = np.random.default_rng(Z + 7 * factors[0] + factors[2])
+    shape = (3, 18, 10, Z)
+    x = _k6_data(rng, shape, dtype)
+    if Z >= factors[2]:
+        ref = D.downsample_block_plain(x, factors)
+        got = D.downsample_batch(x.to(dev), factors).cpu()
+        assert _bits_equal(got, ref)
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+        flat[1:] = x.reshape(-1)
+        off = flat.to(dev)[1:].view(shape)
+        assert _bits_equal(D.downsample_batch(off, factors).cpu(), ref)
+    dims = tuple(-(-s // f) for s, f in zip(shape[1:], factors))
+    for out_dtype in ("uint16", "float32"):
+        ref = D.downsample_level_plain(x[1], factors, dims, out_dtype)
+        got = D.downsample_level(x[1].to(dev), factors, dims, out_dtype)
+        assert _bits_equal(got.cpu(), ref)
+
+
 @pytest.mark.parametrize("out_dtype", ["uint8", "uint16", "float32"])
 def test_convert_intensity_kernel(dev, out_dtype):
     rng = np.random.default_rng(13)
@@ -1152,6 +1202,69 @@ def test_ransac_score_kernel(dev, kind):
     for x, y in zip(got, ref):  # a degenerate sample fits NaN on both
         assert torch.equal(x.isnan(), y.isnan())
         assert torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+def _ransac_case(rng, m, I, sample):
+    """``m`` candidates under a small rotation (a third of them outliers,
+    one NaN pair where m > 2, in hypothesis 2's sample) and ``I``
+    hypotheses of ``sample`` indices drawn with repeats (samples whose pairs
+    repeat or hold the NaN fit a degenerate or NaN model)."""
+    a = rng.uniform(0, 400, (m, 3))
+    b = a @ np.array([[0.99, -0.1, 0], [0.1, 0.99, 0], [0, 0, 1.0]]).T + 7.0
+    b[: m // 3] = rng.uniform(0, 400, (m // 3, 3))
+    if m > 2:
+        a[m // 2] = np.nan
+    idx = rng.integers(0, m, (I, sample)).astype(np.int32)
+    if I > 1:
+        idx[1] = idx[1, 0]
+    if m > 2 and I > 2:
+        idx[2, 0] = m // 2
+    return (torch.from_numpy(a.astype(np.float32)),
+            torch.from_numpy(b.astype(np.float32)), torch.from_numpy(idx))
+
+
+@pytest.mark.parametrize("m,I,sample,kind", [
+    (1, 130, 1, "TRANSLATION"),   # one candidate; I not a multiple of 128
+    (200, 129, 3, "RIGID"),       # below one tile
+    (20000, 1000, 4, "AFFINE"),   # splits of several tiles, ragged ends
+    (5000, 3000, 1, "TRANSLATION"),
+    (5000, 300, 3, "RIGID"),
+    (1317, 257, 4, "AFFINE"),
+], ids=str)
+def test_ransac_score_kernel_shapes(dev, m, I, sample, kind):
+    """K21 bitwise against its twin on the card (NaN-aware: the card's NaN
+    is canonical) across its launch plan's cases, with its rows 16-byte
+    aligned and one float past that (element staging); a NaN model counts
+    no inlier. Samples of 3 divide by 3: the twin divides, as the kernel
+    does, where the card would multiply by a Python divisor's rounded
+    reciprocal."""
+    pa, pb, idx = _ransac_case(np.random.default_rng(m + I), m, I, sample)
+    pa, pb, idx = pa.to(dev), pb.to(dev), idx.to(dev)
+    ref = DS.ransac_score_plain(pa, pb, idx, 5.0, kind)
+    flat = torch.zeros((2, 3 * m + 1), device=dev)
+    flat[:, 1:] = torch.stack([pa.reshape(-1), pb.reshape(-1)])
+    for pa_, pb_ in ((pa, pb),
+                     (flat[0, 1:].view(m, 3), flat[1, 1:].view(m, 3))):
+        got = DS.ransac_score(pa_, pb_, idx, 5.0, kind)
+        for x, y in zip(got, ref):
+            assert torch.equal(x.isnan(), y.isnan())
+            assert torch.equal(x.nan_to_num(), y.nan_to_num())
+    nan = got[1].isnan().flatten(1).any(1)
+    assert bool(nan.any()) == (m > 2)
+    assert int(got[0][nan].abs().sum()) == 0
+
+
+def test_ransac_score_kernel_ties(dev):
+    """Every hypothesis the same sample: equal counts across several
+    candidate splits and groups, and the first maximum (index 0) best."""
+    pa, pb, _ = _ransac_case(np.random.default_rng(8), 20000, 1, 4)
+    idx = torch.tensor([[5, 900, 7000, 15000]] * 1000, dtype=torch.int32)
+    pa, pb, idx = pa.to(dev), pb.to(dev), idx.to(dev)
+    got = DS.ransac_score(pa, pb, idx, 5.0, "AFFINE")
+    ref = DS.ransac_score_plain(pa, pb, idx, 5.0, "AFFINE")
+    for x, y in zip(got, ref):
+        assert _bits_equal(x, y)
+    assert int(got[2][0]) == 0 and bool((got[0] == got[0][0]).all())
 
 
 @pytest.mark.parametrize("kind,reg,lam", [
