@@ -207,13 +207,17 @@ def add_affine_fusion(sub) -> argparse.ArgumentParser:
                         "solve-intensities from this N5 (no value: "
                         "intensity.n5 next to the XML)")
     p.add_argument("--devices", dest="devices", type=int, default=None,
-                   help="devices to use; only 1 until the sharded route is "
-                        "ported")
+                   help="above 1: the sharded route, blocks batched N x "
+                        "per_dev at a time over a mesh of the first N cards "
+                        "(fewer if the host has fewer: one card runs the "
+                        "route on a one-device mesh; N CPU devices with "
+                        "--device cpu); default one device")
     p.add_argument("--pyramid", dest="pyramid_epilogue", action="store_true",
                    default=False,
                    help="compute the container's downsample pyramid on the "
                         "device from the fused volume and write it in the "
-                        "same drain (composite route; bit-identical to the "
+                        "same drain (composite route: every level; sharded "
+                        "route: the block-local prefix; bit-identical to the "
                         "downsample stage, which then skips those levels)")
     p.add_argument("--no-pyramid", dest="pyramid_epilogue",
                    action="store_false")
@@ -232,8 +236,6 @@ def affine_fusion_cmd(args: argparse.Namespace):
     from ..utils.device import resolve_device
 
     check_infrastructure(args)
-    if args.devices is not None and args.devices != 1:
-        raise NotYetPorted(f"--devices {args.devices} (the sharded route)")
     device = resolve_device(args.device)
     t_start = time.time()
     store = open_container(args.output)
@@ -309,6 +311,7 @@ def affine_fusion_cmd(args: argparse.Namespace):
                 device=device,
                 pyramid=pyr,
                 coefficients=coefficients,
+                devices=args.devices,
             )
             total_vox += stats.voxels
             results.append(stats)
@@ -317,6 +320,14 @@ def affine_fusion_cmd(args: argparse.Namespace):
                   f"{stats.voxels} voxels in {stats.seconds:.2f}s "
                   f"({stats.voxels / max(stats.seconds, 1e-9):,.0f} vox/s; "
                   f"{stats.skipped_empty} empty blocks skipped) {tm}")
+            if stats.path == "sharded":
+                n = len(stats.mesh)
+                print(f"  mesh: {n} device{'s' if n != 1 else ''} "
+                      f"({', '.join(stats.mesh)}) for --devices "
+                      f"{args.devices}; " + "; ".join(
+                          f"{b['key'][0]} bucket of {b['blocks']} blocks, "
+                          f"per_dev {b['per_dev']}, {b['batches']} batches"
+                          for b in stats.buckets))
             if stats.pyramid_levels:
                 rate = ((stats.voxels + stats.pyramid_voxels)
                         / max(stats.seconds, 1e-9))

@@ -18,6 +18,19 @@ KNOBS = {
         "Device-residency budget for the whole-volume composite fusion "
         "path (tiles + f32 accumulators must fit or the driver falls back "
         "to the per-block path)."),
+    "BST_INFLIGHT_BYTES": (
+        "bytes", None,
+        "Process-wide byte budget for dispatched-but-undrained device work "
+        "of the sharded work loop (utils/devicemem.py). Default: 60% of the "
+        "card's free memory, 2e9 on the CPU."),
+    "BST_PER_DEV_BUDGET": (
+        "bytes", int(1e9),
+        "Per-device staging budget the sharded fusion driver uses to pack "
+        "several blocks per dispatch (per_dev)."),
+    "BST_EARLY_DISPATCH": (
+        "bool", True,
+        "Allow the sharded work loop to dispatch batches ahead of the one "
+        "currently draining; 0 forces strict one-batch-at-a-time."),
     "BST_PAIR_INFLIGHT_BYTES": (
         "bytes", None,
         "Byte budget for a pair stage's dispatched-but-undrained device "

@@ -69,6 +69,15 @@
 // A general affine takes the parent's voxel, from the column's sums.
 // Every voxel therefore takes the parent's float32 operations in the
 // parent's order (-fmad=false): outputs bitwise equal to the first form's.
+//
+// Batch form (bst_fuse_block_batch, ops/fusion.py fuse_block_batch): the
+// sharded route's batch of B blocks of one bucket (parallel/mesh.py:223
+// vmap of fuse_block_impl, with or without coefficients) in one launch.
+// A bucket shares its block, patch shape and view count, so the launch
+// plan (resample_plan) is the per-block one; grid index blockIdx.z selects
+// the block, whose patches, per-view parameters, grids and outputs sit at
+// a row stride. The per-block launch is the batch of one: a row is bitwise
+// the per-block output. Padding rows (valid all 0) write zeros.
 #include "fusion_common.cuh"
 
 namespace {
@@ -257,10 +266,29 @@ __global__ void __launch_bounds__(bst::kResampleThreads, kCoeff ? 2 : 3)
     const float* __restrict__ affines, const float* __restrict__ offsets,
     const float* __restrict__ img_dims, const float* __restrict__ borders,
     const float* __restrict__ ranges, const float* __restrict__ valid,
-    const float* __restrict__ ioffs, int V, int by, int bz, int ft,
+    const float* __restrict__ ioffs, int V, int bx, int by, int bz, int ft,
     const float* __restrict__ coeffs, const float* __restrict__ coeff_affs,
     int cx, int cy, int cz, int lanes_z, int n_jt, int vec4,
     float* __restrict__ fused, float* __restrict__ wsum) {
+  {
+    // the batch row: its views' patches and parameters, its outputs
+    const int64_t row = blockIdx.z;
+    const int64_t rv = row * V;
+    patches += rv * px * py * pz;
+    affines += rv * 12;
+    offsets += rv * 3;
+    img_dims += rv * 3;
+    borders += rv * 3;
+    ranges += rv * 3;
+    ioffs += rv * 3;
+    valid += rv;
+    if (kCoeff) {
+      coeffs += rv * cx * cy * cz * 2;
+      coeff_affs += rv * 12;
+    }
+    fused += row * bx * by * bz;
+    wsum += row * bx * by * bz;
+  }
   constexpr int kChunk = bst::kResampleViewChunk;
   constexpr int kTileZ = bst::kResampleMaxTileZ;
   __shared__ GatherView sv[kChunk];
@@ -521,13 +549,13 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
                    int pz, const float* affines, const float* offsets,
                    const float* img_dims, const float* borders,
                    const float* ranges, const float* valid, const float* ioffs,
-                   int V, int by, int bz, int ft, const float* coeffs,
+                   int V, int bx, int by, int bz, int ft, const float* coeffs,
                    const float* coeff_affs, int cx, int cy, int cz,
                    int lanes_z, int n_jt, int vec4, float* fused,
                    float* wsum) {
   fuse_block_kernel<T, Idx, FT, kCoeff><<<grid, bst::kResampleThreads, 0, s>>>(
       patches, px, py, pz, affines, offsets, img_dims, borders, ranges, valid,
-      ioffs, V, by, bz, ft, coeffs, coeff_affs, cx, cy, cz, lanes_z, n_jt,
+      ioffs, V, bx, by, bz, ft, coeffs, coeff_affs, cx, cy, cz, lanes_z, n_jt,
       vec4, fused, wsum);
   return cudaGetLastError();
 }
@@ -540,7 +568,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
       static_cast<const float*>(img_dims),                                    \
       static_cast<const float*>(borders), static_cast<const float*>(ranges),  \
       static_cast<const float*>(valid), static_cast<const float*>(ioffs), V,  \
-      by, bz, ft, static_cast<const float*>(coeffs),                          \
+      bx, by, bz, ft, static_cast<const float*>(coeffs),                      \
       static_cast<const float*>(coeff_affs), cx, cy, cz, lanes_z, n_jt, vec4, \
       static_cast<float*>(fused), static_cast<float*>(wsum)
 
@@ -549,17 +577,20 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
                      : launch<T, Idx, FT, false>(BST_GATHER_ARGS(T)))
 
 // lanes_z, n_jt, grid_x, grid_y: ops/fusion.py resample_plan; idx64: a
-// patch of 2^31 elements or more.
-extern "C" int bst_fuse_block(
+// patch of 2^31 elements or more. patches (B, V, px, py, pz), affines and
+// coeff_affs (B, V, 3, 4), the other per-view arrays (B, V, 3), valid
+// (B, V), coeffs (B, V, cx, cy, cz, 2); fused, wsum (B, bx, by, bz).
+extern "C" int bst_fuse_block_batch(
     const void* patches, int in_dtype, int px, int py, int pz,
     const void* affines, const void* offsets, const void* img_dims,
     const void* borders, const void* ranges, const void* valid,
-    const void* ioffs, int V, int bx, int by, int bz, int ft,
+    const void* ioffs, int B, int V, int bx, int by, int bz, int ft,
     const void* coeffs, const void* coeff_affs, int cx, int cy, int cz,
     int lanes_z, int n_jt, int grid_x, int grid_y, int idx64, void* fused,
     void* wsum, void* stream) {
   const int64_t n = static_cast<int64_t>(bx) * by * bz;
-  if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0)
+  if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0 || B <= 0 ||
+      B > 65535)
     return cudaErrorInvalidValue;
   if (coeffs != nullptr &&
       (coeff_affs == nullptr || cx <= 0 || cy <= 0 || cz <= 0))
@@ -579,7 +610,7 @@ extern "C" int bst_fuse_block(
     return cudaErrorMisalignedAddress;
   const int vec4 = bz % 4 == 0 && reinterpret_cast<uintptr_t>(fused) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(wsum) % 16 == 0;
-  const dim3 grid(grid_x, grid_y);
+  const dim3 grid(grid_x, grid_y, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (idx64) {

@@ -26,11 +26,21 @@
 // share them through L1/L2, so device memory sees each patch byte about
 // once) and writes two floats; ~40 flops per view-voxel stay far below the
 // card's float32 rate.
+//
+// Batch form (bst_fuse_block_sep_batch, ops/fusion.py fuse_block_sep_batch):
+// the sharded route's batch of B blocks of one bucket (parallel/mesh.py:223
+// vmap of fuse_block_sep_impl) in one launch; grid row blockIdx.y selects
+// the block, whose patches, diagonals, translations, tables and valid mask
+// are read at a row stride. The per-block launch is the batch of one, so a
+// row is bitwise the per-block output; padding rows (valid all 0) write
+// zeros.
 #include "fusion_common.cuh"
 
 namespace {
 
-template <typename T>
+// kBatch: grid row blockIdx.y selects the batch row (the batch form); the
+// per-block launch takes the instantiation without it, the parent's code.
+template <typename T, bool kBatch>
 __global__ void fuse_block_sep_kernel(
     const T* __restrict__ patches, int px, int py, int pz,
     const float* __restrict__ diags, const float* __restrict__ ts,
@@ -48,16 +58,23 @@ __global__ void fuse_block_sep_kernel(
   const int ext[3] = {px, py, pz};
   const int64_t pvol = static_cast<int64_t>(px) * py * pz;
   const int S = bx + by + bz;
+  // the batch row: its views' patches and parameters, its outputs
+  const int64_t row = kBatch ? blockIdx.y : 0;
+  const T* __restrict__ pat = patches + row * V * pvol;
+  const float* __restrict__ dg = diags + row * V * 3;
+  const float* __restrict__ tr = ts + row * V * 3;
+  const float* __restrict__ tab = tables + row * V * 2 * S;
+  const float* __restrict__ val = valid + row * V;
 
   bst::Combiner comb(ft);
   for (int v = 0; v < V; ++v) {
-    const T* P = patches + v * pvol;
+    const T* P = pat + v * pvol;
     int lo[3], hi[3];
     float f[3];
     for (int d = 0; d < 3; ++d) {
       // one rounding, as XLA contracts the JAX expression diag * i + t
       const float pos =
-          fmaf(diags[3 * v + d], static_cast<float>(c[d]), ts[3 * v + d]);
+          fmaf(dg[3 * v + d], static_cast<float>(c[d]), tr[3 * v + d]);
       bst::interp_row(pos, 0, ext[d], &lo[d], &hi[d], &f[d]);
     }
     // contract x, then y, then z
@@ -73,33 +90,40 @@ __global__ void fuse_block_sep_kernel(
       }
       vz[cz] = vy[0] * (1.0f - f[1]) + vy[1] * f[1];
     }
-    const float val = vz[0] * (1.0f - f[2]) + vz[1] * f[2];
-    const float* w = tables + static_cast<int64_t>(2 * v) * S;
+    const float sample = vz[0] * (1.0f - f[2]) + vz[1] * f[2];
+    const float* w = tab + static_cast<int64_t>(2 * v) * S;
     const float* ins = w + S;
-    comb.add(val, ins[i] * ins[bx + j] * ins[bx + by + k],
-             w[i] * w[bx + j] * w[bx + by + k], valid[v]);
+    comb.add(sample, ins[i] * ins[bx + j] * ins[bx + by + k],
+             w[i] * w[bx + j] * w[bx + by + k], val[v]);
   }
-  fused[idx] = comb.fused();
-  wsum[idx] = comb.wsum;
+  fused[row * n + idx] = comb.fused();
+  wsum[row * n + idx] = comb.wsum;
 }
 
 }  // namespace
 
-extern "C" int bst_fuse_block_sep(
+// patches (B, V, px, py, pz), diags, ts (B, V, 3), tables (B, V, 2,
+// bx+by+bz), valid (B, V); fused, wsum (B, bx, by, bz).
+extern "C" int bst_fuse_block_sep_batch(
     const void* patches, int in_dtype, int px, int py, int pz,
     const void* diags, const void* ts, const void* tables, const void* valid,
-    int V, int bx, int by, int bz, int ft, void* fused, void* wsum,
+    int B, int V, int bx, int by, int bz, int ft, void* fused, void* wsum,
     void* stream) {
   const int64_t n = static_cast<int64_t>(bx) * by * bz;
-  if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0)
+  if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0 || B <= 0 ||
+      B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(bst::grid_for(n), B);
+#define BST_SEP_LAUNCH(BATCH)                                                \
+  fuse_block_sep_kernel<T, BATCH><<<grid, bst::kThreads, 0, s>>>(            \
+      static_cast<const T*>(patches), px, py, pz,                           \
+      static_cast<const float*>(diags), static_cast<const float*>(ts),      \
+      static_cast<const float*>(tables), static_cast<const float*>(valid),  \
+      V, bx, by, bz, ft, static_cast<float*>(fused),                        \
+      static_cast<float*>(wsum))
   BST_DISPATCH_IN(in_dtype, T,
-      fuse_block_sep_kernel<T><<<bst::grid_for(n), bst::kThreads, 0, s>>>(
-          static_cast<const T*>(patches), px, py, pz,
-          static_cast<const float*>(diags), static_cast<const float*>(ts),
-          static_cast<const float*>(tables), static_cast<const float*>(valid),
-          V, bx, by, bz, ft, static_cast<float*>(fused),
-          static_cast<float*>(wsum)));
+      if (B > 1) BST_SEP_LAUNCH(true); else BST_SEP_LAUNCH(false));
+#undef BST_SEP_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,15 @@
 // voxel, z fastest so a warp reads neighbouring patch addresses; the views
 // are a loop inside the thread, so the combine needs no second pass.
 //
+// Batch form (bst_fuse_block_shift_batch, ops/fusion.py
+// fuse_block_shift_batch): the sharded route's batch of B blocks of one
+// bucket (parallel/mesh.py:223 vmap of fuse_block_shift_impl) in one
+// launch. Grid row blockIdx.y selects the block; each row reads its own
+// patches, fracs, tables and valid mask at a row stride and writes its own
+// outputs, with the per-block arithmetic unchanged (the per-block launch is
+// the batch of one), so a row is bitwise the per-block launch's output.
+// Padding rows (valid all 0) read their zero patches and write zeros.
+//
 // Bound: bytes. Per voxel it reads V patch values (8 taps that hit L1/L2
 // mostly once from device memory) and writes two floats; ~30 flops per
 // view-voxel stay far below the card's float32 rate.
@@ -87,7 +96,9 @@ __device__ __forceinline__ void add_shifted_view(
            w[i] * w[bx + j] * w[bx + by + k], valid);
 }
 
-template <typename T>
+// kBatch: grid row blockIdx.y selects the batch row (the batch form); the
+// per-block launch takes the instantiation without it, the parent's code.
+template <typename T, bool kBatch>
 __global__ void fuse_block_shift_kernel(
     const T* __restrict__ patches, const float* __restrict__ fracs,
     const float* __restrict__ tables, const float* __restrict__ valid, int V,
@@ -103,14 +114,20 @@ __global__ void fuse_block_shift_kernel(
   const PatchIndex at{by + 1, bz + 1};
   const int64_t pvol = static_cast<int64_t>(bx + 1) * (by + 1) * (bz + 1);
   const int S = bx + by + bz;
+  // the batch row: its views' patches and parameters, its outputs
+  const int64_t row = kBatch ? blockIdx.y : 0;
+  const T* __restrict__ pat = patches + row * V * pvol;
+  const float* __restrict__ fr = fracs + row * V * 3;
+  const float* __restrict__ tab = tables + row * V * 2 * S;
+  const float* __restrict__ val = valid + row * V;
 
   bst::Combiner comb(ft);
   for (int v = 0; v < V; ++v)
-    add_shifted_view(comb, patches + v * pvol, at, fracs + 3 * v,
-                     tables + static_cast<int64_t>(2 * v) * S, bx, by, bz, i,
-                     j, k, valid[v]);
-  fused[idx] = comb.fused();
-  wsum[idx] = comb.wsum;
+    add_shifted_view(comb, pat + v * pvol, at, fr + 3 * v,
+                     tab + static_cast<int64_t>(2 * v) * S, bx, by, bz, i,
+                     j, k, val[v]);
+  fused[row * n + idx] = comb.fused();
+  wsum[row * n + idx] = comb.wsum;
 }
 
 // starts (B, K, 6): clamp x, y, z then delta mod ps x, y, z of each slot.
@@ -152,19 +169,25 @@ __global__ void fuse_volume_scan_kernel(
 
 }  // namespace
 
-extern "C" int bst_fuse_block_shift(
+// patches (B, V, bx+1, by+1, bz+1), fracs (B, V, 3), tables (B, V, 2,
+// bx+by+bz), valid (B, V); fused, wsum (B, bx, by, bz).
+extern "C" int bst_fuse_block_shift_batch(
     const void* patches, int in_dtype, const void* fracs, const void* tables,
-    const void* valid, int V, int bx, int by, int bz, int ft, void* fused,
-    void* wsum, void* stream) {
+    const void* valid, int B, int V, int bx, int by, int bz, int ft,
+    void* fused, void* wsum, void* stream) {
   const int64_t n = static_cast<int64_t>(bx) * by * bz;
-  if (n <= 0 || V <= 0) return cudaErrorInvalidValue;
+  if (n <= 0 || V <= 0 || B <= 0 || B > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(bst::grid_for(n), B);
+#define BST_SHIFT_LAUNCH(BATCH)                                              \
+  fuse_block_shift_kernel<T, BATCH><<<grid, bst::kThreads, 0, s>>>(          \
+      static_cast<const T*>(patches), static_cast<const float*>(fracs),     \
+      static_cast<const float*>(tables), static_cast<const float*>(valid),  \
+      V, bx, by, bz, ft, static_cast<float*>(fused),                        \
+      static_cast<float*>(wsum))
   BST_DISPATCH_IN(in_dtype, T,
-      fuse_block_shift_kernel<T><<<bst::grid_for(n), bst::kThreads, 0, s>>>(
-          static_cast<const T*>(patches), static_cast<const float*>(fracs),
-          static_cast<const float*>(tables), static_cast<const float*>(valid),
-          V, bx, by, bz, ft, static_cast<float*>(fused),
-          static_cast<float*>(wsum)));
+      if (B > 1) BST_SHIFT_LAUNCH(true); else BST_SHIFT_LAUNCH(false));
+#undef BST_SHIFT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,8 +30,20 @@ the JAX planner. The grids live on the device in one table per content
 digest (:func:`coefficient_table`); a solve on the device registers its
 grids there without a host round trip (:func:`register_coefficient_table`).
 
-The sharded multi-device route (and its per-block epilogue,
-``eligible_epilogue_levels``) and the device tile cache are not yet ported.
+With ``devices > 1`` :func:`fuse_volume` takes a third route first, as the
+JAX driver does:
+
+* **sharded**: the block grid is bucketed by kernel signature and batched
+  ``devices x per_dev`` blocks at a time over a mesh of the first
+  ``devices`` cards (``parallel/mesh.py``; on a one-card host a one-device
+  mesh); one launch of K2's, K5's or K3's batch form fuses a device's rows,
+  one launch of K28 (:func:`..ops.epilogue.block_epilogue`) converts them
+  and makes the prefix of the pyramid that is block-local
+  (:func:`eligible_epilogue_levels`); one drain worker per device copies
+  its rows back and a pool of ``BST_WRITE_THREADS`` writers writes their
+  chunks.
+
+The device tile cache is not yet ported.
 """
 
 from __future__ import annotations
@@ -52,6 +64,12 @@ from ..io.dataset_io import ViewLoader, best_mipmap_level
 from ..io.spimdata import SpimData, ViewId
 from ..ops import fusion as F
 from ..ops.downsample import downsample_level
+from ..parallel.mesh import (
+    add_time,
+    make_mesh,
+    make_sharded_fuser,
+    run_sharded_batches,
+)
 from ..utils.device import resolve_device
 from ..utils.geometry import (
     Interval,
@@ -76,10 +94,11 @@ class BlendParams:
 @dataclass
 class FusionStats:
     """What one :func:`fuse_volume` call did. ``path`` is the route
-    ("composite" or "per-block"); ``kernel_blocks`` counts per-block
-    kernels by kind; ``timings`` holds seconds per phase (host read, H2D,
-    kernel, D2H, write), summed over worker threads where they overlap.
-    Pyramid levels made by the composite epilogue are counted apart from
+    ("composite", "per-block" or "sharded"); ``kernel_blocks`` counts the
+    blocks each block kernel fused, by kind; ``timings`` holds seconds per
+    phase (host read, H2D, kernel, D2H, write), summed over worker threads
+    where they overlap.
+    Pyramid levels made by an epilogue are counted apart from
     ``voxels`` (``pyramid_levels``, ``pyramid_voxels``), so full-res and
     pyramid-inclusive rates stay distinguishable."""
 
@@ -95,6 +114,12 @@ class FusionStats:
         ("read", "h2d", "kernel", "d2h", "write"), 0.0))
     pyramid_voxels: int = 0
     pyramid_levels: int = 0
+    # the sharded route: the mesh it ran on (device names, in row order),
+    # each bucket's kernel signature, blocks, per_dev and batches, and the
+    # kernel signatures it dispatched
+    mesh: tuple = ()
+    buckets: list = field(default_factory=list)
+    compile_keys: set = field(default_factory=set)
 
 
 @dataclass(frozen=True)
@@ -766,6 +791,187 @@ def _drain_device_volume(out: torch.Tensor, out_ds: Dataset, zarr_ct,
     return levels
 
 
+def eligible_epilogue_levels(pyramid, compute_block, full_dims):
+    """The PREFIX of pyramid levels the sharded route's per-block epilogue
+    can make (JAX ``eligible_epilogue_levels``). Per axis, a level's
+    absolute factor must (1) divide the compute block, so block boundaries
+    align with reduction windows; (2) be no wider than the volume's axis,
+    so no window needs the edge replication only the whole-volume route
+    does; and (3) leave the per-block level piece a whole multiple of the
+    level dataset's storage chunk, so concurrent per-device writers never
+    rewrite a shared chunk. Later levels chain off earlier ones, so the
+    first ineligible level ends the prefix; the downsample stage makes the
+    rest from the last level made."""
+    out = []
+    for lv in (pyramid or ()):
+        ok = all(int(cb) % int(a) == 0 and int(dim) >= int(a)
+                 for cb, a, dim in zip(compute_block, lv.abs_factor,
+                                       full_dims))
+        if ok:
+            chunk = lv.ds.block_size[:3]
+            ok = all((int(cb) // int(a)) % max(int(c), 1) == 0
+                     for cb, a, c in zip(compute_block, lv.abs_factor,
+                                         chunk))
+        if not ok:
+            break
+        out.append(lv)
+    return out
+
+
+def _epi_pieces(block: GridBlock, epi, lvls):
+    """Each epilogue level's piece of ``block``: (level, its data, offset,
+    size), the size cut to the level's extent at the volume's edge."""
+    for lv, ldata in zip(epi, lvls):
+        a = lv.abs_factor
+        off = tuple(int(o) // int(f) for o, f in zip(block.offset, a))
+        end = tuple(min(int(d), (int(o) + int(sz)) // int(f))
+                    for d, o, sz, f in zip(lv.dims, block.offset, block.size,
+                                           a))
+        size = tuple(e - o for e, o in zip(end, off))
+        if all(sz > 0 for sz in size):
+            yield lv, ldata, off, size
+
+
+def _sharded_item_bytes(kernel, key, compute_block, out_dtype, epi):
+    """(staged input bytes of one block, for ``per_dev``; device-resident
+    output bytes of one block: converted block, float32 wsum and the
+    epilogue levels)."""
+    vb = key[-1]
+    pshape = ([c + 1 for c in compute_block] if kernel == "shift"
+              else key[1])
+    item_bytes = vb * int(np.prod(pshape)) * 4
+    isz = np.dtype(out_dtype).itemsize
+    item_out = int(np.prod(compute_block)) * (isz + 4)
+    for lv in epi:
+        item_out += int(np.prod([int(c) // int(a) for c, a in
+                                 zip(compute_block, lv.abs_factor)])) * isz
+    return item_bytes, item_out
+
+
+def _fuse_volume_sharded(
+    sd, loader, views, out_ds, bbox, compute_block, fusion_type, blend,
+    aniso, out_dtype, min_intensity, max_intensity, masks, mask_offset,
+    zarr_ct, stats, coefficients, n_dev, mesh, io_threads, device,
+    pyramid=None,
+):
+    """Multi-device per-block fusion (JAX ``_fuse_volume_sharded``): the
+    block work list is bucketed by kernel signature, batched ``n_dev x
+    per_dev`` blocks at a time and spread over ``mesh``, the replacement
+    of the reference's Spark map over grid blocks
+    (SparkAffineFusion.java:480-482). One work loop runs every bucket's
+    batches: host staging of later batches, of any bucket, and the
+    devices' work overlap the drain of the current one; each device's
+    drain worker copies its own rows back, and a writer pool writes them
+    and their epilogue pieces (disjoint chunks: no locks). ``pyramid``
+    levels of :func:`eligible_epilogue_levels` are made per block by K28.
+    Intensity grids are gathered from the table on ``device``."""
+    grid = create_grid(bbox.shape, compute_block, compute_block)
+    inside_offset = mask_offset if masks else (0.0, 0.0, 0.0)
+    epi = eligible_epilogue_levels(pyramid, compute_block, bbox.shape)
+    epi_rels = tuple(tuple(int(v) for v in lv.rel) for lv in epi)
+
+    planned = []
+    for block in grid:
+        bg = Interval.from_shape(compute_block, block.offset).translate(
+            bbox.min)
+        plans = plan_block(sd, loader, views, bg, aniso)
+        stats.blocks += 1
+        if not plans:
+            stats.skipped_empty += 1
+            continue
+        planned.append((block, bg, plans))
+
+    # bucket by kernel signature, as stage_block chooses the kernel
+    buckets: dict[tuple, list] = {}
+    for item in planned:
+        plans = item[2]
+        vb = F.bucket_views(len(plans))
+        if coefficients is None and all(p.is_translation for p in plans):
+            key = ("shift", vb)
+        else:
+            pshape = F.bucket_shape(
+                np.max([p.patch_interval.shape for p in plans], axis=0))
+            if coefficients is None and all(p.is_diagonal for p in plans):
+                key = ("sep", pshape, vb)
+            else:
+                key = ("gather", pshape, vb)
+        buckets.setdefault(key, []).append(item)
+
+    stats.mesh = tuple(str(d) for d in mesh.devices)
+    # one batch list over every bucket, each batch one bucket's n_dev x
+    # per_dev blocks; an item is (bucket key, (block, bg, plans))
+    fusers, out_bytes, batches = {}, {}, []
+    for key, items in sorted(buckets.items(), key=lambda kv: str(kv[0])):
+        kernel = key[0]
+        fusers[key] = make_sharded_fuser(
+            mesh, compute_block, fusion_type, kernel=kernel,
+            with_coeffs=coefficients is not None and kernel == "gather",
+            out_dtype=out_dtype, masks=masks, pyramid=epi_rels)
+        stats.compile_keys.add((compute_block, key, fusion_type, out_dtype,
+                                masks, "sharded"))
+        # several blocks a device a batch, bounded by a per-device staging
+        # budget so that what fits at per_dev 1 cannot run out
+        item_bytes, out_bytes[key] = _sharded_item_bytes(
+            kernel, key, compute_block, out_dtype, epi)
+        per_dev = max(1, min(4, len(items) // max(n_dev, 1),
+                             config.get("BST_PER_DEV_BUDGET")
+                             // max(item_bytes, 1)))
+        group = n_dev * per_dev
+        batches += [[(key, it) for it in items[i:i + group]]
+                    for i in range(0, len(items), group)]
+        stats.kernel_blocks[kernel] += len(items)
+        stats.buckets.append(dict(key=key, blocks=len(items), per_dev=per_dev,
+                                  batches=-(-len(items) // group)))
+
+    def build(item):
+        t0 = time.perf_counter()
+        key, (block, bg, plans) = item
+        vb = key[-1]
+        if key[0] == "shift":
+            arrs = _shift_inputs(loader, plans, bg, compute_block, vb, blend,
+                                 inside_offset)
+        elif key[0] == "sep":
+            arrs = _sep_inputs(loader, plans, key[1], vb, blend,
+                               inside_offset)
+        else:
+            arrs = _gather_inputs(loader, plans, key[1], vb, blend,
+                                  inside_offset)
+            if coefficients is not None:
+                arrs = (*arrs, *gather_coefficient_inputs(
+                    sd, loader, plans, coefficients, vb, device))
+        add_time(stats.timings, "read", time.perf_counter() - t0)
+        return arrs
+
+    def kernel_call(batch, *stacked):
+        return fusers[batch[0][0]](min_intensity, max_intensity, *stacked)
+
+    written: dict[tuple, int] = {}
+    pwritten: dict[tuple, int] = {}
+
+    def consume(item, data, *lvls):
+        block = item[1][0]
+        _write(out_ds, data[tuple(slice(0, sz) for sz in block.size)],
+               block.offset, zarr_ct)
+        written[tuple(block.offset)] = int(np.prod(block.size))
+        for lv, ldata, off, size in _epi_pieces(block, epi, lvls):
+            _write(lv.ds, ldata[tuple(slice(0, sz) for sz in size)], off,
+                   zarr_ct)
+            pwritten[(lv.abs_factor, off)] = int(np.prod(size))
+
+    pool = ThreadPoolExecutor(max_workers=max(1, io_threads),
+                              thread_name_prefix="bst-stage")
+    try:
+        run_sharded_batches(batches, build, kernel_call, consume, pool, mesh,
+                            label="fusion batch",
+                            out_bytes=lambda item: out_bytes[item[0]],
+                            timings=stats.timings)
+    finally:
+        pool.shutdown(wait=True)
+    stats.voxels += sum(written.values())
+    stats.pyramid_levels = len(epi)
+    stats.pyramid_voxels += sum(pwritten.values())
+
+
 def fuse_volume(
     sd: SpimData,
     loader: ViewLoader,
@@ -787,8 +993,9 @@ def fuse_volume(
     device: str | torch.device | None = None,
     pyramid: list[PyramidLevel] | None = None,
     coefficients: dict | None = None,
+    devices: int | None = None,
 ) -> FusionStats:
-    """Fuse ``views`` into ``out_ds`` over ``bbox`` on one device.
+    """Fuse ``views`` into ``out_ds`` over ``bbox``.
 
     ``zarr_ct``: (channel, timepoint) indices when out_ds is a 5-D OME-ZARR
     dataset. ``device``: ``cuda`` (the default; raises without a card) or
@@ -801,7 +1008,13 @@ def fuse_volume(
     downsample stage's job. ``coefficients``: per-view (Cx, Cy, Cz, 2)
     intensity-correction grids ({view: array}; views without one keep
     their intensities); they keep the composite route only when every view
-    is a translation and send every per-block fusion to K3."""
+    is a translation and send every per-block fusion to K3.
+    ``devices``: above 1, the sharded route over the first ``devices``
+    cards (``[cpu] * devices`` with ``device="cpu"``), taken before the
+    composite route is tried; ``stats.mesh`` names the devices it used
+    (one card for ``devices=4`` on a one-card host, as in JAX). Its
+    epilogue makes the :func:`eligible_epilogue_levels` prefix of
+    ``pyramid``. None or 1: one device."""
     dev = resolve_device(device)
     stats = FusionStats()
     t0 = time.time()
@@ -815,6 +1028,17 @@ def fuse_volume(
             "uint8": (0.0, 255.0), "uint16": (0.0, 65535.0)}.get(
                 out_dtype, (0.0, 1.0))
     threads = config.get("BST_WRITE_THREADS") or 1
+
+    if devices is not None and int(devices) > 1:
+        stats.path = "sharded"
+        _fuse_volume_sharded(
+            sd, loader, views, out_ds, bbox, compute_block, fusion_type,
+            blend, aniso, out_dtype, min_intensity, max_intensity, masks,
+            mask_offset, zarr_ct, stats, coefficients, int(devices),
+            make_mesh(int(devices), platform=dev.type), io_threads, dev,
+            pyramid=pyramid)
+        stats.seconds = time.time() - t0
+        return stats
 
     cp = plan_composite_volume(sd, loader, views, bbox, aniso, blend, masks,
                                mask_offset, coefficients, dev)

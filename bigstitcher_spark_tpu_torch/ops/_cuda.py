@@ -28,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
            "pcm", "fft", "solve", "dog", "descriptors", "ransac", "intensity",
-           "cg", "nonrigid")
+           "cg", "nonrigid", "epilogue")
 HEADERS = ("fusion_common.cuh", "fit3d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,22 +55,22 @@ _SIGNATURES = {
                          + [_F, _F] + [_I] * 6 + [_VP, _VP],
     },
     "shift": {
-        "bst_fuse_block_shift": [_VP, _I, _VP, _VP, _VP] + [_I] * 5
-                                + [_VP, _VP, _VP],
+        "bst_fuse_block_shift_batch": [_VP, _I, _VP, _VP, _VP] + [_I] * 6
+                                      + [_VP, _VP, _VP],
         "bst_fuse_volume_scan": [_VP] + [_I] * 4 + [_VP] * 6 + [_I] * 9
                                 + [_VP, _VP],
     },
     "gather": {
-        "bst_fuse_block": [_VP, _I, _I, _I, _I] + [_VP] * 7 + [_I] * 5
-                          + [_VP, _VP, _I, _I, _I] + [_I] * 5
-                          + [_VP, _VP, _VP],
+        "bst_fuse_block_batch": [_VP, _I, _I, _I, _I] + [_VP] * 7 + [_I] * 6
+                                + [_VP, _VP, _I, _I, _I] + [_I] * 5
+                                + [_VP, _VP, _VP],
     },
     "convert": {
         "bst_convert_intensity": [_VP, _I64, _F, _F, _I, _VP, _VP],
     },
     "sep": {
-        "bst_fuse_block_sep": [_VP, _I, _I, _I, _I] + [_VP] * 4 + [_I] * 5
-                              + [_VP, _VP, _VP],
+        "bst_fuse_block_sep_batch": [_VP, _I, _I, _I, _I] + [_VP] * 4
+                                    + [_I] * 6 + [_VP, _VP, _VP],
     },
     "downsample": {
         "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP] + [_I] * 7 + [_VP],
@@ -116,6 +116,10 @@ _SIGNATURES = {
     "cg": {
         "bst_cg_spmv": [_I, _I] + [_VP] * 10 + [_I, _VP],
         "bst_cg_update": [_I, _I] + [_VP] * 9,
+    },
+    "epilogue": {
+        "bst_block_epilogue": [_VP, _VP] + [_I] * 4 + [_F, _F] + [_I] * 3
+                              + [_VP] * 4,
     },
     "nonrigid": {
         "bst_nonrigid_fuse": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]

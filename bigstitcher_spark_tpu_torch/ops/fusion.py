@@ -16,6 +16,12 @@ wrapper                   kernel (csrc/)               JAX program
 :func:`fuse_volume_scan`  ``shift.cu`` (K27)           fuse_volume_scan
 ========================  ===========================  ====================
 
+K2, K3 and K5 also have a batch form (:func:`fuse_block_shift_batch`,
+:func:`fuse_block_batch`, :func:`fuse_block_sep_batch`): one launch fuses
+every block of a batch of one bucket, as the JAX sharded fuser's vmap does
+(``parallel/mesh.py:223``), each row bitwise the per-block launch's. Their
+plain twins loop the per-block plain functions over the rows.
+
 K1 and K3 also apply per-view intensity-correction grids (Cx, Cy, Cz, 2)
 of [scale, offset] when given them (``so[0] * val + so[1]`` before the
 blend, as the JAX programs do): K1 by separable interpolation rows over
@@ -274,6 +280,22 @@ def _fuse_block_shift_tables(patches, fracs, tables, valid, block_shape,
                           torch.stack(blends), valid, fusion_type)
 
 
+def _stack_rows(results):
+    """[(fused, wsum), ...] of the rows of a batch -> (fused, wsum), each
+    with a leading batch axis."""
+    return (torch.stack([r[0] for r in results]),
+            torch.stack([r[1] for r in results]))
+
+
+def _zeros_if_none(inside_offs, like):
+    return torch.zeros_like(like) if inside_offs is None else inside_offs
+
+
+def _rows_of_one(*ts):
+    """Per-block inputs as a batch of one (None stays None)."""
+    return [None if t is None else t.unsqueeze(0) for t in ts]
+
+
 def fuse_block_shift(patches, fracs, lpos0, img_dims, borders, blend_ranges,
                      valid, block_shape, fusion_type="AVG_BLEND",
                      inside_offs=None):
@@ -281,48 +303,105 @@ def fuse_block_shift(patches, fracs, lpos0, img_dims, borders, blend_ranges,
 
     patches (V, bx+1, by+1, bz+1) uint8/uint16/int16/float32; fracs, lpos0,
     img_dims, borders, blend_ranges, inside_offs (V, 3) float32; valid (V,)
-    float32. Returns (fused, wsum), both (bx, by, bz) float32."""
+    float32. Returns (fused, wsum), both (bx, by, bz) float32. On CUDA it
+    is :func:`fuse_block_shift_batch`'s launch on a batch of one."""
     if patches.device.type == "cpu":
         return fuse_block_shift_plain(patches, fracs, lpos0, img_dims, borders,
                                       blend_ranges, valid, block_shape,
                                       fusion_type, inside_offs)
-    dev = patches.device
-    V = patches.shape[0]
-    bx, by, bz = (int(s) for s in block_shape)
-    if inside_offs is None:
-        inside_offs = torch.zeros_like(borders)
-    _require(patches, "patches", dev, _IN_CODE, (V, bx + 1, by + 1, bz + 1))
-    for name, t in (("fracs", fracs), ("lpos0", lpos0), ("img_dims", img_dims),
-                    ("borders", borders), ("blend_ranges", blend_ranges),
-                    ("inside_offs", inside_offs)):
-        _require(t, name, dev, _F32, (V, 3))
-    _require(valid, "valid", dev, _F32, (V,))
-    tables = shift_axis_tables(lpos0, img_dims, borders, blend_ranges,
-                               inside_offs, (bx, by, bz))
-    return launch_fuse_block_shift(patches, fracs, tables, valid,
-                                   (bx, by, bz), fusion_type)
+    bs = tuple(int(s) for s in block_shape)
+    tables = _shift_batch_tables(*_rows_of_one(
+        patches, fracs, lpos0, img_dims, borders, blend_ranges, valid,
+        inside_offs), bs)
+    return launch_fuse_block_shift(patches, fracs, tables, valid, bs,
+                                   fusion_type)
 
 
 def launch_fuse_block_shift(patches, fracs, tables, valid, block_shape,
                             fusion_type):
     """K2 alone, on inputs :func:`fuse_block_shift` has checked and on the
     weight tables it built (chip_smoke times this and the wrapper apart)."""
-    bx, by, bz = block_shape
-    dev = patches.device
-    fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    lib = _cuda.load("shift")
-    ret = lib.bst_fuse_block_shift(
-        patches.data_ptr(), _IN_CODE[patches.dtype], fracs.data_ptr(),
-        tables.data_ptr(), valid.data_ptr(), patches.shape[0], bx, by, bz,
-        _ft_code(fusion_type), fused.data_ptr(), wsum.data_ptr(),
-        _stream(dev))
-    _cuda.check(lib, ret, "fuse_block_shift")
+    fused, wsum = _launch_shift(*_rows_of_one(patches, fracs), tables,
+                                valid.unsqueeze(0), block_shape, fusion_type)
     fuse_block_shift.launches += 1
-    return fused, wsum
+    return fused[0], wsum[0]
 
 
 fuse_block_shift.launches = 0
+
+
+def fuse_block_shift_batch_plain(patches, fracs, lpos0, img_dims, borders,
+                                 blend_ranges, valid, block_shape,
+                                 fusion_type="AVG_BLEND", inside_offs=None):
+    """Plain twin of K2's batch form: :func:`fuse_block_shift_plain` on each
+    row."""
+    io = _zeros_if_none(inside_offs, borders)
+    return _stack_rows([fuse_block_shift_plain(
+        patches[b], fracs[b], lpos0[b], img_dims[b], borders[b],
+        blend_ranges[b], valid[b], block_shape, fusion_type, io[b])
+        for b in range(patches.shape[0])])
+
+
+def _shift_batch_tables(patches, fracs, lpos0, img_dims, borders,
+                        blend_ranges, valid, inside_offs, block_shape):
+    """Check K2's batch inputs and build each row's weight tables
+    (elementwise per view, so a row's tables are the per-block ones)."""
+    dev = patches.device
+    B, V = (int(s) for s in patches.shape[:2])
+    bx, by, bz = block_shape
+    inside_offs = _zeros_if_none(inside_offs, borders)
+    _require(patches, "patches", dev, _IN_CODE,
+             (B, V, bx + 1, by + 1, bz + 1))
+    for name, t in (("fracs", fracs), ("lpos0", lpos0), ("img_dims", img_dims),
+                    ("borders", borders), ("blend_ranges", blend_ranges),
+                    ("inside_offs", inside_offs)):
+        _require(t, name, dev, _F32, (B, V, 3))
+    _require(valid, "valid", dev, _F32, (B, V))
+    return shift_axis_tables(
+        *(t.reshape(B * V, 3) for t in (lpos0, img_dims, borders,
+                                        blend_ranges, inside_offs)),
+        block_shape)
+
+
+def _launch_shift(patches, fracs, tables, valid, block_shape, fusion_type):
+    """One launch of K2 on a checked batch (B, V, ...)."""
+    bx, by, bz = block_shape
+    dev = patches.device
+    B, V = (int(s) for s in patches.shape[:2])
+    fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    lib = _cuda.load("shift")
+    ret = lib.bst_fuse_block_shift_batch(
+        patches.data_ptr(), _IN_CODE[patches.dtype], fracs.data_ptr(),
+        tables.data_ptr(), valid.data_ptr(), B, V, bx, by, bz,
+        _ft_code(fusion_type), fused.data_ptr(), wsum.data_ptr(),
+        _stream(dev))
+    _cuda.check(lib, ret, "fuse_block_shift")
+    return fused, wsum
+
+
+def fuse_block_shift_batch(patches, fracs, lpos0, img_dims, borders,
+                           blend_ranges, valid, block_shape,
+                           fusion_type="AVG_BLEND", inside_offs=None):
+    """K2's batch form (``csrc/shift.cu``, one launch) on CUDA, the plain
+    version on the CPU: :func:`fuse_block_shift` on each row of a batch of
+    B blocks (the sharded route's vmap). patches (B, V, bx+1, by+1, bz+1);
+    fracs, lpos0, img_dims, borders, blend_ranges, inside_offs (B, V, 3)
+    float32; valid (B, V) float32. Returns (fused, wsum), both (B, bx, by,
+    bz) float32, each row bitwise the per-block kernel's."""
+    if patches.device.type == "cpu":
+        return fuse_block_shift_batch_plain(
+            patches, fracs, lpos0, img_dims, borders, blend_ranges, valid,
+            block_shape, fusion_type, inside_offs)
+    bs = tuple(int(s) for s in block_shape)
+    tables = _shift_batch_tables(patches, fracs, lpos0, img_dims, borders,
+                                 blend_ranges, valid, inside_offs, bs)
+    out = _launch_shift(patches, fracs, tables, valid, bs, fusion_type)
+    fuse_block_shift_batch.launches += 1
+    return out
+
+
+fuse_block_shift_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +775,8 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
     blend_ranges, inside_offs (V, 3) float32; valid (V,) float32; optional
     intensity grids ``coeffs`` (V, Cx, Cy, Cz, 2) float32 and their (V, 3,
     4) float32 level position -> grid coordinate affines. Returns (fused,
-    wsum), both ``block_shape`` float32. The launch: :func:`resample_plan`."""
+    wsum), both ``block_shape`` float32. The launch: :func:`resample_plan`;
+    on CUDA it is :func:`fuse_block_batch`'s on a batch of one."""
     if (coeffs is None) != (coeff_affines is None):
         raise ValueError("coeffs and coeff_affines go together")
     if patches.device.type == "cpu":
@@ -704,46 +784,107 @@ def fuse_block(patches, affines, patch_offsets, img_dims, borders,
                                 borders, blend_ranges, valid, block_shape,
                                 fusion_type, inside_offs, coeffs,
                                 coeff_affines)
-    dev = patches.device
-    V, px, py, pz = (int(s) for s in patches.shape)
-    bx, by, bz = (int(s) for s in block_shape)
-    if inside_offs is None:
-        inside_offs = torch.zeros_like(borders)
-    _require(patches, "patches", dev, _IN_CODE)
-    _require(affines, "affines", dev, _F32, (V, 3, 4))
-    for name, t in (("patch_offsets", patch_offsets), ("img_dims", img_dims),
-                    ("borders", borders), ("blend_ranges", blend_ranges),
-                    ("inside_offs", inside_offs)):
-        _require(t, name, dev, _F32, (V, 3))
-    _require(valid, "valid", dev, _F32, (V,))
-    cdims, cptr, captr = (0, 0, 0), None, None
-    if coeffs is not None:
-        _require(coeffs, "coeffs", dev, _F32)
-        if coeffs.dim() != 5 or coeffs.shape[0] != V or coeffs.shape[4] != 2:
-            raise ValueError(f"coeffs has shape {tuple(coeffs.shape)}, "
-                             f"expected ({V}, Cx, Cy, Cz, 2)")
-        _require(coeff_affines, "coeff_affines", dev, _F32, (V, 3, 4))
-        cdims = tuple(int(c) for c in coeffs.shape[1:4])
-        cptr, captr = coeffs.data_ptr(), coeff_affines.data_ptr()
-    plan = resample_plan((bx, by, bz), V, (px, py, pz))
-    fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    lib = _cuda.load("gather")
-    ret = lib.bst_fuse_block(
-        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
-        affines.data_ptr(), patch_offsets.data_ptr(), img_dims.data_ptr(),
-        borders.data_ptr(), blend_ranges.data_ptr(), valid.data_ptr(),
-        inside_offs.data_ptr(), V, bx, by, bz, _ft_code(fusion_type),
-        cptr, captr, *cdims, plan.lanes_z, plan.n_jt, *plan.grid,
-        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
-    _cuda.check(lib, ret, "fuse_block")
+    if patches.dim() != 4:
+        raise ValueError("patches must be (V, Px, Py, Pz)")
+    fused, wsum = _launch_gather(*_rows_of_one(
+        patches, affines, patch_offsets, img_dims, borders, blend_ranges,
+        valid), block_shape, fusion_type, *_rows_of_one(
+            inside_offs, coeffs, coeff_affines))
     fuse_block.launches += 1
     fuse_block.coeff_launches += coeffs is not None
-    return fused, wsum
+    return fused[0], wsum[0]
 
 
 fuse_block.launches = 0
 fuse_block.coeff_launches = 0
+
+
+def fuse_block_batch_plain(patches, affines, patch_offsets, img_dims, borders,
+                           blend_ranges, valid, block_shape,
+                           fusion_type="AVG_BLEND", inside_offs=None,
+                           coeffs=None, coeff_affines=None):
+    """Plain twin of K3's batch form: :func:`fuse_block_plain` on each
+    row."""
+    io = _zeros_if_none(inside_offs, borders)
+    return _stack_rows([fuse_block_plain(
+        patches[b], affines[b], patch_offsets[b], img_dims[b], borders[b],
+        blend_ranges[b], valid[b], block_shape, fusion_type, io[b],
+        None if coeffs is None else coeffs[b],
+        None if coeff_affines is None else coeff_affines[b])
+        for b in range(patches.shape[0])])
+
+
+def _launch_gather(patches, affines, patch_offsets, img_dims, borders,
+                   blend_ranges, valid, block_shape, fusion_type, inside_offs,
+                   coeffs, coeff_affines):
+    """Check K3's batch inputs (B, V, ...) and launch it once."""
+    dev = patches.device
+    if patches.dim() != 5:
+        raise ValueError("patches must be (B, V, Px, Py, Pz)")
+    B, V, px, py, pz = (int(s) for s in patches.shape)
+    bx, by, bz = (int(s) for s in block_shape)
+    inside_offs = _zeros_if_none(inside_offs, borders)
+    _require(patches, "patches", dev, _IN_CODE)
+    _require(affines, "affines", dev, _F32, (B, V, 3, 4))
+    for name, t in (("patch_offsets", patch_offsets), ("img_dims", img_dims),
+                    ("borders", borders), ("blend_ranges", blend_ranges),
+                    ("inside_offs", inside_offs)):
+        _require(t, name, dev, _F32, (B, V, 3))
+    _require(valid, "valid", dev, _F32, (B, V))
+    cdims, cptr, captr = (0, 0, 0), None, None
+    if coeffs is not None:
+        _require(coeffs, "coeffs", dev, _F32)
+        if (coeffs.dim() != 6 or tuple(coeffs.shape[:2]) != (B, V)
+                or coeffs.shape[5] != 2):
+            raise ValueError(f"coeffs has shape {tuple(coeffs.shape)}, "
+                             f"expected ({B}, {V}, Cx, Cy, Cz, 2)")
+        _require(coeff_affines, "coeff_affines", dev, _F32, (B, V, 3, 4))
+        cdims = tuple(int(c) for c in coeffs.shape[2:5])
+        cptr, captr = coeffs.data_ptr(), coeff_affines.data_ptr()
+    plan = resample_plan((bx, by, bz), V, (px, py, pz))
+    fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    lib = _cuda.load("gather")
+    ret = lib.bst_fuse_block_batch(
+        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
+        affines.data_ptr(), patch_offsets.data_ptr(), img_dims.data_ptr(),
+        borders.data_ptr(), blend_ranges.data_ptr(), valid.data_ptr(),
+        inside_offs.data_ptr(), B, V, bx, by, bz, _ft_code(fusion_type),
+        cptr, captr, *cdims, plan.lanes_z, plan.n_jt, *plan.grid,
+        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "fuse_block")
+    return fused, wsum
+
+
+def fuse_block_batch(patches, affines, patch_offsets, img_dims, borders,
+                     blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
+                     inside_offs=None, coeffs=None, coeff_affines=None):
+    """K3's batch form (``csrc/gather.cu``, one launch) on CUDA, the plain
+    version on the CPU: :func:`fuse_block` on each row of a batch of B
+    blocks that share the patch shape and view count (a bucket of the
+    sharded route). patches (B, V, Px, Py, Pz); affines (B, V, 3, 4);
+    patch_offsets, img_dims, borders, blend_ranges, inside_offs (B, V, 3);
+    valid (B, V); optional coeffs (B, V, Cx, Cy, Cz, 2) and coeff_affines
+    (B, V, 3, 4); all float32 but the patches. Returns (fused, wsum), both
+    (B, bx, by, bz) float32, each row bitwise the per-block kernel's (the
+    same launch plan, :func:`resample_plan`)."""
+    if (coeffs is None) != (coeff_affines is None):
+        raise ValueError("coeffs and coeff_affines go together")
+    if patches.device.type == "cpu":
+        return fuse_block_batch_plain(
+            patches, affines, patch_offsets, img_dims, borders, blend_ranges,
+            valid, block_shape, fusion_type, inside_offs, coeffs,
+            coeff_affines)
+    out = _launch_gather(patches, affines, patch_offsets, img_dims, borders,
+                         blend_ranges, valid, block_shape, fusion_type,
+                         inside_offs, coeffs, coeff_affines)
+    fuse_block_batch.launches += 1
+    fuse_block_batch.coeff_launches += coeffs is not None
+    return out
+
+
+fuse_block_batch.launches = 0
+fuse_block_batch.coeff_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -824,27 +965,18 @@ def fuse_block_sep(patches, diags, ts, patch_offsets, img_dims, borders,
     patches (V, Px, Py, Pz) uint8/uint16/int16/float32; diags, ts (the
     diagonal and translation of each block->patch affine), patch_offsets,
     img_dims, borders, blend_ranges, inside_offs (V, 3) float32; valid (V,)
-    float32. Returns (fused, wsum), both ``block_shape`` float32."""
+    float32. Returns (fused, wsum), both ``block_shape`` float32. On CUDA
+    it is :func:`fuse_block_sep_batch`'s launch on a batch of one."""
     if patches.device.type == "cpu":
         return fuse_block_sep_plain(patches, diags, ts, patch_offsets,
                                     img_dims, borders, blend_ranges, valid,
                                     block_shape, fusion_type, inside_offs)
-    dev = patches.device
-    V = patches.shape[0]
-    bs = tuple(int(s) for s in block_shape)
-    if inside_offs is None:
-        inside_offs = torch.zeros_like(borders)
-    _require(patches, "patches", dev, _IN_CODE)
     if patches.dim() != 4:
         raise ValueError("patches must be (V, Px, Py, Pz)")
-    for name, t in (("diags", diags), ("ts", ts),
-                    ("patch_offsets", patch_offsets), ("img_dims", img_dims),
-                    ("borders", borders), ("blend_ranges", blend_ranges),
-                    ("inside_offs", inside_offs)):
-        _require(t, name, dev, _F32, (V, 3))
-    _require(valid, "valid", dev, _F32, (V,))
-    tables = sep_axis_tables(diags, ts, patch_offsets, img_dims, borders,
-                             blend_ranges, inside_offs, bs)
+    bs = tuple(int(s) for s in block_shape)
+    tables = _sep_batch_tables(*_rows_of_one(
+        patches, diags, ts, patch_offsets, img_dims, borders, blend_ranges,
+        valid, inside_offs), bs)
     return launch_fuse_block_sep(patches, diags, ts, tables, valid, bs,
                                  fusion_type)
 
@@ -853,23 +985,88 @@ def launch_fuse_block_sep(patches, diags, ts, tables, valid, block_shape,
                           fusion_type):
     """K5 alone, on inputs :func:`fuse_block_sep` has checked and on the
     weight tables it built (chip_smoke times this and the wrapper apart)."""
-    bx, by, bz = block_shape
-    dev = patches.device
-    V, px, py, pz = (int(s) for s in patches.shape)
-    fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    lib = _cuda.load("sep")
-    ret = lib.bst_fuse_block_sep(
-        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
-        diags.data_ptr(), ts.data_ptr(), tables.data_ptr(), valid.data_ptr(),
-        V, bx, by, bz, _ft_code(fusion_type), fused.data_ptr(),
-        wsum.data_ptr(), _stream(dev))
-    _cuda.check(lib, ret, "fuse_block_sep")
+    fused, wsum = _launch_sep(*_rows_of_one(patches, diags, ts), tables,
+                              valid.unsqueeze(0), block_shape, fusion_type)
     fuse_block_sep.launches += 1
-    return fused, wsum
+    return fused[0], wsum[0]
 
 
 fuse_block_sep.launches = 0
+
+
+def fuse_block_sep_batch_plain(patches, diags, ts, patch_offsets, img_dims,
+                               borders, blend_ranges, valid, block_shape,
+                               fusion_type="AVG_BLEND", inside_offs=None):
+    """Plain twin of K5's batch form: :func:`fuse_block_sep_plain` on each
+    row."""
+    io = _zeros_if_none(inside_offs, borders)
+    return _stack_rows([fuse_block_sep_plain(
+        patches[b], diags[b], ts[b], patch_offsets[b], img_dims[b],
+        borders[b], blend_ranges[b], valid[b], block_shape, fusion_type,
+        io[b]) for b in range(patches.shape[0])])
+
+
+def _sep_batch_tables(patches, diags, ts, patch_offsets, img_dims, borders,
+                      blend_ranges, valid, inside_offs, block_shape):
+    """Check K5's batch inputs and build each row's weight tables."""
+    dev = patches.device
+    if patches.dim() != 5:
+        raise ValueError("patches must be (B, V, Px, Py, Pz)")
+    B, V = (int(s) for s in patches.shape[:2])
+    inside_offs = _zeros_if_none(inside_offs, borders)
+    _require(patches, "patches", dev, _IN_CODE)
+    for name, t in (("diags", diags), ("ts", ts),
+                    ("patch_offsets", patch_offsets), ("img_dims", img_dims),
+                    ("borders", borders), ("blend_ranges", blend_ranges),
+                    ("inside_offs", inside_offs)):
+        _require(t, name, dev, _F32, (B, V, 3))
+    _require(valid, "valid", dev, _F32, (B, V))
+    return sep_axis_tables(
+        *(t.reshape(B * V, 3) for t in (diags, ts, patch_offsets, img_dims,
+                                        borders, blend_ranges, inside_offs)),
+        block_shape)
+
+
+def _launch_sep(patches, diags, ts, tables, valid, block_shape, fusion_type):
+    """One launch of K5 on a checked batch (B, V, ...)."""
+    bx, by, bz = block_shape
+    dev = patches.device
+    B, V, px, py, pz = (int(s) for s in patches.shape)
+    fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    lib = _cuda.load("sep")
+    ret = lib.bst_fuse_block_sep_batch(
+        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
+        diags.data_ptr(), ts.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+        B, V, bx, by, bz, _ft_code(fusion_type), fused.data_ptr(),
+        wsum.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "fuse_block_sep")
+    return fused, wsum
+
+
+def fuse_block_sep_batch(patches, diags, ts, patch_offsets, img_dims, borders,
+                         blend_ranges, valid, block_shape,
+                         fusion_type="AVG_BLEND", inside_offs=None):
+    """K5's batch form (``csrc/sep.cu``, one launch) on CUDA, the plain
+    version on the CPU: :func:`fuse_block_sep` on each row of a batch of B
+    blocks sharing the patch shape and view count. patches (B, V, Px, Py,
+    Pz); diags, ts, patch_offsets, img_dims, borders, blend_ranges,
+    inside_offs (B, V, 3) float32; valid (B, V) float32. Returns (fused,
+    wsum), both (B, bx, by, bz) float32, each row bitwise the per-block
+    kernel's."""
+    if patches.device.type == "cpu":
+        return fuse_block_sep_batch_plain(
+            patches, diags, ts, patch_offsets, img_dims, borders,
+            blend_ranges, valid, block_shape, fusion_type, inside_offs)
+    bs = tuple(int(s) for s in block_shape)
+    tables = _sep_batch_tables(patches, diags, ts, patch_offsets, img_dims,
+                               borders, blend_ranges, valid, inside_offs, bs)
+    out = _launch_sep(patches, diags, ts, tables, valid, bs, fusion_type)
+    fuse_block_sep_batch.launches += 1
+    return out
+
+
+fuse_block_sep_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1314,6 +1511,9 @@ KERNEL_WRAPPERS = {
     "convert_intensity": convert_intensity,
     "fuse_block_sep": fuse_block_sep,
     "fuse_volume_scan": fuse_volume_scan,
+    "fuse_block_shift_batch": fuse_block_shift_batch,
+    "fuse_block_batch": fuse_block_batch,
+    "fuse_block_sep_batch": fuse_block_sep_batch,
 }
 
 

@@ -1,1 +1,2 @@
-"""Scheduling of device work (single device in this slice of the port)."""
+"""Scheduling of device work: the pair scheduler (one device) and the
+sharded block work loop over a mesh of devices, with its retry layer."""

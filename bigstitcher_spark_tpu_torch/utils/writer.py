@@ -4,13 +4,14 @@ drivers."""
 from __future__ import annotations
 
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 
 
 class WriterPool:
-    """Runs ``fn(*args)`` writes on ``threads`` threads. ``close`` reads
-    every future, so a failed write raises in the caller, and adds the
-    seconds each write took to ``timings['write']`` (thread time)."""
+    """Runs ``fn(*args)`` writes on ``threads`` threads. ``flush`` and
+    ``close`` read every future submitted so far, so a failed write raises
+    in the caller, and add the seconds each write took to
+    ``timings['write']`` (thread time)."""
 
     def __init__(self, threads: int, timings: dict):
         self._timings = timings
@@ -27,9 +28,16 @@ class WriterPool:
     def submit(self, fn, *args) -> None:
         self._futures.append(self._pool.submit(self._one, fn, args))
 
+    def flush(self) -> None:
+        """Wait for every write submitted so far, add their seconds, and
+        raise the first failure."""
+        futures, self._futures = self._futures, []
+        wait(futures)
+        for f in futures:
+            self._timings["write"] += f.result()
+
     def close(self) -> None:
         try:
-            for f in self._futures:
-                self._timings["write"] += f.result()
+            self.flush()
         finally:
             self._pool.shutdown(wait=True)

@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all fifteen at once).
+         kernels from csrc/ (one nvcc per source, all sixteen at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -19,7 +19,12 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          and K6's one-axis float32 form
          (halfpixel_downsample2x_axis) along each axis of a route-A tile
          (1024x1024x128 uint16), bitwise against its twin, beside
-         avg_pool3d with a window of 2 on that axis. The
+         avg_pool3d with a window of 2 on that axis. The batch forms of
+         K2, K3 and K5 at 16 rows of their per-block inputs (route A's
+         batch at --devices 4, per_dev 4): every row bitwise the per-block
+         kernel's, one launch timed; K28 (block_epilogue) on K2's batch
+         output with route A's first level (2,2,2), s0 and level bitwise
+         its twin's in both modes (conversion, masks). The
          phase-correlation kernels at route A's x-edge
          bucket at -ds 2,2,1 (2 pairs of 64x512x128 uint16 crops): K7
          window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
@@ -211,6 +216,24 @@ Phase 12 fuse_volume_scan (K27, then K4) through the API: route A's four
          upload, K27 + K4 seconds and fused voxels/s, and K27 timed on
          the whole plan beside the twin and its bound (library none).
 
+Phase 13 affine-fusion --devices 4 through the CLI entry function: the
+         sharded route on the one card (a one-device mesh; batches of 4 x
+         per_dev blocks, one launch of K2's, K3's or K5's batch form and
+         one of K28 a batch, one drain worker copying back and writing).
+         13a: route A's project, --multiRes with --pyramid, into a
+         container of 128x128x32 blocks fused at --blockScale 2,2,2 (route
+         B's 256x256x64 compute block; at route A's 128x128x64 blocks
+         level 1's (2,2,2) piece is half a chunk in z and no level is
+         eligible): K28 makes level 1, the downsample stage the rest; s0
+         and every level bitwise equal to route B's. 13b: route C's
+         project (gather and shift buckets), s0 bitwise route C's. 13c:
+         route D's anisotropic N5 (K5's batch form), s0 bitwise route
+         D's. 13d: 10c's corrected project with --intensityN5 (K3's batch
+         form with its grids), s0 bitwise 10c per block's. Each prints
+         the mesh, every bucket's blocks, per_dev and batches, the host
+         read / H2D / kernel (CUDA events) / D2H / write seconds and the
+         device memory peak; no per-block or composite kernel may launch.
+
 Kernel times are CUDA events around work queued behind a spin on the
 card (its rate measured in the run), so they hold the card's time and not
 the host's launch overhead. K8's and K24's wrapper times and their library
@@ -234,7 +257,7 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-12 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-13 on the CPU with the
 plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
 cells and renderScale 0.5, 10b's large system on 3x3x2 views; 8d's
 ratio-test gate printed, not applied: its 32x32x16 blocks split each
@@ -289,7 +312,15 @@ KERNELS = {
     "cg_update": ("cg.cu", "ops/solve.py:527"),
     "nonrigid_fuse": ("nonrigid.cu", "ops/nonrigid.py:133"),
     "fuse_volume_scan": ("shift.cu", "ops/fusion.py:379"),
+    "block_epilogue": ("epilogue.cu", "parallel/mesh.py:223"),
 }
+# the batch forms of K2, K3, K5 (one launch a bucket's batch on a device;
+# the JAX sharded fuser's vmap, parallel/mesh.py:223): reported as fields
+# of their per-block kernel's entry
+BATCH_FORMS = {"fuse_block_shift": "fuse_block_shift_batch",
+               "fuse_block": "fuse_block_batch",
+               "fuse_block_sep": "fuse_block_sep_batch"}
+BATCH_ROWS = 16  # route A's batch: --devices 4 x per_dev 4
 # flops per (view, voxel) and per voxel, counted from the kernel sources;
 # a cosf, floorf or rintf counts as one operation. K6 does one add per
 # input voxel and ~10 operations per output voxel (divides, round, clamp).
@@ -401,6 +432,10 @@ ROUTE_KERNELS.update({
     "11": ("nonrigid_fuse", "convert_intensity", "downsample_batch"),
     "8d": DET_KERNELS + ("downsample_batch", "knn_descriptors"),
     "12": ("fuse_volume_scan", "convert_intensity"),
+    "13a": ("fuse_block_shift_batch", "block_epilogue", "downsample_batch"),
+    "13b": ("fuse_block_batch", "fuse_block_shift_batch", "block_epilogue"),
+    "13c": ("fuse_block_sep_batch", "block_epilogue"),
+    "13d": ("fuse_block_batch", "fuse_block_batch+coeff", "block_epilogue"),
 })
 
 
@@ -669,6 +704,193 @@ def composite_times(tiles, params, kw, dev, plain_reps=20):
                     + n * OPS["composite_final"]))
 
 
+def batch_rows(args, io, rows):
+    """``rows`` distinct rows from phase 1's per-block inputs (``args``:
+    patches, the per-view arrays, valid last; ``io`` the inside offsets):
+    row b's patches rolled b voxels along z and its views' parameters b
+    views along, one view of every odd row switched off, and the last row
+    padding as the sharded route pads (all zeros). Returns (batched args,
+    batched inside offsets) on the inputs' device. The rows are made on
+    the host: the card's torch has no uint16 roll."""
+    import torch
+
+    dev = args[0].device
+    args, io = [a.cpu() for a in args], io.cpu()
+
+    def row(b):
+        if b == rows - 1:
+            return [torch.zeros_like(a) for a in args], torch.zeros_like(io)
+        rb = [torch.roll(args[0], b, dims=-1)] + [
+            torch.roll(a, b, dims=0) for a in args[1:]]
+        if b % 2:
+            rb[-1] = rb[-1].clone()
+            rb[-1][b % rb[-1].shape[0]] = 0.0
+        return rb, torch.roll(io, b, dims=0)
+
+    per_row = [row(b) for b in range(rows)]
+    return ([torch.stack([r[0][j] for r in per_row]).to(dev)
+             for j in range(len(args))],
+            torch.stack([r[1] for r in per_row]).to(dev))
+
+
+def batch_times(batch_fn, plain_fn, single_fn, args, io, bs, nbytes, ops):
+    """A batch form of K2, K3 or K5 at BATCH_ROWS distinct rows made from
+    phase 1's per-block inputs (:func:`batch_rows`): every row bitwise the
+    per-block kernel (``single_fn``) on that row's inputs, the padding row
+    zeros, the batch held to its plain twin (a loop of the per-block twin)
+    on the same inputs with the per-block tolerance and its largest
+    |difference| from it recorded, one batch launch timed, the
+    twin once, and the bound of the batch (``nbytes`` and ``ops`` of one
+    row, times the rows)."""
+    import torch
+
+    rows = BATCH_ROWS
+    bargs, bio = batch_rows(args, io, rows)
+    run = lambda: batch_fn(*bargs, bs, "AVG_BLEND", bio)
+    got = run()
+    same = all(torch.equal(g[b], w) for b in range(rows)
+               for g, w in zip(got, single_fn(*(a[b] for a in bargs), bs,
+                                              "AVG_BLEND", bio[b])))
+    check(same, f"{batch_fn.__name__}: each of {rows} distinct rows bitwise "
+                "the per-block kernel's on its inputs")
+    check(not got[0][-1].any() and not got[1][-1].any(),
+          f"{batch_fn.__name__}: the padding row writes zeros")
+    check(len({float(g.sum()) for g in got[0][:-1]}) == rows - 1,
+          f"{batch_fn.__name__}: the {rows - 1} real rows differ")
+    plain = lambda: plain_fn(*bargs, bs, "AVG_BLEND", bio)
+    ref = plain()
+    # the per-block kernels' tolerance against their twins
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    err = max_abs(got[0], ref[0])
+    del got, ref
+    return dict(batch_rows=rows, batch_ms=time_ms(run, reps=5),
+                batch_plain_ms=time_ms(plain, reps=1, rounds=1),
+                batch_bound_ms=bound(nbytes * rows, ops * rows)[0],
+                batch_max_abs_err=err)
+
+
+def shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid, io_d,
+                card):
+    """K2 on V translated views with sub-pixel fractions (some voxels
+    outside) against its twin; on a tree with them, its batch form at
+    BATCH_ROWS rows and K28 on that batch's fused blocks with route A's
+    first level (2,2,2)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import fusion as F
+
+    patches = c(rng.integers(90, 4000, (V, *(s + 1 for s in bs)))
+                .astype(np.uint16))
+    fr = per_view(0, 1)
+    lp = (rng.uniform(-40, 40, (V, 3)) + fr).astype(np.float32)
+    args = [patches] + [c(a) for a in (fr, lp, dims, borders, ranges, valid)]
+    run = lambda: F.fuse_block_shift(*args, bs, "AVG_BLEND", io_d)
+    plain = lambda: F.fuse_block_shift_plain(*args, bs, "AVG_BLEND", io_d)
+    got, ref = run(), plain()
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    tables = F.shift_axis_tables(*args[2:6], io_d, bs)
+    bare = lambda: F.launch_fuse_block_shift(patches, args[1], tables,
+                                             args[6], bs, "AVG_BLEND")
+    n = int(np.prod(bs))
+    nbytes = patches.numel() * 2 + 2 * n * 4
+    res = {"fuse_block_shift": dict(
+        err=max_abs(got[0], ref[0]), ms=time_ms(bare), wrapper_ms=time_ms(run),
+        plain_ms=time_ms(plain), bound=bound(nbytes, V * n * OPS["shift"]))}
+    if not hasattr(F, "fuse_block_shift_batch"):
+        return res
+    res["fuse_block_shift"].update(batch_times(
+        F.fuse_block_shift_batch, F.fuse_block_shift_batch_plain,
+        F.fuse_block_shift, args, io_d, bs, nbytes, V * n * OPS["shift"]))
+    bargs = [a.expand(BATCH_ROWS, *a.shape).contiguous() for a in args]
+    fz, ws = F.fuse_block_shift_batch(
+        *bargs, bs, "AVG_BLEND", io_d.expand(BATCH_ROWS, V, 3).contiguous())
+    del bargs
+    res["block_epilogue"] = epilogue_times(fz, ws, ((2, 2, 2),), card)
+    return res
+
+
+def block_yardsticks(dev, card, scale="full"):
+    """K2 and K5 per block at phase 1's shapes (K2 on phase 1's very
+    inputs), and on a tree with them their batch forms at BATCH_ROWS rows
+    and K28 (:func:`shift_times`, :func:`sep_times`)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2024)
+    bs, V = compute_block_of(scale), 4
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def per_view(lo, hi):
+        return rng.uniform(lo, hi, (V, 3)).astype(np.float32)
+
+    dims = np.tile(np.array([s + 80 for s in bs], np.float32), (V, 1))
+    borders, ranges = per_view(0, 3), per_view(10, 40)
+    valid = np.ones(V, np.float32)
+    io_d = c(np.zeros((V, 3), np.float32))
+    out = shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid,
+                      io_d, card)
+    out["fuse_block_sep"] = sep_times(rng, c, bs, SCALES[scale]["sep_patch"],
+                                      V, per_view, dev)
+    for k, r in out.items():
+        print_times(k, r, card)
+        if "batch_ms" in r:
+            print(f"  {k} batch form, {r['batch_rows']} rows [{card}]: "
+                  f"{r['batch_ms']} ms, plain {r['batch_plain_ms']} ms, "
+                  f"bound {r['batch_bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def epilogue_bytes(shape, out_itemsize: int, rels) -> int:
+    """What K28 must move for a (B, X, Y, Z) batch (conversion mode): the
+    float32 block read once, s0 and every level written once."""
+    import numpy as np
+
+    B, *dims = (int(v) for v in shape)
+    out = int(np.prod(shape))
+    for r in rels:
+        dims = [d // f for d, f in zip(dims, r)]
+        out += B * int(np.prod(dims))
+    return int(np.prod(shape)) * 4 + out * int(out_itemsize)
+
+
+def epilogue_times(fused, wsum, rels, card):
+    """K28 on a batch of fused blocks (uint16, ``rels`` levels) against its
+    twin on the card, bitwise, in both modes; its time, its twin's and its
+    bound (the float32 block read once, s0 and the levels written once)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import epilogue as E
+
+    for masks in (False, True):
+        got = E.block_epilogue(fused, wsum, 0.0, 65535.0, "uint16", masks,
+                               rels)
+        ref = E.block_epilogue_plain(fused, wsum, 0.0, 65535.0, "uint16",
+                                     masks, rels)
+        check(all(torch.equal(g, f) for g, f in zip(got, ref)),
+              f"K28 block_epilogue {tuple(fused.shape)} levels {rels} "
+              f"masks {masks}: s0 and every level bitwise the twin's")
+    run = lambda: E.block_epilogue(fused, wsum, 0.0, 65535.0, "uint16",
+                                   False, rels)
+    plain = lambda: E.block_epilogue_plain(fused, wsum, 0.0, 65535.0,
+                                           "uint16", False, rels)
+    n0 = fused.numel()
+    ops, prev = n0 * OPS["convert"], n0
+    for lv in got[1:]:
+        ops += prev * OPS["downsample_in"] + lv.numel() * OPS["downsample_out"]
+        prev = lv.numel()
+    ms = time_ms(run)  # no preparation: the wrapper is the launch
+    r = dict(err=0.0, ms=ms, wrapper_ms=ms, plain_ms=time_ms(plain, reps=3),
+             library_ms=None, shape=tuple(fused.shape), levels=rels,
+             bound=bound(epilogue_bytes(tuple(fused.shape), 2, rels), ops))
+    print(f"  block_epilogue (K28) at {tuple(fused.shape)}, levels {rels}: "
+          f"{int(np.prod(fused.shape[1:]))} voxels a block", flush=True)
+    return r
+
+
 def sep_tap_bytes(patch, diags, ts, bs, itemsize, sector=32):
     """Bytes of the patches that K5's taps touch: per view and axis, the
     indices from the smallest lo to the largest hi over the block's sample
@@ -729,11 +951,15 @@ def sep_times(rng, c, bs, patch, V, per_view, dev):
     bare = lambda: F.launch_fuse_block_sep(patches, args[1], args[2], tables,
                                            args[7], bs, "AVG_BLEND")
     n = int(np.prod(bs))
-    return dict(err=max_abs(got[0], ref[0]), ms=time_ms(bare),
-                wrapper_ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=None,
-                bound=bound(sep_tap_bytes(patch, diags, ts, bs, 2)
-                            + 2 * n * 4, V * n * OPS["sep"]))
+    nbytes = sep_tap_bytes(patch, diags, ts, bs, 2) + 2 * n * 4
+    r = dict(err=max_abs(got[0], ref[0]), ms=time_ms(bare),
+             wrapper_ms=time_ms(run), plain_ms=time_ms(plain),
+             library_ms=None, bound=bound(nbytes, V * n * OPS["sep"]))
+    if hasattr(F, "fuse_block_sep_batch"):
+        r.update(batch_times(F.fuse_block_sep_batch,
+                             F.fuse_block_sep_batch_plain, F.fuse_block_sep,
+                             args, io_d, bs, nbytes, V * n * OPS["sep"]))
+    return r
 
 
 def downsample_times(x, factors, dev, level: bool, outputs=None, name=""):
@@ -969,26 +1195,11 @@ def phase1_kernels(dev, scale, card):
     borders, ranges = per_view(0, 3), per_view(10, 40)
     valid, ioffs = np.ones(V, np.float32), np.zeros((V, 3), np.float32)
 
-    # K2: 4 translated views with sub-pixel fractions, some voxels outside
-    patches = c(rng.integers(90, 4000, (V, *(s + 1 for s in bs)))
-                .astype(np.uint16))
-    fr = per_view(0, 1)
-    lp = (rng.uniform(-40, 40, (V, 3)) + fr).astype(np.float32)
+    # K2 (and its batch form, and K28 on that batch's output)
     io_d = c(ioffs)
-    args = [patches] + [c(a) for a in (fr, lp, dims, borders, ranges, valid)]
-    run = lambda: F.fuse_block_shift(*args, bs, "AVG_BLEND", io_d)
-    plain = lambda: F.fuse_block_shift_plain(*args, bs, "AVG_BLEND", io_d)
-    got, ref = run(), plain()
-    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
-    tables = F.shift_axis_tables(*args[2:6], io_d, bs)
-    bare = lambda: F.launch_fuse_block_shift(patches, args[1], tables,
-                                             args[6], bs, "AVG_BLEND")
+    res.update(shift_times(rng, c, bs, V, per_view, dims, borders, ranges,
+                           valid, io_d, card))
     n = int(np.prod(bs))
-    res["fuse_block_shift"] = dict(
-        err=max_abs(got[0], ref[0]), ms=time_ms(bare), wrapper_ms=time_ms(run),
-        plain_ms=time_ms(plain),
-        bound=bound(patches.numel() * 2 + 2 * n * 4, V * n * OPS["shift"]))
 
     # K3: general affines, one rotated 7 degrees, samples outside the patch
     gargs = gather_inputs(rng, c, bs, V, dims, borders, ranges, valid)
@@ -1005,7 +1216,11 @@ def phase1_kernels(dev, scale, card):
         bound=bound(gpatches.numel() * 2 + 2 * n * 4, V * n * OPS["gather"]),
         form=resample_form(F, bs, V, tuple(gpatches.shape[1:])),
         ft_ms={ft: time_ms(lambda ft=ft: F.fuse_block(*gargs, bs, ft, io_d))
-               for ft in F.FUSION_TYPES})
+               for ft in F.FUSION_TYPES},
+        **batch_times(F.fuse_block_batch, F.fuse_block_batch_plain,
+                      F.fuse_block, gargs, io_d, bs,
+                      gpatches.numel() * 2 + 2 * n * 4,
+                      V * n * OPS["gather"]))
     print(f"  fuse_block (K3) form: {res['fuse_block']['form']}; by fusion "
           f"type [{card}]: " + ", ".join(
               f"{k} {v} ms" for k, v in res["fuse_block"]["ft_ms"].items()),
@@ -1148,16 +1363,17 @@ def tile_budget(budget):
 
 
 def run_cli(xml, out, scale, device, budget=None, storage="ZARR",
-            container_args=(), fusion_args=()):
-    """create-fusion-container + affine-fusion through the CLI entry
-    function; returns (FusionStats, affine-fusion wall seconds including
-    its downsample stage)."""
+            container_args=(), fusion_args=(), block=None):
+    """create-fusion-container (storage blocks ``block``, default the
+    scale's) + affine-fusion through the CLI entry function; returns
+    (FusionStats, affine-fusion wall seconds including its downsample
+    stage)."""
     from bigstitcher_spark_tpu_torch.cli.main import main
 
     cfg = SCALES[scale]
     main(["create-fusion-container", "-x", xml, "-o", out, "-s", storage,
           "-d", "UINT16", "-c", "raw", "--blockSize",
-          ",".join(str(b) for b in cfg["block"]), *container_args])
+          ",".join(str(b) for b in block or cfg["block"]), *container_args])
     with tile_budget(budget):
         t0 = time.perf_counter()
         (stats,) = main(["affine-fusion", "-o", out, "--device", device,
@@ -3322,12 +3538,11 @@ def ransac_yardsticks(dev, card, outputs=None, scale="full"):
         run = lambda: DS.ransac_score(pa, pb, idx, 5.0, kind)
         got = run()
         ref = DS.ransac_score_plain(pa, pb, idx, 5.0, kind)
-        # recorded, not gated: in a tree whose twin divides its sample sum
-        # by a Python number, the card divides a sample of 3 by a rounded
-        # reciprocal there, and the twin, not the kernel, is off
         same = all(torch.equal(g.isnan(), f.isnan())
                    and torch.equal(g.nan_to_num(), f.nan_to_num())
                    for g, f in zip(got, ref))
+        check(same, f"K21 {name} ({iters} x {m}, sample {sample}): counts, "
+                    "models and best bitwise the twin's (NaN-aware)")
         fin = torch.isfinite(ref[1])
         reps = 50 if m < 1000 else 10
         r = dict(err=max_abs(got[1][fin], ref[1][fin]) if bool(fin.any())
@@ -4243,7 +4458,7 @@ def phase10_intensity(work, scale, dev, card, launches):
     res.update(phase10b(proj, scale, dev, card, launches))
     res["coeff"] = phase10c(work, proj, scale, dev, card, launches)
     print(f"  phase 10 wall {time.perf_counter() - t0:.1f}s", flush=True)
-    return res
+    return res, proj
 
 
 # ---------------------------------------------------------------- phase 11
@@ -4784,8 +4999,117 @@ def phase12_scan(scale, dev, card, launches, a, out_b):
     return {"fuse_volume_scan": r}
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def sharded_run(route, xml, out, ref_out, scale, dev, card, launches,
+                **cli):
+    """affine-fusion --devices 4 through the CLI entry function: the
+    sharded route, no per-block or composite kernel, its mesh, batches and
+    split printed, s0 bitwise equal to ``ref_out``'s (the per-block route's
+    container of the same project: the batch forms and K28 take its
+    kernels' and K4's arithmetic on the same staged inputs). Returns the
+    FusionStats."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch import ops
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cli["fusion_args"] = ["--devices", "4", *cli.get("fusion_args", ())]
+    stats, wall = counted(route, launches, dev, lambda: run_cli(
+        xml, out, scale, str(dev), **cli))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    got = {**ops.launch_counts(), **ops.coeff_launch_counts()}
+    report(stats, wall, card, route)
+    per_block = ("fuse_block_shift", "fuse_block", "fuse_block_sep",
+                 "convert_intensity", "composite_fuse")
+    check(stats.path == "sharded" and not any(got[k] for k in per_block),
+          f"{route} took the sharded route, no per-block or composite "
+          f"kernel ({stats.path}, {[got[k] for k in per_block]})")
+    print(f"  [{route}] {card}: mesh {len(stats.mesh)} device(s) "
+          f"{stats.mesh} for --devices 4; " + "; ".join(
+              f"{b['key'][0]} x{b['key'][-1]} views: {b['blocks']} blocks, "
+              f"per_dev {b['per_dev']}, {b['batches']} batches"
+              for b in stats.buckets)
+          + f"; launches {[(k, got[k]) for k in ROUTE_KERNELS[route]]}"
+          + (f"; device memory peak {peak} B" if peak is not None else ""),
+          flush=True)
+    vol, ref = read_volume(out), read_volume(ref_out)
+    check(vol.shape == ref.shape and np.array_equal(vol, ref)
+          and vol.std() > 0,
+          f"{route}: s0 {vol.shape} bitwise equal to "
+          f"{os.path.basename(ref_out)}")
+    return stats
+
+
+def phase13_sharded(work, scale, dev, card, launches, proj_a, out_b, proj_c,
+                    proj10):
+    """Phase 13: affine-fusion --devices 4 on the one card (a one-device
+    mesh, batches of 4 x per_dev blocks, as JAX on a one-device host): 13a
+    route A's project with --pyramid, 13b route C's, 13c route D's, 13d
+    10c's corrected per-block case; each s0 bitwise equal to its per-block
+    route's container, 13a's levels to route B's."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models import affine_fusion as A
+
+    cfg = SCALES[scale]
+    print("phase 13 (sharded route, --devices 4)", flush=True)
+    t0 = time.perf_counter()
+    # 13a: storage blocks halved in z with --blockScale 2,2,2 keep route
+    # B's compute block and make level 1's per-block piece one chunk
+    block = (cfg["block"][0], cfg["block"][1], cfg["block"][2] // 2)
+    print(f"  13a container: --blockSize {block} with --blockScale 2,2,2 "
+          f"(compute block {compute_block_of(scale)}; at route A's blocks "
+          "level 1's piece is half a chunk in z, so no level is eligible)",
+          flush=True)
+    out = os.path.join(work, "13a.ome.zarr")
+    st = sharded_run("13a", proj_a.xml_path, out, out_b, scale, dev, card,
+                     launches, container_args=["--multiRes"], block=block,
+                     fusion_args=["--pyramid", "--blockScale", "2,2,2"])
+    check(st.pyramid_levels >= 1 and st.kernel_blocks["shift"] > 0,
+          f"13a: {st.pyramid_levels} epilogue level(s), "
+          f"{st.kernel_blocks['shift']} blocks through K2's batch form")
+    _s, mr, read = container_levels(out)
+    _sb, mr_b, read_b = container_levels(out_b)
+    check(len(mr) == len(mr_b), f"13a and route B: {len(mr)} levels")
+    for lvl in range(1, len(mr)):
+        a, b = read(lvl), read_b(lvl)
+        how = "epilogue" if lvl <= st.pyramid_levels else "downsample stage"
+        check(a.shape == b.shape and np.array_equal(a, b) and a.std() > 0,
+              f"13a level {lvl} {a.shape} ({how}) bitwise equal to route "
+              "B's downsample-stage level")
+    st = sharded_run("13b", proj_c.xml_path,
+                     os.path.join(work, "13b.ome.zarr"),
+                     os.path.join(work, "route_c.ome.zarr"), scale, dev, card,
+                     launches)
+    check(st.kernel_blocks["gather"] > 0 and st.kernel_blocks["shift"] > 0,
+          f"13b: gather and shift buckets ({st.kernel_blocks})")
+    st = sharded_run("13c", proj_a.xml_path, os.path.join(work, "13c.n5"),
+                     os.path.join(work, "route_d.n5"), scale, dev, card,
+                     launches, storage="N5", container_args=[
+                         "--preserveAnisotropy", "--anisotropyFactor",
+                         str(ANISO)])
+    check(st.kernel_blocks["sep"] > 0 and st.kernel_blocks["shift"] == 0
+          and st.kernel_blocks["gather"] == 0,
+          f"13c: every block through K5's batch form ({st.kernel_blocks})")
+    A._COEFF_TABLES.clear()  # an affine-fusion process uploads its grids
+    st = sharded_run("13d", proj10.xml_path,
+                     os.path.join(work, "13d.ome.zarr"),
+                     os.path.join(work, "10c_per-block.ome.zarr"), scale, dev,
+                     card, launches, fusion_args=["--intensityN5"])
+    check(st.kernel_blocks["gather"] > 0 and st.kernel_blocks["shift"] == 0,
+          f"13d: every block through K3's batch form with its grids "
+          f"({st.kernel_blocks})")
+    print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-12 through the CLI entry functions (8d and 12 through the
+    """Phases 2-13 through the CLI entry functions (8d and 12 through the
     API); returns route A's XML and container paths and phases 7-12's
     kernel results."""
     a = route_a(work, scale, dev, card, launches)
@@ -4797,9 +5121,11 @@ def main_path(work, scale, dev, card, launches):
     det, det_b, gate8d = phase8_detection(a[0], scale, dev, card, launches)
     match = phase9_matching(work, a[0], det_b, scale, dev, card, launches,
                             gate8d)
-    inten = phase10_intensity(work, scale, dev, card, launches)
+    inten, proj10 = phase10_intensity(work, scale, dev, card, launches)
     nonrigid = phase11_nonrigid(work, a[0], scale, dev, card, launches)
     scan = phase12_scan(scale, dev, card, launches, a, out_b)
+    phase13_sharded(work, scale, dev, card, launches, a[0], out_b, proj_c,
+                    proj10)
     return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
                                  **nonrigid, **scan}
 
@@ -4861,7 +5187,7 @@ def main(argv=None) -> int:
         masked = later.pop("knn_descriptors_masked")
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection, matching, intensity, nonrigid, scan): "
+              f"detection, matching, intensity, nonrigid, scan, sharded): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -4923,6 +5249,15 @@ def main(argv=None) -> int:
                 "masked_bound_ms": masked["bound"][0],
                 "masked_max_abs_err": masked["err"]}
                if name == "knn_descriptors" else {}),
+            # K2's, K3's and K5's batch forms (phase 1 at BATCH_ROWS rows;
+            # launches from phase 13)
+            **({"batch_launches": launches[BATCH_FORMS[name]],
+                **{k: v for k, v in r.items() if k.startswith("batch_")}}
+               if name in BATCH_FORMS else {}),
+            **({"batch_coeff_launches": launches["fuse_block_batch+coeff"]}
+               if name == "fuse_block" else {}),
+            **({"shape": r["shape"], "levels": r["levels"]}
+               if name == "block_epilogue" else {}),
             **({"coeff_launches": launches[f"{name}+coeff"],
                 "coeff_ms": coeff[name]["coeff_ms"],
                 "coeff_plain_ms": coeff[name]["coeff_plain_ms"],

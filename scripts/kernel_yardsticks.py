@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
 (ratio test), K15 (blur pass), K3 (gather), K26 (nonrigid), K1 (composite),
-K12 (relax fits), K21 (RANSAC scores) and K6 (downsampling) beside their
-bounds, and phase 10's walls, on one GPU.
+K12 (relax fits), K21 (RANSAC scores), K6 (downsampling), K2 (shift), K5
+(separable) and K28 (block epilogue) beside their bounds, and phase 10's
+walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
         [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
-                downsample|intensity[,...]]
+                downsample|blocks|intensity[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -71,6 +72,11 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   route-A tile: each bitwise against its twin, card time, time with the
   host's, avg_pool3d's time, bound; with ``--outputs DIR`` saved or
   compared bitwise (digests and the first 65,536 values);
+- ``block_yardsticks``: ``blocks`` is K2 and K5 per block at phase 1's
+  shapes (256x256x64 blocks of 4 uint16 views), card time, time with the
+  host's, bound; on a tree that has them also their batch forms at 16
+  rows (each row bitwise the per-block kernel's) and K28 on K2's batch
+  output with level (2,2,2) (bitwise its twin's);
 - ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
   gates) through the CLI, after every library of the tree is built, so
   that no build lands in a timed window; prints each route's wall split.
@@ -110,7 +116,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
                          "nonrigid, composite, fit, ransac, downsample, "
-                         "intensity (default fft,cg)")
+                         "blocks, intensity (default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
@@ -124,7 +130,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
-             "fit", "ransac", "downsample", "intensity")
+             "fit", "ransac", "downsample", "blocks", "intensity")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -184,6 +190,8 @@ def main(argv=None) -> int:
         if "downsample" in only:
             out.update(CS.downsample_yardsticks(dev, card, args.outputs,
                                                 args.scale))
+        if "blocks" in only:
+            out.update(CS.block_yardsticks(dev, card, args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))

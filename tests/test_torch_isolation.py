@@ -182,7 +182,6 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("create-fusion-container", ["--bdv"], "--bdv"),
     ("create-fusion-container", ["--s3Region", "us-east-1"], "--s3Region"),
     ("match-intensities", ["--trace"], "--trace"),
-    ("affine-fusion", ["--devices", "4"], "--devices"),
     ("affine-fusion", ["--trace"], "--trace"),
     ("downsample", ["-s", "HDF5"], "-s HDF5"),
     ("downsample", ["--telemetry-dir", "t"], "--telemetry-dir"),

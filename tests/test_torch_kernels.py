@@ -1908,3 +1908,130 @@ def test_halfpixel_downsample2x_axis_kernel(dev, shape, dtype):
         assert ops.launch_counts()["downsample_batch"] == 1
         ref = D.halfpixel_downsample2x_axis_plain(x, axis)
         assert got.dtype == torch.float32 and torch.equal(got, ref)
+
+
+# ------------------------------------------------ batch forms of K2, K3, K5
+
+
+def _batch_case(kind, rng, B, V, bs, ps, coeffs=False):
+    """A batch of random kernel inputs for ``kind`` ("shift", "sep",
+    "gather"), the last row padding (zero patches, valid 0); returns
+    (inputs in the wrapper's order but the inside offsets, inside offsets,
+    coefficient keywords)."""
+    def pv(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (B, V, 3)).astype(
+            np.float32))
+
+    if kind == "shift":
+        patches = rng.integers(0, 4000, (B, V, *(s + 1 for s in bs)))
+        fr = pv(0, 1)
+        head = (fr, pv(-20, 60) + fr)
+    else:
+        patches = rng.integers(0, 4000, (B, V, *ps))
+        if kind == "sep":
+            head = (pv(0.5, 1.5), pv(-2, 4), pv(0, 30))
+        else:
+            aff = np.zeros((B, V, 3, 4), np.float32)
+            a = np.deg2rad(rng.uniform(-10, 10, (B, V)))
+            aff[..., 0, 0] = aff[..., 1, 1] = np.cos(a)
+            aff[..., 0, 1], aff[..., 1, 0] = -np.sin(a), np.sin(a)
+            aff[..., 2, 2] = 1.0
+            aff[..., 3] = rng.uniform(-6, 12, (B, V, 3))
+            head = (torch.from_numpy(aff), pv(0, 30))
+    patches = torch.from_numpy(patches.astype(np.uint16))
+    patches[-1] = 0
+    valid = torch.ones((B, V))
+    valid[-1] = 0
+    valid[0, -1] = 0
+    dims = torch.from_numpy(np.tile(np.float32([70, 60, 30]), (B, V, 1)))
+    extra = {}
+    if coeffs:
+        g = rng.uniform(0.8, 1.2, (B, V, 3, 2, 4, 2)).astype(np.float32)
+        ca = np.zeros((B, V, 3, 4), np.float32)
+        ca[..., :3, :3] = np.eye(3) * 0.05
+        ca[..., 3] = rng.uniform(-0.5, 0.5, (B, V, 3))
+        extra = dict(coeffs=torch.from_numpy(g),
+                     coeff_affines=torch.from_numpy(ca))
+    return ((patches, *head, dims, pv(0, 3), pv(5, 30), valid), pv(0, 2),
+            extra)
+
+
+_BATCH_FORMS = {"shift": (F.fuse_block_shift_batch, F.fuse_block_shift),
+                "sep": (F.fuse_block_sep_batch, F.fuse_block_sep),
+                "gather": (F.fuse_block_batch, F.fuse_block)}
+
+
+@pytest.mark.parametrize("bs,ps", [((24, 20, 16), (32, 28, 20)),
+                                   ((9, 40, 70), (16, 48, 80))],
+                         ids=["small", "ragged"])
+@pytest.mark.parametrize("kind,coeff", [("shift", False), ("sep", False),
+                                        ("gather", False), ("gather", True)])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_batch_form_bitwise_per_block_kernel(dev, kind, coeff, fusion_type,
+                                             bs, ps):
+    """Each row of a batch launch equals the per-block launch on the same
+    inputs bit for bit; the padding row writes zeros; one launch."""
+    batch, single = _BATCH_FORMS[kind]
+    rng = np.random.default_rng(61)
+    args, ioffs, extra = _batch_case(kind, rng, 3, 3, bs, ps, coeff)
+    args = [a.to(dev) for a in args]
+    ioffs = ioffs.to(dev)
+    extra = {k: v.to(dev) for k, v in extra.items()}
+    ops.reset_launch_counts()
+    got = batch(*args, bs, fusion_type, ioffs, **extra)
+    counts = {**ops.launch_counts(), **ops.coeff_launch_counts()}
+    assert counts[batch.__name__] == 1 and counts[single.__name__] == 0
+    if coeff:
+        assert counts["fuse_block_batch+coeff"] == 1
+    for b in range(args[0].shape[0]):
+        row = {k: v[b].contiguous() for k, v in extra.items()}
+        want = single(*(a[b].contiguous() for a in args), bs, fusion_type,
+                      ioffs[b].contiguous(), **row)
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), f"row {b}"
+    assert not got[0][-1].any() and not got[1][-1].any()
+    ref = batch(*(a.cpu() for a in args), bs, fusion_type, ioffs.cpu(),
+                **{k: v.cpu() for k, v in extra.items()})
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------ K28 block epilogue
+
+
+@pytest.mark.parametrize("out_dtype,masks,rels,shape", [
+    ("uint16", False, (), (32, 16, 8)),
+    ("uint16", False, ((2, 2, 2), (2, 2, 1)), (32, 16, 8)),
+    ("uint8", False, ((2, 2, 1),), (32, 16, 8)),
+    ("float32", False, ((2, 2, 1), (2, 1, 2)), (32, 16, 8)),
+    ("uint16", True, ((2, 2, 1),), (32, 16, 8)),
+    ("float32", True, ((2, 2, 2),), (32, 16, 8)),
+    ("uint16", False, ((3, 3, 1), (2, 1, 2)), (36, 18, 8)),
+    ("uint16", False, ((4, 2, 1), (1, 2, 2), (2, 2, 2)), (32, 16, 8)),
+])
+def test_block_epilogue_kernel_bitwise_twin(dev, out_dtype, masks, rels,
+                                            shape):
+    """K28 against its plain twin on the card: s0 and every level equal bit
+    for bit (the same float32 operations in the same order, IEEE
+    division)."""
+    from bigstitcher_spark_tpu_torch.ops import epilogue as E
+
+    rng = np.random.default_rng(62)
+    B = 3
+    fused = torch.from_numpy(rng.uniform(-50, 3300, (B, *shape)).astype(
+        np.float32)).to(dev)
+    wsum = torch.from_numpy(np.where(
+        rng.random((B, *shape)) < 0.3, 0.0,
+        rng.uniform(0, 2, (B, *shape))).astype(np.float32)).to(dev)
+    ops.reset_launch_counts()
+    got = E.block_epilogue(fused, wsum, 0.0, 3000.0, out_dtype, masks, rels)
+    assert ops.launch_counts()["block_epilogue"] == 1
+    want = E.block_epilogue_plain(fused, wsum, 0.0, 3000.0, out_dtype, masks,
+                                  rels)
+    assert len(got) == len(want) == 1 + len(rels)
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), f"level {lvl}"
+    with pytest.raises(ValueError, match="do not divide"):
+        E.block_epilogue(fused, wsum, 0.0, 1.0, out_dtype, masks,
+                         ((5, 1, 1),))
