@@ -211,7 +211,8 @@ def add_affine_fusion(sub) -> argparse.ArgumentParser:
                         "per_dev at a time over a mesh of the first N cards "
                         "(fewer if the host has fewer: one card runs the "
                         "route on a one-device mesh; N CPU devices with "
-                        "--device cpu); default one device")
+                        "--device cpu), and the downsample stage after it "
+                        "sharded the same way; default one device")
     p.add_argument("--pyramid", dest="pyramid_epilogue", action="store_true",
                    default=False,
                    help="compute the container's downsample pyramid on the "
@@ -321,13 +322,7 @@ def affine_fusion_cmd(args: argparse.Namespace):
                   f"({stats.voxels / max(stats.seconds, 1e-9):,.0f} vox/s; "
                   f"{stats.skipped_empty} empty blocks skipped) {tm}")
             if stats.path == "sharded":
-                n = len(stats.mesh)
-                print(f"  mesh: {n} device{'s' if n != 1 else ''} "
-                      f"({', '.join(stats.mesh)}) for --devices "
-                      f"{args.devices}; " + "; ".join(
-                          f"{b['key'][0]} bucket of {b['blocks']} blocks, "
-                          f"per_dev {b['per_dev']}, {b['batches']} batches"
-                          for b in stats.buckets))
+                _print_mesh(stats, args.devices)
             if stats.pyramid_levels:
                 rate = ((stats.voxels + stats.pyramid_voxels)
                         / max(stats.seconds, 1e-9))
@@ -336,18 +331,32 @@ def affine_fusion_cmd(args: argparse.Namespace):
                       f"drain ({rate:,.0f} vox/s incl. pyramid)")
             if len(mr) > 1:
                 _write_pyramid(store, mr, is_zarr5d, (ci, ti), device,
-                               epilogue_levels=stats.pyramid_levels)
+                               epilogue_levels=stats.pyramid_levels,
+                               devices=args.devices)
     print(f"done, {total_vox} voxels, took {time.time() - t_start:.1f}s")
     return results
 
 
+def _print_mesh(stats, devices) -> None:
+    """A sharded route's mesh line: its devices, and each bucket's blocks,
+    per_dev and batches."""
+    n = len(stats.mesh)
+    print(f"  mesh: {n} device{'s' if n != 1 else ''} "
+          f"({', '.join(stats.mesh)}) for --devices {devices}; " + "; ".join(
+              f"{b['key'][0]} bucket of {b['blocks']} blocks, "
+              f"per_dev {b['per_dev']}, {b['batches']} batches"
+              for b in stats.buckets))
+
+
 def _write_pyramid(store, mr_levels, is_zarr5d, ct, device,
-                   epilogue_levels=0):
+                   epilogue_levels=0, devices=None):
     """Downsample s0 into the remaining pyramid levels
     (SparkAffineFusion.java:703-782). ``epilogue_levels``: how many leading
     levels the fusion epilogue already wrote this run; their container
     markers are set (and stale ones from earlier runs revoked) first, then
-    ``downsample_pyramid_level(skip_existing=True)`` skips exactly those."""
+    ``downsample_pyramid_level(skip_existing=True)`` skips exactly those.
+    ``devices``: above 1, the sharded downsample stage (the tool's
+    ``--devices``)."""
     from ..io.container import set_epilogue_written
     from ..models.downsample_driver import downsample_pyramid_level
 
@@ -357,7 +366,7 @@ def _write_pyramid(store, mr_levels, is_zarr5d, ct, device,
     for lvl in range(1, len(mr_levels)):
         downsample_pyramid_level(store, mr_levels[lvl - 1], mr_levels[lvl],
                                  is_zarr5d, ct, device=device,
-                                 skip_existing=True)
+                                 skip_existing=True, devices=devices)
 
 
 def add_nonrigid_fusion(sub) -> argparse.ArgumentParser:
@@ -412,8 +421,11 @@ def add_nonrigid_fusion(sub) -> argparse.ArgumentParser:
     p.add_argument("-xo", "--xmlout", dest="xml_out", default=None,
                    help="output XML path for --bdv (direct-output mode)")
     p.add_argument("--devices", dest="devices", type=int, default=None,
-                   help="devices to use; only 1 until the sharded route is "
-                        "ported")
+                   help="above 1: the sharded route, blocks batched N at a "
+                        "time over a mesh of the first N cards (fewer if "
+                        "the host has fewer: one card runs the route on a "
+                        "one-device mesh; N CPU devices with --device cpu); "
+                        "default one device")
     p.set_defaults(func=nonrigid_fusion_cmd)
     return p
 
@@ -431,8 +443,6 @@ def nonrigid_fusion_cmd(args: argparse.Namespace):
     from ..utils.device import resolve_device
 
     check_infrastructure(args)
-    if args.devices is not None and args.devices != 1:
-        raise NotYetPorted(f"--devices {args.devices} (the sharded route)")
     if args.bdv:
         raise NotYetPorted("--bdv")
     if args.storage_opt == "HDF5":
@@ -516,7 +526,8 @@ def nonrigid_fusion_cmd(args: argparse.Namespace):
                                    else float("nan")),
                 out_dtype=meta.data_type, min_intensity=meta.min_intensity,
                 max_intensity=meta.max_intensity,
-                zarr_ct=(ci, ti) if is_zarr5d else None, device=device)
+                zarr_ct=(ci, ti) if is_zarr5d else None, device=device,
+                devices=args.devices)
             total_vox += stats.voxels
             results.append(stats)
             tm = " ".join(f"{k}={v:.3f}s" for k, v in stats.timings.items())
@@ -524,7 +535,10 @@ def nonrigid_fusion_cmd(args: argparse.Namespace):
                   f"{stats.voxels} voxels in {stats.seconds:.2f}s "
                   f"({stats.voxels / max(stats.seconds, 1e-9):,.0f} vox/s) "
                   f"{tm}")
+            if stats.path == "sharded":
+                _print_mesh(stats, args.devices)
             if len(mr) > 1:
-                _write_pyramid(store, mr, is_zarr5d, (ci, ti), device)
+                _write_pyramid(store, mr, is_zarr5d, (ci, ti), device,
+                               devices=args.devices)
     print(f"done, {total_vox} voxels, took {time.time() - t_start:.1f}s")
     return results

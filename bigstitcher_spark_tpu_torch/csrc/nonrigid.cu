@@ -52,6 +52,18 @@
 //     below ~1.6 voxels at 64 z outputs a tile) takes the parent's
 //     per-voxel lerps instead, with the shared taps.
 //
+// Batch form (bst_nonrigid_fuse_batch, the one entry; ops/nonrigid.py
+// nonrigid_fuse_block_batch): the sharded route's batch of B blocks of one
+// bucket (models/nonrigid_fusion.py:263-273, the vmap of
+// nonrigid_fuse_block_impl) in one launch. A bucket shares its block, patch
+// shape and view count, so the launch plan (resample_plan) is the
+// per-block one; grid index blockIdx.z selects the block, whose patches,
+// grids, per-view parameters, origins and outputs sit at a row stride. The
+// kBatch template parameter keeps the per-block instantiation the
+// parent's code: a row is bitwise the per-block output. A padding row
+// (valid all 0) loops over no view and writes zeros, what its views would
+// have given.
+//
 // Bound: operations at the main path's compute block (256x256x64, 4
 // uint16 views): ~150 flops a view-voxel (the z lerp of 12 coefficients,
 // the deform, the view affine, the sample and the blend; the grid taps and
@@ -138,7 +150,7 @@ __device__ __forceinline__ float4 cxy(const float* __restrict__ G,
 
 // 3 blocks an SM (80 registers): faster at the main path's block than 2
 // (128 registers, no spills) or 4 (64).
-template <typename T, typename Idx, int FT>
+template <typename T, typename Idx, int FT, bool kBatch>
 __global__ void __launch_bounds__(bst::kResampleThreads, 3) nonrigid_kernel(
     const T* __restrict__ patches, int px, int py, int pz,
     const float* __restrict__ grids, int gx, int gy, int gz,
@@ -150,6 +162,29 @@ __global__ void __launch_bounds__(bst::kResampleThreads, 3) nonrigid_kernel(
     const float* __restrict__ grid_spacing, int V, int by, int bz, int ft,
     int lanes_z, int n_jt, float* __restrict__ fused,
     float* __restrict__ wsum) {
+  if (kBatch) {
+    // the batch row: its views' patches, grids and parameters, its
+    // block's origins, its outputs (gridDim.x is bx n_jt)
+    const int64_t row = blockIdx.z;
+    const int64_t rv = row * V;
+    patches += rv * px * py * pz;
+    grids += rv * gx * gy * gz * 12;
+    vaffs += rv * 12;
+    offsets += rv * 3;
+    img_dims += rv * 3;
+    borders += rv * 3;
+    ranges += rv * 3;
+    valid += rv;
+    block_origin += row * 3;
+    grid_origin += row * 3;
+    grid_spacing += row * 3;
+    const int64_t n = static_cast<int64_t>(gridDim.x / n_jt) * by * bz;
+    fused += row * n;
+    wsum += row * n;
+    bool dead = true;
+    for (int v = 0; v < V; ++v) dead = dead && valid[v] == 0.0f;
+    if (dead) V = 0;  // a padding row: no view, zeros
+  }
   __shared__ NonrigidView sv[bst::kResampleViewChunk];
   __shared__ Taps ztab[bst::kResampleMaxTileZ];
   __shared__ Taps ytab[bst::kResampleThreads];
@@ -327,7 +362,7 @@ __global__ void __launch_bounds__(bst::kResampleThreads, 3) nonrigid_kernel(
   }
 }
 
-template <typename T, typename Idx, int FT>
+template <typename T, typename Idx, int FT, bool kBatch>
 cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
                    int pz, const float* grids, int gx, int gy, int gz,
                    const float* vaffs, const float* offsets,
@@ -336,7 +371,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
                    const float* block_origin, const float* grid_origin,
                    const float* grid_spacing, int V, int by, int bz, int ft,
                    int lanes_z, int n_jt, float* fused, float* wsum) {
-  nonrigid_kernel<T, Idx, FT><<<grid, bst::kResampleThreads, 0, s>>>(
+  nonrigid_kernel<T, Idx, FT, kBatch><<<grid, bst::kResampleThreads, 0, s>>>(
       patches, px, py, pz, grids, gx, gy, gz, vaffs, offsets, img_dims,
       borders, ranges, valid, block_origin, grid_origin, grid_spacing, V, by,
       bz, ft, lanes_z, n_jt, fused, wsum);
@@ -357,19 +392,27 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const T* patches, int px, int py,
       static_cast<const float*>(grid_spacing), V, by, bz, ft, lanes_z, n_jt, \
       static_cast<float*>(fused), static_cast<float*>(wsum)
 
-// lanes_z, n_jt, grid_x, grid_y: ops/fusion.py resample_plan; idx64: a
-// patch of 2^31 elements or more.
-extern "C" int bst_nonrigid_fuse(
+#define BST_NONRIGID_BATCH(T, Idx, FT)                            \
+  (B > 1 ? launch<T, Idx, FT, true>(BST_NONRIGID_ARGS(T))        \
+         : launch<T, Idx, FT, false>(BST_NONRIGID_ARGS(T)))
+
+// patches (B, V, px, py, pz), grids (B, V, gx, gy, gz, 12), vaffs (B, V,
+// 3, 4), the other per-view arrays (B, V, 3), valid (B, V), the origins
+// and spacings (B, 3); fused, wsum (B, bx, by, bz). lanes_z, n_jt, grid_x,
+// grid_y: ops/fusion.py resample_plan, the per-block one; idx64: one
+// view's patch of 2^31 elements or more (rows are offset in 64 bits).
+// B = 1 takes the per-block instantiation.
+extern "C" int bst_nonrigid_fuse_batch(
     const void* patches, int in_dtype, int px, int py, int pz,
     const void* grids, int gx, int gy, int gz, const void* vaffs,
     const void* offsets, const void* img_dims, const void* borders,
     const void* ranges, const void* valid, const void* block_origin,
-    const void* grid_origin, const void* grid_spacing, int V, int bx, int by,
-    int bz, int ft, int lanes_z, int n_jt, int grid_x, int grid_y, int idx64,
-    void* fused, void* wsum, void* stream) {
+    const void* grid_origin, const void* grid_spacing, int B, int V, int bx,
+    int by, int bz, int ft, int lanes_z, int n_jt, int grid_x, int grid_y,
+    int idx64, void* fused, void* wsum, void* stream) {
   const int64_t n = static_cast<int64_t>(bx) * by * bz;
   if (n <= 0 || V <= 0 || px <= 0 || py <= 0 || pz <= 0 || gx <= 0 ||
-      gy <= 0 || gz <= 0)
+      gy <= 0 || gz <= 0 || B <= 0 || B > 65535)
     return cudaErrorInvalidValue;
   // vertex records are read as float4
   if (reinterpret_cast<uintptr_t>(grids) % 16 != 0)
@@ -384,16 +427,15 @@ extern "C" int bst_nonrigid_fuse(
     return cudaErrorInvalidValue;
   if (!idx64 && static_cast<int64_t>(px) * py * pz >= (int64_t{1} << 31))
     return cudaErrorInvalidValue;
-  const dim3 grid(grid_x, grid_y);
+  const dim3 grid(grid_x, grid_y, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (idx64) {
     BST_DISPATCH_IN(in_dtype, T,
-        err = launch<T, int64_t, bst::kRuntimeFT>(BST_NONRIGID_ARGS(T)));
+        err = BST_NONRIGID_BATCH(T, int64_t, bst::kRuntimeFT));
   } else {
     BST_DISPATCH_IN(in_dtype, T,
-        BST_DISPATCH_FT(ft, FT,
-            err = launch<T, int, FT>(BST_NONRIGID_ARGS(T))));
+        BST_DISPATCH_FT(ft, FT, err = BST_NONRIGID_BATCH(T, int, FT)));
   }
   return static_cast<int>(err);
 }

@@ -114,11 +114,12 @@ class FusionStats:
         ("read", "h2d", "kernel", "d2h", "write"), 0.0))
     pyramid_voxels: int = 0
     pyramid_levels: int = 0
-    # the sharded route: the mesh it ran on (device names, in row order),
-    # each bucket's kernel signature, blocks, per_dev and batches, and the
-    # kernel signatures it dispatched
+    # the sharded routes: the mesh it ran on (device names, in row order),
+    # each bucket's kernel signature, blocks, per_dev and batches, the
+    # batches in all, and the kernel signatures it dispatched
     mesh: tuple = ()
     buckets: list = field(default_factory=list)
+    batches: int = 0
     compile_keys: set = field(default_factory=set)
 
 
@@ -961,10 +962,10 @@ def _fuse_volume_sharded(
     pool = ThreadPoolExecutor(max_workers=max(1, io_threads),
                               thread_name_prefix="bst-stage")
     try:
-        run_sharded_batches(batches, build, kernel_call, consume, pool, mesh,
-                            label="fusion batch",
-                            out_bytes=lambda item: out_bytes[item[0]],
-                            timings=stats.timings)
+        stats.batches = run_sharded_batches(
+            batches, build, kernel_call, consume, pool, mesh,
+            label="fusion batch", out_bytes=lambda item: out_bytes[item[0]],
+            timings=stats.timings, workspace_mult=3.0)
     finally:
         pool.shutdown(wait=True)
     stats.voxels += sum(written.values())

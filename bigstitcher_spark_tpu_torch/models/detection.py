@@ -32,13 +32,23 @@ While one batch computes, the reads of the next run on a thread pool.
 :class:`DetectionStats` splits the wall into the min/max estimate, the
 waits for reads, H2D, the kernels (CUDA events), D2H and the host tail.
 
+With ``devices`` above 1 the sharded route (JAX detection.py:459-460,
+:521-551) runs every bucket's batches of ``devices x per_dev`` blocks,
+``per_dev = max(1, max(1, batch_size // devices) // prod(rel))``, in one
+loop over a mesh (:func:`..parallel.mesh.run_sharded_batches`): each
+device runs the same program on its rows
+(:func:`..parallel.mesh.shard_batch`), its drain worker copies the
+candidates back and the writer pool's threads run the same per-block
+tail. Every block's result depends on that block alone, so the points,
+values and descriptors are bitwise the one-device route's.
+
 Not yet ported (raise :class:`~bigstitcher_spark_tpu_torch.NotYetPorted`):
-several devices and the streamed device-resident producer of the stage
-DAG.
+the streamed device-resident producer of the stage DAG.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -59,6 +69,13 @@ from ..ops.dog import (
     sample_trilinear,
 )
 from ..ops.downsample import downsample_block, to_kernel_dtype
+from ..parallel.mesh import (
+    add_time,
+    group_items,
+    make_mesh,
+    run_sharded_batches,
+    shard_batch,
+)
 from ..utils.device import resolve_device
 from ..utils.geometry import (
     Interval,
@@ -134,7 +151,10 @@ class DetectionStats:
     reads (``read``; reads run ahead on a pool), of ``h2d``, of the kernels
     (``kernels``: CUDA events around each batch; on the CPU the twins' host
     seconds), of ``d2h``, and of the host tail (``tail``: core re-check,
-    filters, intensities). ``store`` is filled by the command that saves."""
+    filters, intensities). ``store`` is filled by the command that saves.
+    The sharded route also fills ``mesh`` (device names, in row order) and
+    ``per_dev`` (each bucket's); its ``read`` sums the reader threads'
+    seconds and its ``tail`` the writer threads' per-block tails."""
 
     views: int = 0
     blocks: int = 0
@@ -146,6 +166,8 @@ class DetectionStats:
     seconds: float = 0.0
     timings: dict = field(default_factory=lambda: dict.fromkeys(
         ("minmax", "read", "h2d", "kernels", "d2h", "tail", "store"), 0.0))
+    mesh: tuple = ()
+    per_dev: list = field(default_factory=list)
 
 
 @dataclass
@@ -345,8 +367,6 @@ def detect_interest_points(
     if want_desc:
         check_pool(int(params.descriptor_neighbors),
                    int(params.descriptor_redundancy))
-    if devices is not None and int(devices) > 1:
-        raise NotYetPorted(f"detection on {devices} devices")
     dev = resolve_device(device)
     stats = stats if stats is not None else DetectionStats()
     t_start = time.perf_counter()
@@ -423,11 +443,14 @@ def detect_interest_points(
                 np.float32(params.threshold),
                 np.array([m - halo for m in job.core.min], np.int32))
 
+    truncated_lock = threading.Lock()
+
     def consume(job: _BlockJob, idx, sub, vals, valid, count, *extra):
         shape = job.core.shape
         k = len(idx)
         if int(count) > k:
-            stats.truncated += 1
+            with truncated_lock:
+                stats.truncated += 1
             warnings.warn(
                 f"detection block {job.core.min} found {int(count)} extrema, "
                 f"keeping the {k} strongest (raise max_candidates_per_block "
@@ -494,6 +517,11 @@ def detect_interest_points(
         shp = tuple(s + 2 * halo for s in job.core.shape)
         buckets.setdefault((shp, rel, dt), []).append(job)
     stats.buckets += len(buckets)
+    if devices is not None and int(devices) > 1:
+        _detect_sharded(buckets, build, consume, params, halo, int(devices),
+                        make_mesh(int(devices), platform=dev.type), stats)
+        return _assemble(view_list, jobs, plans, overlap_boxes, params, ds,
+                         loader, dev, stats, progress, t_start)
     # level-res inputs are prod(rel) x larger per det-voxel than the pooled
     # float32 blocks batch_size was tuned for: scale the batch down
     batches = []
@@ -511,7 +539,79 @@ def detect_interest_points(
                     if bi + 1 < len(batches) else [])
             run_batch(inputs, batch, rel)
             del inputs
+    return _assemble(view_list, jobs, plans, overlap_boxes, params, ds,
+                     loader, dev, stats, progress, t_start)
 
+
+def _detect_sharded(buckets, build, consume, params: DetectionParams, halo,
+                    n_dev: int, mesh, stats: DetectionStats) -> None:
+    """The sharded route (JAX detection.py:459-460, :521-551): each
+    bucket's blocks in batches of ``n_dev x per_dev``, every bucket's
+    batches in one loop over ``mesh``; a device runs the one-device
+    route's program (:func:`..ops.dog.dog_block_topk_batch`, or
+    :func:`..ops.dog.dog_detect_extract_batch` with descriptors) on its
+    rows, and ``consume`` takes each real row on the writer pool."""
+    want_desc = bool(params.extract_descriptors)
+    k = int(params.max_candidates_per_block)
+    per_dev = max(1, int(params.batch_size) // max(n_dev, 1))
+    stats.mesh = tuple(str(d) for d in mesh.devices)
+    kernels, batches, wmult = {}, [], 8.0
+    for key, bjobs in sorted(buckets.items()):
+        shp, rel, dt = key
+        pd = max(1, per_dev // int(np.prod(rel)))
+        stats.per_dev.append(pd)
+        batches += group_items([(key, j) for j in bjobs], n_dev, pd)
+
+        def program(x, lo, hi, thr, org, rel=rel):
+            args = (x, lo, hi, thr, org, params.sigma, params.find_max,
+                    params.find_min, k, halo, rel)
+            if want_desc:
+                return dog_detect_extract_batch(
+                    *args, int(params.descriptor_neighbors),
+                    int(params.descriptor_redundancy), True)
+            return dog_block_topk_batch(*args)
+
+        kernels[key] = shard_batch(program, mesh)
+        # the DoG expands the native-type input to several pooled float32
+        # volumes on the device; with descriptors the (K, K) distances of
+        # the extract half dominate (JAX detection.py:539-546). One loop
+        # runs every bucket: it is charged at the largest multiplier
+        if want_desc:
+            wmult = max(wmult, 8.0 + k * k * 4 / max(
+                1, int(np.prod(shp)) * np.dtype(dt).itemsize))
+    stats.batches += len(batches)
+    timings: dict = {}
+
+    def build_timed(entry):
+        t0 = time.perf_counter()
+        out = build(entry[1])
+        add_time(stats.timings, "read", time.perf_counter() - t0)
+        return out
+
+    def kernel(batch, *stacked):
+        return kernels[batch[0][0]](batch, *stacked)
+
+    def consume_timed(entry, *rows):
+        t0 = time.perf_counter()
+        consume(entry[1], *rows)
+        add_time(stats.timings, "tail", time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(max_workers=8,
+                            thread_name_prefix="bst-det-read") as pool:
+        run_sharded_batches(batches, build_timed, kernel, consume_timed,
+                            pool, mesh, label="detection batch",
+                            timings=timings, workspace_mult=wmult)
+    for ours, theirs in (("h2d", "h2d"), ("kernels", "kernel"),
+                         ("d2h", "d2h")):
+        stats.timings[ours] += timings.get(theirs, 0.0)
+
+
+def _assemble(view_list, jobs, plans, overlap_boxes, params, ds, loader,
+              dev, stats, progress, t_start):
+    """The host tail after every block's ``consume``: each view's points in
+    job order, filtered, moved to full resolution, optionally sampled."""
+    want_desc = bool(params.extract_descriptors)
+    timings = stats.timings
     t0 = time.perf_counter()
     per_view: dict[int, list[tuple[np.ndarray, np.ndarray]]] = {
         i: [] for i in range(len(view_list))}

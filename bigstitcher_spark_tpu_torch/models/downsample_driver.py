@@ -1,6 +1,6 @@
 """Pyramid-level writer: block-parallel average downsampling of an existing
 level (SparkAffineFusion.java:703-782 and SparkDownsample.java:141-177
-equivalent) on one device.
+equivalent).
 
 Port of ``bigstitcher_spark_tpu/models/downsample_driver.py``. The level's
 block grid is the work list. Jobs are grouped by source-box shape; reader
@@ -8,11 +8,16 @@ threads read each source box (edge-padded past the source extent), up to
 four boxes of one shape go to the device stacked into one K6 launch
 (:func:`..ops.downsample.downsample_batch`, the JAX ``vmap`` of
 ``downsample_block`` with ``per_dev=4``), and a writer pool converts and
-writes the float32 means while the next batch is read.
+writes the float32 means while the next batch is read
+(:func:`run_downsample`). With ``devices`` above 1,
+:func:`run_sharded_downsample` takes batches of ``devices x 4`` boxes over
+a mesh (JAX ``run_sharded_downsample``), one K6 launch a device; its
+levels are bitwise the one-device route's.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -22,6 +27,13 @@ import torch
 from ..io.chunkstore import ChunkStore
 from ..io.container import MultiResolutionLevelInfo, epilogue_written
 from ..ops.downsample import downsample_batch, to_kernel_dtype
+from ..parallel.mesh import (
+    add_time,
+    group_items,
+    make_mesh,
+    run_sharded_batches,
+    shard_batch,
+)
 from ..utils.device import resolve_device
 from ..utils.grid import GridBlock, create_grid
 from ..utils.writer import WriterPool
@@ -118,6 +130,67 @@ def run_downsample(jobs, read_job, write_job, rel, device=None,
     return len(batches)
 
 
+def run_sharded_downsample(jobs, read_job, write_job, rel, devices,
+                           io_threads: int = IO_THREADS,
+                           per_dev: int = PER_LAUNCH, device=None,
+                           stats: dict | None = None) -> int:
+    """Downsample every job over a mesh of the first ``devices`` cards
+    (``[cpu] * devices`` with ``device="cpu"``; one card for 4 on a
+    one-card host), the JAX ``run_sharded_downsample``
+    (models/downsample_driver.py:112-160). ``read_job`` and ``write_job``
+    are :func:`run_downsample`'s. Jobs are bucketed by source shape and cut
+    into batches of ``devices x per_dev`` boxes, read by ``io_threads``
+    reader threads; each device averages its rows in one K6 launch
+    (:func:`..parallel.mesh.shard_batch` over
+    :func:`..ops.downsample.downsample_batch`), its drain worker copies
+    them back and the writer pool of every sharded route
+    (:func:`..parallel.mesh.run_sharded_batches`, ``BST_WRITE_THREADS``
+    threads) converts and writes them. Returns the
+    number of batches; ``stats`` (a dict) gets the ``mesh``, each source
+    shape's ``buckets`` (blocks, per_dev, batches) and the ``timings``
+    (read, h2d, kernel: CUDA events, d2h, write; summed over threads)."""
+    dev = resolve_device(device)
+    n_dev = int(devices)
+    rel = tuple(int(f) for f in rel)
+    mesh = make_mesh(n_dev, platform=dev.type)
+    buckets: dict[tuple, list] = {}
+    for job in jobs:
+        buckets.setdefault(tuple(read_shape(job, rel)), []).append(job)
+    groups = {shape: group_items(items, n_dev, per_dev)
+              for shape, items in sorted(buckets.items())}
+    batches = [g for gs in groups.values() for g in gs]
+    out_vox = {shape: int(np.prod([s // f for s, f in zip(shape, rel)]))
+               for shape in buckets}
+
+    timings = {"read": 0.0}
+
+    def build(job):
+        t0 = time.perf_counter()
+        raw = np.ascontiguousarray(to_kernel_dtype(read_job(job)))
+        add_time(timings, "read", time.perf_counter() - t0)
+        return (raw,)
+
+    kernel = shard_batch(lambda raws: downsample_batch(raws, rel), mesh)
+    pool = ThreadPoolExecutor(max_workers=max(1, io_threads),
+                              thread_name_prefix="bst-ds-read")
+    try:
+        n = run_sharded_batches(
+            batches, build, kernel, write_job, pool, mesh,
+            label="downsample batch",
+            # float32 device output; the float32 cast of the input
+            out_bytes=lambda job: out_vox[tuple(read_shape(job, rel))] * 4,
+            timings=timings, workspace_mult=3.0)
+    finally:
+        pool.shutdown(wait=True)
+    if stats is not None:
+        stats.update(mesh=tuple(str(d) for d in mesh.devices), batches=n,
+                     timings=timings, buckets=[
+                         dict(shape=shape, blocks=len(buckets[shape]),
+                              per_dev=per_dev, batches=len(gs))
+                         for shape, gs in groups.items()])
+    return n
+
+
 def downsample_pyramid_level(
     store: ChunkStore,
     src_info: MultiResolutionLevelInfo,
@@ -126,10 +199,13 @@ def downsample_pyramid_level(
     ct: tuple[int, int] = (0, 0),
     device=None,
     skip_existing: bool = False,
+    devices: int | None = None,
+    stats: dict | None = None,
 ) -> int:
     """Fill ``dst_info`` from ``src_info`` by relative-factor averaging
-    (SparkDownsample.java:141-177) on one device. Returns the number of
-    level blocks written.
+    (SparkDownsample.java:141-177) on one device, or with ``devices``
+    above 1 over a mesh (:func:`run_sharded_downsample`, which fills
+    ``stats``). Returns the number of level blocks written.
 
     ``skip_existing``: return 0 at once when the fusion epilogue already
     wrote this level for this (channel, timepoint) slot (the container
@@ -165,5 +241,9 @@ def downsample_pyramid_level(
     def write_job(block: GridBlock, out):
         write3d(_convert_to_dtype(out, dst.dtype), block.offset)
 
-    run_downsample(grid, read_job, write_job, rel, device=device)
+    if devices is not None and int(devices) > 1:
+        run_sharded_downsample(grid, read_job, write_job, rel, int(devices),
+                               device=device, stats=stats)
+    else:
+        run_downsample(grid, read_job, write_job, rel, device=device)
     return len(grid)

@@ -1,9 +1,8 @@
-"""Non-rigid fusion driver on one device: unique points, per-block control
-grids, K26, K4, block writes.
+"""Non-rigid fusion driver: unique points, per-block control grids, K26,
+K4, block writes.
 
-Port of the single-device part of
-``bigstitcher_spark_tpu/models/nonrigid_fusion.py`` (SparkNonRigidFusion,
-SparkNonRigidFusion.java:313-435): per output block, the views to fuse are
+Port of ``bigstitcher_spark_tpu/models/nonrigid_fusion.py``
+(SparkNonRigidFusion, SparkNonRigidFusion.java:313-435): per output block, the views to fuse are
 those overlapping the block (+50 px margin), and the deformation of each
 view comes from corresponding interest points near the block (+25 px and
 two grid spacings of margin), merged into "unique points" (the average
@@ -20,12 +19,19 @@ writer pool. The JAX driver plans every block up front and converts in the
 same program; each block's result depends on that block alone, so the
 output is the same.
 
-The sharded multi-device route is not yet ported.
+With ``devices`` above 1, the sharded route (:func:`_fuse_nonrigid_sharded`,
+JAX ``fuse_nonrigid_volume`` :176-256): every block is planned first on the
+pool, the blocks are bucketed by (patch shape, view count), and each
+bucket's batches of ``devices`` blocks go through one launch of K26's
+batch form and one of K4 a device (:func:`..parallel.mesh.shard_batch`);
+the drain workers copy the rows back and the writer pool writes them. Its
+output is bitwise the one-device route's.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,7 +43,18 @@ from ..io.dataset_io import ViewLoader
 from ..io.interestpoints import InterestPointStore
 from ..io.spimdata import SpimData, ViewId
 from ..ops import fusion as F
-from ..ops.nonrigid import fit_control_grid, nonrigid_fuse_block
+from ..ops.nonrigid import (
+    fit_control_grid,
+    nonrigid_fuse_block,
+    nonrigid_fuse_block_batch,
+)
+from ..parallel.mesh import (
+    add_time,
+    group_items,
+    make_mesh,
+    run_sharded_batches,
+    shard_batch,
+)
 from ..utils.device import resolve_device
 from ..utils.geometry import (
     Interval,
@@ -170,10 +187,14 @@ def fuse_nonrigid_volume(
     zarr_ct: tuple[int, int] | None = None,
     io_threads: int = 4,
     device: str | torch.device | None = None,
+    devices: int | None = None,
 ) -> FusionStats:
-    """Fuse ``views`` non-rigidly into ``out_ds`` over ``bbox`` on one
-    device: ``cuda`` (the default; raises without a card) or ``cpu`` (the
-    plain-torch twins).
+    """Fuse ``views`` non-rigidly into ``out_ds`` over ``bbox`` on
+    ``device``: ``cuda`` (the default; raises without a card) or ``cpu``
+    (the plain-torch twins). ``devices``: above 1, the sharded route over
+    the first ``devices`` cards (``[cpu] * devices`` with ``device="cpu"``;
+    one card for ``devices=4`` on a one-card host, as in JAX); None or 1:
+    one device.
 
     ``stats.timings`` holds seconds per phase: ``plan`` (view selection and
     control-grid fits) and ``read`` (patch staging), summed over the reader
@@ -193,6 +214,15 @@ def fuse_nonrigid_volume(
             "uint8": (0.0, 255.0), "uint16": (0.0, 65535.0)}.get(
                 out_dtype, (0.0, 1.0))
     threads = config.get("BST_WRITE_THREADS") or 1
+    if devices is not None and int(devices) > 1:
+        stats.path = "sharded"
+        _fuse_nonrigid_sharded(
+            sd, loader, views, unique, out_ds, bbox, grid_blocks,
+            compute_block, cpd, alpha, fusion_type, blend, aniso, out_dtype,
+            min_intensity, max_intensity, zarr_ct, io_threads, stats,
+            int(devices), make_mesh(int(devices), platform=dev.type))
+        stats.seconds = time.time() - t0
+        return stats
 
     def stage(block):
         return block, stage_nonrigid_block(
@@ -242,6 +272,97 @@ def fuse_nonrigid_volume(
         stats.timings["card"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
     stats.seconds = time.time() - t0
     return stats
+
+
+def _fuse_nonrigid_sharded(
+    sd, loader, views, unique, out_ds, bbox, grid_blocks, compute_block,
+    cpd, alpha, fusion_type, blend, aniso, out_dtype, min_intensity,
+    max_intensity, zarr_ct, io_threads, stats, n_dev, mesh,
+):
+    """The multi-device route (JAX ``fuse_nonrigid_volume`` :176-256 and
+    ``_make_nonrigid_kernel`` :259-275): every block planned on the pool
+    (view selection and control-grid fits; each plan depends on its block
+    alone), the planned blocks bucketed by (patch shape, view count) and
+    cut into batches of ``n_dev`` blocks (per_dev 1, the JAX default); a
+    batch's rows go over ``mesh``, each device's through one launch of
+    K26's batch form and one of K4 with the intensity range replicated;
+    the writer pool writes each block's rows."""
+    gdims = control_grid_dims(compute_block, cpd)
+    pool = ThreadPoolExecutor(max_workers=max(1, io_threads),
+                              thread_name_prefix="bst-stage")
+
+    def plan(block):
+        t0 = time.perf_counter()
+        res = _plan_nonrigid_block(sd, views, unique, block, bbox,
+                                   compute_block, gdims, cpd, alpha, aniso)
+        add_time(stats.timings, "plan", time.perf_counter() - t0)
+        return block, res
+
+    try:
+        planned = []
+        for block, res in pool.map(plan, grid_blocks):
+            stats.blocks += 1
+            if res is None:
+                stats.skipped_empty += 1
+                continue
+            planned.append((block, *res))
+
+        buckets: dict[tuple, list] = {}
+        for item in planned:
+            plans = item[3]
+            vb = F.bucket_views(len(plans))
+            pshape = F.bucket_shape(
+                np.max([p[3].shape for p in plans], axis=0), 32)
+            buckets.setdefault((pshape, vb), []).append(item)
+        stats.mesh = tuple(str(d) for d in mesh.devices)
+        batches = []
+        for key, items in sorted(buckets.items(), key=lambda kv: str(kv[0])):
+            groups = group_items([(key, it) for it in items], n_dev, 1)
+            batches += groups
+            stats.buckets.append(dict(key=("nonrigid", *key),
+                                      blocks=len(items), per_dev=1,
+                                      batches=len(groups)))
+        stats.batches = len(batches)
+        stats.kernel_blocks["nonrigid"] = len(planned)
+        stats.compile_keys.add((tuple(compute_block), fusion_type, out_dtype,
+                                "nonrigid", "sharded"))
+
+        def build(entry):
+            t0 = time.perf_counter()
+            (pshape, vb), (_block, block_global, grid_origin, plans) = entry
+            arrs = (*_stage_nonrigid(loader, plans, pshape, vb, blend, gdims),
+                    np.asarray(block_global.min, np.float32),
+                    np.asarray(grid_origin, np.float32),
+                    np.full(3, cpd, np.float32))
+            add_time(stats.timings, "read", time.perf_counter() - t0)
+            return arrs
+
+        def one(mi, ma, *arrays):
+            fused, _wsum = nonrigid_fuse_block_batch(
+                *arrays, block_shape=compute_block, fusion_type=fusion_type)
+            return F.convert_intensity(fused, mi, ma, out_dtype)
+
+        sharded = shard_batch(one, mesh, n_repl=2)
+
+        def kernel(batch, *stacked):
+            return sharded(batch, min_intensity, max_intensity, *stacked)
+
+        written: dict[tuple, int] = {}
+
+        def consume(entry, data):
+            block = entry[1][0]
+            _write(out_ds, data[tuple(slice(0, s) for s in block.size)],
+                   block.offset, zarr_ct)
+            written[tuple(block.offset)] = int(np.prod(block.size))
+
+        item_out = int(np.prod(compute_block)) * np.dtype(out_dtype).itemsize
+        run_sharded_batches(batches, build, kernel, consume, pool, mesh,
+                            label="nonrigid batch",
+                            out_bytes=lambda entry: item_out,
+                            timings=stats.timings, workspace_mult=4.0)
+    finally:
+        pool.shutdown(wait=True)
+    stats.voxels += sum(written.values())
 
 
 def control_grid_dims(compute_block, cpd: float) -> tuple[int, ...]:

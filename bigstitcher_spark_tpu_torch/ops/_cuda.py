@@ -122,9 +122,9 @@ _SIGNATURES = {
                               + [_VP] * 4,
     },
     "nonrigid": {
-        "bst_nonrigid_fuse": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]
-                             + [_VP] * 9 + [_I] * 5 + [_I] * 5
-                             + [_VP, _VP, _VP],
+        "bst_nonrigid_fuse_batch": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]
+                                   + [_VP] * 9 + [_I] * 6 + [_I] * 5
+                                   + [_VP, _VP, _VP],
     },
 }
 

@@ -9,15 +9,17 @@ grid, the world coordinate is deformed into the view's world frame, and
 the view's static world -> patch affine maps it into the staged patch,
 which is sampled and blended as affine fusion does.
 
-===========================  =========================  ===================
-wrapper                      kernel (csrc/)             JAX program
-===========================  =========================  ===================
-:func:`nonrigid_fuse_block`  ``nonrigid.cu`` (K26)      nonrigid_fuse_block
-===========================  =========================  ===================
+=================================  ======================  ==================
+wrapper                            kernel (csrc/)          JAX program
+=================================  ======================  ==================
+:func:`nonrigid_fuse_block`        ``nonrigid.cu`` (K26)   nonrigid_fuse_block
+:func:`nonrigid_fuse_block_batch`  ``nonrigid.cu`` (K26,   the sharded
+                                   batch form)             route's vmap
+=================================  ======================  ==================
 
-The wrapper takes the plain version only because its tensors lie on the
-CPU; on CUDA tensors it launches the kernel or raises. It counts its
-launches in ``nonrigid_fuse_block.launches``.
+A wrapper takes the plain version only because its tensors lie on the
+CPU; on CUDA tensors it launches the kernel or raises. Each counts its
+launches in its ``launches`` attribute.
 
 Rounding follows the JAX program's order, and kernel and twin round at
 the same places: the grid coordinate ``((origin + i) - grid_origin) /
@@ -45,6 +47,7 @@ from .fusion import (
     _ft_code,
     _interp_taps,
     _require,
+    _rows_of_one,
     _stream,
     _trilinear_sample,
     resample_plan,
@@ -136,52 +139,123 @@ def nonrigid_fuse_block(patches, grids, view_affines, patch_offsets,
     patch_offsets, img_dims, borders, blend_ranges (V, 3) float32; valid
     (V,) float32; block_origin, grid_origin, grid_spacing (3,) float32.
     Returns (fused, wsum), both ``block_shape`` float32. The launch is
-    K3's (:func:`.fusion.resample_plan`)."""
+    K3's (:func:`.fusion.resample_plan`); on CUDA it is
+    :func:`nonrigid_fuse_block_batch`'s on a batch of one."""
     if patches.device.type == "cpu":
         return nonrigid_fuse_block_plain(
             patches, grids, view_affines, patch_offsets, img_dims, borders,
             blend_ranges, valid, block_origin, grid_origin, grid_spacing,
             block_shape, fusion_type)
-    dev = patches.device
-    _require(patches, "patches", dev, _IN_CODE)
     if patches.dim() != 4:
         raise ValueError("patches must be (V, Px, Py, Pz)")
-    V, px, py, pz = (int(s) for s in patches.shape)
-    _require(grids, "grids", dev, _F32)
-    if grids.dim() != 5 or grids.shape[0] != V or grids.shape[4] != 12:
-        raise ValueError(f"grids has shape {tuple(grids.shape)}, expected "
-                         f"({V}, Gx, Gy, Gz, 12)")
-    _require(view_affines, "view_affines", dev, _F32, (V, 3, 4))
-    for name, t in (("patch_offsets", patch_offsets), ("img_dims", img_dims),
-                    ("borders", borders), ("blend_ranges", blend_ranges)):
-        _require(t, name, dev, _F32, (V, 3))
-    _require(valid, "valid", dev, _F32, (V,))
-    for name, t in (("block_origin", block_origin),
-                    ("grid_origin", grid_origin),
-                    ("grid_spacing", grid_spacing)):
-        _require(t, name, dev, _F32, (3,))
-    gx, gy, gz = (int(s) for s in grids.shape[1:4])
-    bx, by, bz = (int(s) for s in block_shape)
-    plan = resample_plan((bx, by, bz), V, (px, py, pz))
-    fused = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    wsum = torch.empty((bx, by, bz), dtype=torch.float32, device=dev)
-    lib = _cuda.load("nonrigid")
-    ret = lib.bst_nonrigid_fuse(
-        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
-        grids.data_ptr(), gx, gy, gz, view_affines.data_ptr(),
-        patch_offsets.data_ptr(), img_dims.data_ptr(), borders.data_ptr(),
-        blend_ranges.data_ptr(), valid.data_ptr(), block_origin.data_ptr(),
-        grid_origin.data_ptr(), grid_spacing.data_ptr(), V, bx, by, bz,
-        _ft_code(fusion_type), plan.lanes_z, plan.n_jt, *plan.grid,
-        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
-    _cuda.check(lib, ret, "nonrigid_fuse")
+    fused, wsum = _launch_nonrigid(*_rows_of_one(
+        patches, grids, view_affines, patch_offsets, img_dims, borders,
+        blend_ranges, valid, block_origin, grid_origin, grid_spacing),
+        block_shape, fusion_type)
     nonrigid_fuse_block.launches += 1
-    return fused, wsum
+    return fused[0], wsum[0]
 
 
 nonrigid_fuse_block.launches = 0
 
-KERNEL_WRAPPERS = {"nonrigid_fuse": nonrigid_fuse_block}
+
+def _launch_nonrigid(patches, grids, view_affines, patch_offsets, img_dims,
+                     borders, blend_ranges, valid, block_origin, grid_origin,
+                     grid_spacing, block_shape, fusion_type):
+    """Check K26's batch inputs (B, V, ...) and launch it once."""
+    dev = patches.device
+    _require(patches, "patches", dev, _IN_CODE)
+    if patches.dim() != 5:
+        raise ValueError("patches must be (B, V, Px, Py, Pz)")
+    B, V, px, py, pz = (int(s) for s in patches.shape)
+    _require(grids, "grids", dev, _F32)
+    if (grids.dim() != 6 or tuple(grids.shape[:2]) != (B, V)
+            or grids.shape[5] != 12):
+        raise ValueError(f"grids has shape {tuple(grids.shape)}, expected "
+                         f"({B}, {V}, Gx, Gy, Gz, 12)")
+    _require(view_affines, "view_affines", dev, _F32, (B, V, 3, 4))
+    for name, t in (("patch_offsets", patch_offsets), ("img_dims", img_dims),
+                    ("borders", borders), ("blend_ranges", blend_ranges)):
+        _require(t, name, dev, _F32, (B, V, 3))
+    _require(valid, "valid", dev, _F32, (B, V))
+    for name, t in (("block_origin", block_origin),
+                    ("grid_origin", grid_origin),
+                    ("grid_spacing", grid_spacing)):
+        _require(t, name, dev, _F32, (B, 3))
+    gx, gy, gz = (int(s) for s in grids.shape[2:5])
+    bx, by, bz = (int(s) for s in block_shape)
+    plan = resample_plan((bx, by, bz), V, (px, py, pz))
+    fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    lib = _cuda.load("nonrigid")
+    ret = lib.bst_nonrigid_fuse_batch(
+        patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
+        grids.data_ptr(), gx, gy, gz, view_affines.data_ptr(),
+        patch_offsets.data_ptr(), img_dims.data_ptr(), borders.data_ptr(),
+        blend_ranges.data_ptr(), valid.data_ptr(), block_origin.data_ptr(),
+        grid_origin.data_ptr(), grid_spacing.data_ptr(), B, V, bx, by, bz,
+        _ft_code(fusion_type), plan.lanes_z, plan.n_jt, *plan.grid,
+        int(plan.idx64), fused.data_ptr(), wsum.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "nonrigid_fuse")
+    return fused, wsum
+
+
+def nonrigid_fuse_block_batch_plain(patches, grids, view_affines,
+                                    patch_offsets, img_dims, borders,
+                                    blend_ranges, valid, block_origin,
+                                    grid_origin, grid_spacing, block_shape,
+                                    fusion_type="AVG_BLEND"):
+    """Plain :func:`nonrigid_fuse_block_batch`:
+    :func:`nonrigid_fuse_block_plain` row by row; a padding row (valid all
+    0) is zeros. Returns (fused, wsum), both (B, *block_shape) float32."""
+    shape = tuple(int(s) for s in block_shape)
+    B = int(patches.shape[0])
+    fused = torch.zeros((B, *shape), dtype=torch.float32,
+                        device=patches.device)
+    wsum = torch.zeros_like(fused)
+    for b in range(B):
+        if not bool((valid[b] != 0).any()):
+            continue
+        fused[b], wsum[b] = nonrigid_fuse_block_plain(
+            patches[b], grids[b], view_affines[b], patch_offsets[b],
+            img_dims[b], borders[b], blend_ranges[b], valid[b],
+            block_origin[b], grid_origin[b], grid_spacing[b], shape,
+            fusion_type)
+    return fused, wsum
+
+
+def nonrigid_fuse_block_batch(patches, grids, view_affines, patch_offsets,
+                              img_dims, borders, blend_ranges, valid,
+                              block_origin, grid_origin, grid_spacing,
+                              block_shape, fusion_type="AVG_BLEND"):
+    """K26's batch form (``csrc/nonrigid.cu``) on CUDA, the plain version
+    on the CPU: B blocks of one bucket (one patch shape, view count and
+    grid shape) in one launch, the JAX sharded route's vmap of
+    nonrigid_fuse_block (models/nonrigid_fusion.py:263-273).
+
+    The arguments are :func:`nonrigid_fuse_block`'s with a leading batch
+    axis: patches (B, V, Px, Py, Pz), grids (B, V, Gx, Gy, Gz, 12),
+    view_affines (B, V, 3, 4), the per-view arrays (B, V, 3), valid (B, V),
+    block_origin, grid_origin, grid_spacing (B, 3). Returns (fused, wsum),
+    both (B, *block_shape) float32; row b is bitwise the per-block
+    kernel's on row b's inputs, a padding row (valid all 0) zeros."""
+    if patches.device.type == "cpu":
+        return nonrigid_fuse_block_batch_plain(
+            patches, grids, view_affines, patch_offsets, img_dims, borders,
+            blend_ranges, valid, block_origin, grid_origin, grid_spacing,
+            block_shape, fusion_type)
+    out = _launch_nonrigid(patches, grids, view_affines, patch_offsets,
+                           img_dims, borders, blend_ranges, valid,
+                           block_origin, grid_origin, grid_spacing,
+                           block_shape, fusion_type)
+    nonrigid_fuse_block_batch.launches += 1
+    return out
+
+
+nonrigid_fuse_block_batch.launches = 0
+
+KERNEL_WRAPPERS = {"nonrigid_fuse": nonrigid_fuse_block,
+                   "nonrigid_fuse_batch": nonrigid_fuse_block_batch}
 
 
 # ---------------------------------------------------------------------------

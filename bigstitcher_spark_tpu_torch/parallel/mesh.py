@@ -1,24 +1,27 @@
 """Sharding of the block work list over a mesh of devices.
 
-Port of the parts of ``bigstitcher_spark_tpu/parallel/mesh.py`` that the
-sharded affine-fusion route runs (``affine-fusion --devices N``): a batch
-of output blocks becomes the leading axis of the stacked kernel inputs,
-row range ``i`` of it placed on mesh device ``i``; each device fuses its
-rows in one launch of a batch kernel (K2, K5 or K3) and converts them and
-makes their pyramid levels in one launch of K28; one drain worker a
-device copies its rows back, and a writer pool writes them. No collective
-is needed: block writes are disjoint (the reference's no-shuffle
-property, the Spark map at SparkAffineFusion.java:480-482).
+Port of ``bigstitcher_spark_tpu/parallel/mesh.py``: a batch of work items
+(output blocks, detection blocks, pyramid boxes) becomes the leading axis
+of the stacked kernel inputs, row range ``i`` of it placed on mesh device
+``i``. :func:`shard_batch` is the counterpart of JAX ``shard_jit``: it
+runs any per-device program on its rows, with some arguments replicated
+to every device; :func:`make_sharded_fuser` is the affine-fusion route's
+(``affine-fusion --devices N``: one launch of a batch kernel, K2, K5 or
+K3, then K28 converts and makes the pyramid levels), and detection,
+nonrigid fusion and the downsample stage have theirs in their drivers.
+One drain worker a device copies its rows back, and a writer pool writes
+them. No collective is needed: block writes are disjoint (the reference's
+no-shuffle property, the Spark map at SparkAffineFusion.java:480-482).
 
 A :class:`Mesh` is a tuple of torch devices. :func:`make_mesh` takes the
 first ``min(n, torch.cuda.device_count())`` cards, as the JAX package keeps
 the first ``n`` local devices: on a one-card host ``--devices 4`` runs on a
-one-device mesh, in batches of ``4 x per_dev`` blocks. An explicit device
+one-device mesh, in batches of ``4 x per_dev`` items. An explicit device
 list may repeat a device (the CPU tests use ``[cpu] * 4``, the analogue of
 the JAX suite's 8 virtual devices).
 
-``shard_jit`` and the JAX package's handoff, prefetch, multi-process and
-telemetry hooks are not ported.
+The JAX package's handoff, prefetch, multi-process and telemetry hooks are
+not ported.
 """
 
 from __future__ import annotations
@@ -119,10 +122,6 @@ def stack_inputs(inputs: Sequence, j: int):
 # the CPU) of its kernels
 Shard = namedtuple("Shard", "device row0 outs start end h2d host_kernel")
 
-# a dispatch's device bytes per byte of stacked inputs (the uploaded
-# inputs and the kernels' workspace; JAX charges its fuser 3x)
-_WORKSPACE_MULT = 3.0
-
 _BATCH_KERNELS = {"shift": F.fuse_block_shift_batch,
                   "sep": F.fuse_block_sep_batch,
                   "gather": F.fuse_block_batch}
@@ -134,10 +133,27 @@ def _rows_of(n_rows: int, n_dev: int) -> list[tuple[int, int]]:
     return [(int(a), int(b)) for a, b in zip(cuts[:-1], cuts[1:])]
 
 
+def group_items(items: Sequence, n_dev: int, per_dev: int) -> list[list]:
+    """``items`` cut into batches of ``n_dev x per_dev`` (the last one
+    shorter), the JAX loop's grouping (parallel/mesh.py:387)."""
+    group = max(1, int(n_dev)) * max(1, int(per_dev))
+    items = list(items)
+    return [items[i:i + group] for i in range(0, len(items), group)]
+
+
 def _upload(a, dev: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(dev).contiguous()
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _replica(a, dev: torch.device):
+    """A replicated argument on ``dev``: arrays and tensors uploaded, Python
+    and numpy scalars passed as they are."""
+    if isinstance(a, torch.Tensor) or (isinstance(a, np.ndarray)
+                                       and a.ndim > 0):
+        return _upload(a, dev)
+    return a
 
 
 def _event(dev: torch.device):
@@ -146,6 +162,48 @@ def _event(dev: torch.device):
     ev = torch.cuda.Event(enable_timing=True)
     ev.record(torch.cuda.current_stream(dev))
     return ev
+
+
+def shard_batch(fn, mesh: Mesh, n_repl: int = 0):
+    """The counterpart of JAX ``shard_jit`` (parallel/mesh.py:660): returns
+    ``kernel(batch, *args) -> [Shard, ...]``. The first ``n_repl`` of
+    ``args`` are replicated to every device (scalars as they are, arrays
+    uploaded once to each device); the rest are batch-leading (numpy or
+    tensors), row range ``i`` uploaded to mesh device ``i``, where
+    ``fn(*replicated, *rows)`` runs under that device's context and
+    returns one output tensor or a tuple of them (``batch``, the items,
+    is not read). Nothing is synchronised or copied back: each device's
+    outputs stay on it, with CUDA events around its launches (the host's
+    seconds on the CPU)."""
+
+    def kernel(batch, *args):
+        repl, stacked = args[:n_repl], args[n_repl:]
+        n_rows = int(stacked[0].shape[0])
+        shards, replicas = [], {}
+        for dev, (r0, r1) in zip(mesh.devices,
+                                 _rows_of(n_rows, len(mesh))):
+            if r1 == r0:
+                continue
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" \
+                else nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                if dev not in replicas:
+                    replicas[dev] = [_replica(a, dev) for a in repl]
+                rows = [_upload(a[r0:r1], dev) for a in stacked]
+                t1 = time.perf_counter()
+                start = _event(dev)
+                outs = fn(*replicas[dev], *rows)
+                end = _event(dev)
+                host_kernel = (time.perf_counter() - t1
+                               if dev.type != "cuda" else 0.0)
+            outs = tuple(outs) if isinstance(outs, (tuple, list)) \
+                else (outs,)
+            shards.append(Shard(dev, r0, outs, start, end, t1 - t0,
+                                host_kernel))
+        return shards
+
+    return kernel
 
 
 def make_sharded_fuser(
@@ -163,47 +221,31 @@ def make_sharded_fuser(
     bucket's kernel inputs with a leading batch axis (numpy or device
     tensors, in the batch wrapper's order: K2's, K5's or K3's, K3's with
     the grids and their affines last when ``with_coeffs``; the inside
-    offsets last of the eight or nine). Row range ``i`` goes to mesh
-    device ``i``, where one launch of the batch kernel fuses it and one
-    launch of K28 (:func:`..ops.epilogue.block_epilogue`) converts it
-    (``out_dtype``; coverage masks with ``masks``) and makes the
-    ``pyramid`` levels. Nothing is synchronised or copied back: the
-    outputs stay on their devices, an event after each device's launches."""
+    offsets last of the eight or nine). Through :func:`shard_batch`, row
+    range ``i`` goes to mesh device ``i``, where one launch of the batch
+    kernel fuses it and one launch of K28
+    (:func:`..ops.epilogue.block_epilogue`) converts it (``out_dtype``;
+    coverage masks with ``masks``) and makes the ``pyramid`` levels."""
     if kernel not in _BATCH_KERNELS:
         raise ValueError(f"unknown kernel {kernel}")
     run = _BATCH_KERNELS[kernel]
     bshape = tuple(int(s) for s in block_shape)
     rels = tuple(tuple(int(v) for v in r) for r in pyramid)
 
+    def one(min_i, max_i, *args):
+        kw = {}
+        if with_coeffs:
+            *args, grids, grid_affs = args
+            kw = dict(coeffs=grids, coeff_affines=grid_affs)
+        *ins, ioffs = args
+        fused, wsum = run(*ins, bshape, fusion_type, inside_offs=ioffs, **kw)
+        return E.block_epilogue(fused, wsum, min_i, max_i, out_dtype, masks,
+                                rels)
+
+    sharded = shard_batch(one, mesh, n_repl=2)
+
     def fuser(min_i, max_i, *stacked):
-        shards = []
-        n_rows = int(stacked[0].shape[0])
-        for dev, (r0, r1) in zip(mesh.devices, _rows_of(n_rows,
-                                                         len(mesh))):
-            if r1 == r0:
-                continue
-            ctx = torch.cuda.device(dev) if dev.type == "cuda" \
-                else nullcontext()
-            with ctx:
-                t0 = time.perf_counter()
-                args = [_upload(a[r0:r1], dev) for a in stacked]
-                t1 = time.perf_counter()
-                start = _event(dev)
-                kw = {}
-                if with_coeffs:
-                    *args, grids, grid_affs = args
-                    kw = dict(coeffs=grids, coeff_affines=grid_affs)
-                *ins, ioffs = args
-                fused, wsum = run(*ins, bshape, fusion_type,
-                                  inside_offs=ioffs, **kw)
-                outs = E.block_epilogue(fused, wsum, min_i, max_i,
-                                        out_dtype, masks, rels)
-                end = _event(dev)
-                host_kernel = (time.perf_counter() - t1
-                               if dev.type != "cuda" else 0.0)
-            shards.append(Shard(dev, r0, tuple(outs), start, end, t1 - t0,
-                                host_kernel))
-        return shards
+        return sharded(None, min_i, max_i, *stacked)
 
     return fuser
 
@@ -275,6 +317,7 @@ def run_sharded_batches(
     label: str = "batch",
     out_bytes=None,
     timings: dict | None = None,
+    workspace_mult: float = 3.0,
 ) -> int:
     """The multi-device work loop, the reference's
     ``sc.parallelize(workItems).map`` (JAX ``run_sharded_batches``).
@@ -283,8 +326,9 @@ def run_sharded_batches(
     shapes (a bucket's ``n_dev x per_dev`` blocks); ``build(item)`` stages
     one item's kernel inputs (a tuple of arrays) on ``pool``; the stacked
     batch, padded with zero rows to a multiple of ``len(mesh)``, goes
-    through ``kernel(batch, *stacked) -> [Shard, ...]`` (the batch's
-    bucket's :func:`make_sharded_fuser` fuser over ``mesh``); the drain
+    through ``kernel(batch, *stacked) -> [Shard, ...]`` (a
+    :func:`shard_batch` program over ``mesh``, such as the batch's
+    bucket's :func:`make_sharded_fuser` fuser); the drain
     workers, one per shard, copy their device's rows to the host, and
     ``consume(item, *rows)`` of each real row runs on a writer pool of
     ``BST_WRITE_THREADS`` threads (disjoint chunk writes: no locks). One
@@ -295,8 +339,11 @@ def run_sharded_batches(
     batches are dispatched AHEAD of the current batch's drain as far as a
     byte budget allows (:class:`..utils.devicemem.InflightWindow` of the
     mesh's first device): each dispatch is charged its stacked inputs x
-    3 (the fuser's upload and workspace) plus ``out_bytes(item)`` for each
-    item (the device outputs; None: 0). The current batch always dispatches, so progress never blocks;
+    ``workspace_mult`` (the upload and the kernels' workspace; JAX charges
+    3 to its fuser and downsample stage, 4 to nonrigid fusion, 8 and more
+    to detection) plus ``out_bytes(item)`` for each item (the device
+    outputs; None: 0). The current batch always dispatches, so progress
+    never blocks;
     ``BST_EARLY_DISPATCH=0`` keeps one batch in flight. The next batch's
     copies start before the current batch's writes, so the writer pool
     finds its rows on the host. A failed batch is
@@ -313,15 +360,16 @@ def run_sharded_batches(
     window = InflightWindow(device=mesh.devices[0])
     drain_pool = ThreadPoolExecutor(max_workers=len(mesh),
                                     thread_name_prefix="bst-dev-drain")
-    writer = WriterPool(config.get("BST_WRITE_THREADS") or 1,
-                        timings if timings is not None else {"write": 0.0})
+    timings = timings if timings is not None else {}
+    timings.setdefault("write", 0.0)
+    writer = WriterPool(config.get("BST_WRITE_THREADS") or 1, timings)
     prefetched = {0: [pool.submit(build, it) for it in batches[0]]}
     dispatched: dict[int, tuple] = {}   # bi -> (shards, charged bytes)
     fetching: dict[int, list] = {}      # bi -> its drain workers' futures
     completed: set[int] = set()
 
     def batch_cost(input_bytes: int, batch) -> int:
-        return (int(input_bytes * _WORKSPACE_MULT)
+        return (int(input_bytes * workspace_mult)
                 + sum(int(out_bytes(it)) for it in batch if out_bytes))
 
     def stage(bi):

@@ -24,7 +24,11 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          batch at --devices 4, per_dev 4): every row bitwise the per-block
          kernel's, one launch timed; K28 (block_epilogue) on K2's batch
          output with route A's first level (2,2,2), s0 and level bitwise
-         its twin's in both modes (conversion, masks). The
+         its twin's in both modes (conversion, masks). K26's batch form
+         at 4 distinct rows of phase 11's four-view block (synthesised
+         from a seed): every row bitwise the per-block K26, |batch - twin|
+         within the per-block contract, one launch timed beside 4 x the
+         per-block time and its bound. The
          phase-correlation kernels at route A's x-edge
          bucket at -ds 2,2,1 (2 pairs of 64x512x128 uint16 crops): K7
          window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
@@ -224,7 +228,8 @@ Phase 13 affine-fusion --devices 4 through the CLI entry function: the
          container of 128x128x32 blocks fused at --blockScale 2,2,2 (route
          B's 256x256x64 compute block; at route A's 128x128x64 blocks
          level 1's (2,2,2) piece is half a chunk in z and no level is
-         eligible): K28 makes level 1, the downsample stage the rest; s0
+         eligible): K28 makes level 1, the sharded downsample stage the
+         rest; s0
          and every level bitwise equal to route B's. 13b: route C's
          project (gather and shift buckets), s0 bitwise route C's. 13c:
          route D's anisotropic N5 (K5's batch form), s0 bitwise route
@@ -233,6 +238,21 @@ Phase 13 affine-fusion --devices 4 through the CLI entry function: the
          the mesh, every bucket's blocks, per_dev and batches, the host
          read / H2D / kernel (CUDA events) / D2H / write seconds and the
          device memory peak; no per-block or composite kernel may launch.
+
+Phase 14 the shard_jit routes at devices=4 on the one card (a one-device
+         mesh, batches of 4 x per_dev rows, one drain worker): 14a
+         detect_interest_points(devices=4) through the API on route A's
+         project at 8a's parameters, then with 8d's descriptors, points,
+         values (descriptors, flags) bitwise 8a's and 8d's; 14b
+         nonrigid-fusion --devices 4 through the CLI entry function on
+         phase 11's inputs (K26's batch form and K4 a batch, no per-block
+         K26; its pyramid through the sharded downsample stage), s0 and
+         every level bitwise phase 11's; 14c downsample_pyramid_level
+         (devices=4) on route D's s0 into datasets of their own, each
+         level bitwise route D's. Each prints the mesh, buckets, per_dev,
+         batches, the wall, the read / H2D / kernel (CUDA events) / D2H /
+         write seconds, the rate and the device memory peak; only the
+         route's kernels may launch.
 
 Kernel times are CUDA events around work queued behind a spin on the
 card (its rate measured in the run), so they hold the card's time and not
@@ -257,7 +277,7 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-13 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-14 on the CPU with the
 plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
 cells and renderScale 0.5, 10b's large system on 3x3x2 views; 8d's
 ratio-test gate printed, not applied: its 32x32x16 blocks split each
@@ -311,6 +331,7 @@ KERNELS = {
     "cg_spmv": ("cg.cu", "ops/solve.py:527"),
     "cg_update": ("cg.cu", "ops/solve.py:527"),
     "nonrigid_fuse": ("nonrigid.cu", "ops/nonrigid.py:133"),
+    "nonrigid_fuse_batch": ("nonrigid.cu", "models/nonrigid_fusion.py:263"),
     "fuse_volume_scan": ("shift.cu", "ops/fusion.py:379"),
     "block_epilogue": ("epilogue.cu", "parallel/mesh.py:223"),
 }
@@ -436,6 +457,10 @@ ROUTE_KERNELS.update({
     "13b": ("fuse_block_batch", "fuse_block_shift_batch", "block_epilogue"),
     "13c": ("fuse_block_sep_batch", "block_epilogue"),
     "13d": ("fuse_block_batch", "fuse_block_batch+coeff", "block_epilogue"),
+    "14a": DET_KERNELS + ("downsample_batch",),
+    "14a desc": DET_KERNELS + ("downsample_batch", "knn_descriptors"),
+    "14b": ("nonrigid_fuse_batch", "convert_intensity", "downsample_batch"),
+    "14c": ("downsample_batch",),
 })
 
 
@@ -1309,6 +1334,9 @@ def phase1_kernels(dev, scale, card):
     res["downsample_batch"].update(halfpixel_times(tile, card))
     del tile
 
+    # K26's batch form at NONRIGID_ROWS rows of phase 11's four-view block
+    res["nonrigid_fuse_batch"] = nonrigid_batch_times(rng, c, bs, dev)
+
     # K7-K10: route A's x-edge bucket at -ds 2,2,1
     res.update(pcm_times(rng, c, cfg["pcm_bucket"]))
     for k, r in res.items():
@@ -1548,10 +1576,31 @@ def composite_at_route_a(xml_path, out_a, dev):
     return r
 
 
-def counted(route, launches, dev, fn):
+def reset_peak(dev):
+    """Reset the card's peak-memory counter (nothing in a CPU rehearsal)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(dev):
+    """The card's peak allocation since :func:`reset_peak` (None on the
+    CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def counted(route, launches, dev, fn, exclusive=False):
     """Run ``fn`` (one route's main path) with every launch count set to 0
     just before it and read just after it; on the card the route's kernels
-    must each have launched. Adds the counts to ``launches``."""
+    must each have launched, and with ``exclusive`` no other kernel may
+    have. Adds the counts to ``launches``."""
     from bigstitcher_spark_tpu_torch import ops
 
     ops.reset_launch_counts()
@@ -1561,6 +1610,11 @@ def counted(route, launches, dev, fn):
     for k in ROUTE_KERNELS[route] if dev.type == "cuda" else ():
         check(got[k] > 0, f"route {route}: kernel {k} launched {got[k]} "
                           "times")
+    if exclusive:
+        other = {k: n for k, n in got.items()
+                 if n and k not in ROUTE_KERNELS[route]}
+        check(not other, f"{route}: no kernel outside "
+                         f"{ROUTE_KERNELS[route]} launched ({other})")
     for k, n in got.items():
         launches[k] = launches.get(k, 0) + n
     return out
@@ -2569,15 +2623,17 @@ def phase8_detection(proj, scale, dev, card, launches):
         check(len(p) > 0 and inside.all(),
               f"8c {det.view}: all {len(p)} points inside its "
               f"{len(boxes)} overlap boxes")
-    masked, gate = phase8d_extract(proj, run_a, scale, dev, card, launches)
+    masked, gate, dets_d = phase8d_extract(proj, run_a, scale, dev, card,
+                                           launches)
+    one_device = {"8a": run_a.detections, "8d": dets_d}
     if dev.type != "cuda":
-        return {}, run_b.detections, gate
+        return {}, run_b.detections, gate, one_device
     res = det_kernel_times(next(iter(rec_a.values())), card)
     for name, r in res.items():
         r["err"] = max(err_a.get(name, 0.0), err_b.get(name, 0.0),
                        err_c.get(name, 0.0))
     res["knn_descriptors_masked"] = masked
-    return res, run_b.detections, gate
+    return res, run_b.detections, gate, one_device
 
 
 def descriptor_cloud(det, dev):
@@ -2687,7 +2743,7 @@ def phase8d_extract(proj, run_a, scale, dev, card, launches):
     else:
         check(total >= 20 and joined >= 0.7 * total, what)
     if dev.type != "cuda":
-        return None, (total, joined)
+        return None, (total, joined), dets
     sub, valid = records[0][1], records[0][3]
     run = lambda: DS.knn_descriptors(sub, valid, 3, 1, True, want_idx=False)
     plain = lambda: DS.knn_descriptors_plain(sub, valid, 3, 1, True)
@@ -2702,7 +2758,7 @@ def phase8d_extract(proj, run_a, scale, dev, card, launches):
           f"slots ({int(nv.sum())} valid) [{card}]: kernel {r['ms']} ms  "
           f"plain {r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
           f"({r['bound'][1]})  launches in 8d {n_k19}", flush=True)
-    return r, (total, joined)
+    return r, (total, joined), dets
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3070,6 +3126,56 @@ def nonrigid_block_inputs(rng, c, bs=(256, 256, 64), cpd=10.0):
               np.full((V, 3), 40.0, np.float32), np.ones(V, np.float32), bo,
               go, np.full(3, cpd, np.float32))
     return [c(a) for a in arrays]
+
+
+NONRIGID_ROWS = 4  # phase 14b's batch: --devices 4 x per_dev 1
+
+
+def nonrigid_batch_times(rng, c, bs, dev):
+    """K26's batch form at NONRIGID_ROWS distinct rows of phase 11's
+    four-view block (:func:`nonrigid_block_inputs`, each row its own
+    draws): every row bitwise the per-block K26 on its inputs, the batch
+    within the per-block tolerance of its twin (a loop of the per-block
+    twin), one launch timed beside NONRIGID_ROWS x the per-block time, and
+    the bound of the batch."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    rows = [nonrigid_block_inputs(rng, c, bs) for _ in range(NONRIGID_ROWS)]
+    args = [torch.stack([r[j] for r in rows]) for j in range(11)]
+    run = lambda: NR.nonrigid_fuse_block_batch(*args, bs, "AVG_BLEND")
+    plain = lambda: NR.nonrigid_fuse_block_batch_plain(*args, bs,
+                                                       "AVG_BLEND")
+    got, ref = run(), plain()
+    same = all(torch.equal(g[b], w) for b in range(NONRIGID_ROWS)
+               for g, w in zip(got, NR.nonrigid_fuse_block(
+                   *rows[b], bs, "AVG_BLEND")))
+    check(same, f"nonrigid_fuse_batch: each of {NONRIGID_ROWS} distinct rows "
+                "bitwise the per-block K26's on its inputs")
+    check(len({float(g.sum()) for g in got[0]}) == NONRIGID_ROWS,
+          f"nonrigid_fuse_batch: the {NONRIGID_ROWS} rows differ")
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    err = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+    del got, ref
+    V, nb = int(rows[0][0].shape[0]), int(np.prod(bs))
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        NONRIGID_ROWS * nb * 8
+    wrapper_ms = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+            torch.cuda.synchronize()
+        wrapper_ms = (time.perf_counter() - t0) * 200.0
+    single = lambda: NR.nonrigid_fuse_block(*rows[0], bs, "AVG_BLEND")
+    return dict(err=err, rows=NONRIGID_ROWS, ms=time_ms(run, reps=5),
+                wrapper_ms=wrapper_ms, per_block_ms=time_ms(single, reps=10),
+                plain_ms=time_ms(plain, reps=1, rounds=1), library_ms=None,
+                bound=bound(nbytes, NONRIGID_ROWS * V * nb * OPS["nonrigid"]))
 
 
 def resample_yard(name, run, plain, nbytes, ops, form, card, outputs=None):
@@ -5011,18 +5117,14 @@ def sharded_run(route, xml, out, ref_out, scale, dev, card, launches,
     kernels' and K4's arithmetic on the same staged inputs). Returns the
     FusionStats."""
     import numpy as np
-    import torch
 
     from bigstitcher_spark_tpu_torch import ops
 
-    on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    reset_peak(dev)
     cli["fusion_args"] = ["--devices", "4", *cli.get("fusion_args", ())]
     stats, wall = counted(route, launches, dev, lambda: run_cli(
         xml, out, scale, str(dev), **cli))
-    peak = torch.cuda.max_memory_allocated() if on_card else None
+    peak = peak_bytes(dev)
     got = {**ops.launch_counts(), **ops.coeff_launch_counts()}
     report(stats, wall, card, route)
     per_block = ("fuse_block_shift", "fuse_block", "fuse_block_sep",
@@ -5108,24 +5210,208 @@ def phase13_sharded(work, scale, dev, card, launches, proj_a, out_b, proj_c,
     print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+def peak_text(dev):
+    p = peak_bytes(dev)
+    return "not measured (CPU)" if p is None else f"{p} B"
+
+
+def phase14a(proj, scale, dev, card, launches, det_one):
+    """14a: detect_interest_points(devices=4) through the API on route A's
+    project at 8a's parameters, then with 8d's descriptors: points, values
+    (and descriptors, flags) bitwise 8a's and 8d's one-device results."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.io.dataset_io import ViewLoader
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import detection as TD
+
+    cfg = SCALES[scale]
+    block = ({} if cfg["det_block"] is None else
+             dict(block_size=tuple(cfg["det_block"])))
+    sd = SpimData.load(proj.xml_path)
+    for route, desc, ref in (("14a", False, det_one["8a"]),
+                             ("14a desc", True, det_one["8d"])):
+        params = TD.DetectionParams(label="beads", sigma=1.8, threshold=0.008,
+                                    downsample_xy=2, downsample_z=1,
+                                    extract_descriptors=desc, **block)
+        stats = TD.DetectionStats()
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        dets = counted(route, launches, dev, lambda: (
+            TD.detect_interest_points(
+                sd, ViewLoader(sd), [d.view for d in ref], params,
+                progress=False, device=dev, devices=4, stats=stats)),
+            exclusive=True)
+        wall = time.perf_counter() - t0
+        t = stats.timings
+        print(f"  [{route}] {card}: mesh {len(stats.mesh)} device(s) "
+              f"{stats.mesh} for devices=4; {stats.blocks} blocks in "
+              f"{stats.buckets} buckets / {stats.batches} batches, per_dev "
+              f"{stats.per_dev}; {stats.points} points; wall {wall:.3f}s -> "
+              f"{stats.core_voxels / wall:,.0f} det-res voxels/s; min/max "
+              f"{t['minmax']:.3f}s read {t['read']:.3f}s h2d {t['h2d']:.3f}s "
+              f"kernels {t['kernels']:.4f}s d2h {t['d2h']:.3f}s write (tail) "
+              f"{t['tail']:.3f}s; device memory peak {peak_text(dev)}",
+              flush=True)
+        check(stats.mesh and stats.batches > 0,
+              f"{route}: the sharded route ran ({stats.batches} batches)")
+        for a, b in zip(ref, dets):
+            same = (a.view == b.view and np.array_equal(a.points, b.points)
+                    and np.array_equal(a.values, b.values))
+            if desc:
+                same &= (np.array_equal(a.descriptors, b.descriptors)
+                         and np.array_equal(a.descriptor_valid,
+                                            b.descriptor_valid))
+            check(same and len(b.points) > 0,
+                  f"{route} {b.view}: {len(b.points)} points, values"
+                  + (", descriptors and flags" if desc else "")
+                  + f" bitwise the one-device run's ({route[:3]}"
+                  + (" = 8d" if desc else " = 8a") + ")")
+
+
+def phase14b(work, proj, scale, dev, card, launches):
+    """14b: nonrigid-fusion --devices 4 through the CLI entry function on
+    phase 11's inputs: K26's batch form and K4 a batch, no per-block K26;
+    s0 and every level bitwise phase 11's."""
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.cli.main import main
+
+    cfg = SCALES[scale]
+    xml = os.path.join(work, "p11", "dataset.xml")
+    out = os.path.join(work, "nonrigid14.ome.zarr")
+    main(["create-fusion-container", "-x", xml, "-o", out, "-s", "ZARR",
+          "-d", "UINT16", "-c", "raw", "--blockSize",
+          ",".join(str(b) for b in cfg["block"]), "--multiRes"])
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    (stats,) = counted("14b", launches, dev, lambda: main(
+        ["nonrigid-fusion", "-o", out, "-l", "beads", "--device", str(dev),
+         "--devices", "4"]), exclusive=True)
+    wall = time.perf_counter() - t0
+    from bigstitcher_spark_tpu_torch import ops
+
+    got = ops.launch_counts()
+    t = stats.timings
+    print(f"  [14b] {card}: mesh {len(stats.mesh)} device(s) {stats.mesh} "
+          f"for --devices 4; " + "; ".join(
+              f"bucket {b['key'][1:]}: {b['blocks']} blocks, per_dev "
+              f"{b['per_dev']}, {b['batches']} batches"
+              for b in stats.buckets)
+          + f"; {stats.batches} batches, {stats.voxels} voxels in "
+          f"{stats.seconds:.3f}s -> {stats.voxels / stats.seconds:,.0f} fused "
+          f"voxels/s (tool wall {wall:.3f}s with the sharded pyramid); plan "
+          f"{t['plan']:.3f}s read {t['read']:.3f}s h2d {t['h2d']:.3f}s "
+          f"kernel {t['kernel']:.4f}s d2h {t['d2h']:.3f}s write "
+          f"{t['write']:.3f}s; launches nonrigid_fuse {got['nonrigid_fuse']}"
+          f", nonrigid_fuse_batch {got['nonrigid_fuse_batch']}; device "
+          f"memory peak {peak_text(dev)}", flush=True)
+    check(stats.path == "sharded" and got["nonrigid_fuse"] == 0
+          and (got["nonrigid_fuse_batch"] == stats.batches
+               or dev.type != "cuda"),
+          f"14b: the sharded route, {got['nonrigid_fuse_batch']} launches of "
+          f"K26's batch form for {stats.batches} batches, no per-block K26")
+    _s, mr, read = container_levels(out)
+    _s11, mr11, read11 = container_levels(os.path.join(work,
+                                                       "nonrigid.ome.zarr"))
+    check(len(mr) == len(mr11) > 1, f"14b and phase 11: {len(mr)} levels")
+    for lvl in range(len(mr)):
+        a, b = read(lvl), read11(lvl)
+        check(a.shape == b.shape and np.array_equal(a, b) and a.std() > 0,
+              f"14b level {lvl} {a.shape} bitwise phase 11's")
+
+
+def phase14c(work, scale, dev, card, launches):
+    """14c: downsample_pyramid_level(devices=4) on route D's s0 into
+    datasets of their own: every level bitwise route D's."""
+    import dataclasses
+
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch.models.downsample_driver import (
+        downsample_pyramid_level)
+
+    store, mr, read = container_levels(os.path.join(work, "route_d.n5"))
+    prev = mr[0]
+    for lvl in range(1, len(mr)):
+        m = mr[lvl]
+        dst = dataclasses.replace(m, dataset=f"sharded14/s{lvl}")
+        store.create_dataset(dst.dataset, m.dimensions[:3], m.blockSize[:3],
+                             m.dataType.lower(), compression="raw")
+        st = {}
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        counted("14c", launches, dev, lambda: downsample_pyramid_level(
+            store, prev, dst, False, device=dev, devices=4, stats=st),
+            exclusive=True)
+        wall = time.perf_counter() - t0
+        t = st["timings"]
+        vox = int(np.prod(m.dimensions[:3]))
+        print(f"  [14c level {lvl}] {card}: mesh {len(st['mesh'])} device(s) "
+              f"{st['mesh']} for devices=4; " + "; ".join(
+                  f"source {b['shape']}: {b['blocks']} blocks, per_dev "
+                  f"{b['per_dev']}, {b['batches']} batches"
+                  for b in st["buckets"])
+              + f"; {st['batches']} batches; wall {wall:.3f}s -> "
+              f"{vox / wall:,.0f} level voxels/s; read {t['read']:.3f}s h2d "
+              f"{t['h2d']:.3f}s kernel {t['kernel']:.4f}s d2h "
+              f"{t['d2h']:.3f}s write {t['write']:.3f}s; device memory peak "
+              f"{peak_text(dev)}", flush=True)
+        a = store.open_dataset(dst.dataset).read_full()
+        b = read(lvl)
+        check(a.shape == b.shape and np.array_equal(a, b) and a.std() > 0,
+              f"14c level {lvl} {a.shape} bitwise route D's")
+        prev = dst
+
+
+def phase14_shard_routes(work, scale, dev, card, launches, proj_a, det_one):
+    """Phase 14: the shard_jit routes at devices=4 on the one card (a
+    one-device mesh): 14a detection, 14b nonrigid fusion, 14c the
+    downsample stage, each bitwise its one-device route."""
+    print("phase 14 (shard_jit routes: detection, nonrigid fusion, "
+          "downsample stage at devices=4)", flush=True)
+    t0 = time.perf_counter()
+    phase14a(proj_a, scale, dev, card, launches, det_one)
+    phase14b(work, proj_a, scale, dev, card, launches)
+    phase14c(work, scale, dev, card, launches)
+    print(f"  phase 14 wall {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-13 through the CLI entry functions (8d and 12 through the
-    API); returns route A's XML and container paths and phases 7-12's
-    kernel results."""
-    a = route_a(work, scale, dev, card, launches)
-    out_b = route_b(work, scale, dev, card, launches, a)
-    proj_c = route_c(work, scale, dev, card, launches)
-    route_d(work, scale, dev, card, launches, a)
-    phase6_stitching(a[0], proj_c, dev, card, launches)
-    relax = phase7_solver(work, scale, a[0], dev, card, launches)
-    det, det_b, gate8d = phase8_detection(a[0], scale, dev, card, launches)
-    match = phase9_matching(work, a[0], det_b, scale, dev, card, launches,
-                            gate8d)
-    inten, proj10 = phase10_intensity(work, scale, dev, card, launches)
-    nonrigid = phase11_nonrigid(work, a[0], scale, dev, card, launches)
-    scan = phase12_scan(scale, dev, card, launches, a, out_b)
-    phase13_sharded(work, scale, dev, card, launches, a[0], out_b, proj_c,
-                    proj10)
+    """Phases 2-14 through the CLI entry functions (8d, 12, 14a and 14c
+    through the API); returns route A's XML and container paths and
+    phases 7-12's kernel results. Prints each phase's wall."""
+    walls, t = {}, [time.perf_counter()]
+
+    def lap(phase, out=None):
+        now = time.perf_counter()
+        walls[phase] = round(now - t[0], 1)
+        t[0] = now
+        return out
+
+    a = lap("2", route_a(work, scale, dev, card, launches))
+    out_b = lap("3", route_b(work, scale, dev, card, launches, a))
+    proj_c = lap("4", route_c(work, scale, dev, card, launches))
+    lap("5", route_d(work, scale, dev, card, launches, a))
+    lap("6", phase6_stitching(a[0], proj_c, dev, card, launches))
+    relax = lap("7", phase7_solver(work, scale, a[0], dev, card, launches))
+    det, det_b, gate8d, det_one = lap("8", phase8_detection(
+        a[0], scale, dev, card, launches))
+    match = lap("9", phase9_matching(work, a[0], det_b, scale, dev, card,
+                                     launches, gate8d))
+    inten, proj10 = lap("10", phase10_intensity(work, scale, dev, card,
+                                                launches))
+    nonrigid = lap("11", phase11_nonrigid(work, a[0], scale, dev, card,
+                                          launches))
+    scan = lap("12", phase12_scan(scale, dev, card, launches, a, out_b))
+    lap("13", phase13_sharded(work, scale, dev, card, launches, a[0], out_b,
+                              proj_c, proj10))
+    lap("14", phase14_shard_routes(work, scale, dev, card, launches, a[0],
+                                   det_one))
+    print(f"phase walls (s): {walls}", flush=True)
     return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
                                  **nonrigid, **scan}
 
@@ -5180,14 +5466,17 @@ def main(argv=None) -> int:
                     if "registers" in ln]
             print(f"  {name}: {'; '.join(regs)[:300]}")
         print(f"phase 1: kernels vs plain twins [{card}]", flush=True)
+        t0 = time.time()
         res = phase1_kernels(dev, args.scale, card)
+        print(f"  phase 1 wall {time.time() - t0:.1f}s", flush=True)
 
         *route, later = main_path(work, args.scale, dev, card, launches)
         coeff = later.pop("coeff")
         masked = later.pop("knn_descriptors_masked")
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
-              f"detection, matching, intensity, nonrigid, scan, sharded): "
+              f"detection, matching, intensity, nonrigid, scan, sharded, "
+              f"shard_jit routes): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -5236,8 +5525,10 @@ def main(argv=None) -> int:
                 "block_bound_ms": r["block_bound"][0],
                 "block_max_abs_err": r["block_err"]}
                if "block_ms" in r else {}),
-            # K3's and K26's launch form, K3's time by fusion type
-            **{k: r[k] for k in ("form", "ft_ms") if k in r},
+            # K3's and K26's launch form, K3's time by fusion type; K26's
+            # batch form's rows and the per-block time beside it (phase 1)
+            **{k: r[k] for k in ("form", "ft_ms", "rows", "per_block_ms")
+               if k in r},
             # K6's one-axis form and its batch form at route D's boxes
             # (phase 1), K21 at 9a's shape beside 9b's, K19's masked form
             # (8d)

@@ -194,7 +194,7 @@ def test_argparse_accepts_every_jax_spelling(tool, cmd):
     ("detect-interestpoints", ["--s3Region", "us-east-1"], "--s3Region"),
     ("match-interestpoints", ["--profile"], "--profile"),
     ("match-interestpoints", ["--telemetry-dir", "t"], "--telemetry-dir"),
-    ("nonrigid-fusion", ["--devices", "2"], "--devices"),
+    ("nonrigid-fusion", ["--profile"], "--profile"),
     ("nonrigid-fusion", ["--trace"], "--trace"),
     ("nonrigid-fusion", ["--bdv"], "--bdv"),
     ("nonrigid-fusion", ["-s", "HDF5"], "-s HDF5"),

@@ -1786,9 +1786,10 @@ def test_nonrigid_fuse_kernel_ragged(dev, case, fusion_type):
     _nonrigid_check(dev, args, bs, fusion_type)
 
 
-def test_nonrigid_fuse_kernel_64bit_patch(dev):
-    """One uint8 view of 1300^3 (past 2^31 elements) and a small block at
-    its far corner: the 64-bit index instantiation, against the twin."""
+def _nonrigid_64bit_rows(dev, rows):
+    """``rows`` sets of K26 inputs of one uint8 view of 1300^3 (past 2^31
+    elements; each row its own draws) and a small block at its far corner,
+    on ``dev``."""
     from bigstitcher_spark_tpu_torch.models.nonrigid_fusion import (
         control_grid_dims)
     from bigstitcher_spark_tpu_torch.ops.nonrigid import fit_control_grid
@@ -1799,23 +1800,53 @@ def test_nonrigid_fuse_kernel_64bit_patch(dev):
     bo = np.array([5000.5, 3000.25, 700.75], np.float32)
     go = bo - np.float32(10.0)
     gdims = control_grid_dims(bs, 10.0)
-    t = bo + rng.uniform(-10, 20, (30, 3))
-    vw = t + rng.normal(0, 0.5, (30, 3))
-    grid = fit_control_grid(t, vw, go.astype(np.float64), gdims, 10.0)
-    vaff = np.zeros((1, 3, 4), np.float32)
-    vaff[0, :, :3] = np.eye(3)
-    vaff[0, :, 3] = -bo + np.array([n - 14.5, n - 11.5, n - 9.5])
-    g = torch.Generator(device=dev).manual_seed(46)
-    patches = torch.randint(0, 256, (1, n, n, n), dtype=torch.uint8,
-                            device=dev, generator=g)
-    arrays = (grid[None], vaff, np.full((1, 3), 100.0, np.float32),
-              np.full((1, 3), n + 150.0, np.float32),
-              rng.uniform(0, 2, (1, 3)).astype(np.float32),
-              rng.uniform(4, 12, (1, 3)).astype(np.float32),
-              np.ones(1, np.float32), bo, go, np.full(3, 10.0, np.float32))
-    args = [patches] + [torch.from_numpy(np.ascontiguousarray(a))
-                        for a in arrays]
+    out = []
+    for r in range(rows):
+        t = bo + rng.uniform(-10, 20, (30, 3))
+        vw = t + rng.normal(0, 0.5, (30, 3))
+        grid = fit_control_grid(t, vw, go.astype(np.float64), gdims, 10.0)
+        vaff = np.zeros((1, 3, 4), np.float32)
+        vaff[0, :, :3] = np.eye(3)
+        vaff[0, :, 3] = -bo + np.array([n - 14.5, n - 11.5, n - 9.5])
+        g = torch.Generator(device=dev).manual_seed(46 + r)
+        patches = torch.randint(0, 256, (1, n, n, n), dtype=torch.uint8,
+                                device=dev, generator=g)
+        arrays = (grid[None], vaff, np.full((1, 3), 100.0, np.float32),
+                  np.full((1, 3), n + 150.0, np.float32),
+                  rng.uniform(0, 2, (1, 3)).astype(np.float32),
+                  rng.uniform(4, 12, (1, 3)).astype(np.float32),
+                  np.ones(1, np.float32), bo, go,
+                  np.full(3, 10.0, np.float32))
+        out.append([patches] + [torch.from_numpy(np.ascontiguousarray(a))
+                                for a in arrays])
+    return out, bs
+
+
+def test_nonrigid_fuse_kernel_64bit_patch(dev):
+    """One uint8 view of 1300^3 (past 2^31 elements) and a small block at
+    its far corner: the 64-bit index instantiation, against the twin."""
+    (args,), bs = _nonrigid_64bit_rows(dev, 1)
     _nonrigid_check(dev, args, bs, "AVG_BLEND")
+
+
+def test_nonrigid_batch_form_64bit_patch(dev):
+    """K26's batch form's 64-bit index instantiation: two rows of a 1300^3
+    uint8 view, each bitwise the per-block kernel's, the batch within the
+    per-block tolerance of its twin."""
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    per_row, bs = _nonrigid_64bit_rows(dev, 2)
+    args = [torch.stack([r[j] for r in per_row]).to(dev) for j in range(11)]
+    got = NR.nonrigid_fuse_block_batch(*args, bs, "AVG_BLEND")
+    for b, row in enumerate(per_row):
+        want = NR.nonrigid_fuse_block(*(a.to(dev) for a in row), bs,
+                                      "AVG_BLEND")
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), f"row {b}"
+    del per_row
+    ref = NR.nonrigid_fuse_block_batch_plain(*args, bs, "AVG_BLEND")
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
 
 
 # --------------------------------------------------------------- K27, K6
@@ -1994,6 +2025,74 @@ def test_batch_form_bitwise_per_block_kernel(dev, kind, coeff, fusion_type,
                 **{k: v.cpu() for k, v in extra.items()})
     torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------ K26's batch form
+
+
+def _nonrigid_batch(rng, dtype, rows, V, n_valid, bs, cpd=10.0):
+    """``rows`` distinct K26 rows of :func:`_nonrigid_case` (each its own
+    draws and block origin) and a padding row (all zeros, as the sharded
+    route pads)."""
+    per = []
+    for r in range(rows):
+        args, _bs = _nonrigid_case(rng, dtype, V, n_valid, bs, cpd)
+        for j in (8, 9):  # the row's block and grid origins
+            args[j] = args[j] + np.float32(3.0 * r)
+        per.append(args)
+    per.append([torch.zeros_like(a) for a in per[0]])
+    return [torch.stack([p[j] for p in per]) for j in range(11)], bs
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "float32"])
+@pytest.mark.parametrize("case", [((24, 20, 16), 4, 3), ((5, 3, 7), 1, 1),
+                                  ((2, 5, 64), 9, 9)],
+                         ids=["small", "ragged-V1", "ragged-V9"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_nonrigid_batch_form_bitwise_per_block_kernel(dev, fusion_type, case,
+                                                      dtype):
+    """Each row of K26's batch launch equals the per-block launch on the
+    same inputs bit for bit; the padding row writes zeros; one launch; the
+    batch within the per-block tolerance of its twin."""
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    bs, V, n_valid = case
+    args, bs = _nonrigid_batch(np.random.default_rng(71), dtype, 3, V,
+                               n_valid, bs)
+    args = [a.to(dev) for a in args]
+    ops.reset_launch_counts()
+    got = NR.nonrigid_fuse_block_batch(*args, bs, fusion_type)
+    counts = ops.launch_counts()
+    assert counts["nonrigid_fuse_batch"] == 1
+    assert counts["nonrigid_fuse"] == 0
+    for b in range(3):
+        want = NR.nonrigid_fuse_block(*(a[b].contiguous() for a in args), bs,
+                                      fusion_type)
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), f"row {b}"
+    assert not got[0][-1].any() and not got[1][-1].any()
+    assert len({float(f.sum()) for f in got[0][:3]}) == 3
+    ref = NR.nonrigid_fuse_block_batch_plain(*args, bs, fusion_type)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+def test_nonrigid_batch_form_refuses_bad_inputs(dev):
+    from bigstitcher_spark_tpu_torch.ops import nonrigid as NR
+
+    args, bs = _nonrigid_batch(np.random.default_rng(72), "uint16", 2, 4, 3,
+                               (24, 20, 16))
+    args = [a.to(dev) for a in args]
+    ops.reset_launch_counts()
+    bad = list(args)
+    bad[8] = bad[8][0].contiguous()  # a per-block origin
+    with pytest.raises(ValueError):
+        NR.nonrigid_fuse_block_batch(*bad, bs, "AVG")
+    bad = list(args)
+    bad[1] = bad[1].cpu()
+    with pytest.raises(ValueError):
+        NR.nonrigid_fuse_block_batch(*bad, bs, "AVG")
+    assert ops.launch_counts()["nonrigid_fuse_batch"] == 0
 
 
 # ------------------------------------------------------ K28 block epilogue

@@ -49,7 +49,8 @@ F32 = np.float32
 
 
 def _launcher_accepts(plan, block_shape) -> bool:
-    """The checks bst_fuse_block_batch and bst_nonrigid_fuse make of a plan."""
+    """The checks bst_fuse_block_batch and bst_nonrigid_fuse_batch make of a
+    plan."""
     bx, by, bz = block_shape
     lz, tz = plan.lanes_z, F.RESAMPLE_R * plan.lanes_z
     tile_j = F.RESAMPLE_THREADS // lz
