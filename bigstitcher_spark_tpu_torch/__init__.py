@@ -15,10 +15,11 @@ nothing and compiles nothing: kernels are built at first launch.
 Ported so far: ``create-fusion-container`` (with pyramids),
 single-device ``affine-fusion`` (with the ``--pyramid`` epilogue and the
 downsample stage), ``downsample``, single-device ``stitching``, the
-single-device ``solver`` (stitching and interest-point sources),
-``detect-interestpoints``, ``match-interestpoints``, ``match-intensities``
-and ``solve-intensities`` (whose grids ``affine-fusion --intensityN5``
-applies), and single-device ``nonrigid-fusion``.
+``solver`` (stitching and interest-point sources; sharded over a solve
+mesh above ``BST_SOLVE_SHARD`` rows), ``detect-interestpoints``,
+``match-interestpoints``, ``match-intensities`` and ``solve-intensities``
+(whose grids ``affine-fusion --intensityN5`` applies; its CG sharded the
+same way), and single-device ``nonrigid-fusion``.
 Everything else raises :class:`NotYetPorted`.
 """
 

@@ -42,6 +42,14 @@ KNOBS = {
         "relax kernels K11-K14 on the card, their plain twins on the CPU); "
         "0 selects the host numpy reference path. An explicit "
         "--solverBackend wins."),
+    "BST_SOLVE_SHARD": (
+        "int", 500000,
+        "Point-row threshold above which a device solve shards its link "
+        "rows across every device of the solve mesh (rows grouped by owner "
+        "tile via pairsched cost-weighted placement, each sweep's segment "
+        "moments reduced by the shard-sum kernel K29). Sharded and "
+        "single-device relaxations are bit-identical. 0 disables "
+        "sharding."),
     "BST_WRITE_THREADS": (
         "int", 8,
         "Concurrent writer threads for the fused-volume drain and the "

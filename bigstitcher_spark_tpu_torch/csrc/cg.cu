@@ -19,6 +19,12 @@
 //   L2). Each block sums p_new[i] Ap[i] over its rows in a fixed order; the
 //   last block to finish (a ticket) sums the block partials in index order
 //   into dstate[3].
+//   Its partial form (kPartial, the sharded CG's: the counterpart of one
+//   shard's data term under shard_map, ops/solve.py:600) writes the shard's
+//   Ap_d only, and p_new where p_new is not null (one launch a device needs
+//   it); it takes no p.Ap block sums, no partials and no ticket: the shard
+//   sum K29 (shard.cu) adds the shards' Ap_d and takes p.Ap. A template
+//   flag, so the full form compiles to the parent's code.
 // K25 bst_cg_update: alpha = rs / max(p.Ap, 1e-300); x += alpha p,
 //   r -= alpha Ap; r.r summed as above; the last block sets beta =
 //   rs_new / max(rs, 1e-300), rs, the iteration count and the done flag
@@ -55,10 +61,12 @@
 //   * The lists are loaded with an L2 evict-first policy: they pass through
 //     once a launch, and r, p_old (gathered) and p_new, Ap (read by K25)
 //     stay in L2.
-//   * Block sums (K25's too) by warp shuffles and one barrier; the last
+//   * Block sums (K25's too, reduce.cuh) by warp shuffles and one barrier; the last
 //     block reads the partials eight loads at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduce.cuh"
 
 namespace {
 
@@ -80,48 +88,6 @@ int blocks_for(int n) {
 int spmv_blocks(int n, int lanes) {
   const int rows = kThreads / lanes * kSweeps;
   return (n + rows - 1) / rows;
-}
-
-// Fixed-order sum of one value per thread of the block, one barrier: each
-// warp's xor tree, then thread 0 adds the warps' sums in order; the result
-// is valid in thread 0.
-__device__ double block_sum(double v, double* sh) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = v + __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double t = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) t = t + sh[w];
-  return t;
-}
-
-// Store this block's partial and take a ticket; true in every thread of the
-// last block to arrive, which then sums all partials in a fixed order
-// (each thread a stride of them in index order, then the block sum) into
-// *total. The ticket is reset for the next launch.
-__device__ bool last_block_total(double partial, double* partials, int* ticket,
-                                 double* sh, double* total) {
-  __shared__ bool am_last;
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = partial;
-    __threadfence();
-    am_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
-  }
-  __syncthreads();
-  if (!am_last) return false;
-  __threadfence();
-  double v = 0.0;
-#pragma unroll 8
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads)
-    v = v + __ldcg(partials + b);
-  const double t = block_sum(v, sh);
-  if (threadIdx.x == 0) {
-    *total = t;
-    *ticket = 0;
-  }
-  return true;
 }
 
 // a load of a list term, evicted first from L2: the lists pass through
@@ -155,7 +121,8 @@ __device__ __forceinline__ double load_stream(const double* p,
 // list in order, a fixed xor tree adds the G lane sums, and lane 0 writes
 // the row. A block takes kSweeps groups of 256 / G rows in turn; in each,
 // a lane loads its first two terms together, then any longer row's tail.
-template <int G>
+// kPartial: Ap (and p_new unless null) only, no p.Ap.
+template <int G, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
 cg_spmv_kernel(int n, const int* __restrict__ row_ptr,
                const int* __restrict__ cols, const double* __restrict__ vals,
@@ -197,15 +164,22 @@ cg_spmv_kernel(int n, const int* __restrict__ row_ptr,
       s = s + __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0 && live) {
       const double pi = ri + beta * poi;
-      p_new[i] = pi;
-      ap[i] = s;
-      dot = dot + pi * s;
+      if constexpr (kPartial) {
+        if (p_new != nullptr) p_new[i] = pi;
+        ap[i] = s;
+      } else {
+        p_new[i] = pi;
+        ap[i] = s;
+        dot = dot + pi * s;
+      }
     }
   }
-  const double part = block_sum(dot, sh);
+  if constexpr (kPartial) return;
+  const double part = bst::block_sum<kThreads>(dot, sh);
   __syncthreads();
   double total;
-  if (last_block_total(part, partials, istate + I_TICKET_SPMV, sh, &total) &&
+  if (bst::last_block_total<kThreads>(part, partials, istate + I_TICKET_SPMV,
+                                      sh, &total) &&
       threadIdx.x == 0)
     dstate[D_PAP] = total;
 }
@@ -233,11 +207,11 @@ cg_update_kernel(int n, int init, const double* __restrict__ rhs,
     r[i] = ri;
     acc = acc + ri * ri;
   }
-  const double part = block_sum(acc, sh);
+  const double part = bst::block_sum<kThreads>(acc, sh);
   __syncthreads();
   double rs_new;
-  if (last_block_total(part, partials, istate + I_TICKET_UPDATE, sh,
-                       &rs_new) &&
+  if (bst::last_block_total<kThreads>(part, partials,
+                                      istate + I_TICKET_UPDATE, sh, &rs_new) &&
       threadIdx.x == 0) {
     const int k = init ? 0 : istate[I_ITERS] + 1;
     dstate[D_BETA] = init ? 0.0 : rs_new / fmax(rs, 1e-300);
@@ -247,12 +221,12 @@ cg_update_kernel(int n, int init, const double* __restrict__ rhs,
   }
 }
 
-template <int G>
+template <int G, bool kPartial>
 cudaError_t launch_spmv(int n, const void* row_ptr, const void* cols,
                         const void* vals, const void* r, const void* p_old,
                         void* p_new, void* ap, void* dstate, void* istate,
                         void* partials, cudaStream_t stream) {
-  cg_spmv_kernel<G><<<spmv_blocks(n, G), kThreads, 0, stream>>>(
+  cg_spmv_kernel<G, kPartial><<<spmv_blocks(n, G), kThreads, 0, stream>>>(
       n, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
       static_cast<const double*>(vals), static_cast<const double*>(r),
       static_cast<const double*>(p_old), static_cast<double*>(p_new),
@@ -263,23 +237,29 @@ cudaError_t launch_spmv(int n, const void* row_ptr, const void* cols,
 
 }  // namespace
 
-// lanes: G lanes a row (a power of two, 1 to 32); partials: n_partials
-// doubles, at least one a block (spmv_blocks) and 1024 (K25's)
-extern "C" int bst_cg_spmv(int n, int lanes, const void* row_ptr,
+// lanes: G lanes a row (a power of two, 1 to 32); partial: 0 the full form
+// (partials: n_partials doubles, at least one a block (spmv_blocks) and 1024
+// (K25's)), 1 the partial form (p_new may be null; partials unused)
+extern "C" int bst_cg_spmv(int n, int lanes, int partial, const void* row_ptr,
                            const void* cols, const void* vals, const void* r,
                            const void* p_old, void* p_new, void* ap,
                            void* dstate, void* istate, void* partials,
                            int n_partials, void* stream) {
   if (n <= 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
-      n_partials < spmv_blocks(n, lanes))
+      (partial != 0 && partial != 1) ||
+      (!partial && (p_new == nullptr || n_partials < spmv_blocks(n, lanes))))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (lanes) {
 #define BST_CG_LANES(G)                                                     \
   case G:                                                                   \
-    err = launch_spmv<G>(n, row_ptr, cols, vals, r, p_old, p_new, ap,      \
-                         dstate, istate, partials, s);                      \
+    err = partial ? launch_spmv<G, true>(n, row_ptr, cols, vals, r, p_old,  \
+                                         p_new, ap, dstate, istate,         \
+                                         partials, s)                       \
+                  : launch_spmv<G, false>(n, row_ptr, cols, vals, r, p_old, \
+                                          p_new, ap, dstate, istate,        \
+                                          partials, s);                     \
     break;
     BST_CG_LANES(1)
     BST_CG_LANES(2)

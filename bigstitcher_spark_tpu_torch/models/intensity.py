@@ -438,11 +438,15 @@ def smoothness_pairs(dims: tuple[int, int, int], n_views: int) -> np.ndarray:
 def solve_intensities(matches: list[CellMatch], views: list[ViewId],
                       dims: tuple[int, int, int], lam: float = 0.1,
                       progress: bool = True, device=None,
-                      backend: str | None = None) -> dict[ViewId, np.ndarray]:
+                      backend: str | None = None,
+                      devices=None) -> dict[ViewId, np.ndarray]:
     """Global solve -> per-view (cx,cy,cz,2) [scale, offset] grids, on
-    ``device`` (default ``cuda``). The quadratic form is normalised by the
-    mean matched intensity so ``lam`` is scale-free; a solve on the device
-    also registers its grids with the fusion coefficient table there."""
+    ``device`` (default ``cuda``), or over the solve mesh ``devices``
+    (``ops.intensity.solve_intensity_coefficients``). The quadratic form is
+    normalised by the mean matched intensity so ``lam`` is scale-free; a
+    solve on the device also registers its grids with the fusion
+    coefficient table there (a sharded solve: the first mesh device's
+    replicated solution)."""
     from .affine_fusion import register_coefficient_table
 
     dev = resolve_device(device)
@@ -464,7 +468,7 @@ def solve_intensities(matches: list[CellMatch], views: list[ViewId],
     dev_sol: list = []
     sol = OI.solve_intensity_coefficients(
         ncell * len(views), norm, lam, smooth_pairs=smooth, backend=backend,
-        on_device_solution=dev_sol.append, device=dev)
+        on_device_solution=dev_sol.append, device=dev, devices=devices)
     out = {}
     for v in views:
         c = sol[base[v]: base[v] + ncell].copy()

@@ -34,7 +34,6 @@ from ..io.interestpoints import InterestPointStore
 from ..io.spimdata import SpimData, ViewId, ViewTransform, registration_hash
 from ..ops import models as M
 from ..ops import solve as _dsolve
-from ..utils.device import resolve_device
 from ..utils.geometry import (
     Interval,
     apply_affine,
@@ -61,6 +60,7 @@ class SolverParams:
     damping: float = 1.0                   # Jacobi under-relaxation factor
     backend: str | None = None             # device | numpy | None (knob)
     device: str | None = None              # torch device of the device backend (None: cuda)
+    devices: list | None = None            # solve mesh (repeats allowed; None: every card, or [cpu])
     fixed_views: list[ViewId] = field(default_factory=list)
     disable_fixed_views: bool = False
     labels: list[str] = field(default_factory=list)
@@ -98,6 +98,7 @@ class SolveResult:
     history: np.ndarray | None = None   # per-iteration mean error
     # host seconds: "matches" (assembly), "warm_start", "relax"
     timings: dict[str, float] = field(default_factory=dict)
+    shards: int = 1   # the most shards a relaxation took (1: one device)
 
 
 def links_from_reference(links) -> list[MatchLink]:
@@ -501,7 +502,11 @@ class _DeviceRelax:
     """Runs :func:`..ops.solve.relax_on_device`: flattens the link
     graph ONCE onto the device, then every solve — the first and every
     masked re-solve of the iterative drop-worst-link loop — reuses those
-    arrays with a per-link weight mask."""
+    arrays with a per-link weight mask. Above ``BST_SOLVE_SHARD`` point
+    rows, on a solve mesh of more than one device
+    (:func:`..ops.solve.solve_layout`), the rows are laid out per mesh
+    device, tiles placed cost-weighted by their rows with
+    ``pairsched.assign_tasks``, and each sweep's sums added by K29."""
 
     def __init__(self, links: list[MatchLink], tiles: list[Key],
                  fixed: set[Key], params: SolverParams):
@@ -515,8 +520,29 @@ class _DeviceRelax:
         rows = [(self.index[lk.key_a], self.index[lk.key_b],
                  np.asarray(lk.p, np.float64), np.asarray(lk.q, np.float64),
                  np.asarray(lk.w, np.float64)) for lk in self.links]
-        self.problem = _dsolve.prepare_relax(rows, T,
-                                             resolve_device(params.device))
+        mesh = _dsolve.solve_mesh(params.device, params.devices)
+        n_shards = _dsolve.solve_layout(
+            2 * sum(len(p) for _, _, p, _, _ in rows), mesh)
+        if n_shards > 1:
+            from ..parallel.pairsched import PairTask, assign_tasks
+
+            # rows per tile drive placement: the per-device row counts are
+            # the load of the sharded segment sums
+            per_tile = np.zeros(T)
+            for ia, ib, p, _, _ in rows:
+                per_tile[ia] += len(p)
+                per_tile[ib] += len(p)
+            bins = assign_tasks([PairTask(index=t, cost=float(per_tile[t]))
+                                 for t in range(T)], n_shards)
+            tile_shard = np.zeros(T, np.int32)
+            for d, bin_tasks in enumerate(bins):
+                for t in bin_tasks:
+                    tile_shard[t.index] = d
+            self.problem = _dsolve.prepare_relax(rows, T, mesh[0], n_shards,
+                                                 tile_shard, mesh)
+        else:
+            self.problem = _dsolve.prepare_relax(rows, T, mesh[0])
+        self.n_shards = n_shards
         self.fixed_mask = np.zeros(T, bool)
         if len(self.fixed_idx):
             self.fixed_mask[self.fixed_idx] = True
@@ -553,7 +579,7 @@ class _DeviceRelax:
         return SolveResult(
             {k: out.models[i].copy() for k, i in self.index.items()},
             err, out.iterations, [], link_errors, history=out.history,
-            timings=timings,
+            timings=timings, shards=self.n_shards,
         )
 
 
@@ -692,7 +718,7 @@ def solve(
 
     comps = connected_components(tiles, links)
     corrections: dict[Key, np.ndarray] = {}
-    total_err, total_it = 0.0, 0
+    total_err, total_it, shards = 0.0, 0, 1
     removed: list[tuple[Key, Key]] = []
     link_errors: dict[tuple[Key, Key], float] = {}
     for comp in comps:
@@ -710,6 +736,7 @@ def solve(
         corrections.update(res.corrections)
         total_err = max(total_err, res.error)
         total_it += res.iterations
+        shards = max(shards, res.shards)
         removed.extend(res.removed_links)
         link_errors.update(res.link_errors)
         for k, v in res.timings.items():
@@ -729,7 +756,7 @@ def solve(
             print(f"solver: WARNING did not reach --maxError "
                   f"{params.max_error} px (best {total_err:.3f} px)")
     return SolveResult(corrections, total_err, total_it, removed, link_errors,
-                       timings=timings)
+                       timings=timings, shards=shards)
 
 
 def _align_components_to_metadata(comps, corrections, fixed, verbose):

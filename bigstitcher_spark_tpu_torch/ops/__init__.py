@@ -10,13 +10,13 @@ below read and reset them all at once.
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name."""
     from . import (descriptors, dog, downsample, epilogue, fusion, intensity,
-                   nonrigid, phasecorr, solve)
+                   nonrigid, phasecorr, shard, solve)
 
     return {**fusion.KERNEL_WRAPPERS, **downsample.KERNEL_WRAPPERS,
             **phasecorr.KERNEL_WRAPPERS, **solve.KERNEL_WRAPPERS,
             **dog.KERNEL_WRAPPERS, **descriptors.KERNEL_WRAPPERS,
             **intensity.KERNEL_WRAPPERS, **nonrigid.KERNEL_WRAPPERS,
-            **epilogue.KERNEL_WRAPPERS}
+            **epilogue.KERNEL_WRAPPERS, **shard.KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:

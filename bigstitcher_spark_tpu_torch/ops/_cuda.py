@@ -28,8 +28,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("composite", "shift", "gather", "convert", "sep", "downsample",
            "pcm", "fft", "solve", "dog", "descriptors", "ransac", "intensity",
-           "cg", "nonrigid", "epilogue")
-HEADERS = ("fusion_common.cuh", "fit3d.cuh")
+           "cg", "nonrigid", "epilogue", "shard")
+HEADERS = ("fusion_common.cuh", "fit3d.cuh", "reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,8 +114,12 @@ _SIGNATURES = {
                               + [_VP] * 6,
     },
     "cg": {
-        "bst_cg_spmv": [_I, _I] + [_VP] * 10 + [_I, _VP],
+        "bst_cg_spmv": [_I, _I, _I] + [_VP] * 10 + [_I, _VP],
         "bst_cg_update": [_I, _I] + [_VP] * 9,
+    },
+    "shard": {
+        "bst_shard_sum_blocks": [_I64],
+        "bst_shard_sum": [_I64, _I] + [_VP] * 6 + [_I, _VP, _VP, _VP],
     },
     "epilogue": {
         "bst_block_epilogue": [_VP, _VP] + [_I] * 4 + [_F, _F] + [_I] * 3

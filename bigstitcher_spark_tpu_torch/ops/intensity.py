@@ -339,6 +339,7 @@ def solve_intensity_coefficients(
     backend: str | None = None,
     on_device_solution=None,
     device=None,
+    devices=None,
 ) -> np.ndarray:
     """Global least squares over the coefficient graph; (n_cells, 2)
     [scale, offset].
@@ -351,17 +352,23 @@ def solve_intensity_coefficients(
     :func:`.solve.resolve_backend`): ``"device"`` runs the float64 CG on
     ``device`` (K24/K25 on the card, their twins on the CPU; default
     ``cuda``), ``"numpy"`` solves the dense system on the host. With no
-    match the dense path runs, as in the JAX package.
+    match the dense path runs, as in the JAX package. Above
+    ``BST_SOLVE_SHARD`` match rows the device CG shards its rows over the
+    solve mesh (``devices``, repeats allowed, else every card of the host;
+    :func:`.solve.solve_layout`) when it has more than one device.
     ``on_device_solution``: called with the device solution vector (2C,)
-    before the host copy (device backend only)."""
+    before the host copy (device backend only; the first mesh device's
+    when sharded)."""
     from . import solve as S
-    from ..utils.device import resolve_device
 
     rows, diag, rhs, sidx, sw = intensity_system(
         n_cells, matches, lam, smooth_pairs, smooth_weight)
     if S.resolve_backend(backend) == "device" and len(rows):
-        sol = S.solve_intensity_device(
-            n_cells, rows, diag, rhs, sidx, sw, resolve_device(device)).x
+        mesh = S.solve_mesh(device, devices)
+        n_shards = S.solve_layout(len(rows), mesh)
+        sol = S.solve_intensity_device(n_cells, rows, diag, rhs, sidx, sw,
+                                       mesh[0], n_shards=n_shards,
+                                       mesh=mesh).x
         if on_device_solution is not None:
             on_device_solution(sol)
         return sol.cpu().numpy().reshape(n_cells, 2)

@@ -42,12 +42,24 @@ the same amount). About the tile's origin the same fits are exact in real
 arithmetic (the AFFINE fit's 1e-9 ridge is carried to the tile's origin
 with it, :func:`ridge_terms`) and well conditioned.
 
-Not here yet (ROADMAP.md): the sharded layout over several devices, the
-compile-bucket telemetry, and the intensity solve's conjugate gradients.
+The sharded relaxation (the JAX ``shard_map`` program of
+``_build_relax_fn``, :428) runs when :func:`solve_layout` says so
+(``BST_SOLVE_SHARD`` point rows and a mesh of more than one device): the
+rows are split by owner tile over the shards (:class:`ShardedRelaxProblem`),
+each shard runs K11 and K13 on its own rows with every tile's entry (zeros
+for the tiles it does not own), and the shard sum K29 (``ops/shard.py``,
+the ``lax.psum``) adds the shards' moments and error sums; K12 and K14 run
+once a distinct device of the mesh on the replicated state. The sharded
+result is bitwise the one-device one. The intensity CG shards the same way
+(:class:`ShardedCGSystem`, ``shard_map`` at :600). A mesh that spans several
+processes (the JAX package's ``BST_SOLVE_GLOBAL``) and the compile-bucket
+telemetry are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 from dataclasses import dataclass
 
@@ -58,6 +70,7 @@ from .. import config
 from . import _cuda
 from . import models as M
 from .fusion import _require, _stream
+from .shard import shard_sum, shard_sum_plain
 
 _EPS_FIT = 1e-9
 N_MOMENTS = 36
@@ -77,6 +90,37 @@ def resolve_backend(explicit: str | None = None) -> str:
     if explicit:
         return explicit.lower()
     return "device" if config.get("BST_SOLVE_DEVICE") else "numpy"
+
+
+def solve_mesh(device=None, devices=None) -> list[torch.device]:
+    """The 1-D solve mesh: ``devices`` (repeats allowed, e.g. ``["cpu"] *
+    4``), else every card of the host for a CUDA ``device`` (the JAX
+    package's local devices; ``device`` first), else ``[device]``. A solve
+    that does not shard runs on ``mesh[0]``."""
+    from ..utils.device import resolve_device
+
+    if devices is not None:
+        mesh = [resolve_device(d) for d in devices]
+        if not mesh:
+            raise ValueError("an empty solve mesh")
+        return mesh
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [dev] + [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())
+                        if i != dev.index]
+    return [dev]
+
+
+def solve_layout(n_rows: int, mesh: list) -> int:
+    """Shard count of a solve of ``n_rows`` point rows on ``mesh``: above
+    the ``BST_SOLVE_SHARD`` threshold (0 = never) the links axis spans
+    every device of the mesh; else one device. Shared by the relax and CG
+    layouts."""
+    thr = config.get("BST_SOLVE_SHARD") or 0
+    if thr > 0 and n_rows >= thr and len(mesh) > 1:
+        return len(mesh)
+    return 1
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +169,68 @@ def _warps_per_segment(rows: int, segments: int) -> int:
     return wpt
 
 
+@dataclass
+class ShardedRelaxProblem:
+    """The link graph split over the shards of a solve mesh (the JAX
+    package's sharded ``RelaxProblem``): shard d holds the rows of the
+    tiles placed on it (:func:`prepare_relax`), in single-device order, as a
+    :class:`RelaxProblem` with every tile's and every link's entry, on
+    ``mesh[d]``. Each shard takes the one-device layout's warps a segment,
+    so K11 and K13 sum a tile's rows in the one-device order."""
+
+    n_tiles: int
+    n_links: int
+    n_rows: int               # both sides, all shards
+    shards: list[RelaxProblem]
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def mesh(self) -> list[torch.device]:
+        return [sh.device for sh in self.shards]
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+
+def distinct_devices(mesh) -> list[torch.device]:
+    """The mesh's devices, each once, in order of first appearance."""
+    out: list[torch.device] = []
+    for d in mesh:
+        if d not in out:
+            out.append(d)
+    return out
+
+
+def _guard(multi: bool):
+    """``dev -> context``: the CUDA device's context where the mesh spans
+    several cards (a kernel launches on the current device's streams),
+    else nothing."""
+    def on(dev):
+        if multi and dev.type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+    return on
+
+
 def prepare_relax(
     link_rows: list[tuple[int, int, np.ndarray, np.ndarray, np.ndarray]],
     n_tiles: int,
     device: torch.device | str,
-) -> RelaxProblem:
+    n_shards: int = 1,
+    tile_shard: np.ndarray | None = None,
+    mesh: list | None = None,
+) -> RelaxProblem | ShardedRelaxProblem:
     """Flatten ``(ia, ib, p, q, w)`` links into device arrays grouped by
-    owner tile (a stable sort of the flattened rows)."""
+    owner tile (a stable sort of the flattened rows).
+
+    With ``n_shards > 1``, ``tile_shard`` (T,) assigns each tile's rows to
+    a shard (default ``arange(T) % n_shards``, the JAX package's; the
+    solver places tiles cost-weighted with ``pairsched.assign_tasks``) and
+    shard d lies on ``mesh[d]`` (default: ``device`` for every shard)."""
     loc, tgt, own, other, w, lid, side = [], [], [], [], [], [], []
     for l, (ia, ib, p, q, wl) in enumerate(link_rows):
         n = len(p)
@@ -141,9 +240,29 @@ def prepare_relax(
         loc.append(q); tgt.append(p)
         own.append(np.full(n, ib)); other.append(np.full(n, ia))
         w.append(wl); lid.append(np.full(n, l)); side.append(np.zeros(n, bool))
-    return _layout(*(np.concatenate(a) for a in (loc, tgt, own, other, w, lid,
-                                                 side)),
-                   n_tiles, len(link_rows), device)
+    rows = [np.concatenate(a) for a in (loc, tgt, own, other, w, lid, side)]
+    L = len(link_rows)
+    if n_shards <= 1:
+        return _layout(*rows, n_tiles, L, device)
+    if mesh is None:
+        mesh = [device] * n_shards
+    if len(mesh) != n_shards:
+        raise ValueError(f"{n_shards} shards on a mesh of {len(mesh)}")
+    if tile_shard is None:
+        tile_shard = np.arange(n_tiles) % n_shards
+    tile_shard = np.asarray(tile_shard, np.int64)
+    n_rows = len(rows[0])
+    # the one-device layout's warps a segment (K11 / K13 sum a segment's
+    # rows in an order that depends on them)
+    wpt = (_warps_per_segment(n_rows, n_tiles),
+           _warps_per_segment(n_rows // 2, L))
+    row_shard = tile_shard[rows[2].astype(np.int64)]
+    shards = []
+    for d in range(n_shards):
+        sel = row_shard == d  # stable: single-device row order
+        shards.append(_layout(*(a[sel] for a in rows), n_tiles, L, mesh[d],
+                              wpt))
+    return ShardedRelaxProblem(n_tiles, L, n_rows, shards)
 
 
 def relax_problem_from_reference(fields: dict, device: torch.device | str
@@ -162,13 +281,15 @@ def relax_problem_from_reference(fields: dict, device: torch.device | str
 
 
 def _layout(local, target, own, other, w, link_id, side, n_tiles: int,
-            n_links: int, device) -> RelaxProblem:
+            n_links: int, device, wpt: tuple[int, int] | None = None
+            ) -> RelaxProblem:
     """Rows in flattened order -> the device layout: grouped by owner tile
-    (stable), the tile CSR, and the CSR of each link's A-side rows."""
+    (stable), the tile CSR, and the CSR of each link's A-side rows.
+    ``wpt``: the (tile, link) warps a segment, else chosen from the rows."""
     own_a = np.asarray(own).astype(np.int32)
     order = np.argsort(own_a, kind="stable")
-    local = np.asarray(local, np.float64)[order]
-    target = np.asarray(target, np.float64)[order]
+    local = np.asarray(local, np.float64).reshape(-1, 3)[order]
+    target = np.asarray(target, np.float64).reshape(-1, 3)[order]
     other_a = np.asarray(other).astype(np.int32)[order]
     w_a = np.asarray(w, np.float64)[order]
     lid_a = np.asarray(link_id).astype(np.int32)[order]
@@ -191,13 +312,15 @@ def _layout(local, target, own, other, w, link_id, side, n_tiles: int,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    if wpt is None:
+        wpt = (_warps_per_segment(n_rows, n_tiles),
+               _warps_per_segment(len(a_rows), n_links))
     return RelaxProblem(
         n_tiles, n_links, n_rows, dev(local), dev(target), dev(own_a),
         dev(other_a), dev(w_a), dev(lid_a), dev(ptr(tile_len)),
         dev(tile_len.astype(np.int64)), dev(a_rows.astype(np.int32)),
         dev(ptr(link_len)), dev(link_len.astype(np.int64)), dev(link_own),
-        _warps_per_segment(n_rows, n_tiles),
-        _warps_per_segment(len(a_rows), n_links))
+        *wpt)
 
 
 def _finished(state: torch.Tensor | None) -> bool:
@@ -598,9 +721,10 @@ KERNEL_WRAPPERS = {
     "relax_error": relax_error,
     "relax_converge": relax_converge,
 }
-_PLAIN = (relax_moments_plain, relax_fit_plain, relax_error_plain,
-          relax_converge_plain)
-_KERNELS = (relax_moments, relax_fit, relax_error, relax_converge)
+# a relaxation's functions (:class:`RelaxRun`): the kernels, or the twins
+PLAIN = (relax_moments_plain, relax_fit_plain, relax_error_plain,
+         relax_converge_plain, shard_sum_plain)
+KERNELS = (relax_moments, relax_fit, relax_error, relax_converge, shard_sum)
 
 
 # ---------------------------------------------------------------------------
@@ -614,10 +738,13 @@ class RelaxOutput:
     history: np.ndarray       # (iterations,)
     iterations: int
     link_errors: np.ndarray   # (L,) under the final models (0 where masked)
+    seconds: float = 0.0      # host wall of the sweeps' launches and reads
+    card_seconds: float = 0.0  # CUDA events around each chunk's launches
+    #                            (on the CPU: ``seconds``)
 
 
 def relax_on_device(
-    problem: RelaxProblem,
+    problem: RelaxProblem | ShardedRelaxProblem,
     link_mask: np.ndarray,
     fixed_mask: np.ndarray,
     warm_t: np.ndarray,
@@ -633,55 +760,188 @@ def relax_on_device(
     (T, 3): K11-K14 per iteration (their twins where the problem lies on
     the CPU), until K14 sets done. Iterations go in chunks of 8 doubling to
     64 between two reads of the state; kernels launched after done return
-    at once."""
-    return _relax(_KERNELS, problem, link_mask, fixed_mask, warm_t, lam,
-                  damping, max_error, max_iterations, model, reg,
-                  plateau_width)
+    at once. A :class:`ShardedRelaxProblem` takes K11 and K13 on each
+    shard and K29 to add them (:class:`RelaxRun`)."""
+    return RelaxRun(KERNELS, problem, link_mask, fixed_mask, warm_t, lam,
+                    damping, max_error, max_iterations, model, reg,
+                    plateau_width).run()
 
 
 def relax_plain(*args) -> RelaxOutput:
     """:func:`relax_on_device` through the plain twins, on any device."""
-    return _relax(_PLAIN, *args)
+    return RelaxRun(PLAIN, *args).run()
 
 
-def _relax(fns, problem, link_mask, fixed_mask, warm_t, lam, damping,
-           max_error, max_iterations, model, reg, plateau_width
-           ) -> RelaxOutput:
-    if model == M.NONE:
-        raise ValueError("NONE is a regulariser, not a model")
-    if plateau_width < 1:
-        raise ValueError(f"--maxPlateauwidth {plateau_width}: must be >= 1")
-    dev, T = problem.device, problem.n_tiles
-    f64 = dict(dtype=torch.float64, device=dev)
-    link_w = torch.as_tensor(np.asarray(link_mask, np.float64), **f64)
-    fixed = torch.as_tensor(np.asarray(fixed_mask, bool).astype(np.uint8),
-                            device=dev)
-    cur = torch.zeros((T, 3, 4), **f64)
-    cur[:, :, :3] = torch.eye(3, **f64)
-    cur[:, :, 3] = torch.as_tensor(np.asarray(warm_t, np.float64), **f64)
-    hist = torch.zeros(max(int(max_iterations), 1), **f64)
-    state = torch.zeros(4, dtype=torch.int32, device=dev)
-    mom = torch.empty((T, N_MOMENTS), **f64)
-    nd = (torch.empty(T, **f64), torch.empty(T, **f64))
-    moments_fn, fit_fn, error_fn, converge_fn = fns
-    origin = tile_origin(problem, link_w)
-    iters, chunk = 0, FIRST_CHUNK
-    while max_iterations > 0:
-        for _ in range(min(chunk, max_iterations - iters)):
-            moments_fn(problem, cur, link_w, origin, state, out=mom)
-            fit_fn(mom, fixed, origin, model, reg, lam, damping, state, cur)
-            error_fn(problem, cur, link_w, state, out=nd)
-            converge_fn(*nd, hist, state, plateau_width, max_error,
-                        max_iterations)
-        iters, _stall, done, _ = state.tolist()
-        if done:
-            break
-        chunk = min(2 * chunk, MAX_CHUNK)
-    num, den = error_fn(problem, cur, link_w, None, by_link=True)
-    link_err = num / torch.clamp(den, min=1e-12)
-    return RelaxOutput(cur.cpu().numpy(), hist[:iters].cpu().numpy(), iters,
-                       link_err.cpu().numpy())
+class _Replica:
+    """The replicated state of a relaxation on one device of the mesh:
+    link weights, fixed tiles, models, history, K14's state, the reduced
+    moments and error sums, the tiles' origins."""
 
+    def __init__(self, dev, T, link_mask, fixed_mask, warm_t, max_iterations):
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.link_w = torch.as_tensor(np.asarray(link_mask, np.float64), **f64)
+        self.fixed = torch.as_tensor(
+            np.asarray(fixed_mask, bool).astype(np.uint8), device=dev)
+        self.cur = torch.zeros((T, 3, 4), **f64)
+        self.cur[:, :, :3] = torch.eye(3, **f64)
+        self.cur[:, :, 3] = torch.as_tensor(np.asarray(warm_t, np.float64),
+                                            **f64)
+        self.hist = torch.zeros(max(int(max_iterations), 1), **f64)
+        self.state = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.done = self.state[2:3]
+        self.mom = torch.empty((T, N_MOMENTS), **f64)
+        self.nd = torch.empty((2, T), **f64)
+        self.num, self.den = self.nd[0], self.nd[1]
+        self.origin = None
+
+
+class RelaxRun:
+    """One relaxation through ``fns`` (K11-K14 and K29, :data:`KERNELS`, or
+    their twins, :data:`PLAIN`): its state and buffers, one :meth:`sweep`
+    and the chunked loop :meth:`run`. One device: K11 -> K12 -> K13 -> K14
+    a sweep, the four calls bound once (the loop is bound by the host's
+    launch time). Sharded: K11 on each shard, K29 of the moments, K12, K13
+    on each shard, K29 of the error sums, K14; the replicated state (and
+    K12, K14, K29) once a distinct device of the mesh, the state read from
+    the first."""
+
+    def __init__(self, fns, problem, link_mask, fixed_mask, warm_t, lam,
+                 damping, max_error, max_iterations, model, reg,
+                 plateau_width):
+        if model == M.NONE:
+            raise ValueError("NONE is a regulariser, not a model")
+        if plateau_width < 1:
+            raise ValueError(f"--maxPlateauwidth {plateau_width}: must be "
+                             ">= 1")
+        self.fns = fns
+        self.sharded = isinstance(problem, ShardedRelaxProblem)
+        self.shards = problem.shards if self.sharded else [problem]
+        self.T, self.L = problem.n_tiles, problem.n_links
+        self.args = (model, reg, lam, damping, plateau_width, max_error,
+                     int(max_iterations))
+        T, sum_fn = self.T, fns[4]
+        self.reps = {dev: _Replica(dev, T, link_mask, fixed_mask, warm_t,
+                                   max_iterations)
+                     for dev in distinct_devices(
+                         [sh.device for sh in self.shards])}
+        self.first = self.reps[self.shards[0].device]
+        self.on = _guard(len(self.reps) > 1)
+        if self.sharded:
+            f64 = [dict(dtype=torch.float64, device=sh.device)
+                   for sh in self.shards]
+            self.mom_out = [torch.empty((T, N_MOMENTS), **f) for f in f64]
+            self.nd_out = [torch.empty((2, T), **f) for f in f64]
+            self.nd_pairs = [(nd[0], nd[1]) for nd in self.nd_out]
+            origins = [tile_origin(sh, self.reps[sh.device].link_w)
+                       for sh in self.shards]
+            for dev, rp in self.reps.items():
+                rp.origin = torch.empty((T, 3), dtype=torch.float64,
+                                        device=dev)
+                with self.on(dev):
+                    sum_fn(origins, rp.origin)
+            self.calls = ()
+        else:
+            rp = self.first
+            rp.origin = tile_origin(problem, rp.link_w)
+            moments_fn, fit_fn, error_fn, converge_fn = fns[:4]
+            model, reg, lam, damping, pw, max_error, max_iter = self.args
+            bind = functools.partial
+            self.calls = (
+                bind(moments_fn, problem, rp.cur, rp.link_w, rp.origin,
+                     rp.state, out=rp.mom),
+                bind(fit_fn, rp.mom, rp.fixed, rp.origin, model, reg, lam,
+                     damping, rp.state, rp.cur),
+                bind(error_fn, problem, rp.cur, rp.link_w, rp.state,
+                     out=(rp.num, rp.den)),
+                bind(converge_fn, rp.num, rp.den, rp.hist, rp.state, pw,
+                     max_error, max_iter))
+
+    def sweep(self) -> None:
+        """One iteration's launches (each returns at once after done)."""
+        if self.calls:
+            for call in self.calls:
+                call()
+            return
+        moments_fn, fit_fn, error_fn, converge_fn, sum_fn = self.fns
+        model, reg, lam, damping, pw, max_error, max_iter = self.args
+        reps, on = self.reps.items(), self.on
+        for sh, mom in zip(self.shards, self.mom_out):
+            rp = self.reps[sh.device]
+            with on(sh.device):
+                moments_fn(sh, rp.cur, rp.link_w, rp.origin, rp.state,
+                           out=mom)
+        for dev, rp in reps:
+            with on(dev):
+                sum_fn(self.mom_out, rp.mom, done=rp.done)
+        for dev, rp in reps:
+            with on(dev):
+                fit_fn(rp.mom, rp.fixed, rp.origin, model, reg, lam,
+                       damping, rp.state, rp.cur)
+        for sh, nd in zip(self.shards, self.nd_pairs):
+            rp = self.reps[sh.device]
+            with on(sh.device):
+                error_fn(sh, rp.cur, rp.link_w, rp.state, out=nd)
+        for dev, rp in reps:
+            with on(dev):
+                sum_fn(self.nd_out, rp.nd, done=rp.done)
+        for dev, rp in reps:
+            with on(dev):
+                converge_fn(rp.num, rp.den, rp.hist, rp.state, pw,
+                            max_error, max_iter)
+
+    def link_errors(self) -> torch.Tensor:
+        """The per-link errors under the current models: K13 on each
+        shard's A-side rows (a link's lie on its A tile's shard), then
+        K29."""
+        error_fn, sum_fn = self.fns[2], self.fns[4]
+        links = []
+        for sh in self.shards:
+            rp = self.reps[sh.device]
+            nd = torch.empty((2, self.L), dtype=torch.float64,
+                             device=sh.device)
+            with self.on(sh.device):
+                error_fn(sh, rp.cur, rp.link_w, None, by_link=True,
+                         out=(nd[0], nd[1]))
+            links.append(nd)
+        nd = links[0]
+        if self.sharded:
+            dev = self.first.cur.device
+            nd = torch.empty((2, self.L), dtype=torch.float64, device=dev)
+            with self.on(dev):
+                sum_fn(links, nd)
+        return nd[0] / torch.clamp(nd[1], min=1e-12)
+
+    def run(self) -> RelaxOutput:
+        """Sweeps in chunks of 8 doubling to 64 between two reads of the
+        first device's state, until done or the cap."""
+        max_iterations = self.args[6]
+        dev = self.first.cur.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+        events = []
+        t0 = time.perf_counter()
+        iters, chunk = 0, FIRST_CHUNK
+        while max_iterations > 0:
+            if stream is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record(stream)
+            for _ in range(min(chunk, max_iterations - iters)):
+                self.sweep()
+            if stream is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record(stream)
+            iters, _stall, done, _ = self.first.state.tolist()
+            if done:
+                break
+            chunk = min(2 * chunk, MAX_CHUNK)
+        secs = time.perf_counter() - t0
+        card = (sum(a.elapsed_time(b)
+                    for a, b in zip(events[::2], events[1::2])) / 1e3
+                if events else secs)
+        link_err = self.link_errors()
+        return RelaxOutput(self.first.cur.cpu().numpy(),
+                           self.first.hist[:iters].cpu().numpy(), iters,
+                           link_err.cpu().numpy(), secs, card)
 
 
 # ---------------------------------------------------------------------------
@@ -730,7 +990,9 @@ class CGSystem:
     """The intensity normal equations on one device as CSR lists: row u
     holds every term of unknown u's matvec, merged per column, each merged
     sum taken on the host in one fixed order (the diagonal, the match
-    rows', then the smoothness pairs')."""
+    rows', then the smoothness pairs'). A shard of a
+    :class:`ShardedCGSystem` holds its match rows' terms only, its
+    replicated part the smoothness pairs' and the diagonal."""
 
     n: int                    # unknowns (2C)
     row_ptr: torch.Tensor     # (n + 1,) int32
@@ -747,11 +1009,36 @@ class CGSystem:
         return self.vals.device
 
 
-def cg_triplets(n_cells, rows, diag, sidx, sw):
-    """(row, col, value) of every term of the quadratic form's matvec, in
-    the JAX ``data_term`` / smoothness / diagonal meaning: the 4x4 block
-    of each match row, (w, -w; -w, w) of each flattened smoothness pair,
-    and the diagonal."""
+@dataclass
+class ShardedCGSystem:
+    """The intensity normal equations split over a solve mesh (the JAX
+    ``shard_map`` CG, ops/solve.py:600): shard d holds the data term of the
+    match rows ``rows[d::S]`` on ``mesh[d]``; ``reps`` hold the smoothness
+    pairs and the diagonal (and rhs, x0), once a distinct device. Ap =
+    (sum over shards of A_d p) + A_rep p, as JAX adds psum(data), then the
+    smoothness, then the diagonal."""
+
+    n: int
+    shards: list[CGSystem]
+    reps: list[CGSystem]
+    tol2: float
+    max_iter: int
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def mesh(self) -> list[torch.device]:
+        return [sh.device for sh in self.shards]
+
+    @property
+    def device(self) -> torch.device:
+        return self.reps[0].device
+
+
+def _data_triplets(rows):
+    """(rows, cols, values) lists of the 4x4 block of each match row."""
     rows = np.asarray(rows, np.float64).reshape(-1, 8)
     ia = 2 * rows[:, 0].astype(np.int64)
     ib = 2 * rows[:, 1].astype(np.int64)
@@ -759,45 +1046,91 @@ def cg_triplets(n_cells, rows, diag, sidx, sw):
     u = [ia, ia + 1, ib, ib + 1]
     block = [[sxx, sx, -sxy, -sx], [sx, n, -sy, -n],
              [-sxy, -sy, syy, sy], [-sx, -n, sy, n]]
-    r_d = [u[i] for i in range(4) for _ in range(4)]
-    c_d = [u[j] for _ in range(4) for j in range(4)]
-    v_d = [block[i][j] for i in range(4) for j in range(4)]
+    return ([u[i] for i in range(4) for _ in range(4)],
+            [u[j] for _ in range(4) for j in range(4)],
+            [block[i][j] for i in range(4) for j in range(4)])
+
+
+def _smooth_triplets(sidx, sw):
+    """(rows, cols, values) lists of (w, -w; -w, w) of each flattened
+    smoothness pair."""
     si = np.asarray(sidx, np.int64).reshape(-1, 2)
     w = np.asarray(sw, np.float64)
+    return ([si[:, 0], si[:, 0], si[:, 1], si[:, 1]],
+            [si[:, 0], si[:, 1], si[:, 0], si[:, 1]], [w, -w, -w, w])
+
+
+def cg_triplets(n_cells, rows, diag, sidx, sw):
+    """(row, col, value) of every term of the quadratic form's matvec, in
+    the JAX ``data_term`` / smoothness / diagonal meaning: the diagonal,
+    the 4x4 block of each match row and (w, -w; -w, w) of each flattened
+    smoothness pair, in that order."""
     d = np.arange(2 * n_cells, dtype=np.int64)
-    r = np.concatenate([d, *r_d, si[:, 0], si[:, 0], si[:, 1], si[:, 1]])
-    c = np.concatenate([d, *c_d, si[:, 0], si[:, 1], si[:, 0], si[:, 1]])
-    v = np.concatenate([np.asarray(diag, np.float64), *v_d, w, -w, -w, w])
-    return r, c, v
+    rd, cd, vd = _data_triplets(rows)
+    rs, cs, vs = _smooth_triplets(sidx, sw)
+    return (np.concatenate([d, *rd, *rs]), np.concatenate([d, *cd, *cs]),
+            np.concatenate([np.asarray(diag, np.float64), *vd, *vs]))
 
 
-def assemble_cg(n_cells: int, rows, diag, rhs, sidx, sw, device,
-                rtol: float = 1e-11) -> CGSystem:
-    """The :class:`CGSystem` of the intensity solve on ``device``; the stop
-    threshold and cap are the JAX package's (``solve_intensity_device``)."""
-    n = 2 * int(n_cells)
-    r, c, v = cg_triplets(n_cells, rows, diag, sidx, sw)
+def _csr(n: int, r, c, v, device):
+    """Triplets -> (row_ptr, row lengths, cols, vals) on ``device``, each
+    (row, col)'s values merged on the host in their order."""
     order = np.argsort(r * n + c, kind="stable")
     key = (r * n + c)[order]
-    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
-    vals = np.add.reduceat(v[order], starts)
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if len(key) \
+        else np.zeros(0, np.int64)
+    vals = np.add.reduceat(v[order], starts) if len(key) else np.zeros(0)
     ur, uc = r[order][starts], c[order][starts]
     counts = np.bincount(ur, minlength=n)
     row_ptr = np.zeros(n + 1, np.int64)
     np.cumsum(counts, out=row_ptr[1:])
     if row_ptr[-1] >= 2 ** 31:
         raise ValueError(f"{row_ptr[-1]} terms: the CG indexes them in 31 bits")
-    _, _, _, max_iter = cg_shapes(n_cells, len(np.asarray(rows).reshape(-1, 8)),
-                                  len(sidx))
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+    return (t(row_ptr, np.int32), t(counts, np.int64), t(uc, np.int32),
+            t(vals, np.float64))
+
+
+def assemble_cg(n_cells: int, rows, diag, rhs, sidx, sw, device,
+                rtol: float = 1e-11, n_shards: int = 1, mesh=None
+                ) -> CGSystem | ShardedCGSystem:
+    """The :class:`CGSystem` of the intensity solve on ``device``; the stop
+    threshold and cap are the JAX package's (``solve_intensity_device``).
+    With ``n_shards > 1`` a :class:`ShardedCGSystem` over ``mesh``
+    (default ``device`` for every shard): shard d takes the JAX package's
+    strided rows ``rows[d::n_shards]``."""
+    n = 2 * int(n_cells)
+    rows = np.asarray(rows, np.float64).reshape(-1, 8)
+    _, _, _, max_iter = cg_shapes(n_cells, len(rows), len(sidx))
     diag = np.asarray(diag, np.float64)
     rhs = np.asarray(rhs, np.float64)
     # the padded rhs of the JAX package holds zeros past 2C: the same norm
     tol2 = (rtol * float(np.linalg.norm(rhs))) ** 2
-    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
-    return CGSystem(n, t(row_ptr, np.int32), t(counts, np.int64),
-                    t(uc, np.int32), t(vals, np.float64), t(rhs, np.float64),
-                    t(rhs / np.maximum(diag, 1e-300), np.float64), tol2,
-                    max_iter)
+    x0 = rhs / np.maximum(diag, 1e-300)
+    t = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if n_shards <= 1:
+        return CGSystem(n, *_csr(n, *cg_triplets(n_cells, rows, diag, sidx,
+                                                 sw), device),
+                        t(rhs, device), t(x0, device), tol2, max_iter)
+    if mesh is None:
+        mesh = [device] * n_shards
+    if len(mesh) != n_shards:
+        raise ValueError(f"{n_shards} shards on a mesh of {len(mesh)}")
+    d = np.arange(n, dtype=np.int64)
+    rs, cs, vs = _smooth_triplets(sidx, sw)
+    rep_t = (np.concatenate([*rs, d]), np.concatenate([*cs, d]),
+             np.concatenate([*vs, diag]))
+    reps = {dev: CGSystem(n, *_csr(n, *rep_t, dev), t(rhs, dev), t(x0, dev),
+                          tol2, max_iter)
+            for dev in distinct_devices(mesh)}
+    shards = []
+    for k, dev in enumerate(mesh):
+        rd, cd, vd = _data_triplets(rows[k::n_shards])
+        shards.append(CGSystem(
+            n, *_csr(n, np.concatenate(rd), np.concatenate(cd),
+                     np.concatenate(vd), dev),
+            reps[dev].rhs, reps[dev].x0, tol2, max_iter))
+    return ShardedCGSystem(n, shards, list(reps.values()), tol2, max_iter)
 
 
 def cg_state(sysm: CGSystem, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -823,6 +1156,20 @@ def cg_spmv_plain(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
     terms = sysm.vals * p_new[sysm.cols.long()]
     ap.copy_(torch.segment_reduce(terms, "sum", lengths=sysm.row_len))
     dstate[3] = torch.dot(p_new, ap)
+
+
+def cg_spmv_partial_plain(sysm: CGSystem, r, p_old, p_new, ap, dstate,
+                          istate):
+    """K24's partial form's twin: ap = A p over the CSR lists with p = r +
+    beta p_old, and p_new = p unless ``p_new`` is None; no p.Ap; nothing
+    once done."""
+    if _cg_done(istate):
+        return
+    p = r + dstate[1] * p_old
+    if p_new is not None:
+        p_new.copy_(p)
+    terms = sysm.vals * p[sysm.cols.long()]
+    ap.copy_(torch.segment_reduce(terms, "sum", lengths=sysm.row_len))
 
 
 def cg_update_plain(sysm: CGSystem, x, r, p, ap, dstate, istate,
@@ -890,21 +1237,23 @@ def _cg_partials(n_blocks: int, dev) -> torch.Tensor:
 
 
 def launch_cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate,
-                   lanes: int | None = None) -> None:
+                   lanes: int | None = None, partial: bool = False) -> None:
     """One K24 launch, ``lanes`` a row (default :func:`cg_lanes`'s
-    choice); no checks."""
+    choice), its full form or with ``partial`` its partial form (``p_new``
+    may then be None); no checks."""
     if lanes is None:
         lanes = cg_lanes(sysm.n, int(sysm.cols.numel()))
     if lanes not in CG_LANES:
         raise ValueError(f"K24 takes {CG_LANES} lanes a row, not {lanes}")
-    partials = _cg_partials(cg_blocks(sysm.n, lanes), r.device)
+    partials = (None if partial else
+                _cg_partials(cg_blocks(sysm.n, lanes), r.device))
     lib = _cuda.load("cg")
     ret = lib.bst_cg_spmv(
-        sysm.n, int(lanes), sysm.row_ptr.data_ptr(), sysm.cols.data_ptr(),
-        sysm.vals.data_ptr(), r.data_ptr(), p_old.data_ptr(),
-        p_new.data_ptr(), ap.data_ptr(), dstate.data_ptr(),
-        istate.data_ptr(), partials.data_ptr(), int(partials.numel()),
-        _stream(r.device))
+        sysm.n, int(lanes), int(bool(partial)), sysm.row_ptr.data_ptr(),
+        sysm.cols.data_ptr(), sysm.vals.data_ptr(), r.data_ptr(),
+        p_old.data_ptr(), _ptr(p_new), ap.data_ptr(), dstate.data_ptr(),
+        istate.data_ptr(), _ptr(partials),
+        0 if partials is None else int(partials.numel()), _stream(r.device))
     _cuda.check(lib, ret, "cg_spmv")
 
 
@@ -919,6 +1268,23 @@ def cg_spmv(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
 
 
 cg_spmv.launches = 0
+
+
+def cg_spmv_partial(sysm: CGSystem, r, p_old, p_new, ap, dstate, istate):
+    """K24's partial form (``csrc/cg.cu``, a shard's Ap_d and p_new unless
+    None, no p.Ap) on CUDA, :func:`cg_spmv_partial_plain` on the CPU."""
+    if r.device.type == "cpu":
+        return cg_spmv_partial_plain(sysm, r, p_old, p_new, ap, dstate,
+                                     istate)
+    vecs = {"r": r, "p_old": p_old, "ap": ap}
+    if p_new is not None:
+        vecs["p_new"] = p_new
+    _check_cg(sysm, vecs, dstate, istate)
+    launch_cg_spmv(sysm, r, p_old, p_new, ap, dstate, istate, partial=True)
+    cg_spmv_partial.launches += 1
+
+
+cg_spmv_partial.launches = 0
 
 
 def cg_update(sysm: CGSystem, x, r, p, ap, dstate, istate, init=False):
@@ -938,7 +1304,8 @@ def cg_update(sysm: CGSystem, x, r, p, ap, dstate, istate, init=False):
 
 cg_update.launches = 0
 
-KERNEL_WRAPPERS.update({"cg_spmv": cg_spmv, "cg_update": cg_update})
+KERNEL_WRAPPERS.update({"cg_spmv": cg_spmv, "cg_update": cg_update,
+                        "cg_spmv_partial": cg_spmv_partial})
 
 
 @dataclass
@@ -950,9 +1317,38 @@ class CGOutput:
     #                            (on the CPU: ``seconds``)
 
 
-def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
-    dev, n = sysm.device, sysm.n
-    f64 = dict(dtype=torch.float64, device=dev)
+class _CGState:
+    """The CG's vectors and state on one device (replicated on a mesh)."""
+
+    def __init__(self, sysm: CGSystem, sharded: bool):
+        dev, n = sysm.device, sysm.n
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.dstate, self.istate = cg_state(sysm, dev)
+        self.x = sysm.x0.clone()
+        self.r = torch.zeros(n, **f64)
+        self.ap = torch.empty(n, **f64)
+        # the replicated part's Ap, which K29 adds to the shards'
+        self.ap_rep = torch.empty(n, **f64) if sharded else None
+        self.p = [torch.zeros(n, **f64), torch.zeros(n, **f64)]
+
+
+def _cg(fns, sysm: CGSystem | ShardedCGSystem) -> CGOutput:
+    """The CG loop through ``fns`` (K24, its partial form, K29, K25, or
+    their twins). One device: K24 then K25 an iteration. Sharded, on each
+    device of the mesh: K24's partial form on the replicated CSR (writing
+    p_new) and on each of the device's shards, K29 adding Ap = sum of the
+    shards' Ap_d + Ap_rep and taking p.Ap, then K25; the state read from
+    the first device."""
+    spmv, spmv_partial, ssum, update = fns
+    sharded = isinstance(sysm, ShardedCGSystem)
+    reps = sysm.reps if sharded else [sysm]
+    st = {rep.device: _CGState(rep, sharded) for rep in reps}
+    first = st[reps[0].device]
+    dev = reps[0].device
+    on = _guard(len(reps) > 1)
+    if sharded:
+        ap_parts = [torch.empty(sysm.n, dtype=torch.float64, device=sh.device)
+                    for sh in sysm.shards]
     t0 = time.perf_counter()
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     events = []
@@ -964,23 +1360,47 @@ def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record(stream)
 
-    dstate, istate = cg_state(sysm, dev)
-    x = sysm.x0.clone()
-    r = torch.zeros(n, **f64)
-    ap = torch.empty(n, **f64)
-    p = [torch.zeros(n, **f64), torch.zeros(n, **f64)]
+    def iterate(old, new, init=False):
+        """p[new] = src + beta p[old] (src x at init, else r), Ap, p.Ap,
+        then K25."""
+        if not sharded:
+            s = first
+            spmv(sysm, s.x if init else s.r, s.p[old], s.p[new], s.ap,
+                 s.dstate, s.istate)
+            update(sysm, s.x, s.r, s.p[new], s.ap, s.dstate, s.istate,
+                   init=init)
+            return
+        for rep in reps:
+            s = st[rep.device]
+            with on(rep.device):
+                spmv_partial(rep, s.x if init else s.r, s.p[old], s.p[new],
+                             s.ap_rep, s.dstate, s.istate)
+        for sh, ap in zip(sysm.shards, ap_parts):
+            s = st[sh.device]
+            with on(sh.device):
+                spmv_partial(sh, s.x if init else s.r, s.p[old], None, ap,
+                             s.dstate, s.istate)
+        for d, s in st.items():
+            with on(d):
+                ssum(ap_parts, s.ap, rep=s.ap_rep, v=s.p[new],
+                     dot=s.dstate[3:4], done=s.istate[1:2],
+                     ticket=s.istate[3:4])
+        for rep in reps:
+            s = st[rep.device]
+            with on(rep.device):
+                update(rep, s.x, s.r, s.p[new], s.ap, s.dstate, s.istate,
+                       init=init)
+
     mark()
     # r0 = rhs - A x0: K24 on x0 (beta 0), then K25 in its init form
-    spmv(sysm, x, p[1], p[0], ap, dstate, istate)
-    update(sysm, x, r, p[0], ap, dstate, istate, init=True)
+    iterate(1, 0, init=True)
     cur, chunk = 1, FIRST_CHUNK
     while True:
         for _ in range(chunk):
-            spmv(sysm, r, p[1 - cur], p[cur], ap, dstate, istate)
-            update(sysm, x, r, p[cur], ap, dstate, istate)
+            iterate(1 - cur, cur)
             cur = 1 - cur
         mark()
-        iters, done = istate[:2].tolist()
+        iters, done = first.istate[:2].tolist()
         if done:
             break
         chunk = min(2 * chunk, MAX_CHUNK)
@@ -988,24 +1408,27 @@ def _cg(spmv, update, sysm: CGSystem) -> CGOutput:
     secs = time.perf_counter() - t0
     card = (sum(a.elapsed_time(b) for a, b in zip(events[::2], events[1::2]))
             / 1e3 if events else secs)
-    return CGOutput(x, int(iters), secs, card)
+    return CGOutput(first.x, int(iters), secs, card)
 
 
-def cg_on_device(sysm: CGSystem) -> CGOutput:
-    """CG through K24/K25 (their twins where the system lies on the CPU)."""
-    return _cg(cg_spmv, cg_update, sysm)
+def cg_on_device(sysm: CGSystem | ShardedCGSystem) -> CGOutput:
+    """CG through K24/K25 (their twins where the system lies on the CPU);
+    a :class:`ShardedCGSystem` through K24's partial form, K29 and K25."""
+    return _cg((cg_spmv, cg_spmv_partial, shard_sum, cg_update), sysm)
 
 
-def cg_plain(sysm: CGSystem) -> CGOutput:
+def cg_plain(sysm: CGSystem | ShardedCGSystem) -> CGOutput:
     """The same loop through the plain twins, on any device."""
-    return _cg(cg_spmv_plain, cg_update_plain, sysm)
+    return _cg((cg_spmv_plain, cg_spmv_partial_plain, shard_sum_plain,
+                cg_update_plain), sysm)
 
 
-def solve_intensity_device(n_cells, rows, diag, rhs, sidx, sw, device
-                           ) -> CGOutput:
+def solve_intensity_device(n_cells, rows, diag, rhs, sidx, sw, device,
+                           n_shards: int = 1, mesh=None) -> CGOutput:
     """CG-solve the intensity normal equations (``rows`` (M, 8) match
     statistics, ``diag`` / ``rhs`` (2C,), flattened smoothness pairs
-    ``sidx`` (S, 2) with weights ``sw``) on ``device``: the device
-    solution (2C,), the iteration count and the loop's seconds."""
+    ``sidx`` (S, 2) with weights ``sw``) on ``device``, or sharded over
+    ``mesh`` with ``n_shards > 1``: the solution (2C,) on the (first)
+    device, the iteration count and the loop's seconds."""
     return cg_on_device(assemble_cg(n_cells, rows, diag, rhs, sidx, sw,
-                                    device))
+                                    device, n_shards=n_shards, mesh=mesh))

@@ -10,9 +10,10 @@ always dispatched before the previous one is drained, so the host refines
 one segment's results while the card computes the next, and at most two
 segments (about the budget) are in flight.
 
-Placement over several devices, re-dispatch of failed tasks, the
-multi-process split and the scheduler's metrics are not yet ported: a
-failing task raises.
+:func:`assign_tasks` is the JAX package's cost-weighted placement; the
+sharded solve places tiles on its mesh with it. Dispatch over several
+devices, re-dispatch of failed tasks, the multi-process split and the
+scheduler's metrics are not yet ported: a failing task raises.
 """
 
 from __future__ import annotations
@@ -28,11 +29,29 @@ from ..utils.devicemem import pair_budget_bytes
 @dataclass
 class PairTask:
     """One schedulable unit of pair work: ``index`` is its result slot,
-    ``nbytes`` the device bytes it holds from dispatch until drain."""
+    ``cost`` drives placement (:func:`assign_tasks`), ``nbytes`` the device
+    bytes it holds from dispatch until drain."""
 
     index: int
+    cost: float = 1.0
     nbytes: int = 0
     tag: Any = None
+
+
+_MIN_COST = 1e-9
+
+
+def assign_tasks(tasks: Sequence[PairTask], n_bins: int) -> list[list[PairTask]]:
+    """Cost-weighted greedy (LPT) placement: heaviest task first onto the
+    least-loaded bin; deterministic (ties by bin index, stable task order).
+    Guarantees ``max_load - min_load <= max task cost``."""
+    bins: list[list[PairTask]] = [[] for _ in range(max(n_bins, 1))]
+    loads = [0.0] * len(bins)
+    for t in sorted(tasks, key=lambda t: (-max(t.cost, 0.0), t.index)):
+        b = min(range(len(bins)), key=lambda i: (loads[i], i))
+        bins[b].append(t)
+        loads[b] += max(t.cost, _MIN_COST)
+    return bins
 
 
 def _run_queue(queue: Sequence[PairTask], dispatch, drain, budget: int,

@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name, power limit) and builds the
-         kernels from csrc/ (one nvcc per source, all sixteen at once).
+         kernels from csrc/ (one nvcc per source, all seventeen at once).
 Phase 1  holds each kernel against its plain-torch twin on the card and
          times both with CUDA events: K2 shift, K3 gather, K4 convert, K1
          composite and K5 separable at the per-block routes' compute block
@@ -254,6 +254,21 @@ Phase 14 the shard_jit routes at devices=4 on the one card (a one-device
          write seconds, the rate and the device memory peak; only the
          route's kernels may launch.
 
+Phase 15 the sharded global solves on the solve mesh [card] * 4 (4 shards,
+         one distinct device): 15a relaxes 7c's links (AFFINE + RIGID,
+         lambda 0.1; 1,216,000 rows, above the default BST_SOLVE_SHARD) on
+         one device and sharded, the sharded models, history, iterations
+         and link errors bitwise the one-device ones; prints K11 / K13 a
+         shard, K29, K12, K14 launches, both walls and card seconds, and
+         one sweep of each timed alone; 15b solves 10b's large system
+         (524,288 unknowns) with BST_SOLVE_SHARD=1 on the default mesh
+         (one card: one device) and sharded, within rtol / atol 1e-8 of
+         each other, the sharded CG against its twin loop and its
+         residual. K29 (shard sum) alone at 15a's moments and at 15b's
+         vectors (with the replicated part and p.Ap), bitwise its twin,
+         beside torch.stack(...).sum(0) (+ torch.dot); K24's partial form
+         at 15b's shard against its twin.
+
 Kernel times are CUDA events around work queued behind a spin on the
 card (its rate measured in the run), so they hold the card's time and not
 the host's launch overhead. K8's and K24's wrapper times and their library
@@ -277,7 +292,7 @@ of output is the kernels' JSON record; the last is
 {"ok": true, "device": ...}. Any failure exits non-zero and prints no
 result.
 
-``--device cpu --scale tiny`` rehearses phases 1-14 on the CPU with the
+``--device cpu --scale tiny`` rehearses phases 1-15 on the CPU with the
 plain twins (no kernels, no timings; 9b at 2,000 points; 10a at 2,2,2
 cells and renderScale 0.5, 10b's large system on 3x3x2 views; 8d's
 ratio-test gate printed, not applied: its 32x32x16 blocks split each
@@ -330,6 +345,7 @@ KERNELS = {
     "linefit_ransac": ("intensity.cu", "ops/intensity.py:36"),
     "cg_spmv": ("cg.cu", "ops/solve.py:527"),
     "cg_update": ("cg.cu", "ops/solve.py:527"),
+    "shard_sum": ("shard.cu", "ops/solve.py:428"),
     "nonrigid_fuse": ("nonrigid.cu", "ops/nonrigid.py:133"),
     "nonrigid_fuse_batch": ("nonrigid.cu", "models/nonrigid_fusion.py:263"),
     "fuse_volume_scan": ("shift.cu", "ops/fusion.py:379"),
@@ -461,6 +477,9 @@ ROUTE_KERNELS.update({
     "14a desc": DET_KERNELS + ("downsample_batch", "knn_descriptors"),
     "14b": ("nonrigid_fuse_batch", "convert_intensity", "downsample_batch"),
     "14c": ("downsample_batch",),
+    "15a one device": RELAX_KERNELS, "15a": RELAX_KERNELS + ("shard_sum",),
+    "15b one device": ("cg_spmv", "cg_update"),
+    "15b": ("cg_spmv_partial", "shard_sum", "cg_update"),
 })
 
 
@@ -2299,19 +2318,20 @@ def phase7c(work, scale, dev, card, launches):
           f"iterations in {r10.timings['relax']:.3f}s -> "
           f"{r10.timings['relax'] / max(r10.iterations, 1) * 1e3:.1f} "
           f"ms/iteration (wall {time.perf_counter() - t0:.3f}s)", flush=True)
-    return calls
+    return calls, (tiles, links, run.params)
 
 
 def phase7_solver(work, scale, proj_a, dev, card, launches):
-    """Phase 7: the solver; returns K11-K14's results at 7c's shape."""
+    """Phase 7: the solver; returns K11-K14's results at 7c's shape and
+    7c's (tiles, links, params) (phase 15 relaxes them sharded)."""
     print("phase 7 (solver)", flush=True)
     phase7a(proj_a, scale, dev, card, launches)
     calls_b = phase7b(work, scale, dev, card, launches)
-    calls_c = phase7c(work, scale, dev, card, launches)
+    calls_c, solve7c = phase7c(work, scale, dev, card, launches)
     a, _k, _o = calls_b[0]
     relax_kernel_times(a[0], a, "7b's shape", card)
     a, _k, _o = calls_c[0]
-    return relax_kernel_times(a[0], a, "7c's shape", card)
+    return relax_kernel_times(a[0], a, "7c's shape", card), solve7c
 
 
 # ---------------------------------------------------------------- phase 8
@@ -4132,16 +4152,17 @@ def intensity_sparse(n_cells, rows, diag, sidx, sw):
     return sp.coo_matrix((v, (i, j)), shape=(N, N)).tocsr() + sp.diags(diag)
 
 
-def check_cg(what, args, x_dev, iters, dev):
+def check_cg(what, args, x_dev, iters, dev, **shards):
     """A recorded intensity CG against cg_plain on the card (solution within
     rtol 1e-9 of the largest entry), and the residual |A x - b| / |b| <=
-    1e-9 with A built by scipy.sparse on the host."""
+    1e-9 with A built by scipy.sparse on the host. ``shards``
+    (``n_shards``, ``mesh``): the twin loop of the sharded system."""
     import numpy as np
 
     from bigstitcher_spark_tpu_torch.ops import solve as R
 
     n_cells, rows, diag, rhs, sidx, sw, _dev = args
-    sysm = R.assemble_cg(n_cells, rows, diag, rhs, sidx, sw, dev)
+    sysm = R.assemble_cg(n_cells, rows, diag, rhs, sidx, sw, dev, **shards)
     t0 = time.perf_counter()
     ref = R.cg_plain(sysm)
     plain_s = time.perf_counter() - t0
@@ -4151,8 +4172,10 @@ def check_cg(what, args, x_dev, iters, dev):
     scale = float(np.abs(xr).max())
     A = intensity_sparse(n_cells, rows, diag, sidx, sw)
     res = float(np.linalg.norm(A @ x - rhs) / np.linalg.norm(rhs))
+    terms = sum(int(m.vals.numel()) for m in getattr(
+        sysm, "shards", []) + getattr(sysm, "reps", [sysm]))
     print(f"  [intensity {what}] {2 * n_cells} unknowns, {len(rows)} match "
-          f"rows, {len(sidx)} smoothness pairs, {sysm.vals.numel()} CSR "
+          f"rows, {len(sidx)} smoothness pairs, {terms} CSR "
           f"terms: kernels {iters} / twin {ref.iterations} iterations "
           f"(cap {sysm.max_iter}); twin loop {plain_s:.3f}s", flush=True)
     check(err <= 1e-9 * scale and abs(iters - ref.iterations) <= 1,
@@ -5380,10 +5403,275 @@ def phase14_shard_routes(work, scale, dev, card, launches, proj_a, det_one):
     print(f"  phase 14 wall {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+SOLVE_SHARDS = 4  # phase 15's solve mesh: the one card, four times
+
+
+@contextlib.contextmanager
+def knobs(env):
+    """``BST_*`` knobs set for the block, as they were afterwards."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def shard_sum_times(parts, rep, v, what, card):
+    """K29 alone on ``parts`` (+ ``rep``; the dot with ``v``) against
+    shard_sum_plain: the sum bitwise, the dot within rtol 1e-12; card
+    time, the twin's, the bound (each input read once, the output written
+    once) and torch.stack(...).sum(0) (+ torch.dot) as the library call."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+
+    dev, n = parts[0].device, parts[0].numel()
+    f64 = dict(dtype=torch.float64, device=dev)
+    out, ref = torch.empty(parts[0].shape, **f64), torch.empty(
+        parts[0].shape, **f64)
+    dot, dref = ((torch.zeros(1, **f64), torch.zeros(1, **f64))
+                 if v is not None else (None, None))
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    run = lambda: K.shard_sum(parts, out, rep=rep, v=v, dot=dot,
+                              ticket=ticket)
+    plain = lambda: K.shard_sum_plain(parts, ref, rep=rep, v=v, dot=dref)
+    run()
+    plain()
+    check(torch.equal(out, ref), f"K29 at {what}: the sum bitwise its twin's")
+    err = max_abs(out, ref)
+    if v is not None:
+        derr = abs(float(dot[0]) - float(dref[0]))
+        check(derr <= 1e-12 * abs(float(dref[0])),
+              f"K29 at {what}: p.Ap within rtol 1e-12 of the twin's "
+              f"torch.dot (|delta| {derr:.3g})")
+        err = max(err, derr)
+    terms = list(parts) + ([rep] if rep is not None else [])
+    if v is not None:
+        lib = lambda: torch.dot(torch.stack(terms).sum(0), v)
+    else:
+        lib = lambda: torch.stack(terms).sum(0)
+    n_in = len(terms) + (v is not None)
+    r = dict(err=err, ms=time_ms(run), wrapper_ms=time_ms(run, host=True),
+             plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+             bound=bound(n_in * n * 8 + n * 8,
+                         (len(terms) - 1) * n + (2 * n if v is not None
+                                                 else 0), F64_OPS_PER_S))
+    print_times(f"shard_sum at {what}", r, card)
+    return r
+
+
+def phase15a(scale, dev, card, launches, solve7c):
+    """15a: 7c's links relaxed again, AFFINE + RIGID, on one device and on
+    the mesh [dev] * 4 (above the default BST_SOLVE_SHARD at full width):
+    the sharded relax bitwise the one-device one; then one sweep of each
+    timed alone and K29 at the moments' shape. Returns K29's result."""
+    import dataclasses
+
+    import numpy as np
+
+    from bigstitcher_spark_tpu_torch import config
+    from bigstitcher_spark_tpu_torch.models import solver as S
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    tiles, links, params = solve7c
+    n_rows = 2 * sum(len(lk.p) for lk in links)
+    thr = config.KNOBS["BST_SOLVE_SHARD"][1]
+    check(scale == "tiny" or n_rows >= thr,
+          f"15a: {n_rows} rows " + (
+              f">= the default BST_SOLVE_SHARD {thr}" if n_rows >= thr
+              else "(tiny: BST_SOLVE_SHARD=1 for 15a)"))
+    fixed = S.pick_fixed(tiles, params)
+    runs = {}
+    with knobs({} if n_rows >= thr else {"BST_SOLVE_SHARD": "1"}):
+        for route, devices in (("15a one device", None),
+                               ("15a", [dev] * SOLVE_SHARDS)):
+            p = dataclasses.replace(params, devices=devices)
+            calls, undo = relax_spy()
+            try:
+                before = dict(launches)
+                t0 = time.perf_counter()
+                res = counted(route, launches, dev,
+                              lambda: S.relax(links, tiles, fixed, p),
+                              exclusive=True)
+                wall = time.perf_counter() - t0
+            finally:
+                undo()
+            (args, _k, out), = calls
+            got = {k: launches.get(k, 0) - before.get(k, 0)
+                   for k in launches}
+            runs[route] = (args, out, res, wall, got)
+    (a1, o1, r1, w1, _), (a4, o4, r4, w4, got) = runs.values()
+    pr = a4[0]
+    check(isinstance(pr, R.ShardedRelaxProblem) and pr.n_shards ==
+          SOLVE_SHARDS and r4.shards == SOLVE_SHARDS,
+          f"15a: the relax sharded over {SOLVE_SHARDS} shards "
+          f"({[sh.n_rows for sh in getattr(pr, 'shards', [])]} rows)")
+    check(o4.iterations == o1.iterations
+          and np.array_equal(o4.history, o1.history)
+          and np.array_equal(o4.models, o1.models)
+          and np.array_equal(o4.link_errors, o1.link_errors),
+          f"15a: {o4.iterations} sweeps, history, models and link errors "
+          "bitwise the one-device relax's")
+    sweeps = got.get("relax_fit", 0)
+    print(f"  [solver 15a] {card}: {pr.n_tiles} tiles, {pr.n_rows} rows, "
+          f"{o4.iterations} iterations ({sweeps} sweeps launched); launches "
+          f"K11 {got.get('relax_moments', 0)} ({got.get('relax_moments', 0) / SOLVE_SHARDS:g} a shard), "
+          f"K13 {got.get('relax_error', 0)} ({got.get('relax_error', 0) / SOLVE_SHARDS:g} a shard), "
+          f"K29 {got.get('shard_sum', 0)}, K12 {sweeps}, K14 "
+          f"{got.get('relax_converge', 0)}; wall sharded {w4:.3f}s (relax "
+          f"loop {o4.seconds:.3f}s, card {o4.card_seconds:.4f}s) / one "
+          f"device {w1:.3f}s (loop {o1.seconds:.3f}s, card "
+          f"{o1.card_seconds:.4f}s)", flush=True)
+    # one sweep alone, each problem (no state reads; the cap out of reach)
+    sweep_ms = {}
+    for name, a in (("one device", a1), ("sharded", a4)):
+        a = list(a)
+        a[7] = 10 ** 6
+        run = R.RelaxRun(R.KERNELS, *a)
+        sweep_ms[name] = time_ms(run.sweep)
+        if dev.type == "cuda":
+            check(not run.first.state.tolist()[2],
+                  f"15a {name}: still iterating after the timed sweeps")
+    print(f"  [solver 15a] {card}: card time a sweep sharded "
+          f"{sweep_ms['sharded']} ms, one device {sweep_ms['one device']} "
+          "ms (launches queued behind a spin)", flush=True)
+    res = shard_sum_times(run.mom_out, None, None,
+                          f"15a's moments ({SOLVE_SHARDS} x {pr.n_tiles} x "
+                          f"{R.N_MOMENTS})", card)
+    res["sweep_ms"] = sweep_ms
+    return res
+
+
+def cg_partial_times(sysm, card):
+    """K24's partial form alone on shard 0 of ``sysm`` (no p_new store, as
+    the loop launches it on a shard) against its twin: Ap within rtol
+    1e-12; card time, twin, bound (the lists, r and p_old read, Ap
+    written)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    sh = sysm.shards[0]
+    dev, n, nnz = sh.device, sh.n, int(sh.vals.numel())
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r, p_old = (torch.randn(n, generator=g, **f64) for _ in range(2))
+    d, i = R.cg_state(sh, dev)
+    d[1] = 0.5
+    ap, ref = torch.empty(n, **f64), torch.empty(n, **f64)
+    run = lambda: R.cg_spmv_partial(sh, r, p_old, None, ap, d, i)
+    run()
+    R.cg_spmv_partial_plain(sh, r, p_old, None, ref, d, i)
+    err = max_abs(ap, ref)
+    check(err <= 1e-12 * float(ref.abs().max()),
+          f"K24's partial form at 15b's shard ({n} rows, {nnz} terms): Ap "
+          f"within rtol 1e-12 of its twin's ({err:.3g})")
+    r_ = dict(err=err, ms=time_ms(run), wrapper_ms=time_ms(run, host=True),
+              plain_ms=time_ms(lambda: R.cg_spmv_partial_plain(
+                  sh, r, p_old, None, ref, d, i), reps=5), library_ms=None,
+              bound=bound(nnz * 12 + (n + 1) * 4 + n * 24, nnz * 4 + n * 2,
+                          F64_OPS_PER_S))
+    print_times(f"cg_spmv_partial at 15b's shard ({nnz} terms)", r_, card)
+    return r_
+
+
+def phase15b(scale, dev, card, launches):
+    """15b: 10b's large system with BST_SOLVE_SHARD=1: on the default mesh
+    (one card: one device) and on [dev] * 4 (sharded): within rtol / atol
+    1e-8 of each other, the sharded run against its twin loop and its
+    residual; K24's partial form and K29 at its shapes. Returns their
+    results."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import intensity as OI
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    C, rows, smooth = large_intensity_system(SCALES[scale]["ip_grid"])
+    mesh = [dev] * SOLVE_SHARDS
+    sols, outs = {}, {}
+    calls, undo = cg_spy()
+    try:
+        with knobs({"BST_SOLVE_SHARD": "1"}):
+            for route, devices in (("15b one device", None), ("15b", mesh)):
+                t0 = time.perf_counter()
+                sols[route] = counted(
+                    route, launches, dev, lambda: OI.solve_intensity_coefficients(
+                        C, rows, 0.1, smooth_pairs=smooth, backend="device",
+                        device=dev, devices=devices), exclusive=True)
+                outs[route] = (calls[-1], time.perf_counter() - t0)
+    finally:
+        undo()
+    (args, out, cg_s), wall = outs["15b"]
+    cg_report("15b", card, f"{C} cells, {SOLVE_SHARDS} shards", wall, out,
+              cg_s)
+    (_a1, out1, cg1), wall1 = outs["15b one device"]
+    cg_report("15b one device", card, f"{C} cells", wall1, out1, cg1)
+    err = float(np.abs(sols["15b"] - sols["15b one device"]).max())
+    check(np.allclose(sols["15b"], sols["15b one device"], rtol=1e-8,
+                      atol=1e-8),
+          f"15b: the sharded CG within rtol / atol 1e-8 of the one-device "
+          f"CG (max|delta| {err:.3g})")
+    sysm, _err = check_cg("15b", args, out.x, out.iterations, dev,
+                          n_shards=SOLVE_SHARDS, mesh=mesh)
+    if dev.type != "cuda":
+        return {}
+    part = cg_partial_times(sysm, card)
+    # K29 at the CG's shape: the shards' Ap of a direction, the replicated
+    # part's, p.Ap
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r, p_old = (torch.randn(sysm.n, generator=g, **f64) for _ in range(2))
+    d, i = R.cg_state(sysm.reps[0], dev)
+    d[1] = 0.5
+    p_new, ap_rep = torch.empty(sysm.n, **f64), torch.empty(sysm.n, **f64)
+    R.cg_spmv_partial(sysm.reps[0], r, p_old, p_new, ap_rep, d, i)
+    parts = [torch.empty(sysm.n, **f64) for _ in sysm.shards]
+    for sh, ap in zip(sysm.shards, parts):
+        R.cg_spmv_partial(sh, r, p_old, None, ap, d, i)
+    k29 = shard_sum_times(parts, ap_rep, p_new,
+                          f"15b's vectors ({SOLVE_SHARDS} x {sysm.n}, the "
+                          "replicated part, p.Ap)", card)
+    return {"cg_spmv_partial": part, "shard_sum_15b": k29}
+
+
+def prefixed(prefix, r):
+    """A kernel result's numbers as fields of another kernel's entry:
+    err -> max_abs_err, bound -> bound_ms and bound_by."""
+    out = {f"{prefix}{k}": v for k, v in r.items()
+           if k not in ("err", "bound")}
+    out[f"{prefix}max_abs_err"] = r["err"]
+    out[f"{prefix}bound_ms"], out[f"{prefix}bound_by"] = r["bound"]
+    return out
+
+
+def phase15_sharded_solves(scale, dev, card, launches, solve7c):
+    """Phase 15: the sharded global solves on the mesh [dev] * 4."""
+    t0 = time.perf_counter()
+    print("phase 15 (sharded solves, devices=[card] * 4)", flush=True)
+    k29 = phase15a(scale, dev, card, launches, solve7c)
+    res = phase15b(scale, dev, card, launches)
+    if res:
+        k29.update(prefixed("at_15b_", res["shard_sum_15b"]))
+        res = prefixed("partial_", res["cg_spmv_partial"])
+    print(f"  phase 15 wall {time.perf_counter() - t0:.1f}s", flush=True)
+    return {"shard_sum": k29}, res
+
+
 def main_path(work, scale, dev, card, launches):
-    """Phases 2-14 through the CLI entry functions (8d, 12, 14a and 14c
-    through the API); returns route A's XML and container paths and
-    phases 7-12's kernel results. Prints each phase's wall."""
+    """Phases 2-15 through the CLI entry functions (8d, 12, 14a, 14c and
+    15 through the API); returns route A's XML and container paths and
+    phases 7-12's and 15's kernel results. Prints each phase's wall."""
     walls, t = {}, [time.perf_counter()]
 
     def lap(phase, out=None):
@@ -5397,7 +5685,8 @@ def main_path(work, scale, dev, card, launches):
     proj_c = lap("4", route_c(work, scale, dev, card, launches))
     lap("5", route_d(work, scale, dev, card, launches, a))
     lap("6", phase6_stitching(a[0], proj_c, dev, card, launches))
-    relax = lap("7", phase7_solver(work, scale, a[0], dev, card, launches))
+    relax, solve7c = lap("7", phase7_solver(work, scale, a[0], dev, card,
+                                            launches))
     det, det_b, gate8d, det_one = lap("8", phase8_detection(
         a[0], scale, dev, card, launches))
     match = lap("9", phase9_matching(work, a[0], det_b, scale, dev, card,
@@ -5411,9 +5700,13 @@ def main_path(work, scale, dev, card, launches):
                               proj_c, proj10))
     lap("14", phase14_shard_routes(work, scale, dev, card, launches, a[0],
                                    det_one))
+    k29, partial = lap("15", phase15_sharded_solves(scale, dev, card,
+                                                    launches, solve7c))
+    if "cg_spmv" in inten:
+        inten["cg_spmv"].update(partial)
     print(f"phase walls (s): {walls}", flush=True)
     return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
-                                 **nonrigid, **scan}
+                                 **nonrigid, **scan, **k29}
 
 
 # ---------------------------------------------------------------- main
@@ -5476,7 +5769,7 @@ def main(argv=None) -> int:
         res.update(later)
         print(f"main path launches (routes A-D, stitching, solver, "
               f"detection, matching, intensity, nonrigid, scan, sharded, "
-              f"shard_jit routes): "
+              f"shard_jit routes, sharded solves): "
               f"{launches}", flush=True)
         # K1 runs once per run of route A, on the whole volume: its line
         # reports that shape, with the compute-block numbers beside it
@@ -5533,7 +5826,13 @@ def main(argv=None) -> int:
             # (phase 1), K21 at 9a's shape beside 9b's, K19's masked form
             # (8d)
             **{k: v for k, v in r.items()
-               if k.startswith(("halfpixel_", "route_d_", "at_9a_"))},
+               if k.startswith(("halfpixel_", "route_d_", "at_9a_",
+                                "at_15b_", "partial_"))},
+            # K24's partial form (phase 15b): its launches; K29: one
+            # sweep of 15a alone, sharded and on one device
+            **({"partial_launches": launches["cg_spmv_partial"]}
+               if name == "cg_spmv" else {}),
+            **({"sweep_ms": r["sweep_ms"]} if "sweep_ms" in r else {}),
             **({"masked_launches": masked["launches"],
                 "masked_ms": masked["ms"],
                 "masked_plain_ms": masked["plain_ms"],

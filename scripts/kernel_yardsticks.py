@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""K8 (FFT) and K24 (CG product) beside their library yardsticks, and K20
-(ratio test), K15 (blur pass), K3 (gather), K26 (nonrigid), K1 (composite),
-K12 (relax fits), K21 (RANSAC scores), K6 (downsampling), K2 (shift), K5
-(separable) and K28 (block epilogue) beside their bounds, and phase 10's
-walls, on one GPU.
+"""K8 (FFT), K24 (CG product) and K29 (shard sum) beside their library
+yardsticks, and K20 (ratio test), K15 (blur pass), K3 (gather), K26
+(nonrigid), K1 (composite), K12 (relax fits), K21 (RANSAC scores), K6
+(downsampling), K2 (shift), K5 (separable), K28 (block epilogue) and K24's
+partial form beside their bounds, and phase 10's walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
         [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
-                downsample|blocks|intensity[,...]]
+                downsample|blocks|intensity|shard|loops[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -26,7 +26,9 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   8x8x8 cells: 524,288 unknowns): one K24 + K25 step held against the
   twins (rtol 1e-12), then K24 and torch.mv on the CSR matrix with
   K24's int32 indices, each one launch after a reset and back to back,
-  and with ``--lanes`` K24 launched directly at each lane count;
+  and with ``--lanes`` K24 launched directly at each lane count; with
+  ``--outputs DIR`` one K24 launch's p_new, Ap and p.Ap saved or compared
+  bitwise;
 - ``ratio_times`` at 9b's shape (K19's descriptors of the nucleus-scale
   pair: 400,000 x 400,000 of 9, owners in runs of 4): K20 bitwise against
   its twin on the first 4,096 rows and the last 2,048 (ratio and nearest
@@ -77,6 +79,20 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   host's, bound; on a tree that has them also their batch forms at 16
   rows (each row bitwise the per-block kernel's) and K28 on K2's batch
   output with level (2,2,2) (bitwise its twin's);
+- ``shard``: on a tree that has it, K29 (``ops.shard.shard_sum``) at
+  phase 15a's moments (4 shards of 512 x 36 float64) and at 15b's vectors
+  (4 shards of 524,288, the replicated part, p.Ap), each bitwise its twin
+  (the dot within rtol 1e-12), beside ``torch.stack(...).sum(0)`` (+
+  ``torch.dot``), and K24's partial form on shard 0 of phase 10b's large
+  system split 4 ways, against its twin;
+- ``loops``: the one-device solve loops, which the host's launch time
+  bounds: 7c's relaxation (its IP grid written and its links assembled as
+  the solver does, AFFINE + RIGID, lambda 0.1) through ``solver.relax``,
+  its wall and its relax seconds a run, and ``ops.solve.relax_on_device``
+  capped at 100 iterations (7c's "ms/iteration" line) and at 1 (a
+  call's fixed cost), and the CG loop
+  of phase 10b's large system through ``ops.solve.cg_on_device``: each
+  repeated 5 times, with the host's seconds and ms per iteration;
 - ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
   gates) through the CLI, after every library of the tree is built, so
   that no build lands in a timed window; prints each route's wall split.
@@ -116,11 +132,12 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
                          "nonrigid, composite, fit, ransac, downsample, "
-                         "blocks, intensity (default fft,cg)")
+                         "blocks, intensity, shard (default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
-                    help="K3's, K26's, K1's, K12's, K21's and K6's outputs "
+                    help="K3's, K26's, K1's, K12's, K21's, K6's and K24's "
+                         "outputs "
                          "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
@@ -130,7 +147,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
-             "fit", "ransac", "downsample", "blocks", "intensity")
+             "fit", "ransac", "downsample", "blocks", "intensity", "shard",
+             "loops")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -226,7 +244,16 @@ def main(argv=None) -> int:
             sysm = R.assemble_cg(
                 C, *OI.intensity_system(C, matches, 0.1, smooth), dev)
             res = CS.cg_times(sysm, card, lanes)
+            if dev.type == "cuda":
+                CS.hold_outputs(args.outputs, "cg_spmv", cg_step(sysm, dev, R),
+                                res["cg_spmv"])
+                print(f"  cg_spmv vs the saved run: bitwise "
+                      f"{res['cg_spmv'].get('bitwise_vs_saved')}", flush=True)
             out.update({k: res[k] for k in ("cg_spmv", "cg_update")})
+        if "shard" in only:
+            out.update(shard_yardsticks(dev, card, cfg, CS, R, OI))
+        if "loops" in only:
+            out["loops"] = loop_times(root, args.scale, dev, card, CS, R, OI)
     except CS.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -236,6 +263,149 @@ def main(argv=None) -> int:
     print(card)
     print(json.dumps({"root": root, "kernels": out}))
     return 0
+
+
+def cg_step(sysm, dev, R):
+    """One launch of K24's full form on seeded inputs: (p_new, Ap, the
+    state with p.Ap), for ``--outputs``."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r, p_old = (torch.randn(sysm.n, generator=g, **f64) for _ in range(2))
+    d, i = R.cg_state(sysm, dev)
+    d[1] = 0.625
+    p_new, ap = torch.empty(sysm.n, **f64), torch.empty(sysm.n, **f64)
+    R.cg_spmv(sysm, r, p_old, p_new, ap, d, i)
+    return p_new, ap, d
+
+
+def shard_yardsticks(dev, card, cfg, CS, R, OI):
+    """K29 at phase 15's two shapes and K24's partial form at 15b's shard
+    (module docstring); nothing on a tree without them."""
+    import importlib.util
+
+    import torch
+
+    if importlib.util.find_spec("bigstitcher_spark_tpu_torch.ops.shard") \
+            is None:
+        print("  no shard sum in this tree", flush=True)
+        return {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    f64 = dict(dtype=torch.float64, device=dev)
+    S = CS.SOLVE_SHARDS
+    mom = [torch.randn((512, 36), generator=g, **f64) for _ in range(S)]
+    out = {"shard_sum": CS.shard_sum_times(mom, None, None,
+                                           f"15a's moments ({S} x 512 x 36)",
+                                           card)}
+    C, matches, smooth = CS.large_intensity_system(cfg["ip_grid"])
+    sysm = R.assemble_cg(C, *OI.intensity_system(C, matches, 0.1, smooth),
+                         dev, n_shards=S)
+    n = sysm.n
+    vec = [torch.randn(n, generator=g, **f64) for _ in range(S + 2)]
+    out["shard_sum at 15b"] = CS.shard_sum_times(
+        vec[:S], vec[S], vec[S + 1], f"15b's vectors ({S} x {n}, rep, dot)",
+        card)
+    out["cg_spmv_partial"] = CS.cg_partial_times(sysm, card)
+    return out
+
+
+def loop_times(root, scale, dev, card, CS, R, OI, reps=5):
+    """The one-device relax and CG loops (module docstring): host seconds
+    of each of ``reps`` runs, their median and ms per iteration."""
+    import dataclasses
+
+    import torch
+
+    from bigstitcher_spark_tpu_torch.io.interestpoints import (
+        InterestPointStore)
+    from bigstitcher_spark_tpu_torch.io.spimdata import SpimData
+    from bigstitcher_spark_tpu_torch.models import solver as S
+    from bigstitcher_spark_tpu_torch.ops import models as M
+    from bigstitcher_spark_tpu_torch.utils.solverdata import make_ip_grid
+
+    cfg = CS.SCALES[scale]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = os.path.join(root, "smoke_work")
+    try:
+        ip = make_ip_grid(os.path.join(work, "ip"), grid=cfg["ip_grid"],
+                          tile=cfg["solve_tile"],
+                          n_per_pair=cfg["ip_pairs"], seed=43)
+        sd = SpimData.load(ip.xml_path)
+        params = S.SolverParams(source="IP", model=M.AFFINE,
+                                regularization=M.RIGID, lam=0.1,
+                                backend="device", device=str(dev),
+                                labels=["beads"])
+        tiles = S.build_tiles(sd, sd.view_ids(), params)
+        links = S.matches_from_interest_points(
+            sd, tiles, InterestPointStore.for_project(sd), ["beads"], [],
+            verbose=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fixed = S.pick_fixed(tiles, params)
+    res = {}
+
+    def runs(name, fn):
+        walls, iters = [], None
+        fn()
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            iters = fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        med = sorted(walls)[len(walls) // 2]
+        res[name] = dict(walls_s=walls, median_s=med, iterations=iters,
+                         ms_per_iteration=med / max(iters, 1) * 1e3)
+        print(f"  [loops] {card}: {name}: {iters} iterations, median "
+              f"{med:.4f} s -> {res[name]['ms_per_iteration']:.4f} "
+              f"ms/iteration (host clock; runs "
+              f"{', '.join(f'{w:.4f}' for w in walls)} s)", flush=True)
+
+    relax_s = []
+
+    def relax():
+        r = S.relax(links, tiles, fixed, params)
+        relax_s.append(r.timings["relax"])
+        return r.iterations
+
+    runs("7c relax (solver.relax)", relax)
+    relax_s = relax_s[1:]
+    res["7c relax (solver.relax)"]["relax_timing_s"] = relax_s
+    print(f"  [loops] 7c relax timings['relax']: "
+          f"{', '.join(f'{v:.4f}' for v in relax_s)} s", flush=True)
+    calls, undo = CS.relax_spy()
+    try:
+        S.relax(links, tiles, fixed,
+                dataclasses.replace(params, max_iterations=100))
+    finally:
+        undo()
+    (a100, _k, _o), = calls
+    runs("7c relax_on_device, 100 iterations",
+         lambda: R.relax_on_device(*a100).iterations)
+    a1 = list(a100)
+    a1[7] = 1
+    runs("7c relax_on_device, 1 iteration",
+         lambda: R.relax_on_device(*a1).iterations)
+    C, matches, smooth = CS.large_intensity_system(cfg["ip_grid"])
+    sysm = R.assemble_cg(C, *OI.intensity_system(C, matches, 0.1, smooth),
+                         dev)
+    card_s = []
+
+    def cg():
+        out = R.cg_on_device(sysm)
+        card_s.append(out.card_seconds)
+        return out.iterations
+
+    runs("10b large cg_on_device", cg)
+    card_s = card_s[1:]
+    res["10b large cg_on_device"]["card_s"] = card_s
+    print(f"  [loops] 10b large CG card seconds: "
+          f"{', '.join(f'{v:.4f}' for v in card_s)} s", flush=True)
+    res["card"] = card
+    return res
 
 
 def phase10(root, scale, dev, card, CS):

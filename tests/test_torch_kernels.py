@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K27) against their plain-torch twins, on the card.
+"""The port's CUDA kernels (K1-K29) against their plain-torch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; on a host without
 ``torch.cuda.is_available()`` each one skips and says so. On the card:
@@ -36,7 +36,11 @@ another order). K26 (non-rigid fusion) at the fusion kernels' tolerances:
 it rounds where its twin rounds (the twin's fused multiply-adds in
 float64 may round twice where fmaf rounds once, in rare last bits). K27
 (volume scan fusion) takes K2's float32 operations in the same order as
-its twin on the same weight tables: bitwise.
+its twin on the same weight tables: bitwise. K29 (shard sum) adds in the
+twin's order: bitwise, its dot within rtol 1e-12; K24's partial form
+gives the full form's Ap bit for bit; the sharded relax on a mesh of one
+card repeated is bitwise the one-device relax, the sharded CG within 1e-8
+of the one-device CG.
 """
 
 import numpy as np
@@ -2134,3 +2138,149 @@ def test_block_epilogue_kernel_bitwise_twin(dev, out_dtype, masks, rels,
     with pytest.raises(ValueError, match="do not divide"):
         E.block_epilogue(fused, wsum, 0.0, 1.0, out_dtype, masks,
                          ((5, 1, 1),))
+
+
+# --------------------------------------------------- K29, K24's partial form
+
+
+@pytest.mark.parametrize("n,S,with_rep,with_dot", [
+    (512 * 36, 4, False, False), (2 * 512, 4, False, False),
+    (524_288, 4, True, True), (524_288 + 17, 3, True, True),
+    (1000, 1, False, True), (300_001, 64, False, False)])
+def test_shard_sum_kernel(dev, n, S, with_rep, with_dot):
+    """K29 against shard_sum_plain on the card: the sum bitwise (the same
+    adds in shard order), the dot within rtol 1e-12 of the twin's
+    torch.dot (another order); the ticket back to 0; nothing once done."""
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + S)
+    f64 = dict(dtype=torch.float64, device=dev)
+    parts = [torch.randn(n, generator=g, **f64) * 10.0 ** (d % 5 - 2)
+             for d in range(S)]
+    rep = torch.randn(n, generator=g, **f64) if with_rep else None
+    v = torch.randn(n, generator=g, **f64) if with_dot else None
+    outs = []
+    for fn in (K.shard_sum, K.shard_sum_plain):
+        out = torch.empty(n, **f64)
+        dot = torch.zeros(1, **f64) if with_dot else None
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        ops.reset_launch_counts()
+        fn(parts, out, rep=rep, v=v, dot=dot, ticket=ticket)
+        assert ops.launch_counts()["shard_sum"] == (fn is K.shard_sum)
+        assert int(ticket) == 0
+        outs.append((out, dot))
+    assert torch.equal(outs[0][0], outs[1][0])
+    if with_dot:
+        torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-12,
+                                   atol=0.0)
+    done = torch.ones(1, dtype=torch.int32, device=dev)
+    kept = torch.full((n,), 7.0, **f64)
+    K.shard_sum(parts, kept, done=done)
+    assert bool((kept == 7.0).all()), "a launch after done writes"
+
+
+def test_shard_sum_kernel_refuses_other_device_args(dev):
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+
+    out = torch.zeros(8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        K.shard_sum([out.clone()], out, rep=torch.zeros(8,
+                                                        dtype=torch.float64))
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("n_views,dims,n_matches", [
+    (3, (4, 4, 4), 300), (64, (8, 8, 8), 4000)])
+def test_cg_partial_kernel(dev, store, n_views, dims, n_matches):
+    """K24's partial form on a shard's CSR (JAX's strided rows, 4 shards)
+    and on the replicated one: Ap bitwise the full form's on the same
+    lists (the same sums in the same order), within rtol 1e-12 of the
+    twin's; p_new bitwise the twin's where stored, untouched where not;
+    nothing once done."""
+    C, (rows, diag, rhs, sidx, sw) = _cg_case(5, n_views, dims, n_matches)
+    sysm = R.assemble_cg(C, rows, diag, rhs, sidx, sw, dev, n_shards=4)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r = torch.randn(sysm.n, generator=g, **f64)
+    p_old = torch.randn(sysm.n, generator=g, **f64)
+    for part in (sysm.shards[1], sysm.reps[0]):
+        d, i = R.cg_state(part, dev)
+        d[1] = 0.375
+        pn_full, ap_full = torch.empty_like(r), torch.empty_like(r)
+        R.cg_spmv(part, r, p_old, pn_full, ap_full, d, i)
+        pn = torch.full_like(r, -3.0)
+        ap = torch.empty_like(r)
+        ops.reset_launch_counts()
+        R.cg_spmv_partial(part, r, p_old, pn if store else None, ap, d, i)
+        assert ops.launch_counts()["cg_spmv_partial"] == 1
+        assert ops.launch_counts()["cg_spmv"] == 0
+        assert torch.equal(ap, ap_full)
+        pn_t, ap_t = torch.empty_like(r), torch.empty_like(r)
+        R.cg_spmv_partial_plain(part, r, p_old, pn_t, ap_t, d, i)
+        torch.testing.assert_close(ap, ap_t, rtol=1e-12, atol=1e-12)
+        if store:
+            assert torch.equal(pn, pn_t) and torch.equal(pn, pn_full)
+        else:
+            assert bool((pn == -3.0).all())
+        i[1] = 1
+        ap.fill_(5.0)
+        R.cg_spmv_partial(part, r, p_old, None, ap, d, i)
+        assert bool((ap == 5.0).all()), "a launch after done writes"
+
+
+def test_sharded_relax_on_the_card(dev, tmp_path):
+    """The sharded relax on [cuda] * 4 (4 shards, one distinct device):
+    bitwise the one-device relax on the card; K11 and K13 a shard, K12 and
+    K14 once a sweep, K29 twice a sweep plus the origins and the link
+    errors."""
+    tiles, links, rows = _relax_graph(tmp_path, 60)
+    T = len(tiles)
+    one = R.prepare_relax(rows, T, dev)
+    sh = R.prepare_relax(rows, T, dev, 4, mesh=[dev] * 4)
+    fixed = np.zeros(T, bool)
+    fixed[0] = True
+    warm = np.random.default_rng(35).uniform(-2, 2, (T, 3))
+    warm[0] = 0.0
+    mask = np.ones(len(rows))
+    mask[2] = 0.0
+    args = (mask, fixed, warm, 0.1, 1.0, 5.0, 300, "AFFINE", "RIGID", 40)
+    a = R.relax_on_device(one, *args)
+    ops.reset_launch_counts()
+    b = R.relax_on_device(sh, *args)
+    counts = ops.launch_counts()
+    assert a.iterations == b.iterations > 0
+    for x, y in ((a.history, b.history), (a.models, b.models),
+                 (a.link_errors, b.link_errors)):
+        assert np.array_equal(x, y)
+    sweeps = counts["relax_fit"]
+    assert counts["relax_moments"] == 4 * sweeps
+    assert counts["relax_error"] == 4 * sweeps + 4
+    assert counts["relax_converge"] == sweeps
+    assert counts["shard_sum"] == 2 * sweeps + 2
+    ref = R.relax_plain(sh, *args)
+    assert ref.iterations == b.iterations
+    np.testing.assert_allclose(b.history, ref.history, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(b.models, ref.models, rtol=1e-7, atol=1e-9)
+
+
+def test_sharded_cg_on_the_card(dev):
+    """The sharded CG on [cuda] * 4: within rtol / atol 1e-8 of the
+    one-device CG (JAX's contract), within rtol 1e-9 of its twin loop;
+    K24's partial form and K29, no full K24."""
+    C, (rows, diag, rhs, sidx, sw) = _cg_case(5, 64, (8, 8, 8), 4000)
+    one = R.cg_on_device(R.assemble_cg(C, rows, diag, rhs, sidx, sw, dev))
+    sysm = R.assemble_cg(C, rows, diag, rhs, sidx, sw, dev, n_shards=4,
+                         mesh=[dev] * 4)
+    ops.reset_launch_counts()
+    got = R.cg_on_device(sysm)
+    counts = ops.launch_counts()
+    assert counts["cg_spmv"] == 0
+    assert counts["cg_spmv_partial"] == 5 * counts["shard_sum"] > 0
+    assert counts["cg_update"] == counts["shard_sum"]
+    torch.testing.assert_close(got.x, one.x, rtol=1e-8, atol=1e-8)
+    ref = R.cg_plain(sysm)
+    assert abs(got.iterations - ref.iterations) <= 1
+    scale = float(ref.x.abs().max())
+    torch.testing.assert_close(got.x, ref.x, rtol=1e-9, atol=1e-9 * scale)
