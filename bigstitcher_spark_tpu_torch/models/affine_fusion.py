@@ -11,7 +11,8 @@ takes one of two routes, as the JAX driver does with one device:
   volume; x-slabs then drain to host and a thread pool writes them.
 * **per-block**: otherwise, per compute block the host stages the source
   patches (a thread pool reads ahead), and K2
-  (:func:`..ops.fusion.fuse_block_shift`, all views translations), K5
+  (:func:`..ops.fusion.fuse_block_shift`, all views translations; a block
+  of threads stages its tile's patch rows in shared memory), K5
   (:func:`..ops.fusion.fuse_block_sep`, all views diagonal affines, e.g.
   under ``--preserveAnisotropy``) or K3 (:func:`..ops.fusion.fuse_block`,
   general affine) fuses them; K4 (:func:`..ops.fusion.convert_intensity`)
@@ -37,8 +38,10 @@ JAX driver does:
   ``devices x per_dev`` blocks at a time over a mesh of the first
   ``devices`` cards (``parallel/mesh.py``; on a one-card host a one-device
   mesh); one launch of K2's, K5's or K3's batch form fuses a device's rows,
-  one launch of K28 (:func:`..ops.epilogue.block_epilogue`) converts them
-  and makes the prefix of the pyramid that is block-local
+  one launch of K28 (:func:`..ops.epilogue.block_epilogue`: a block of
+  threads a tile of the last level, the levels below it kept in shared
+  memory) converts them and makes the prefix of the pyramid that is
+  block-local
   (:func:`eligible_epilogue_levels`); one drain worker per device copies
   its rows back and a pool of ``BST_WRITE_THREADS`` writers writes their
   chunks.

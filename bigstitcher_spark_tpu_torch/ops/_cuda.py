@@ -55,7 +55,7 @@ _SIGNATURES = {
                          + [_F, _F] + [_I] * 6 + [_VP, _VP],
     },
     "shift": {
-        "bst_fuse_block_shift_batch": [_VP, _I, _VP, _VP, _VP] + [_I] * 6
+        "bst_fuse_block_shift_batch": [_VP, _I, _VP, _VP, _VP] + [_I] * 14
                                       + [_VP, _VP, _VP],
         "bst_fuse_volume_scan": [_VP] + [_I] * 4 + [_VP] * 6 + [_I] * 9
                                 + [_VP, _VP],
@@ -122,8 +122,8 @@ _SIGNATURES = {
         "bst_shard_sum": [_I64, _I] + [_VP] * 6 + [_I, _VP, _VP, _VP],
     },
     "epilogue": {
-        "bst_block_epilogue": [_VP, _VP] + [_I] * 4 + [_F, _F] + [_I] * 3
-                              + [_VP] * 4,
+        "bst_block_epilogue": [_VP] * 3 + [_I] * 4 + [_F, _F] + [_I] * 3
+                              + [_VP] * 5 + [_I, _I, _VP],
     },
     "nonrigid": {
         "bst_nonrigid_fuse_batch": [_VP, _I, _I, _I, _I, _VP, _I, _I, _I]

@@ -22,6 +22,12 @@ every block of a batch of one bucket, as the JAX sharded fuser's vmap does
 (``parallel/mesh.py:223``), each row bitwise the per-block launch's. Their
 plain twins loop the per-block plain functions over the rows.
 
+Launch plans are Python functions the CPU tests hold: K3 and K26 take
+:func:`resample_plan` (a thread a run of RESAMPLE_R z outputs of one
+column, a block a tile of one i); K2 takes :func:`shift_launch_plan`, the
+same runs and tiles, with each view's window of patch rows staged in
+shared memory by asynchronous copies before a block combines its views.
+
 K1 and K3 also apply per-view intensity-correction grids (Cx, Cy, Cz, 2)
 of [scale, offset] when given them (``so[0] * val + so[1]`` before the
 blend, as the JAX programs do): K1 by separable interpolation rows over
@@ -92,6 +98,7 @@ def _require(t: torch.Tensor, name: str, device: torch.device, dtypes,
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
 
 
 _F32 = (torch.float32,)
@@ -304,7 +311,8 @@ def fuse_block_shift(patches, fracs, lpos0, img_dims, borders, blend_ranges,
     patches (V, bx+1, by+1, bz+1) uint8/uint16/int16/float32; fracs, lpos0,
     img_dims, borders, blend_ranges, inside_offs (V, 3) float32; valid (V,)
     float32. Returns (fused, wsum), both (bx, by, bz) float32. On CUDA it
-    is :func:`fuse_block_shift_batch`'s launch on a batch of one."""
+    is :func:`fuse_block_shift_batch`'s launch on a batch of one (the
+    launch: :func:`shift_launch_plan`)."""
     if patches.device.type == "cpu":
         return fuse_block_shift_plain(patches, fracs, lpos0, img_dims, borders,
                                       blend_ranges, valid, block_shape,
@@ -364,18 +372,24 @@ def _shift_batch_tables(patches, fracs, lpos0, img_dims, borders,
 
 
 def _launch_shift(patches, fracs, tables, valid, block_shape, fusion_type):
-    """One launch of K2 on a checked batch (B, V, ...)."""
+    """One launch of K2 on a checked batch (B, V, ...), as
+    :func:`shift_launch_plan` lays it out (patches not 16-byte aligned are
+    copied first: the windows are staged in aligned 16-byte pieces)."""
     bx, by, bz = block_shape
     dev = patches.device
     B, V = (int(s) for s in patches.shape[:2])
     fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
     wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    plan = shift_launch_plan(block_shape, V, B, patches.element_size())
+    if patches.data_ptr() % 16:  # the windows are copied in aligned 16 bytes
+        patches = patches.clone()
     lib = _cuda.load("shift")
     ret = lib.bst_fuse_block_shift_batch(
         patches.data_ptr(), _IN_CODE[patches.dtype], fracs.data_ptr(),
         tables.data_ptr(), valid.data_ptr(), B, V, bx, by, bz,
-        _ft_code(fusion_type), fused.data_ptr(), wsum.data_ptr(),
-        _stream(dev))
+        _ft_code(fusion_type), plan.lanes_z, plan.n_jt, *plan.grid[:2],
+        plan.nvs, plan.row_bytes, plan.smem, int(plan.idx64),
+        fused.data_ptr(), wsum.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "fuse_block_shift")
     return fused, wsum
 
@@ -738,6 +752,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-int(a) // int(b))
 
 
+def _lanes_z(bz: int) -> int:
+    """Threads sharing a column of ``bz`` outputs: the power of two at or
+    above its runs of RESAMPLE_R, at most 32 (K2, K3, K26)."""
+    return min(32, 1 << (_cdiv(bz, RESAMPLE_R) - 1).bit_length())
+
+
 def resample_plan(block_shape, V: int, patch_shape) -> ResamplePlan:
     """K3's and K26's launch for a block of ``block_shape`` outputs from V
     views of ``patch_shape`` patches: ``lanes_z`` threads (the power of two
@@ -752,7 +772,7 @@ def resample_plan(block_shape, V: int, patch_shape) -> ResamplePlan:
     bx, by, bz = (int(s) for s in block_shape)
     if min(bx, by, bz) <= 0 or int(V) <= 0:
         raise ValueError(f"empty resample: block {tuple(block_shape)}, V {V}")
-    lanes_z = min(32, 1 << (_cdiv(bz, RESAMPLE_R) - 1).bit_length())
+    lanes_z = _lanes_z(bz)
     tile_j = RESAMPLE_THREADS // lanes_z
     tile_z = RESAMPLE_R * lanes_z
     n_jt = _cdiv(by, tile_j)
@@ -763,6 +783,50 @@ def resample_plan(block_shape, V: int, patch_shape) -> ResamplePlan:
     return ResamplePlan(lanes_z, (1, tile_j, tile_z), n_jt, grid,
                         _cdiv(V, RESAMPLE_VIEW_CHUNK), idx64,
                         (NONRIGID_TABLE_F4 // tile_j - 1) // 3)
+
+
+# K2's launch (csrc/shift.cu): SHIFT_THREADS threads a block; a block's
+# staged views take at most SHIFT_SMEM bytes of dynamic shared memory (a
+# block may take 48 KB without opting in, less its static weights).
+SHIFT_THREADS = 256
+SHIFT_SMEM = 48 * 1024 - 1024
+ShiftPlan = namedtuple(
+    "ShiftPlan", "lanes_z tile n_jt grid nvs row_bytes smem idx64")
+
+
+def shift_launch_plan(block_shape, V: int, B: int = 1,
+                      itemsize: int = 2) -> ShiftPlan:
+    """K2's launch for B rows of a block of ``block_shape`` outputs from V
+    views of (bx+1, by+1, bz+1) patches of ``itemsize``-byte values: a
+    thread owns RESAMPLE_R consecutive z outputs of one column, ``lanes_z``
+    threads a column (:func:`resample_plan`'s), a block of SHIFT_THREADS
+    threads a ``tile`` of one i, tile_j columns and tile_z outputs along
+    z; ``grid`` (bx n_jt, z tiles, B), the batch row in the third index.
+    A block stages ``nvs`` views at a time in ``smem`` bytes of shared
+    memory: each view's window, 2 planes of tile_j + 1 rows of the tile_z
+    + 1 values from z0, copied in 16-byte pieces from the z0 value's
+    aligned-down address (``row_bytes`` a row), and its column products
+    and z tables. ``idx64``: a patch of 2^31 elements or more (then 64-bit
+    patch indices, the fusion type read at run time)."""
+    bx, by, bz = (int(s) for s in block_shape)
+    if min(bx, by, bz) <= 0 or int(V) <= 0:
+        raise ValueError(f"empty fusion: block {tuple(block_shape)}, V {V}")
+    if not 1 <= int(B) <= 65535:
+        raise ValueError(f"K2 takes 1 to 65535 batch rows, got {B}")
+    lanes_z = _lanes_z(bz)
+    tile_j = SHIFT_THREADS // lanes_z
+    tile_z = RESAMPLE_R * lanes_z
+    n_jt = _cdiv(by, tile_j)
+    grid = (bx * n_jt, _cdiv(bz, tile_z), int(B))
+    if grid[0] >= 2 ** 31 or grid[1] > 65535:
+        raise ValueError(f"block {tuple(block_shape)} exceeds the launch grid")
+    row_bytes = _cdiv(16 - int(itemsize) + (tile_z + 1) * int(itemsize),
+                      16) * 16
+    per_view = 2 * (tile_j + 1) * row_bytes + 8 * tile_j + 8 * tile_z
+    nvs = min(RESAMPLE_VIEW_CHUNK, int(V), SHIFT_SMEM // per_view)
+    idx64 = (bx + 1) * (by + 1) * (bz + 1) >= 2 ** 31
+    return ShiftPlan(lanes_z, (1, tile_j, tile_z), n_jt, grid, nvs, row_bytes,
+                     nvs * per_view, idx64)
 
 
 def fuse_block(patches, affines, patch_offsets, img_dims, borders,

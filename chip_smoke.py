@@ -22,7 +22,8 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          avg_pool3d with a window of 2 on that axis. The batch forms of
          K2, K3 and K5 at 16 rows of their per-block inputs (route A's
          batch at --devices 4, per_dev 4): every row bitwise the per-block
-         kernel's, one launch timed; K28 (block_epilogue) on K2's batch
+         kernel's, one launch timed (K2 bitwise its twin, per block at
+         every fusion type and at 16 rows); K28 (block_epilogue) on K2's batch
          output with route A's first level (2,2,2), s0 and level bitwise
          its twin's in both modes (conversion, masks). K26's batch form
          at 4 distinct rows of phase 11's four-view block (synthesised
@@ -777,15 +778,18 @@ def batch_rows(args, io, rows):
             torch.stack([r[1] for r in per_row]).to(dev))
 
 
-def batch_times(batch_fn, plain_fn, single_fn, args, io, bs, nbytes, ops):
+def batch_times(batch_fn, plain_fn, single_fn, args, io, bs, nbytes, ops,
+                bitwise=False, outputs=None):
     """A batch form of K2, K3 or K5 at BATCH_ROWS distinct rows made from
     phase 1's per-block inputs (:func:`batch_rows`): every row bitwise the
     per-block kernel (``single_fn``) on that row's inputs, the padding row
     zeros, the batch held to its plain twin (a loop of the per-block twin)
-    on the same inputs with the per-block tolerance and its largest
-    |difference| from it recorded, one batch launch timed, the
-    twin once, and the bound of the batch (``nbytes`` and ``ops`` of one
-    row, times the rows)."""
+    on the same inputs with the per-block tolerance (``bitwise``: bit for
+    bit, K2) and its largest |difference| from it recorded, one batch
+    launch timed alone and with the host's time, the twin once, and the
+    bound of the batch (``nbytes`` and ``ops`` of one row, times the
+    rows); with ``outputs`` the batch's outputs held
+    (:func:`hold_outputs`)."""
     import torch
 
     rows = BATCH_ROWS
@@ -803,23 +807,33 @@ def batch_times(batch_fn, plain_fn, single_fn, args, io, bs, nbytes, ops):
           f"{batch_fn.__name__}: the {rows - 1} real rows differ")
     plain = lambda: plain_fn(*bargs, bs, "AVG_BLEND", bio)
     ref = plain()
+    if bitwise:
+        check(all(torch.equal(g, f) for g, f in zip(got, ref)),
+              f"{batch_fn.__name__}: bitwise its twin")
     # the per-block kernels' tolerance against their twins
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
     err = max_abs(got[0], ref[0])
+    r = dict(batch_rows=rows, batch_ms=time_ms(run, reps=5),
+             batch_host_ms=time_ms(run, reps=5, host=True),
+             batch_plain_ms=time_ms(plain, reps=1, rounds=1),
+             batch_bound_ms=bound(nbytes * rows, ops * rows)[0],
+             batch_max_abs_err=err)
+    held = {}
+    hold_outputs(outputs, batch_fn.__name__, got, held)
+    if "bitwise_vs_saved" in held:
+        r["batch_bitwise_vs_saved"] = held["bitwise_vs_saved"]
     del got, ref
-    return dict(batch_rows=rows, batch_ms=time_ms(run, reps=5),
-                batch_plain_ms=time_ms(plain, reps=1, rounds=1),
-                batch_bound_ms=bound(nbytes * rows, ops * rows)[0],
-                batch_max_abs_err=err)
+    return r
 
 
 def shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid, io_d,
-                card):
+                card, outputs=None):
     """K2 on V translated views with sub-pixel fractions (some voxels
-    outside) against its twin; on a tree with them, its batch form at
-    BATCH_ROWS rows and K28 on that batch's fused blocks with route A's
-    first level (2,2,2)."""
+    outside) bitwise against its twin at every fusion type; on a tree with
+    them, its batch form at BATCH_ROWS rows and K28 on that batch's fused
+    blocks with route A's first level (2,2,2). With ``outputs`` every
+    output is held (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
@@ -833,8 +847,14 @@ def shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid, io_d,
     run = lambda: F.fuse_block_shift(*args, bs, "AVG_BLEND", io_d)
     plain = lambda: F.fuse_block_shift_plain(*args, bs, "AVG_BLEND", io_d)
     got, ref = run(), plain()
-    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    held = []
+    for ft in F.FUSION_TYPES:
+        g = F.fuse_block_shift(*args, bs, ft, io_d)
+        check(all(torch.equal(a, b) for a, b in zip(
+            g, F.fuse_block_shift_plain(*args, bs, ft, io_d))),
+            f"K2 fuse_block_shift {bs} {ft}: bitwise its twin")
+        held.append({})
+        hold_outputs(outputs, f"fuse_block_shift {ft}", g, held[-1])
     tables = F.shift_axis_tables(*args[2:6], io_d, bs)
     bare = lambda: F.launch_fuse_block_shift(patches, args[1], tables,
                                              args[6], bs, "AVG_BLEND")
@@ -842,24 +862,28 @@ def shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid, io_d,
     nbytes = patches.numel() * 2 + 2 * n * 4
     res = {"fuse_block_shift": dict(
         err=max_abs(got[0], ref[0]), ms=time_ms(bare), wrapper_ms=time_ms(run),
-        plain_ms=time_ms(plain), bound=bound(nbytes, V * n * OPS["shift"]))}
+        host_ms=time_ms(bare, host=True), plain_ms=time_ms(plain),
+        bound=bound(nbytes, V * n * OPS["shift"]), **saved_all(held))}
     if not hasattr(F, "fuse_block_shift_batch"):
         return res
     res["fuse_block_shift"].update(batch_times(
         F.fuse_block_shift_batch, F.fuse_block_shift_batch_plain,
-        F.fuse_block_shift, args, io_d, bs, nbytes, V * n * OPS["shift"]))
+        F.fuse_block_shift, args, io_d, bs, nbytes, V * n * OPS["shift"],
+        bitwise=True, outputs=outputs))
     bargs = [a.expand(BATCH_ROWS, *a.shape).contiguous() for a in args]
     fz, ws = F.fuse_block_shift_batch(
         *bargs, bs, "AVG_BLEND", io_d.expand(BATCH_ROWS, V, 3).contiguous())
     del bargs
-    res["block_epilogue"] = epilogue_times(fz, ws, ((2, 2, 2),), card)
+    res["block_epilogue"] = epilogue_times(fz, ws, ((2, 2, 2),), card,
+                                           outputs)
     return res
 
 
-def block_yardsticks(dev, card, scale="full"):
+def block_yardsticks(dev, card, scale="full", outputs=None):
     """K2 and K5 per block at phase 1's shapes (K2 on phase 1's very
     inputs), and on a tree with them their batch forms at BATCH_ROWS rows
-    and K28 (:func:`shift_times`, :func:`sep_times`)."""
+    and K28 (:func:`shift_times`, :func:`sep_times`); with ``outputs``
+    K2's and K28's outputs held (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
@@ -875,15 +899,18 @@ def block_yardsticks(dev, card, scale="full"):
     valid = np.ones(V, np.float32)
     io_d = c(np.zeros((V, 3), np.float32))
     out = shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid,
-                      io_d, card)
+                      io_d, card, outputs)
     out["fuse_block_sep"] = sep_times(rng, c, bs, SCALES[scale]["sep_patch"],
                                       V, per_view, dev)
     for k, r in out.items():
         print_times(k, r, card)
         if "batch_ms" in r:
             print(f"  {k} batch form, {r['batch_rows']} rows [{card}]: "
-                  f"{r['batch_ms']} ms, plain {r['batch_plain_ms']} ms, "
-                  f"bound {r['batch_bound_ms']:.4f} ms", flush=True)
+                  f"{r['batch_ms']} ms (with the host's time "
+                  f"{r.get('batch_host_ms')} ms), plain "
+                  f"{r['batch_plain_ms']} ms, bound "
+                  f"{r['batch_bound_ms']:.4f} ms; vs the saved run: bitwise "
+                  f"{r.get('batch_bitwise_vs_saved')}", flush=True)
     return out
 
 
@@ -900,15 +927,18 @@ def epilogue_bytes(shape, out_itemsize: int, rels) -> int:
     return int(np.prod(shape)) * 4 + out * int(out_itemsize)
 
 
-def epilogue_times(fused, wsum, rels, card):
+def epilogue_times(fused, wsum, rels, card, outputs=None):
     """K28 on a batch of fused blocks (uint16, ``rels`` levels) against its
-    twin on the card, bitwise, in both modes; its time, its twin's and its
-    bound (the float32 block read once, s0 and the levels written once)."""
+    twin on the card, bitwise, in both modes; its time alone and with the
+    host's, its twin's and its bound (the float32 block read once, s0 and
+    the levels written once); with ``outputs`` s0 and the levels held in
+    both modes (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
     from bigstitcher_spark_tpu_torch.ops import epilogue as E
 
+    held = []
     for masks in (False, True):
         got = E.block_epilogue(fused, wsum, 0.0, 65535.0, "uint16", masks,
                                rels)
@@ -917,6 +947,9 @@ def epilogue_times(fused, wsum, rels, card):
         check(all(torch.equal(g, f) for g, f in zip(got, ref)),
               f"K28 block_epilogue {tuple(fused.shape)} levels {rels} "
               f"masks {masks}: s0 and every level bitwise the twin's")
+        held.append({})
+        hold_outputs(outputs, f"block_epilogue masks {masks}", got,
+                     held[-1])
     run = lambda: E.block_epilogue(fused, wsum, 0.0, 65535.0, "uint16",
                                    False, rels)
     plain = lambda: E.block_epilogue_plain(fused, wsum, 0.0, 65535.0,
@@ -927,9 +960,11 @@ def epilogue_times(fused, wsum, rels, card):
         ops += prev * OPS["downsample_in"] + lv.numel() * OPS["downsample_out"]
         prev = lv.numel()
     ms = time_ms(run)  # no preparation: the wrapper is the launch
-    r = dict(err=0.0, ms=ms, wrapper_ms=ms, plain_ms=time_ms(plain, reps=3),
+    r = dict(err=0.0, ms=ms, wrapper_ms=ms, host_ms=time_ms(run, host=True),
+             plain_ms=time_ms(plain, reps=3),
              library_ms=None, shape=tuple(fused.shape), levels=rels,
-             bound=bound(epilogue_bytes(tuple(fused.shape), 2, rels), ops))
+             bound=bound(epilogue_bytes(tuple(fused.shape), 2, rels), ops),
+             **saved_all(held))
     print(f"  block_epilogue (K28) at {tuple(fused.shape)}, levels {rels}: "
           f"{int(np.prod(fused.shape[1:]))} voxels a block", flush=True)
     return r
@@ -3603,6 +3638,13 @@ def hold_outputs(outputs, name, tensors, r):
     else:
         torch.save(mine, path)
         r["saved"] = path
+
+
+def saved_all(held):
+    """:func:`hold_outputs`' verdicts on several outputs as one: bitwise
+    where every comparison was."""
+    seen = [h["bitwise_vs_saved"] for h in held if "bitwise_vs_saved" in h]
+    return {"bitwise_vs_saved": all(seen)} if seen else {}
 
 
 def ransac_yard_inputs(rng, m, sample, dev, outliers=0.009):

@@ -209,7 +209,8 @@ def main(argv=None) -> int:
             out.update(CS.downsample_yardsticks(dev, card, args.outputs,
                                                 args.scale))
         if "blocks" in only:
-            out.update(CS.block_yardsticks(dev, card, args.scale))
+            out.update(CS.block_yardsticks(dev, card, args.scale,
+                                           args.outputs))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))

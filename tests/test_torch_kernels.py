@@ -34,9 +34,11 @@ pairs it recomputes exactly). K22 (refit, float64): masks and
 counts equal, models within rtol 1e-9 / atol 1e-9 (moments summed in
 another order). K26 (non-rigid fusion) at the fusion kernels' tolerances:
 it rounds where its twin rounds (the twin's fused multiply-adds in
-float64 may round twice where fmaf rounds once, in rare last bits). K27
-(volume scan fusion) takes K2's float32 operations in the same order as
-its twin on the same weight tables: bitwise. K29 (shard sum) adds in the
+float64 may round twice where fmaf rounds once, in rare last bits). K2
+(shift) and K27 (volume scan fusion) take their twin's float32 operations
+in the same order on the same weight tables: bitwise (K2's batch form with
+9 views against the twin at the fusion tolerance: torch sums 9 views in
+another order). K29 (shard sum) adds in the
 twin's order: bitwise, its dot within rtol 1e-12; K24's partial form
 gives the full form's Ap bit for bit; the sharded relax on a mesh of one
 card repeated is bitwise the one-device relax, the sharded CG within 1e-8
@@ -94,6 +96,78 @@ def test_fuse_block_shift_kernel(dev, fusion_type):
                              args[7].to(dev))
     torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(got[1].cpu(), ref[1], rtol=0, atol=1e-5)
+
+
+_SHIFT_DTYPES = {"uint8": torch.uint8, "uint16": torch.uint16,
+                 "float32": torch.float32}
+
+
+def _as_patch_dtype(patches, dtype):
+    """uint16 test patches (values below 4000) as ``dtype`` (uint8: mod
+    256)."""
+    if dtype == "uint8":
+        return (patches.to(torch.int32) % 256).to(torch.uint8)
+    return patches.to(_SHIFT_DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(_SHIFT_DTYPES))
+@pytest.mark.parametrize("bs", [(40, 36, 20), (37, 29, 13), (5, 3, 130)],
+                         ids=lambda b: "x".join(map(str, b)))
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_shift_kernel_bitwise_twin(dev, fusion_type, bs, dtype):
+    """K2 per block (the staged-window design) against its twin on the
+    card, with inside offsets, a switched-off view and views covering the
+    block in part (images at least 40 voxels wide, so that the blend
+    ramps leave weight): fused and wsum equal bit for bit; one launch."""
+    rng = np.random.default_rng(13)
+    args = list(_shift_inputs(rng, 4, bs))
+    args[2] = torch.from_numpy(rng.uniform(-8, 8, (4, 3)).astype(
+        np.float32)) + args[1]
+    args[3] = torch.from_numpy(np.tile(np.maximum(
+        np.array(bs, np.float32) + 2, 40), (4, 1)))
+    args = [a.to(dev) for a in args]
+    args[0] = _as_patch_dtype(args[0], dtype)
+    ops.reset_launch_counts()
+    got = F.fuse_block_shift(*args[:7], bs, fusion_type, args[7])
+    assert ops.launch_counts()["fuse_block_shift"] == 1
+    want = F.fuse_block_shift_plain(*args[:7], bs, fusion_type, args[7])
+    assert float(want[1].max()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", sorted(_SHIFT_DTYPES))
+@pytest.mark.parametrize("bs,V", [((24, 20, 16), 3), ((9, 40, 70), 3),
+                                  ((37, 29, 13), 9)],
+                         ids=["small", "ragged", "ragged-V9"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_shift_batch_bitwise_twin(dev, fusion_type, bs, V, dtype):
+    """K2's batch form with a padding row (zero patches, valid 0) and a
+    switched-off view: each row bitwise the per-block kernel, the padding
+    row zeros, one launch; bitwise its twin on the card (a loop of the
+    per-block twin) for V = 3. V = 9 stages the views in two rounds; there
+    the twin's sums over the views (torch's reduction over 9) may round
+    in another order, so the twin holds it to the fusion tolerance."""
+    rng = np.random.default_rng(63)
+    args, ioffs, _extra = _batch_case("shift", rng, 3, V, bs, None)
+    args = [a.to(dev) for a in args]
+    args[0] = _as_patch_dtype(args[0], dtype)
+    ioffs = ioffs.to(dev)
+    ops.reset_launch_counts()
+    got = F.fuse_block_shift_batch(*args, bs, fusion_type, ioffs)
+    assert ops.launch_counts()["fuse_block_shift_batch"] == 1
+    for b in range(3):
+        want = F.fuse_block_shift(*(a[b].contiguous() for a in args), bs,
+                                  fusion_type, ioffs[b].contiguous())
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), f"row {b}"
+    assert not got[0][-1].any() and not got[1][-1].any()
+    want = F.fuse_block_shift_batch_plain(*args, bs, fusion_type, ioffs)
+    if V <= 4:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("fusion_type", FTYPES)
@@ -2138,6 +2212,48 @@ def test_block_epilogue_kernel_bitwise_twin(dev, out_dtype, masks, rels,
     with pytest.raises(ValueError, match="do not divide"):
         E.block_epilogue(fused, wsum, 0.0, 1.0, out_dtype, masks,
                          ((5, 1, 1),))
+
+
+@pytest.mark.parametrize("out_dtype", ["uint8", "uint16", "float32"])
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("shape,rels,launches", [
+    ((32, 16, 8), ((2, 2, 2),), 1),
+    ((36, 18, 8), ((3, 3, 1), (2, 1, 2)), 1),
+    ((32, 16, 8), ((4, 2, 1), (1, 2, 2), (2, 2, 2)), 1),
+    ((16, 200, 64), ((2, 2, 2),), 1),
+    ((12, 40, 20), ((2, 2, 2), (2, 2, 2)), 1),
+    ((6, 10, 14), ((2, 2, 2),), 1),
+    ((128, 128, 2), ((4, 4, 1), (4, 4, 1), (8, 8, 1)), None)],
+    ids=["1", "2-mixed", "3-mixed", "edge", "2-edge", "odd-z", "segments"])
+def test_block_epilogue_tiles_bitwise_twin(dev, out_dtype, masks, shape, rels,
+                                           launches):
+    """K28's tiles (masked edges, blocks whose z is no multiple of 4,
+    levels split into segments where their footprint passes shared
+    memory) against the twin on the card: s0 and every level bit for bit;
+    one launch a segment of ops.epilogue.epilogue_plan."""
+    from bigstitcher_spark_tpu_torch.ops import epilogue as E
+
+    rng = np.random.default_rng(64)
+    B = 2
+    fused = torch.from_numpy(rng.uniform(-50, 3300, (B, *shape)).astype(
+        np.float32))
+    fused.view(-1)[3::11] = -0.0
+    wsum = torch.from_numpy(np.where(
+        rng.random((B, *shape)) < 0.3, 0.0,
+        rng.uniform(0, 2, (B, *shape))).astype(np.float32))
+    fused, wsum = fused.to(dev), wsum.to(dev)
+    ops.reset_launch_counts()
+    got = E.block_epilogue(fused, wsum, 0.0, 3000.0, out_dtype, masks, rels)
+    itemsize = got[0].element_size()
+    n_seg = len(E.epilogue_plan(shape, rels, itemsize))
+    assert launches is None or n_seg == launches
+    assert ops.launch_counts()["block_epilogue"] == n_seg
+    want = E.block_epilogue_plain(fused, wsum, 0.0, 3000.0, out_dtype, masks,
+                                  rels)
+    assert len(got) == len(want) == 1 + len(rels)
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), f"level {lvl}"
 
 
 # --------------------------------------------------- K29, K24's partial form
