@@ -6,22 +6,72 @@
 //
 // K19 knn_descriptors (_knn_kernel :48, build_descriptors :84,
 //   block_descriptors_impl :128): B batch entries of K points (x, y, z)
-//   float32, optionally with validity flags. One thread per point streams
-//   the entry's points through shared memory in tiles and keeps a sorted
-//   register list of its P = n + r nearest (distance, index) keys, the
-//   lower index first on equal distances (lax.top_k's order). The
-//   distance is ((dx dx + dy dy) + dz dz) with d = own - other, as the JAX
-//   sum in x, y, z order; the point itself, and with flags any pair that
-//   is not valid on both sides, count as +inf (and so still fill the list,
-//   in index order, when fewer than P others exist). Then the P offsets
-//   neighbour - own (zeroed with flags when the P-th neighbour is not
-//   finite: dvalid false), each n-subset of the subset table, and with
-//   rotation invariance the local frame: ex = o0 / (|o0| + 1e-12), ey =
-//   o1 - (o1 . ex) ex normalised the same way, ez = ex x ey, coordinates
-//   ((b_0 o_0 + b_1 o_1) + b_2 o_2) per basis vector b. Writes the kNN
-//   indices (optional), the descriptors (B, K, S, 3n) and, with flags,
-//   dvalid. Memory is O(K S 3n). Bound: operations (8 float ops per pair
-//   of points).
+//   float32, optionally with validity flags (the masked form). Per point
+//   the list of its P = n + r nearest (distance, index) pairs in
+//   lexicographic order, the lower index first on equal distances
+//   (lax.top_k's order). The distance is ((dx dx + dy dy) + dz dz) with
+//   d = own - other, as the JAX sum in x, y, z order; the point itself,
+//   and with flags any pair that is not valid on both sides, count as +inf
+//   (and so still fill the list, in index order, when fewer than P others
+//   exist). Then the P offsets neighbour - own (zeroed with flags when the
+//   P-th neighbour is not finite: dvalid false), each n-subset of the
+//   subset table, and with rotation invariance the local frame: ex = o0 /
+//   (|o0| + 1e-12), ey = o1 - (o1 . ex) ex normalised the same way, ez =
+//   ex x ey, coordinates ((b_0 o_0 + b_1 o_1) + b_2 o_2) per basis vector
+//   b. Writes the kNN indices (optional), the descriptors (B, K, S, 3n)
+//   and dvalid.
+//
+//   Launch (ops/descriptors.py knn_plan), three kernels:
+//   1. knn_pack_kernel: the candidates as float4 (x, y, z, not-valid
+//      flag), K padded to whole stages.
+//   2. knn_scan_kernel, grid (row blocks, splits, B): a thread holds Q
+//      queries in registers (Q = 4; 1 in the masked form, whose few
+//      valid queries then spread over more blocks), i = row0 + t + 128 q,
+//      each with its list and its threshold thr (-inf for a query past K
+//      or, masked, not valid: inert). A split's candidates stream through
+//      shared memory in stages of 512 float4, the next stage's 16-byte
+//      copies (cp.async) in flight while one is scanned; one broadcast
+//      float4 read serves Q queries. Two candidates a step: their 2 Q
+//      distances (8 operations a pair), a compare d <= thr each, one vote
+//      of the warp, the next step's candidates read before it. Only where
+//      a compare passes does the exact rule run: (d, j) enters when d <
+//      last or (d == last and j < last index). A split is scanned in
+//      increasing j, so once a list is full thr is the float just below
+//      its last distance (before, the last distance itself: the
+//      placeholders (+inf, INT_MAX) still give way to +inf pairs). The
+//      self test (j == i gives +inf) runs only on the stages that hold a
+//      query's own index; the masked form selects +inf for a candidate
+//      that is not valid. Splits of the candidates (whole stages) are
+//      taken when B x row blocks would not give the card 3 blocks an SM,
+//      each writing its lists; a block whose queries are all inert
+//      writes nothing, a warp of them only stages.
+//   3. knn_tail_kernel, one thread a query: the splits' lists merged in
+//      split order by the exact rule, then the offsets, frames and
+//      descriptors (the first form's code). A query that is not valid
+//      (masked) is not scanned: its list is fixed, the P lowest indices at
+//      +inf (self included), as the scan would have found it.
+//   Bits: the set of the P smallest pairs in (distance, index) order is
+//   unique (the indices differ), so any scan order and any split of the
+//   candidates gives the same list; every distance is computed as the
+//   first form computed it, and the tail is unchanged: the outputs are
+//   bitwise the first form's and the twin's.
+//   Bound: operations, 8 float ops a pair of points (10^10 pairs at 9b's
+//   100,000 points: 1.19 ms at 67 TFLOP/s, which counts an FMA as two;
+//   every op here is its own instruction (-fmad=false), so the issue rate
+//   gives a floor of 10^10 x 8 / 33.5e12 = 2.39 ms). The first form (one
+//   query a thread: 3 scalar shared loads and a byte load, the self and
+//   validity tests, a two-part compare a pair) issued ~20 instructions a
+//   pair: 16.7 ms at 9b.
+//   Tried on the card and not kept (9b's cloud and 8d's bucket; PERF.md's K19
+//   findings): 8 queries a thread (6.2 ms: half the warps, more splits),
+//   16 (spills, 23 ms); one candidate a step (5.6 ms) or four (5.2-6.7:
+//   registers); 5 or 6 blocks an SM (5.0-5.7, no gain beyond the noise);
+//   splits chosen to fill whole waves (16 at 9b: 8.2 ms, each split's
+//   list warming up anew); the masked form at 4 queries a thread (0.32-
+//   0.36 ms: its valid queries sit in one row block an entry); a
+//   threshold of the last distance itself once a list is full (the
+//   masked form's splits of invalid slots then took the exact insertion
+//   at every candidate: 0.44 ms).
 //
 // K20 ratio_match (_pairwise_sqdist :191, _match_ratio_dense :208,
 //   _match_ratio_row_chunk :220; ICP's nearest neighbour :585-588): A
@@ -122,81 +172,275 @@
 
 namespace {
 
-constexpr int kKnnThreads = 128;
-constexpr int kKnnTile = 256;
 constexpr int kMaxPool = 8;
 constexpr int kMaxDim = 24;
 
-template <int P>
-__global__ void knn_desc_kernel(const float* __restrict__ pts,
-                                const uint8_t* __restrict__ valid, int K,
-                                int n, int S, const int* __restrict__ subsets,
-                                int rot, int* __restrict__ idx_out,
-                                float* __restrict__ desc_out,
-                                uint8_t* __restrict__ dvalid_out) {
-  __shared__ float tx[kKnnTile], ty[kKnnTile], tz[kKnnTile];
-  __shared__ uint8_t tv[kKnnTile];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* bp = pts + 3 * static_cast<int64_t>(b) * K;
-  const uint8_t* bv = valid ? valid + static_cast<int64_t>(b) * K : nullptr;
-  const bool row = i < K;
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  bool vi = true;
-  if (row) {
-    px = bp[3 * i];
-    py = bp[3 * i + 1];
-    pz = bp[3 * i + 2];
-    vi = bv ? bv[i] != 0 : true;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// ----------------------------------------------------------------- K19
+
+namespace k19 {
+constexpr int kThreads = 128;       // ops/descriptors.py KNN_THREADS
+constexpr int kTile = 512;          // candidates a stage (KNN_TILE)
+constexpr int kBlocksPerSM = 4;     // its __launch_bounds__
+constexpr int kStep = 2;            // candidates a step of the scan
+constexpr int kPackThreads = 256;
+constexpr int kTailThreads = 128;
+}  // namespace k19
+
+// The candidates as float4 (x, y, z, 1 where the slot is not valid, else
+// 0), B rows of kp (K padded to whole stages with invalid zeros).
+__global__ void knn_pack_kernel(const float* __restrict__ pts,
+                                const uint8_t* __restrict__ valid, int B,
+                                int K, int kp, float4* __restrict__ pts4) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= static_cast<int64_t>(B) * kp) return;
+  const int b = static_cast<int>(e / kp);
+  const int j = static_cast<int>(e - static_cast<int64_t>(b) * kp);
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+  if (j < K) {
+    const int64_t g = static_cast<int64_t>(b) * K + j;
+    c = make_float4(pts[3 * g], pts[3 * g + 1], pts[3 * g + 2],
+                    valid == nullptr || valid[g] ? 0.0f : 1.0f);
   }
+  pts4[e] = c;
+}
+
+// (d, j) enters the ascending list (ld, li) of the P smallest pairs in
+// (distance, index) order when it precedes the last.
+template <int P>
+__device__ __forceinline__ void knn_insert(float (&ld)[P], int (&li)[P],
+                                           float d, int j) {
+  if (!(d < ld[P - 1] || (d == ld[P - 1] && j < li[P - 1]))) return;
+  int k = P - 1;
+#pragma unroll
+  for (int q = P - 1; q > 0; --q) {
+    if (k == q && (d < ld[q - 1] || (d == ld[q - 1] && j < li[q - 1]))) {
+      ld[q] = ld[q - 1];
+      li[q] = li[q - 1];
+      k = q - 1;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+    if (q == k) {
+      ld[q] = d;
+      li[q] = j;
+    }
+}
+
+// One candidate's distances to a thread's Q queries: +inf on a stage
+// holding a query's own index (kSelf) for the query itself, and for a
+// candidate that is not valid (kMasked: w != 0). Returns whether one of
+// them passes its query's threshold.
+template <int Q, bool kSelf, bool kMasked>
+__device__ __forceinline__ bool knn_dist(const float4 c, int j, int q0,
+                                         const float (&qx)[Q],
+                                         const float (&qy)[Q],
+                                         const float (&qz)[Q],
+                                         const float (&thr)[Q],
+                                         float (&d)[Q]) {
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float dx = qx[q] - c.x, dy = qy[q] - c.y, dz = qz[q] - c.z;
+    float dd = (dx * dx + dy * dy) + dz * dz;
+    if (kMasked) dd = c.w != 0.0f ? INFINITY : dd;
+    if (kSelf) dd = j == q0 + q * k19::kThreads ? INFINITY : dd;
+    d[q] = dd;
+    any |= dd <= thr[q];
+  }
+  return any;
+}
+
+// The exact insertion of candidate j where its distance passes the
+// query's threshold. A split is scanned in increasing j, so once its
+// list is full a later candidate enters only at a smaller distance than
+// the last: the threshold is then the float just below the last distance
+// (+inf: the largest finite; +0: NaN, which no distance passes); while a
+// placeholder (+inf, INT_MAX) is last, it is the last distance itself.
+template <int P, int Q>
+__device__ __forceinline__ void knn_take(const float (&d)[Q], int j,
+                                         float (&thr)[Q], float (&ld)[Q][P],
+                                         int (&li)[Q][P]) {
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (d[q] <= thr[q]) {
+      knn_insert<P>(ld[q], li[q], d[q], j);
+      thr[q] = li[q][P - 1] == 0x7fffffff
+                   ? ld[q][P - 1]
+                   : __int_as_float(__float_as_int(ld[q][P - 1]) - 1);
+    }
+  }
+}
+
+// One stage's candidates against a thread's Q queries, kStep candidates
+// a step: their kStep Q distances, one vote of the warp on whether any
+// passes its threshold (thr: the list's last distance; -inf for an inert
+// query), and only then the exact insertions, candidate by candidate. The
+// next step's candidates are read from shared memory before the vote (the
+// stage holds kStep entries past its end for them).
+template <int P, int Q, bool kSelf, bool kMasked>
+__device__ __forceinline__ void knn_scan_stage(
+    const float4* __restrict__ tile, int nt, int c0, int q0,
+    const float (&qx)[Q], const float (&qy)[Q], const float (&qz)[Q],
+    float (&thr)[Q], float (&ld)[Q][P], int (&li)[Q][P]) {
+  constexpr int S = k19::kStep;
+  float4 next[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) next[s] = tile[s];
+  int t = 0;
+  for (; t + S <= nt; t += S) {
+    float4 c[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      c[s] = next[s];
+      next[s] = tile[t + S + s];
+    }
+    float d[S][Q];
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      any |= knn_dist<Q, kSelf, kMasked>(c[s], c0 + t + s, q0, qx, qy, qz,
+                                         thr, d[s]);
+    if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+    for (int s = 0; s < S; ++s) knn_take<P, Q>(d[s], c0 + t + s, thr, ld, li);
+  }
+  for (; t < nt; ++t) {
+    float d[Q];
+    knn_dist<Q, kSelf, kMasked>(tile[t], c0 + t, q0, qx, qy, qz, thr, d);
+    knn_take<P, Q>(d, c0 + t, thr, ld, li);
+  }
+}
+
+// The candidate scan: grid (row_blocks, splits, B), a block of kThreads
+// threads, thread t holding queries row0 + t + kThreads q (q < Q) of row
+// block blockIdx.x, split blockIdx.y scanning the candidates [s per_split,
+// (s + 1) per_split) in stages of kTile float4, two in flight (cp.async).
+// Writes each query's list of the split to part_d / part_i (splits, B, K,
+// P).
+template <int P, int Q, bool kMasked>
+__global__ void __launch_bounds__(k19::kThreads, k19::kBlocksPerSM)
+    knn_scan_kernel(const float4* __restrict__ pts4, int K, int kp,
+                    int per_split, float* __restrict__ part_d,
+                    int* __restrict__ part_i) {
+  __shared__ __align__(16) float4 tile[2][k19::kTile + k19::kStep];
+  const int b = blockIdx.z;
+  const int split = blockIdx.y;
+  const int row0 = blockIdx.x * k19::kThreads * Q;
+  const int row1 = row0 + k19::kThreads * Q;
+  const int q0 = row0 + threadIdx.x;
+  const float4* bp = pts4 + static_cast<int64_t>(b) * kp;
+  float qx[Q], qy[Q], qz[Q], thr[Q];
+  float ld[Q][P];
+  int li[Q][P];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = q0 + q * k19::kThreads;
+    const float4 p = bp[min(i, kp - 1)];
+    qx[q] = p.x;
+    qy[q] = p.y;
+    qz[q] = p.z;
+    // past K, or (masked) not valid: inert
+    thr[q] = i < K && !(kMasked && p.w != 0.0f) ? INFINITY : -INFINITY;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      ld[q][k] = INFINITY;
+      li[q][k] = 0x7fffffff;
+    }
+  }
+  bool active = false;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) active |= thr[q] > -INFINITY;
+  // a block of inert queries writes nothing (the tail reads no list of
+  // theirs); a warp of them only stages
+  if (!__syncthreads_or(active)) return;
+  const bool warp_active = __any_sync(0xffffffffu, active);
+  const int c_begin = split * per_split;
+  const int c_end = min(K, c_begin + per_split);
+  auto stage = [&](int buf, int c0) {
+#pragma unroll
+    for (int u = 0; u < k19::kTile / k19::kThreads; ++u) {
+      const int t = threadIdx.x + u * k19::kThreads;
+      cp_async16(&tile[buf][t], bp + c0 + t);
+    }
+  };
+  stage(0, c_begin);
+  cp_async_commit();
+  int buf = 0;
+  for (int c0 = c_begin; c0 < c_end; c0 += k19::kTile, buf ^= 1) {
+    if (c0 + k19::kTile < c_end) stage(buf ^ 1, c0 + k19::kTile);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const int nt = min(k19::kTile, c_end - c0);
+    if (warp_active && c0 < row1 && c0 + k19::kTile > row0)
+      knn_scan_stage<P, Q, true, kMasked>(tile[buf], nt, c0, q0, qx, qy, qz,
+                                          thr, ld, li);
+    else if (warp_active)
+      knn_scan_stage<P, Q, false, kMasked>(tile[buf], nt, c0, q0, qx, qy,
+                                           qz, thr, ld, li);
+    __syncthreads();  // the stage is read before its buffer is refilled
+  }
+  const int64_t base = (static_cast<int64_t>(split) * gridDim.z + b) * K;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = q0 + q * k19::kThreads;
+    if (i >= K) continue;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      part_d[(base + i) * P + k] = ld[q][k];
+      part_i[(base + i) * P + k] = li[q][k];
+    }
+  }
+}
+
+// The splits' lists merged in split order by (distance, index), then the
+// descriptors: one thread a query. A query that is not valid (masked) has
+// the fixed list of the P lowest indices at +inf. Then the P offsets
+// neighbour - own (zeroed with flags when the P-th neighbour is not
+// finite: dvalid false), each n-subset of the subset table, and with
+// rotation invariance the local frame.
+template <int P>
+__global__ void __launch_bounds__(k19::kTailThreads) knn_tail_kernel(
+    const float* __restrict__ pts, const uint8_t* __restrict__ valid, int B,
+    int K, int splits, const float* __restrict__ part_d,
+    const int* __restrict__ part_i, int n, int S,
+    const int* __restrict__ subsets, int rot, int* __restrict__ idx_out,
+    float* __restrict__ desc_out, uint8_t* __restrict__ dvalid_out) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (g >= static_cast<int64_t>(B) * K) return;
+  const int b = static_cast<int>(g / K);
+  const int i = static_cast<int>(g - static_cast<int64_t>(b) * K);
+  const float* bp = pts + 3 * static_cast<int64_t>(b) * K;
+  const float px = bp[3 * i], py = bp[3 * i + 1], pz = bp[3 * i + 2];
+  const bool vi = valid ? valid[g] != 0 : true;
   float ld[P];
   int li[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     ld[k] = INFINITY;
-    li[k] = 0x7fffffff;
+    li[k] = vi ? 0x7fffffff : (k < K ? k : 0x7fffffff);
   }
-  for (int j0 = 0; j0 < K; j0 += kKnnTile) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < kKnnTile && j0 + t < K; t += blockDim.x) {
-      tx[t] = bp[3 * (j0 + t)];
-      ty[t] = bp[3 * (j0 + t) + 1];
-      tz[t] = bp[3 * (j0 + t) + 2];
-      tv[t] = bv ? bv[j0 + t] : 1;
-    }
-    __syncthreads();
-    if (!row) continue;
-    const int nt = min(kKnnTile, K - j0);
-    for (int t = 0; t < nt; ++t) {
-      const int j = j0 + t;
-      float d;
-      if (j == i || !vi || !tv[t]) {
-        d = INFINITY;
-      } else {
-        const float dx = px - tx[t], dy = py - ty[t], dz = pz - tz[t];
-        d = (dx * dx + dy * dy) + dz * dz;
-      }
-      if (!(d < ld[P - 1] || (d == ld[P - 1] && j < li[P - 1]))) continue;
-      // insert (d, j) keeping (distance, index) ascending
-      int k = P - 1;
+  if (vi) {
+    for (int s = 0; s < splits; ++s) {
+      const int64_t e = (static_cast<int64_t>(s) * B * K + g) * P;
 #pragma unroll
-      for (int q = P - 1; q > 0; --q) {
-        if (k == q && (d < ld[q - 1] || (d == ld[q - 1] && j < li[q - 1]))) {
-          ld[q] = ld[q - 1];
-          li[q] = li[q - 1];
-          k = q - 1;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < P; ++q)
-        if (q == k) {
-          ld[q] = d;
-          li[q] = j;
-        }
+      for (int k = 0; k < P; ++k) knn_insert<P>(ld, li, part_d[e + k],
+                                                part_i[e + k]);
     }
   }
-  if (!row) return;
-  const int64_t g = static_cast<int64_t>(b) * K + i;
   if (idx_out) {
 #pragma unroll
     for (int k = 0; k < P; ++k) idx_out[g * P + k] = li[k];
@@ -279,16 +523,6 @@ constexpr float kBump = 1.00000095367431640625f;    // 1 + 2^-20
 // The low 13 bits come out zero, so the tensor core reads it exactly.
 __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 // c += a b on one m16n8k8 TF32 tile. With g = lane / 4 and t = lane % 4:
@@ -705,39 +939,84 @@ cudaError_t launch_probe(const float* a, const float* b, int n, float* out,
   return cudaGetLastError();
 }
 
+// Queries a thread of the scan holds (ops/descriptors.py knn_queries):
+// the masked form's few valid queries spread over more threads.
+constexpr int knn_queries(bool masked) { return masked ? 1 : 4; }
+
 template <int P>
 cudaError_t launch_knn(const float* pts, const uint8_t* valid, int B, int K,
-                       int n, int S, const int* subsets, int rot, int* idx,
+                       int n, int S, const int* subsets, int rot,
+                       int row_blocks, int splits, int per_split, int kp,
+                       float4* pts4, float* part_d, int* part_i, int* idx,
                        float* desc, uint8_t* dvalid, cudaStream_t s) {
-  dim3 grid((K + kKnnThreads - 1) / kKnnThreads, B);
-  knn_desc_kernel<P><<<grid, kKnnThreads, 0, s>>>(pts, valid, K, n, S,
-                                                  subsets, rot, idx, desc,
-                                                  dvalid);
+  const int64_t packed = static_cast<int64_t>(B) * kp;
+  knn_pack_kernel<<<static_cast<unsigned>(
+                        (packed + k19::kPackThreads - 1) / k19::kPackThreads),
+                    k19::kPackThreads, 0, s>>>(pts, valid, B, K, kp, pts4);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(row_blocks, splits, B);
+  if (valid)
+    knn_scan_kernel<P, knn_queries(true), true>
+        <<<grid, k19::kThreads, 0, s>>>(pts4, K, kp, per_split, part_d,
+                                         part_i);
+  else
+    knn_scan_kernel<P, knn_queries(false), false>
+        <<<grid, k19::kThreads, 0, s>>>(pts4, K, kp, per_split, part_d,
+                                         part_i);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t rows = static_cast<int64_t>(B) * K;
+  knn_tail_kernel<P><<<static_cast<unsigned>(
+                           (rows + k19::kTailThreads - 1) / k19::kTailThreads),
+                       k19::kTailThreads, 0, s>>>(
+      pts, valid, B, K, splits, part_d, part_i, n, S, subsets, rot, idx, desc,
+      dvalid);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// q, row_blocks, splits, per_split, kp: ops/descriptors.py knn_plan.
+// pts (B, K, 3) float32, valid (B, K) or null; scratch pts4 (B, kp) float4,
+// part_d, part_i (splits, B, K, pool); idx (B, K, pool) or null, desc (B,
+// K, S, 3n), dvalid (B, K).
 extern "C" int bst_knn_descriptors(const float* pts, const uint8_t* valid,
                                    int B, int K, int pool, int n, int S,
-                                   const int* subsets, int rot, int* idx,
-                                   float* desc, uint8_t* dvalid,
-                                   void* stream) {
+                                   const int* subsets, int rot, int q,
+                                   int row_blocks, int splits, int per_split,
+                                   int kp, void* pts4, float* part_d,
+                                   int* part_i, int* idx, float* desc,
+                                   uint8_t* dvalid, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || pool < 1 || pool > kMaxPool || n < 1 ||
       n > pool || S < 1 || desc == nullptr ||
       static_cast<int64_t>(K) * 3 > 2147483647LL)
     return cudaErrorInvalidValue;
+  const int64_t rows = static_cast<int64_t>(k19::kThreads) * q;
+  const int64_t tiles = (static_cast<int64_t>(K) + k19::kTile - 1) /
+                        k19::kTile;
+  if (q != knn_queries(valid != nullptr) || row_blocks < 1 || row_blocks * rows < K ||
+      (row_blocks - 1) * rows >= K ||
+      kp != tiles * k19::kTile || per_split < 1 ||
+      per_split % k19::kTile != 0 || splits < 1 || splits > 65535 ||
+      static_cast<int64_t>(splits) * per_split < K ||
+      static_cast<int64_t>(splits - 1) * per_split >= K)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(pts4) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
+  float4* p4 = static_cast<float4*>(pts4);
+  cudaError_t e = cudaErrorInvalidValue;
   switch (pool) {
-    case 1: e = launch_knn<1>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 2: e = launch_knn<2>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 3: e = launch_knn<3>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 4: e = launch_knn<4>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 5: e = launch_knn<5>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 6: e = launch_knn<6>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    case 7: e = launch_knn<7>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
-    default: e = launch_knn<8>(pts, valid, B, K, n, S, subsets, rot, idx, desc, dvalid, s); break;
+#define BST_CASE(p)                                                          \
+  case p:                                                                    \
+    e = launch_knn<p>(pts, valid, B, K, n, S, subsets, rot, row_blocks,     \
+                      splits, per_split, kp, p4, part_d, part_i, idx, desc, \
+                      dvalid, s);                                            \
+    break;
+    BST_CASE(1) BST_CASE(2) BST_CASE(3) BST_CASE(4) BST_CASE(5) BST_CASE(6)
+    BST_CASE(7) BST_CASE(8)
+#undef BST_CASE
   }
   return static_cast<int>(e);
 }

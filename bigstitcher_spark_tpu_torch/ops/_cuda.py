@@ -70,7 +70,7 @@ _SIGNATURES = {
     },
     "sep": {
         "bst_fuse_block_sep_batch": [_VP, _I, _I, _I, _I] + [_VP] * 4
-                                    + [_I] * 6 + [_VP, _VP, _VP],
+                                    + [_I] * 13 + [_VP, _VP, _VP],
     },
     "downsample": {
         "bst_downsample": [_VP] + [_I] * 11 + [_I, _VP] + [_I] * 7 + [_VP],
@@ -97,7 +97,8 @@ _SIGNATURES = {
         "bst_dog_localize": [_VP] + [_I] * 4 + [_VP, _VP, _I, _VP, _VP, _VP],
     },
     "descriptors": {
-        "bst_knn_descriptors": [_VP, _VP] + [_I] * 5 + [_VP, _I] + [_VP] * 4,
+        "bst_knn_descriptors": [_VP, _VP] + [_I] * 5 + [_VP] + [_I] * 6
+                               + [_VP] * 7,
         "bst_ratio_center": [_VP, _I, _I, _VP, _I, _VP, _VP],
         "bst_ratio_mma_probe": [_VP, _VP, _I, _I, _VP, _VP],
         "bst_ratio_match": [_VP, _I, _VP, _I, _I, _VP, _F, _VP] + [_I] * 4

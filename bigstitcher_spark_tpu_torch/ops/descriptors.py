@@ -68,6 +68,13 @@ MAX_POOL = 8
 MAX_DIM = 24
 # K21 fits at most this many sample pairs a hypothesis
 MAX_SAMPLE = 8
+# K19's launch (csrc/descriptors.cu): KNN_THREADS threads a scan block,
+# each holding knn_queries(masked) queries; the candidates staged KNN_TILE
+# at a time; splits of them until the scan has KNN_WAVE blocks an SM
+KNN_THREADS = 128
+KNN_TILE = 512
+KNN_WAVE = 3
+KnnPlan = namedtuple("KnnPlan", "q row_blocks splits per_split kp")
 # K20's launch (csrc/descriptors.cu): a block of RATIO_ROWS rows of A, B
 # streamed in stages of RATIO_TILE columns
 RATIO_ROWS = 256
@@ -350,6 +357,34 @@ def check_pool(n: int, r: int) -> int:
     return P
 
 
+def knn_queries(masked: bool) -> int:
+    """Queries a thread of K19's scan holds: 4, or 1 in the masked form
+    (whose few valid queries then spread over more blocks)."""
+    return 1 if masked else 4
+
+
+def knn_plan(B: int, K: int, P: int, sms: int = 132,
+             masked: bool = False) -> KnnPlan:
+    """K19's launch for B entries of K points and a pool of P on a card of
+    ``sms`` multiprocessors (``masked``: with validity flags):
+    ``row_blocks`` scan blocks of KNN_THREADS x ``q`` queries an entry;
+    the candidates, ``kp`` (K padded to whole stages of KNN_TILE), cut
+    into ``splits`` runs of ``per_split`` (whole stages, none empty)
+    where B x row_blocks blocks would not give the card KNN_WAVE blocks
+    an SM: of equal whole stages, as many as give it (the last run may be
+    shorter), or one a stage."""
+    B, K, P = int(B), int(K), int(P)
+    if B < 1 or K < 1 or not 1 <= P <= MAX_POOL:
+        raise ValueError(f"K19 needs points and a pool of 1 to {MAX_POOL}, "
+                         f"got B {B}, K {K}, P {P}")
+    q = knn_queries(masked)
+    row_blocks = _cdiv(K, KNN_THREADS * q)
+    tiles = _cdiv(K, KNN_TILE)
+    splits = min(tiles, _cdiv(KNN_WAVE * int(sms), B * row_blocks))
+    per = _cdiv(tiles, splits) * KNN_TILE
+    return KnnPlan(q, row_blocks, _cdiv(K, per), per, tiles * KNN_TILE)
+
+
 def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
                     n: int, r: int, rot: bool, want_idx: bool = True):
     """K19 (``csrc/descriptors.cu``) on CUDA, :func:`knn_descriptors_plain`
@@ -357,7 +392,7 @@ def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
     None for dense clouds) the n + r nearest neighbours of each point
     (idx (B, K, P) int32, or None without ``want_idx``), its descriptors
     (B, K, S, 3n) float32 and dvalid (B, K) bool (all True without
-    ``valid`` when K > P)."""
+    ``valid`` when K > P). The launch: :func:`knn_plan`."""
     P = check_pool(n, r)
     if points.device.type == "cpu":
         idx, desc, dv = knn_descriptors_plain(points, valid, n, r, rot)
@@ -376,10 +411,19 @@ def knn_descriptors(points: torch.Tensor, valid: torch.Tensor | None,
            if want_idx else None)
     desc = torch.empty((B, K, S, 3 * n), dtype=torch.float32, device=dev)
     dv = torch.empty((B, K), dtype=torch.uint8, device=dev)
+    plan = knn_plan(B, K, P, _sms(dev), valid is not None)
+    pts4 = torch.empty((B, plan.kp, 4), dtype=torch.float32, device=dev)
+    part_d = torch.empty((plan.splits, B, K, P), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((plan.splits, B, K, P), dtype=torch.int32,
+                         device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _cuda.load("descriptors")
     ret = lib.bst_knn_descriptors(points.data_ptr(), ptr(valid), B, K, P,
                                   int(n), S, subs.data_ptr(), int(bool(rot)),
+                                  plan.q, plan.row_blocks, plan.splits,
+                                  plan.per_split, plan.kp, pts4.data_ptr(),
+                                  part_d.data_ptr(), part_i.data_ptr(),
                                   ptr(idx), desc.data_ptr(), dv.data_ptr(),
                                   _stream(dev))
     _cuda.check(lib, ret, "knn_descriptors")

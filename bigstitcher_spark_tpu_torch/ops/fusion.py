@@ -829,6 +829,50 @@ def shift_launch_plan(block_shape, V: int, B: int = 1,
                      nvs * per_view, idx64)
 
 
+# K5's launch (csrc/sep.cu): SEP_THREADS threads a block, SEP_R z outputs
+# a thread; a block's tabulated views take at most SEP_SMEM bytes of
+# dynamic shared memory. Per view of a stage: its x tap (16 bytes), each
+# column's y weights and x-y products (16) and 4 patch-row offsets (4 or,
+# generic, 8 bytes each), each k's z tap and z tables (16).
+SEP_THREADS = 256
+SEP_R = 4
+SEP_SMEM = 48 * 1024 - 1024
+SepPlan = namedtuple("SepPlan", "lanes_z tile n_jt grid nvs smem generic")
+
+
+def sep_launch_plan(block_shape, V: int, B: int = 1,
+                    patch_shape=(2, 2, 2)) -> SepPlan:
+    """K5's launch for B rows of a block of ``block_shape`` outputs from V
+    views of ``patch_shape`` patches: a thread owns SEP_R z outputs of one
+    column, interleaved (k = z0 + lz + lanes_z r), ``lanes_z`` threads a
+    column (:func:`resample_plan`'s), a block of SEP_THREADS threads a
+    ``tile`` of one i, tile_j columns and tile_z outputs along z; ``grid``
+    (bx n_jt, z tiles, B), the batch row in the third index. A block
+    tabulates ``nvs`` views' taps at a time in ``smem`` bytes of shared
+    memory. ``generic``: patches of 2^31 elements or more, or a z extent
+    of 1 (then 64-bit patch indices, hi_z = min(lo_z + 1, pz - 1) and the
+    fusion type read at run time)."""
+    bx, by, bz = (int(s) for s in block_shape)
+    if min(bx, by, bz) <= 0 or int(V) <= 0 or min(patch_shape) <= 0:
+        raise ValueError(f"empty fusion: block {tuple(block_shape)}, V {V}, "
+                         f"patch {tuple(patch_shape)}")
+    if not 1 <= int(B) <= 65535:
+        raise ValueError(f"K5 takes 1 to 65535 batch rows, got {B}")
+    lanes_z = _lanes_z(bz)
+    tile_j = SEP_THREADS // lanes_z
+    tile_z = SEP_R * lanes_z
+    n_jt = _cdiv(by, tile_j)
+    grid = (bx * n_jt, _cdiv(bz, tile_z), int(B))
+    if grid[0] >= 2 ** 31 or grid[1] > 65535:
+        raise ValueError(f"block {tuple(block_shape)} exceeds the launch grid")
+    generic = (math.prod(int(s) for s in patch_shape) >= 2 ** 31
+               or int(patch_shape[2]) < 2)
+    per_view = 16 + tile_j * (16 + 4 * (8 if generic else 4)) + 16 * tile_z
+    nvs = min(RESAMPLE_VIEW_CHUNK, int(V), SEP_SMEM // per_view)
+    return SepPlan(lanes_z, (1, tile_j, tile_z), n_jt, grid, nvs,
+                   nvs * per_view, generic)
+
+
 def fuse_block(patches, affines, patch_offsets, img_dims, borders,
                blend_ranges, valid, block_shape, fusion_type="AVG_BLEND",
                inside_offs=None, coeffs=None, coeff_affines=None):
@@ -1092,18 +1136,21 @@ def _sep_batch_tables(patches, diags, ts, patch_offsets, img_dims, borders,
 
 
 def _launch_sep(patches, diags, ts, tables, valid, block_shape, fusion_type):
-    """One launch of K5 on a checked batch (B, V, ...)."""
+    """One launch of K5 on a checked batch (B, V, ...), as
+    :func:`sep_launch_plan` lays it out."""
     bx, by, bz = block_shape
     dev = patches.device
     B, V, px, py, pz = (int(s) for s in patches.shape)
     fused = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
     wsum = torch.empty((B, bx, by, bz), dtype=torch.float32, device=dev)
+    plan = sep_launch_plan(block_shape, V, B, (px, py, pz))
     lib = _cuda.load("sep")
     ret = lib.bst_fuse_block_sep_batch(
         patches.data_ptr(), _IN_CODE[patches.dtype], px, py, pz,
         diags.data_ptr(), ts.data_ptr(), tables.data_ptr(), valid.data_ptr(),
-        B, V, bx, by, bz, _ft_code(fusion_type), fused.data_ptr(),
-        wsum.data_ptr(), _stream(dev))
+        B, V, bx, by, bz, _ft_code(fusion_type), plan.lanes_z, plan.n_jt,
+        *plan.grid[:2], plan.nvs, plan.smem, int(plan.generic),
+        fused.data_ptr(), wsum.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "fuse_block_sep")
     return fused, wsum
 

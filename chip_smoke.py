@@ -314,6 +314,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# (counting an FMA as two operations: at one operation an instruction, as
+# the kernels built with -fmad=false issue them, half of it)
 F64_OPS_PER_S = 34e12         # H100 SXM float64 vector (not tensor core)
 TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -785,7 +787,7 @@ def batch_times(batch_fn, plain_fn, single_fn, args, io, bs, nbytes, ops,
     per-block kernel (``single_fn``) on that row's inputs, the padding row
     zeros, the batch held to its plain twin (a loop of the per-block twin)
     on the same inputs with the per-block tolerance (``bitwise``: bit for
-    bit, K2) and its largest |difference| from it recorded, one batch
+    bit, K2 and K5) and its largest |difference| from it recorded, one batch
     launch timed alone and with the host's time, the twin once, and the
     bound of the batch (``nbytes`` and ``ops`` of one row, times the
     rows); with ``outputs`` the batch's outputs held
@@ -883,7 +885,8 @@ def block_yardsticks(dev, card, scale="full", outputs=None):
     """K2 and K5 per block at phase 1's shapes (K2 on phase 1's very
     inputs), and on a tree with them their batch forms at BATCH_ROWS rows
     and K28 (:func:`shift_times`, :func:`sep_times`); with ``outputs``
-    K2's and K28's outputs held (:func:`hold_outputs`)."""
+    K2's, K5's (every fusion type and patch dtype, and the batch) and
+    K28's outputs held (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
@@ -901,7 +904,7 @@ def block_yardsticks(dev, card, scale="full", outputs=None):
     out = shift_times(rng, c, bs, V, per_view, dims, borders, ranges, valid,
                       io_d, card, outputs)
     out["fuse_block_sep"] = sep_times(rng, c, bs, SCALES[scale]["sep_patch"],
-                                      V, per_view, dev)
+                                      V, per_view, dev, outputs)
     for k, r in out.items():
         print_times(k, r, card)
         if "batch_ms" in r:
@@ -994,10 +997,20 @@ def sep_tap_bytes(patch, diags, ts, bs, itemsize, sector=32):
     return total
 
 
-def sep_times(rng, c, bs, patch, V, per_view, dev):
+SEP_DTYPES = ("uint8", "uint16", "int16", "float32")
+
+
+def sep_times(rng, c, bs, patch, V, per_view, dev, outputs=None):
     """K5 on 4 views at route D's compute block and patch shape, against
-    its plain twin (fused float32 rtol 1e-5 / atol 1e-3, the tolerance K3
-    is held to; wsum atol 1e-5)."""
+    its plain twin: bit for bit at every fusion type and patch dtype (and
+    within fused float32 rtol 1e-5 / atol 1e-3, the tolerance K3 is held
+    to, wsum atol 1e-5, for a tree whose K5 is not), its time alone, with
+    the host's time and the wrapper's; on a tree with it its batch form,
+    bitwise its twin (V = 4: the twin's sums over the views keep K5's
+    order). With
+    ``outputs`` the outputs at every fusion type and patch dtype (uint16
+    patches as uint8 mod 256, int16, float32) and the batch's are held
+    (:func:`hold_outputs`)."""
     import numpy as np
     import torch
 
@@ -1022,22 +1035,36 @@ def sep_times(rng, c, bs, patch, V, per_view, dev):
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
     check(float((ref[1] > 0).float().mean()) > 0.5,
           "K5 case: most block voxels covered")
-    for ft in F.FUSION_TYPES:
-        g = F.fuse_block_sep(*args, bs, ft, io_d)
-        r = F.fuse_block_sep_plain(*args, bs, ft, io_d)
-        torch.testing.assert_close(g[0], r[0], rtol=1e-5, atol=1e-3)
+    held, same = [], True
+    for dtype in SEP_DTYPES:
+        pd = (patches.to(torch.int32) % 256).to(torch.uint8) \
+            if dtype == "uint8" else patches.to(getattr(torch, dtype))
+        for ft in F.FUSION_TYPES:
+            g = F.fuse_block_sep(pd, *args[1:], bs, ft, io_d)
+            r = F.fuse_block_sep_plain(pd, *args[1:], bs, ft, io_d)
+            torch.testing.assert_close(g[0], r[0], rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(g[1], r[1], rtol=0, atol=1e-5)
+            same &= all(torch.equal(a, b) for a, b in zip(g, r))
+            check(same or not hasattr(F, "sep_launch_plan"),
+                  f"K5 fuse_block_sep {bs} {ft} {dtype}: bitwise its twin")
+            held.append({})
+            hold_outputs(outputs, f"fuse_block_sep {ft} {dtype}", g,
+                         held[-1])
     tables = F.sep_axis_tables(*args[1:7], io_d, bs)
     bare = lambda: F.launch_fuse_block_sep(patches, args[1], args[2], tables,
                                            args[7], bs, "AVG_BLEND")
     n = int(np.prod(bs))
     nbytes = sep_tap_bytes(patch, diags, ts, bs, 2) + 2 * n * 4
-    r = dict(err=max_abs(got[0], ref[0]), ms=time_ms(bare),
-             wrapper_ms=time_ms(run), plain_ms=time_ms(plain),
-             library_ms=None, bound=bound(nbytes, V * n * OPS["sep"]))
+    r = dict(err=max_abs(got[0], ref[0]), twin_bitwise=same, ms=time_ms(bare),
+             host_ms=time_ms(bare, host=True), wrapper_ms=time_ms(run),
+             plain_ms=time_ms(plain), library_ms=None,
+             bound=bound(nbytes, V * n * OPS["sep"]), **saved_all(held))
     if hasattr(F, "fuse_block_sep_batch"):
         r.update(batch_times(F.fuse_block_sep_batch,
                              F.fuse_block_sep_batch_plain, F.fuse_block_sep,
-                             args, io_d, bs, nbytes, V * n * OPS["sep"]))
+                             args, io_d, bs, nbytes, V * n * OPS["sep"],
+                             bitwise=hasattr(F, "sep_launch_plan"),
+                             outputs=outputs))
     return r
 
 
@@ -2808,11 +2835,14 @@ def phase8d_extract(proj, run_a, scale, dev, card, launches):
     r = dict(err=err, launches=n_k19, ms=time_ms(run, reps=10),
              plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
              bound=bound(B * K * (13 + S * 36 + 1),
-                         float((nv * nv).sum()) * OPS["knn_pair"]))
+                         float((nv * nv).sum()) * OPS["knn_pair"]),
+             issue_floor_ms=knn_issue_floor_ms(float((nv * nv).sum())))
     print(f"  knn_descriptors (K19, masked) at 8a's bucket {B} blocks x {K} "
           f"slots ({int(nv.sum())} valid) [{card}]: kernel {r['ms']} ms  "
           f"plain {r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
-          f"({r['bound'][1]})  launches in 8d {n_k19}", flush=True)
+          f"({r['bound'][1]}; at one operation an instruction "
+          f"{r['issue_floor_ms']:.4f} ms)  launches in 8d {n_k19}",
+          flush=True)
     return r, (total, joined), dets
 
 
@@ -2938,7 +2968,8 @@ def match_kernel_times(t, card, at_9a=None):
             t["pa"][None], None, 3, 1, True, rows=rows), reps=1, rounds=1),
         plain_shape=f"rows {rows.start}-{rows.stop} of {n}",
         library_ms=None,
-        bound=bound(n * (12 + 16 + 4 * 36), n * n * OPS["knn_pair"]))
+        bound=bound(n * (12 + 16 + 4 * 36), n * n * OPS["knn_pair"]),
+        issue_floor_ms=knn_issue_floor_ms(float(n) * n))
     DS.ratio_match(da, db, ob, 3.0)
     refined = ratio_refined(DS)
     res["ratio_match"] = dict(
@@ -2995,6 +3026,9 @@ def match_kernel_times(t, card, at_9a=None):
               f"ms  plain {r['plain_ms']} ms ({r['plain_shape']})  bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
               flush=True)
+    print(f"  knn_descriptors at 9b: the floor at one operation an "
+          f"instruction {res['knn_descriptors']['issue_floor_ms']:.4f} ms",
+          flush=True)
     r = res["ratio_match"]
     print(f"  ratio_match at 9b [{card}]: {r['refined']} pairs refined "
           f"exactly (share {r['refined_share']:.3e} of "
@@ -3027,6 +3061,104 @@ def ratio_refined(DS):
     K20 has no filter)."""
     t = getattr(DS.ratio_match, "refined", None)
     return None if t is None else int(t.item())
+
+
+def knn_issue_floor_ms(pairs) -> float:
+    """K19's floor at one operation an instruction: its KNN_PAIR_OPS
+    operations a pair, each its own instruction (the kernels are built
+    with -fmad=false), at half F32_OPS_PER_S (which counts an FMA as
+    two)."""
+    return pairs * OPS["knn_pair"] / (F32_OPS_PER_S / 2) * 1e3
+
+
+def knn_masked_bucket(scale, seed=2024):
+    """8d's masked K19 input at 8a's bucket: 2 blocks (8a's batch at -dsxy
+    2) of 4,096 candidate slots, the first 431 and 430 of them valid (8a's
+    1,723 points over its 4 blocks; K17 fills the slots in score order),
+    block-local subpixel coordinates uniform in a 512 x 512 x 128 block
+    (every slot, valid or not); at scale tiny 2 blocks of 512 slots, 40 and
+    37 valid, in 64 x 64 x 32. Returns (points (B, K, 3) float32, valid
+    (B, K) bool) as numpy arrays."""
+    import numpy as np
+
+    K, counts, ext = ((4096, (431, 430), (512, 512, 128)) if scale == "full"
+                      else (512, (40, 37), (64, 64, 32)))
+    rng = np.random.default_rng(seed)
+    pts = (rng.uniform(0, 1, (len(counts), K, 3)) * np.array(ext)).astype(
+        np.float32)
+    valid = np.arange(K)[None, :] < np.array(counts)[:, None]
+    return pts, valid
+
+
+def knn_yardsticks(dev, card, outputs=None, scale="full"):
+    """K19 at 9b's cloud (A of :func:`make_clouds`: 100,000 points at full
+    scale; -n 3 -r 1, rotation invariant) and its masked form at 8d's
+    bucket (:func:`knn_masked_bucket`): each bitwise its twin (the dense
+    form on A's first 4,096 and last 2,048 rows, the masked form whole:
+    indices, descriptors and flags), card time, time with the host's,
+    the twin's time, the bound and the issue floor
+    (:func:`knn_issue_floor_ms`); with ``outputs`` the indices,
+    descriptors and flags held (:func:`hold_outputs`)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    res = {}
+    pa = c(make_clouds(scale)[0].astype(np.float32))[None]
+    n = int(pa.shape[1])
+    run = lambda: DS.knn_descriptors(pa, None, 3, 1, True)
+    got = run()
+    checked = (slice(0, min(4096, n)), slice(max(0, n - 2048), n))
+    err = 0.0
+    for rows in checked:
+        ref = DS.knn_descriptors_plain(pa, None, 3, 1, True, rows=rows)
+        check(all(torch.equal(g[:, rows], e) for g, e in zip(got, ref)),
+              f"K19 dense at 9b's cloud ({n} points), rows "
+              f"{rows.start}-{rows.stop}: indices, descriptors and flags "
+              "bitwise the twin's")
+        err = max(err, max_abs(got[1][:, rows], ref[1]))
+    held = {}
+    hold_outputs(outputs, "knn_descriptors dense", got, held)
+    pairs = float(n) * n
+    res["knn_descriptors"] = dict(
+        err=err, ms=time_ms(run, reps=5), host_ms=time_ms(run, reps=5,
+                                                          host=True),
+        plain_ms=time_ms(lambda: DS.knn_descriptors_plain(
+            pa, None, 3, 1, True, rows=checked[0]), reps=1, rounds=1),
+        plain_shape=f"rows 0-{checked[0].stop} of {n}", library_ms=None,
+        bound=bound(n * (12 + 16 + 4 * 36), pairs * OPS["knn_pair"]),
+        issue_floor_ms=knn_issue_floor_ms(pairs), shape=f"{n} points",
+        **held)
+    del got
+    pts, valid = knn_masked_bucket(scale)
+    sub, val = c(pts), c(valid)
+    run = lambda: DS.knn_descriptors(sub, val, 3, 1, True)
+    plain = lambda: DS.knn_descriptors_plain(sub, val, 3, 1, True)
+    got, ref = run(), plain()
+    check(all(torch.equal(g, e) for g, e in zip(got, ref)),
+          f"K19 masked at 8d's bucket {tuple(sub.shape[:2])}: indices, "
+          "descriptors and flags bitwise the twin's")
+    held = {}
+    hold_outputs(outputs, "knn_descriptors masked", got, held)
+    B, K = (int(v) for v in sub.shape[:2])
+    nv = val.sum(1).to(torch.float64)
+    S = int(got[1].shape[2])
+    vpairs = float((nv * nv).sum())
+    res["knn_descriptors masked"] = dict(
+        err=max_abs(got[1], ref[1]), ms=time_ms(run, reps=10),
+        host_ms=time_ms(run, reps=10, host=True),
+        plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
+        bound=bound(B * K * (13 + S * 36 + 1), vpairs * OPS["knn_pair"]),
+        issue_floor_ms=knn_issue_floor_ms(vpairs),
+        shape=f"{B} blocks x {K} slots ({int(nv.sum())} valid)", **held)
+    for k, r in res.items():
+        print_times(f"{k} at {r['shape']}", {**r, "wrapper_ms": r["host_ms"]},
+                    card)
+        print(f"  {k}: issue floor (one op an instruction) "
+              f"{r['issue_floor_ms']:.4f} ms", flush=True)
+    return res
 
 
 def ratio_times(da, db, ob, card, check_rows=(slice(0, 4096),)):
@@ -5851,9 +5983,11 @@ def main(argv=None) -> int:
                                  "library_int64_b2b_ms",
                                  "library_wrapper_ms") if k in r},
             # K20 (9b): the pairs its filter refined, B's mean alone, the
-            # bound of the exact SIMT work alone
+            # bound of the exact SIMT work alone; K19 (9b): its floor at
+            # one operation an instruction beside its operations bound
             **{k: r[k] for k in ("refined", "refined_share", "center_ms",
-                                 "simt_bound_ms") if k in r},
+                                 "simt_bound_ms", "issue_floor_ms")
+               if k in r},
             **({"block_ms": r["block_ms"],
                 "block_wrapper_ms": r["block_wrapper_ms"],
                 "block_plain_ms": r["block_plain_ms"],
@@ -5879,6 +6013,7 @@ def main(argv=None) -> int:
                 "masked_ms": masked["ms"],
                 "masked_plain_ms": masked["plain_ms"],
                 "masked_bound_ms": masked["bound"][0],
+                "masked_issue_floor_ms": masked["issue_floor_ms"],
                 "masked_max_abs_err": masked["err"]}
                if name == "knn_descriptors" else {}),
             # K2's, K3's and K5's batch forms (phase 1 at BATCH_ROWS rows;

@@ -2,13 +2,14 @@
 """K8 (FFT), K24 (CG product) and K29 (shard sum) beside their library
 yardsticks, and K20 (ratio test), K15 (blur pass), K3 (gather), K26
 (nonrigid), K1 (composite), K12 (relax fits), K21 (RANSAC scores), K6
-(downsampling), K2 (shift), K5 (separable), K28 (block epilogue) and K24's
-partial form beside their bounds, and phase 10's walls, on one GPU.
+(downsampling), K2 (shift), K5 (separable), K28 (block epilogue), K19
+(kNN descriptors) and K24's partial form beside their bounds, and phase
+10's walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
         [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
-                downsample|blocks|intensity|shard|loops[,...]]
+                downsample|blocks|intensity|shard|loops|knn[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -78,7 +79,17 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   shapes (256x256x64 blocks of 4 uint16 views), card time, time with the
   host's, bound; on a tree that has them also their batch forms at 16
   rows (each row bitwise the per-block kernel's) and K28 on K2's batch
-  output with level (2,2,2) (bitwise its twin's);
+  output with level (2,2,2) (bitwise its twin's); with ``--outputs DIR``
+  K2's and K5's outputs at each fusion type (K5's also at each patch
+  dtype: uint8, uint16, int16, float32), both batches and K28's saved or
+  compared bitwise;
+- ``knn_yardsticks``: ``knn`` is K19 at 9b's cloud (100,000 points, -n 3
+  -r 1, rotation invariant; bitwise its twin on the first 4,096 and last
+  2,048 rows) and its masked form at 8d's bucket (2 blocks of 4,096
+  slots, 431 and 430 valid; bitwise its twin), card time, time with the
+  host's, bound and the issue floor at one operation an instruction;
+  with ``--outputs DIR`` indices, descriptors and flags saved or compared
+  bitwise;
 - ``shard``: on a tree that has it, K29 (``ops.shard.shard_sum``) at
   phase 15a's moments (4 shards of 512 x 36 float64) and at 15b's vectors
   (4 shards of 524,288, the replicated part, p.Ap), each bitwise its twin
@@ -132,12 +143,13 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
                          "nonrigid, composite, fit, ransac, downsample, "
-                         "blocks, intensity, shard (default fft,cg)")
+                         "blocks, intensity, shard, loops, knn (default "
+                         "fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
-                    help="K3's, K26's, K1's, K12's, K21's, K6's and K24's "
-                         "outputs "
+                    help="K3's, K26's, K1's, K12's, K21's, K6's, K24's, "
+                         "K2's, K5's, K28's and K19's outputs "
                          "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
@@ -148,7 +160,7 @@ def main(argv=None) -> int:
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
              "fit", "ransac", "downsample", "blocks", "intensity", "shard",
-             "loops")
+             "loops", "knn")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -211,6 +223,9 @@ def main(argv=None) -> int:
         if "blocks" in only:
             out.update(CS.block_yardsticks(dev, card, args.scale,
                                            args.outputs))
+        if "knn" in only:
+            out.update(CS.knn_yardsticks(dev, card, args.outputs,
+                                         args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))

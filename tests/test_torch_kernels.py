@@ -223,6 +223,107 @@ def test_fuse_block_sep_kernel(dev, fusion_type, mirrored):
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
 
 
+def _sep_inputs(rng, V, bs, ps, kind):
+    """K5 inputs over ``ps`` patches (uint16 values below 4000): "main"
+    (route D's: diag_z 3, one view at 1/3, one mirrored on x), "mirror_y"
+    or "flat" (a z extent of 1: the generic instantiation); images at
+    least 40 wide (the blend ramps leave weight), each view's image
+    starting at the block's middle column (the first columns outside
+    every view), inside offsets, the last view switched off."""
+    patches = torch.from_numpy(rng.integers(0, 4000, (V, *ps)).astype(
+        np.uint16))
+    diags = rng.uniform(0.7, 1.3, (V, 3)).astype(np.float32)
+    ts = rng.uniform(-3, 4, (V, 3)).astype(np.float32)
+    if kind == "main":
+        diags[:, 2] = 3.0
+        diags[min(1, V - 1), 2] = np.float32(1 / 3)
+        diags[0, 0] = -1.0
+        ts[0, 0] += ps[0] - 2
+    elif kind == "mirror_y":
+        diags[:, 1] *= -1.0
+        ts[:, 1] += ps[1]
+    offs = rng.uniform(-5, 10, (V, 3)).astype(np.float32)
+    offs[:, 1] = -(diags[:, 1] * (bs[1] // 2) + ts[:, 1])
+    dims = np.tile(np.maximum(np.array(ps, np.float32) * 1.3, 40), (V, 1))
+    valid = (np.arange(V) < V - 1).astype(np.float32) if V > 1 else \
+        np.ones(V, np.float32)
+    return (patches, torch.from_numpy(diags), torch.from_numpy(ts),
+            torch.from_numpy(offs), torch.from_numpy(dims),
+            _per_view(rng, V, 0, 3), _per_view(rng, V, 5, 20),
+            torch.from_numpy(valid), _per_view(rng, V, 0, 2))
+
+
+_SEP_CASES = [("main", (40, 36, 20), (44, 40, 64)),
+              ("main", (37, 29, 13), (40, 34, 42)),
+              ("main", (5, 41, 130), (8, 46, 392)),
+              ("mirror_y", (40, 36, 20), (44, 40, 24)),
+              ("flat", (40, 36, 3), (44, 40, 1))]
+
+
+@pytest.mark.parametrize("dtype", sorted(_SHIFT_DTYPES) + ["int16"])
+@pytest.mark.parametrize("kind,bs,ps", _SEP_CASES,
+                         ids=["d3", "d3-ragged", "d3-tall", "mirror-y",
+                              "z-extent-1"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_sep_kernel_bitwise_twin(dev, fusion_type, kind, bs, ps,
+                                            dtype):
+    """K5 per block (taps tabulated once a block, the fusion type a
+    template parameter; the generic instantiation at a z extent of 1)
+    against its twin on the card, 4 views: fused and wsum equal bit for
+    bit, some voxels outside every view; one launch."""
+    rng = np.random.default_rng(17)
+    args = [a.to(dev) for a in _sep_inputs(rng, 4, bs, ps, kind)]
+    args[0] = (_as_patch_dtype(args[0], dtype) if dtype != "int16"
+               else (args[0].to(torch.int32) - 2000).to(torch.int16))
+    ops.reset_launch_counts()
+    got = F.fuse_block_sep(*args[:8], bs, fusion_type, args[8])
+    assert ops.launch_counts()["fuse_block_sep"] == 1
+    want = F.fuse_block_sep_plain(*args[:8], bs, fusion_type, args[8])
+    assert float(want[1].max()) > 0 and float(want[1].min()) == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind,bs,ps,V", [("main", (24, 20, 16),
+                                            (28, 24, 50), 3),
+                                           ("main", (9, 40, 70),
+                                            (12, 44, 212), 3),
+                                           ("mirror_y", (37, 29, 13),
+                                            (40, 33, 16), 9)],
+                         ids=["small", "ragged", "mirror-y-V9"])
+@pytest.mark.parametrize("fusion_type", FTYPES)
+def test_fuse_block_sep_batch_bitwise_twin(dev, fusion_type, kind, bs, ps,
+                                           V):
+    """K5's batch form with a padding row (zero patches, valid 0): each
+    row bitwise the per-block kernel, the padding row zeros, one launch;
+    bitwise its twin on the card for V = 3. V = 9 tabulates the views in
+    two stages; there the twin's sums over the views (torch's reduction
+    over 9) may round in another order, so the twin holds it to the
+    fusion tolerance."""
+    rng = np.random.default_rng(64)
+    rows = [_sep_inputs(rng, V, bs, ps, kind) for _ in range(3)]
+    args = [torch.stack([r[k] for r in rows]).to(dev) for k in range(9)]
+    args[0][-1] = 0
+    args[7][-1] = 0
+    ops.reset_launch_counts()
+    got = F.fuse_block_sep_batch(*args[:8], bs, fusion_type, args[8])
+    counts = ops.launch_counts()
+    assert counts["fuse_block_sep_batch"] == 1
+    assert counts["fuse_block_sep"] == 0
+    for b in range(3):
+        want = F.fuse_block_sep(*(a[b].contiguous() for a in args[:8]), bs,
+                                fusion_type, args[8][b].contiguous())
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), f"row {b}"
+    assert not got[0][-1].any() and not got[1][-1].any()
+    want = F.fuse_block_sep_batch_plain(*args[:8], bs, fusion_type, args[8])
+    if V <= 4:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape,factors,dims", [
     ((25, 19, 11), (2, 2, 2), (12, 9, 5)),   # odd extents: crop
     ((56, 32, 6), (2, 2, 8), (28, 16, 1)),   # thin axis: edge pad
@@ -1118,6 +1219,53 @@ def test_knn_descriptors_row_slice_twin(dev):
     ref = DS.knn_descriptors_plain(pts, None, 3, 1, True, rows=slice(1200, 2200))
     for g, e in zip(got, ref):
         assert torch.equal(g[:, 1200:2200], e)
+
+
+@pytest.mark.parametrize("n,r", [(1, 0), (1, 1), (2, 1), (3, 1), (2, 3),
+                                 (3, 3), (4, 3), (3, 5)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("K", [700, 1100, 5000])
+def test_knn_descriptors_launch_shapes(dev, K, n, r):
+    """K19 dense at every pool (1 to 8), K not a multiple of a stage or of
+    a row block (splits of the candidates, merged), duplicate points
+    (equal distances and a distance 0), points on a coarse grid (ties):
+    indices, descriptors and flags bitwise the twin's; one launch."""
+    rng = np.random.default_rng(24)
+    pts = rng.uniform(0, 30, (1, K, 3)).astype(np.float32)
+    pts[0, 10] = pts[0, 11]
+    pts[0, K - 1] = pts[0, 3]
+    pts[0, K // 2:] = np.round(pts[0, K // 2:])
+    t = torch.from_numpy(pts).to(dev)
+    plan = DS.knn_plan(1, K, n + r, torch.cuda.get_device_properties(
+        dev).multi_processor_count, masked=False)
+    assert plan.splits > 1
+    for rot in (True, False):
+        ops.reset_launch_counts()
+        got = DS.knn_descriptors(t, None, n, r, rot)
+        assert ops.launch_counts()["knn_descriptors"] == 1
+        want = DS.knn_descriptors_plain(t, None, n, r, rot)
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("B,K", [(3, 1100), (2, 4096), (200, 300)])
+def test_knn_descriptors_masked_launch_shapes(dev, B, K):
+    """K19's masked form: entries with their valid slots first (as
+    detection fills them), scattered, and with fewer valid points than a
+    pool; B x row blocks below the card (splits) and above it (none):
+    indices, descriptors and flags bitwise the twin's."""
+    rng = np.random.default_rng(25)
+    pts = rng.uniform(0, 50, (B, K, 3)).astype(np.float32)
+    valid = rng.uniform(size=(B, K)) > 0.6
+    valid[0] = np.arange(K) < K // 9
+    valid[1] = False
+    valid[1, [5, K // 2, K - 1]] = True
+    t, v = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+    got = DS.knn_descriptors(t, v, 3, 1, True)
+    want = DS.knn_descriptors_plain(t, v, 3, 1, True)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert not bool(got[2][1].any()) and not bool(got[1][1].any())
 
 
 @pytest.mark.parametrize("D", list(range(3, DS.MAX_DIM + 1, 3)))
