@@ -1,7 +1,9 @@
 // K11-K14: the tile relaxation of the global solver, in float64
 // (bigstitcher_spark_tpu/ops/solve.py:308 _relax_core, jitted at :410; the
-// JAX program is one lax.while_loop). One iteration is K11 -> K12 -> K13 ->
-// K14 on one stream; the host launches iterations in chunks and reads the
+// JAX program is one lax.while_loop). One iteration is K11 -> K12 -> K13
+// with K14 in its last block (the fused form below) on one stream; sharded,
+// K11 and K13 on each shard and K12 and K14 adding the shards' partials as
+// they load them. The host launches iterations in chunks and reads the
 // state (iteration count, done flag) once per chunk, so nothing crosses to
 // the host per iteration. Every kernel returns at once when the state's done
 // flag is set.
@@ -48,7 +50,12 @@
 //   shifts back and writes; the sort and the pivoting move values between
 //   registers (no local stack). Every divide, square root and sum is the
 //   first form's, in its order (-fmad=false): bitwise the first form's
-//   models.
+//   models. Sharded form (fit_parts_kernel): the S shards' moment partials
+//   travel by value (bst::ShardParts, at most 64) and each moment is their
+//   sum in K29's order, ((p_0 + p_1) + ...) + p_{S-1}, taken as a lane
+//   loads its tile's 36 moments partial by partial (36 loads in flight, S
+//   round trips): bitwise K29 then K12, without K29's launch (2.7 us for
+//   0.2 us of bytes at 4 x 512 x 36).
 // K13 relax_error: per segment, sum ||M_own p - M_other q|| w_eff and
 //   sum w_eff. Segments are tiles (rows contiguous, for the mean error of
 //   K14), or links (rows listed by index: the A-side rows of each link, for
@@ -59,11 +66,24 @@
 //   err < 1e-9 max(err, 1), 5 in a row); the plateau (it > pw, err <
 //   max_error, and hist[it - pw - 1] - min(hist[it - pw : it]) < 1e-4
 //   max(err, 1e-12) or err < 1e-9); the max_iter cap. state = {iterations,
-//   stall, done, 0} (int32).
+//   stall, done, 0} (int32). Bound: its launch. Its work (T = 512: 8 KiB
+//   read, ~2.5 ns at 3.35 TB/s) is far below the ~3.7 us a launch of one
+//   block costs, so no standalone form can approach it; the work moves into
+//   the kernels that already read the data. The standalone kernel is the
+//   sharded form only: the S shards' num / den partials added in K29's
+//   order as it loads them (bitwise K29 then K14).
+// K13 + K14 relax_error_converge (one device): K13 over the tiles; each
+//   block's writing threads fence, the block meets at a barrier and thread
+//   0 takes a ticket (reduce.cuh last_block_arrived); the last block reads
+//   every tile's num / den through L2 and runs K14's body (the same
+//   function, the same block size and order: bitwise K13 then K14). The
+//   ticket is one int32 a replica that the last block resets; after done no
+//   block takes one.
 //
 // Built with -fmad=false: every product and sum rounds on its own, as in the
 // plain-torch twins (ops/solve.py), which evaluate in the same order.
 #include "fusion_common.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -359,15 +379,15 @@ __device__ __forceinline__ void fit_kind(const double* mo, const double* o,
 
 constexpr int kFitTiles = 32;  // tiles a block: a warp's lanes
 
-template <int MODEL, int REG>
-__global__ void __launch_bounds__(2 * kFitTiles)
-    fit_kernel(const double* __restrict__ moments,
-               const uint8_t* __restrict__ fixed,
-               const double* __restrict__ origin, int T, double lam,
-               double damping, const int* __restrict__ state,
-               double* __restrict__ cur) {
+// One block's fits: LOAD(off, mo) reads the 36 moments at off of the
+// (T, 36) moments.
+template <int MODEL, int REG, class Load>
+__device__ __forceinline__ void fit_body(const Load& load,
+                                         const uint8_t* __restrict__ fixed,
+                                         const double* __restrict__ origin,
+                                         int T, double lam, double damping,
+                                         double* __restrict__ cur) {
   constexpr bool kReg = REG != NONE;
-  if (finished(state)) return;
   __shared__ double sreg[kReg ? kFitTiles : 1][13];
   const int base = blockIdx.x * kFitTiles;
   const int nt = min(kFitTiles, T - base);
@@ -378,9 +398,7 @@ __global__ void __launch_bounds__(2 * kFitTiles)
   // 1-2 us longer a launch: one more round trip and a barrier)
   double mo[kM], o[3];
   if (live) {
-    const double* mg = moments + static_cast<int64_t>(base + lane) * kM;
-#pragma unroll
-    for (int v = 0; v < kM; ++v) mo[v] = mg[v];
+    load(static_cast<int64_t>(base + lane) * kM, mo);
 #pragma unroll
     for (int d = 0; d < 3; ++d)
       o[d] = origin[3 * static_cast<int64_t>(base + lane) + d];
@@ -415,25 +433,50 @@ __global__ void __launch_bounds__(2 * kFitTiles)
   for (int i = 0; i < 12; ++i) c[i] = (1.0 - damping) * c[i] + damping * m[i];
 }
 
+template <int MODEL, int REG>
+__global__ void __launch_bounds__(2 * kFitTiles)
+    fit_kernel(const double* __restrict__ moments,
+               const uint8_t* __restrict__ fixed,
+               const double* __restrict__ origin, int T, double lam,
+               double damping, const int* __restrict__ state,
+               double* __restrict__ cur) {
+  if (finished(state)) return;
+  fit_body<MODEL, REG>(
+      [&](int64_t off, double(&mo)[kM]) {
+#pragma unroll
+        for (int v = 0; v < kM; ++v) mo[v] = moments[off + v];
+      },
+      fixed, origin, T, lam, damping, cur);
+}
+
+// The sharded form: the shards' moment partials added as they are loaded,
+// in K29's order (the sum K29 wrote into `moments` before).
+template <int MODEL, int REG>
+__global__ void __launch_bounds__(2 * kFitTiles)
+    fit_parts_kernel(const bst::ShardParts parts,
+                     const uint8_t* __restrict__ fixed,
+                     const double* __restrict__ origin, int T, double lam,
+                     double damping, const int* __restrict__ state,
+                     double* __restrict__ cur) {
+  if (finished(state)) return;
+  fit_body<MODEL, REG>(
+      [&](int64_t off, double(&mo)[kM]) { parts.row(off, mo); }, fixed,
+      origin, T, lam, damping, cur);
+}
+
 // ----------------------------------------------------------------- K13
 
 // rows of segment s: idx[ptr[s] .. ptr[s+1]) (idx == nullptr: the rows
-// themselves); the owner model is seg_own[s] (nullptr: s)
-__global__ void error_kernel(const double* __restrict__ local,
-                             const double* __restrict__ target,
-                             const int* __restrict__ other,
-                             const double* __restrict__ w,
-                             const int* __restrict__ link_id,
-                             const double* __restrict__ link_w,
-                             const int* __restrict__ ptr,
-                             const int* __restrict__ idx,
-                             const int* __restrict__ seg_own, int S, int wpt,
-                             const double* __restrict__ cur,
-                             const int* __restrict__ state,
-                             double* __restrict__ num,
-                             double* __restrict__ den) {
-  if (finished(state)) return;
-  __shared__ double sh[kWarps][2];
+// themselves); the owner model is seg_own[s] (nullptr: s); sh holds 2 *
+// kWarps doubles
+__device__ __forceinline__ void error_body(
+    const double* __restrict__ local, const double* __restrict__ target,
+    const int* __restrict__ other, const double* __restrict__ w,
+    const int* __restrict__ link_id, const double* __restrict__ link_w,
+    const int* __restrict__ ptr, const int* __restrict__ idx,
+    const int* __restrict__ seg_own, int S, int wpt,
+    const double* __restrict__ cur, double* __restrict__ num,
+    double* __restrict__ den, double* sh) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tpb = kWarps / wpt;
   const int seg = blockIdx.x * tpb + warp / wpt;
@@ -456,17 +499,17 @@ __global__ void error_kernel(const double* __restrict__ local,
   sn = warp_sum(sn);
   sd = warp_sum(sd);
   if (lane == 0) {
-    sh[warp][0] = sn;
-    sh[warp][1] = sd;
+    sh[2 * warp] = sn;
+    sh[2 * warp + 1] = sd;
   }
   __syncthreads();
   if (threadIdx.x < tpb) {
     const int t = threadIdx.x, ss = blockIdx.x * tpb + t;
     if (ss < S) {
-      double a = sh[t * wpt][0], b = sh[t * wpt][1];
+      double a = sh[2 * t * wpt], b = sh[2 * t * wpt + 1];
       for (int k = 1; k < wpt; ++k) {
-        a += sh[t * wpt + k][0];
-        b += sh[t * wpt + k][1];
+        a += sh[2 * (t * wpt + k)];
+        b += sh[2 * (t * wpt + k) + 1];
       }
       num[ss] = a;
       den[ss] = b;
@@ -474,8 +517,31 @@ __global__ void error_kernel(const double* __restrict__ local,
   }
 }
 
+__global__ void error_kernel(const double* __restrict__ local,
+                             const double* __restrict__ target,
+                             const int* __restrict__ other,
+                             const double* __restrict__ w,
+                             const int* __restrict__ link_id,
+                             const double* __restrict__ link_w,
+                             const int* __restrict__ ptr,
+                             const int* __restrict__ idx,
+                             const int* __restrict__ seg_own, int S, int wpt,
+                             const double* __restrict__ cur,
+                             const int* __restrict__ state,
+                             double* __restrict__ num,
+                             double* __restrict__ den) {
+  if (finished(state)) return;
+  __shared__ double sh[2 * kWarps];
+  error_body(local, target, other, w, link_id, link_w, ptr, idx, seg_own, S,
+             wpt, cur, num, den, sh);
+}
+
 // ----------------------------------------------------------------- K14
 
+// The tree of K14's sums and window minimum: at each level s = kThreads /
+// 2 .. 1, v[t] = v[t] (op) v[t + s] for t < s. block_reduce2 takes two sums
+// through the same tree side by side (each in its own order, half the
+// barriers). sh holds kThreads doubles (block_reduce2: twice that).
 __device__ double block_reduce(double v, double* sh, bool is_min) {
   sh[threadIdx.x] = v;
   __syncthreads();
@@ -491,41 +557,176 @@ __device__ double block_reduce(double v, double* sh, bool is_min) {
   return r;
 }
 
-__global__ void converge_kernel(const double* __restrict__ num,
-                                const double* __restrict__ den, int T,
-                                double* __restrict__ hist, int pw,
-                                double max_error, int max_iter,
-                                int* __restrict__ state) {
-  __shared__ double sh[bst::kThreads];
-  if (finished(state)) return;
-  double a = 0.0, b = 0.0;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    a += num[t];
-    b += den[t];
+__device__ void block_reduce2(double& a, double& b, double* sh) {
+  double* sa = sh;
+  double* sb = sh + bst::kThreads;
+  sa[threadIdx.x] = a;
+  sb[threadIdx.x] = b;
+  __syncthreads();
+  for (int s = bst::kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      sa[threadIdx.x] = sa[threadIdx.x] + sa[threadIdx.x + s];
+      sb[threadIdx.x] = sb[threadIdx.x] + sb[threadIdx.x + s];
+    }
+    __syncthreads();
   }
-  const double sn = block_reduce(a, sh, false);
-  const double sd = block_reduce(b, sh, false);
+  a = sa[0];
+  b = sb[0];
+  __syncthreads();
+}
+
+// K14's loads of the tiles t[0 .. n) (n <= 4), all in flight at once:
+// x[k] = num's entry, y[k] = den's. The fused form reads one buffer each
+// that other blocks of the launch wrote (through L2); the sharded form the
+// S shards' partials, four at a time, each entry their sum in K29's order
+// (the first taken as it is, so that a -0.0 stays -0.0).
+struct L2Buffer {
+  const double* p;
+};
+
+__device__ __forceinline__ void load_sums(const L2Buffer& num,
+                                          const L2Buffer& den,
+                                          const int (&t)[4], int n,
+                                          double (&x)[4], double (&y)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < n) {
+      x[k] = __ldcg(num.p + t[k]);
+      y[k] = __ldcg(den.p + t[k]);
+    }
+}
+
+__device__ __forceinline__ void load_sums(const bst::ShardParts& num,
+                                          const bst::ShardParts& den,
+                                          const int (&t)[4], int n,
+                                          double (&x)[4], double (&y)[4]) {
+  for (int d0 = 0; d0 < num.S; d0 += 4) {
+    double xs[4][4], ys[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (d0 + j < num.S && k < n) {
+          xs[j][k] = num.p[d0 + j][t[k]];
+          ys[j][k] = den.p[d0 + j][t[k]];
+        }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (d0 + j < num.S && k < n) {
+          x[k] = d0 + j == 0 ? xs[j][k] : x[k] + xs[j][k];
+          y[k] = d0 + j == 0 ? ys[j][k] : y[k] + ys[j][k];
+        }
+  }
+}
+
+// K14's body, in one block of bst::kThreads threads: NUM and DEN hold the
+// tiles' sums (load_sums); sh holds 2 * bst::kThreads doubles. The state
+// and the history entries the rules read are loaded first, and each
+// thread's tiles four at a time, so that their latencies overlap; every
+// sum, minimum and rule is taken in the first form's order (each thread's
+// share in tile order, then the trees).
+template <class Load>
+__device__ __forceinline__ void converge_body(const Load& num,
+                                              const Load& den, int T,
+                                              double* __restrict__ hist,
+                                              int pw, double max_error,
+                                              int max_iter, int* state,
+                                              double* sh) {
   const int i = state[0];
   const int it = i + 1;
-  const double err = sn / fmax(sd, 1e-12);
-  // min over the plateau window hist[it - pw : it] (hist[i] is err)
+  // this thread's first entry of the plateau window hist[it - pw : it]
+  // (hist[i] is the error this launch computes), and thread 0's entries
+  const int k0 = it - pw + static_cast<int>(threadIdx.x);
+  const bool window = it > pw;
+  const double h0 = window && k0 < i ? hist[k0] : 0.0;
+  int stall = 0;
+  double prev = 0.0, first = 0.0;
+  if (threadIdx.x == 0) {
+    stall = state[1];
+    if (i > 0) prev = hist[i - 1];
+    if (window) first = hist[it - pw - 1];
+  }
+  double a = 0.0, b = 0.0;
+  for (int t0 = threadIdx.x; t0 < T; t0 += 4 * blockDim.x) {
+    int t[4], n = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      t[k] = t0 + k * static_cast<int>(blockDim.x);
+      if (t[k] < T) n = k + 1;
+    }
+    double x[4], y[4];
+    load_sums(num, den, t, n, x, y);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < n) {
+        a += x[k];
+        b += y[k];
+      }
+  }
+  block_reduce2(a, b, sh);
+  const double err = a / fmax(b, 1e-12);
   double lo = INFINITY;
-  if (it > pw)
-    for (int k = it - pw + threadIdx.x; k < it; k += blockDim.x)
-      lo = fmin(lo, k == i ? err : hist[k]);
+  if (window) {
+    int k = k0;
+    if (k < it) {
+      lo = fmin(lo, k == i ? err : h0);
+      k += blockDim.x;
+    }
+    for (; k < it; k += blockDim.x) lo = fmin(lo, k == i ? err : hist[k]);
+  }
   lo = block_reduce(lo, sh, true);
   if (threadIdx.x != 0) return;
   hist[i] = err;
-  int stall = state[1];
-  if (i > 0) stall = (hist[i - 1] - err < 1e-9 * fmax(err, 1.0)) ? stall + 1 : 0;
+  if (i > 0) stall = (prev - err < 1e-9 * fmax(err, 1.0)) ? stall + 1 : 0;
   bool plateau = false;
-  if (it > pw && err < max_error) {
-    const double improvement = hist[it - pw - 1] - lo;
+  if (window && err < max_error) {
+    const double improvement = first - lo;
     plateau = improvement < 1e-4 * fmax(err, 1e-12) || err < 1e-9;
   }
   state[0] = it;
   state[1] = stall;
   state[2] = (stall >= 5 || plateau || it >= max_iter) ? 1 : 0;
+}
+
+// The standalone K14 (the sharded relax): the shards' partial sums added
+// as they are loaded, in K29's order.
+__global__ void converge_kernel(const bst::ShardParts num,
+                                const bst::ShardParts den, int T,
+                                double* __restrict__ hist, int pw,
+                                double max_error, int max_iter,
+                                int* __restrict__ state) {
+  __shared__ double sh[2 * bst::kThreads];
+  if (finished(state)) return;
+  converge_body(num, den, T, hist, pw, max_error, max_iter, state, sh);
+}
+
+// ------------------------------------------------------------ K13 + K14
+
+// K13 over the tiles, then K14 in the last block to finish. Every block
+// passes its finished(state) check before it takes a ticket, and the last
+// block writes the state only after every ticket is taken: no block of the
+// launch reads the state the last block writes. After done every block
+// returns at once and none takes a ticket.
+__global__ void error_converge_kernel(
+    const double* __restrict__ local, const double* __restrict__ target,
+    const int* __restrict__ other, const double* __restrict__ w,
+    const int* __restrict__ link_id, const double* __restrict__ link_w,
+    const int* __restrict__ tile_ptr, int T, int wpt,
+    const double* __restrict__ cur, int* __restrict__ state,
+    double* __restrict__ num, double* __restrict__ den,
+    double* __restrict__ hist, int pw, double max_error, int max_iter,
+    int* __restrict__ ticket) {
+  if (finished(state)) return;
+  __shared__ double sh[2 * bst::kThreads];
+  error_body(local, target, other, w, link_id, link_w, tile_ptr, nullptr,
+             nullptr, T, wpt, cur, num, den, sh);
+  // the threads that wrote this block's num and den, before its ticket
+  if (threadIdx.x < kWarps / wpt) __threadfence();
+  if (!bst::last_block_arrived(ticket)) return;
+  converge_body(L2Buffer{num}, L2Buffer{den}, T, hist, pw, max_error,
+                max_iter, state, sh);
 }
 
 inline unsigned int blocks_for(int n, int per_block) {
@@ -536,8 +737,23 @@ bool bad_wpt(int wpt) {
   return wpt != 1 && wpt != 2 && wpt != 4 && wpt != 8;
 }
 
+// S host-side device pointers as kernel parameters; false if S is out of
+// range or a pointer is null
+bool shard_parts(const void* host, int S, bst::ShardParts* out) {
+  if (host == nullptr || S < 1 || S > bst::kMaxShards) return false;
+  *out = {};
+  out->S = S;
+  const double* const* h = static_cast<const double* const*>(host);
+  for (int d = 0; d < S; ++d) {
+    if (h[d] == nullptr) return false;
+    out->p[d] = h[d];
+  }
+  return true;
+}
+
 struct FitArgs {
-  const double* moments;
+  const double* moments;  // nullptr: the sharded form, from parts
+  bst::ShardParts parts;
   const uint8_t* fixed;
   const double* origin;
   const int* state;
@@ -549,9 +765,14 @@ struct FitArgs {
 // warp, or two with a regulariser.
 template <int MODEL, int REG>
 cudaError_t launch_fit(int T, double lam, double damping, const FitArgs& a) {
-  fit_kernel<MODEL, REG><<<blocks_for(T, kFitTiles),
-                           REG == NONE ? 32 : 2 * kFitTiles, 0, a.stream>>>(
-      a.moments, a.fixed, a.origin, T, lam, damping, a.state, a.cur);
+  const unsigned int grid = blocks_for(T, kFitTiles);
+  const int block = REG == NONE ? 32 : 2 * kFitTiles;
+  if (a.moments != nullptr)
+    fit_kernel<MODEL, REG><<<grid, block, 0, a.stream>>>(
+        a.moments, a.fixed, a.origin, T, lam, damping, a.state, a.cur);
+  else
+    fit_parts_kernel<MODEL, REG><<<grid, block, 0, a.stream>>>(
+        a.parts, a.fixed, a.origin, T, lam, damping, a.state, a.cur);
   return cudaGetLastError();
 }
 
@@ -591,12 +812,17 @@ extern "C" int bst_relax_moments(const void* local, const void* target,
     default: return cudaErrorInvalidValue;                              \
   }
 
-extern "C" int bst_relax_fit(const void* moments, const void* fixed,
-                             const void* origin, int T, int model, int reg,
-                             double lam, double damping, const void* state,
-                             void* cur, void* stream) {
+// moments (T x 36), or with moments null the S shards' partials: parts, a
+// host array of S device pointers (1 <= S <= 64), each T x 36
+extern "C" int bst_relax_fit(const void* moments, const void* parts, int S,
+                             const void* fixed, const void* origin, int T,
+                             int model, int reg, double lam, double damping,
+                             const void* state, void* cur, void* stream) {
   if (T <= 0) return cudaErrorInvalidValue;
-  const FitArgs args{static_cast<const double*>(moments),
+  bst::ShardParts P = {};
+  if (moments == nullptr && !shard_parts(parts, S, &P))
+    return cudaErrorInvalidValue;
+  const FitArgs args{static_cast<const double*>(moments), P,
                      static_cast<const uint8_t*>(fixed),
                      static_cast<const double*>(origin),
                      static_cast<const int*>(state), static_cast<double*>(cur),
@@ -634,13 +860,40 @@ extern "C" int bst_relax_error(const void* local, const void* target,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bst_relax_converge(const void* num, const void* den, int T,
+// num_parts, den_parts: host arrays of S device pointers (1 <= S <= 64),
+// each T doubles: the shards' error sums
+extern "C" int bst_relax_converge(const void* num_parts,
+                                  const void* den_parts, int S, int T,
                                   void* hist, int pw, double max_error,
                                   int max_iter, void* state, void* stream) {
-  if (T <= 0 || pw < 1 || max_iter < 1) return cudaErrorInvalidValue;
+  bst::ShardParts num, den;
+  if (T <= 0 || pw < 1 || max_iter < 1 || !shard_parts(num_parts, S, &num) ||
+      !shard_parts(den_parts, S, &den))
+    return cudaErrorInvalidValue;
   converge_kernel<<<1, bst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(num), static_cast<const double*>(den), T,
-      static_cast<double*>(hist), pw, max_error, max_iter,
+      num, den, T, static_cast<double*>(hist), pw, max_error, max_iter,
       static_cast<int*>(state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13 over the T tiles, then K14: ticket one int32 that is 0 (the launch
+// leaves it 0)
+extern "C" int bst_relax_error_converge(
+    const void* local, const void* target, const void* other, const void* w,
+    const void* link_id, const void* link_w, const void* tile_ptr, int T,
+    int wpt, const void* cur, void* state, void* num, void* den, void* hist,
+    int pw, double max_error, int max_iter, void* ticket, void* stream) {
+  if (T <= 0 || bad_wpt(wpt) || pw < 1 || max_iter < 1 || ticket == nullptr)
+    return cudaErrorInvalidValue;
+  error_converge_kernel<<<blocks_for(T, kWarps / wpt), bst::kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(local), static_cast<const double*>(target),
+      static_cast<const int*>(other), static_cast<const double*>(w),
+      static_cast<const int*>(link_id), static_cast<const double*>(link_w),
+      static_cast<const int*>(tile_ptr), T, wpt,
+      static_cast<const double*>(cur), static_cast<int*>(state),
+      static_cast<double*>(num), static_cast<double*>(den),
+      static_cast<double*>(hist), pw, max_error, max_iter,
+      static_cast<int*>(ticket));
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,9 +85,12 @@ _SIGNATURES = {
     },
     "solve": {
         "bst_relax_moments": [_VP] * 8 + [_I, _I, _VP, _VP, _VP, _VP],
-        "bst_relax_fit": [_VP, _VP, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP],
+        "bst_relax_fit": [_VP, _VP, _I, _VP, _VP, _I, _I, _I, _D, _D, _VP,
+                          _VP, _VP],
         "bst_relax_error": [_VP] * 9 + [_I, _I] + [_VP] * 5,
-        "bst_relax_converge": [_VP, _VP, _I, _VP, _I, _D, _I, _VP, _VP],
+        "bst_relax_converge": [_VP, _VP, _I, _I, _VP, _I, _D, _I, _VP, _VP],
+        "bst_relax_error_converge": [_VP] * 7 + [_I, _I] + [_VP] * 5
+                                    + [_I, _D, _I, _VP, _VP],
     },
     "dog": {
         "bst_dog_blur": [_VP] + [_I] * 6 + [_VP] + [_I] * 6 + [_VP, _VP],

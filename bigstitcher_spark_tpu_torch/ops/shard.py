@@ -19,9 +19,12 @@ shard owns none), so the shard sum of a relax partial is bitwise the
 one-device segment sum.
 
 A partial that lies on another device than ``out`` is first copied to
-``out``'s device: torch's peer copy, which orders itself against both
-devices' current streams by CUDA events (no host sync). On a mesh that
-repeats one device there is no copy.
+``out``'s device (:func:`part_pointers`): torch's peer copy, which orders
+itself against both devices' current streams by CUDA events (no host
+sync). On a mesh that repeats one device there is no copy. The relax's
+sweeps do not launch K29: the sharded forms of K12 and K14
+(``ops/solve.py``) take the moments' and error sums' partials through the
+same copy and add them in K29's order as they load them.
 """
 
 from __future__ import annotations
@@ -45,36 +48,60 @@ def shard_sum_blocks(n: int) -> int:
     return max(1, min(-(-int(n) // THREADS), MAX_BLOCKS))
 
 
-def _check(parts: Sequence[torch.Tensor], out: torch.Tensor, rep, v, dot,
-           done, ticket) -> None:
-    """K29's input contract, on any device: 1 to 64 float64 contiguous
-    partials of ``out``'s element count; ``rep`` and ``v`` the same on
-    ``out``'s device; ``dot`` one float64 and ``done`` / ``ticket`` one
-    int32 there; ``v`` and ``dot`` together."""
+def _need(t, name, dtype, numel, device, same_device=True):
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.numel() != numel:
+        raise ValueError(f"{name} has {t.numel()} elements, expected "
+                         f"{numel}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if same_device and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.device.type != device.type:
+        raise ValueError(f"{name} is on {t.device}, expected a "
+                         f"{device.type} device")
+
+
+def check_parts(parts: Sequence[torch.Tensor], n: int,
+                device: torch.device) -> None:
+    """1 to 64 float64 contiguous partials of ``n`` elements each, on
+    devices of ``device``'s type."""
     S = len(parts)
     if not 1 <= S <= MAX_SHARDS:
         raise ValueError(f"{S} shards: the shard sum takes 1 to {MAX_SHARDS}")
-    n = out.numel()
     if n == 0:
         raise ValueError("the shard sum of an empty buffer")
+    for d, p in enumerate(parts):
+        _need(p, f"part {d}", torch.float64, n, device, same_device=False)
 
-    def need(t, name, dtype, numel, on_out=True):
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if t.numel() != numel:
-            raise ValueError(f"{name} has {t.numel()} elements, expected "
-                             f"{numel}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if on_out and t.device != out.device:
-            raise ValueError(f"{name} is on {t.device}, expected "
-                             f"{out.device}")
-        if t.device.type != out.device.type:
-            raise ValueError(f"{name} is on {t.device}, out on {out.device}")
+
+def part_pointers(parts: Sequence[torch.Tensor], dev: torch.device):
+    """(the partials on ``dev``, the address of a host array of their S
+    device pointers): what a launcher copies into its kernel's parameters.
+    A partial on another device is copied to ``dev`` first (a two-way
+    event barrier between the devices' current streams, inside torch's
+    peer copy). Keep the list alive until the launch is queued."""
+    local = [p if p.device == dev else
+             torch.empty(p.shape, dtype=p.dtype, device=dev).copy_(
+                 p, non_blocking=True) for p in parts]
+    ptrs = (ctypes.c_void_p * len(local))(*(p.data_ptr() for p in local))
+    return local, ctypes.cast(ptrs, ctypes.c_void_p)
+
+
+def _check(parts: Sequence[torch.Tensor], out: torch.Tensor, rep, v, dot,
+           done, ticket) -> None:
+    """K29's input contract, on any device: :func:`check_parts`; ``rep`` and
+    ``v`` of ``out``'s element count on ``out``'s device; ``dot`` one
+    float64 and ``done`` / ``ticket`` one int32 there; ``v`` and ``dot``
+    together."""
+    n = out.numel()
+    check_parts(parts, n, out.device)
+
+    def need(t, name, dtype, numel):
+        _need(t, name, dtype, numel, out.device)
 
     need(out, "out", torch.float64, n)
-    for d, p in enumerate(parts):
-        need(p, f"part {d}", torch.float64, n, on_out=False)
     if rep is not None:
         need(rep, "rep", torch.float64, n)
     if (v is None) != (dot is None):
@@ -125,25 +152,20 @@ def shard_sum(parts: Sequence[torch.Tensor], out: torch.Tensor,
         return shard_sum_plain(parts, out, rep, v, dot, done, ticket)
     _check(parts, out, rep, v, dot, done, ticket)
     dev, n = out.device, out.numel()
-    # other devices' partials to this one (a two-way event barrier between
-    # the devices' current streams, inside torch's peer copy)
-    local = [p if p.device == dev else
-             torch.empty(p.shape, dtype=p.dtype, device=dev).copy_(
-                 p, non_blocking=True) for p in parts]
+    local, ptrs = part_pointers(parts, dev)
     partials = None
     if v is not None:
         partials = torch.empty(shard_sum_blocks(n), dtype=torch.float64,
                                device=dev)
         if ticket is None:
             ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * len(local))(*(p.data_ptr() for p in local))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     lib = _cuda.load("shard")
     ret = lib.bst_shard_sum(
-        n, len(local), ctypes.cast(ptrs, ctypes.c_void_p), ptr(rep),
+        n, len(local), ptrs, ptr(rep),
         out.data_ptr(), ptr(v), ptr(dot), ptr(partials),
         0 if partials is None else int(partials.numel()), ptr(ticket),
         ptr(done), _stream(dev))

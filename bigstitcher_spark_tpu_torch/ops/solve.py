@@ -4,7 +4,9 @@ twins, and the loop that drives them.
 Port of the relax part of ``bigstitcher_spark_tpu/ops/solve.py``: the JAX
 program ``_relax_core`` (one ``lax.while_loop``, jitted at :410) becomes four
 hand-written ``sm_90a`` kernels in float64 (``csrc/solve.cu``), one
-iteration being K11 -> K12 -> K13 -> K14:
+iteration being K11 -> K12 -> K13 -> K14, launched as three: K14 runs in
+the last block of K13 (:func:`relax_error_converge`, the JAX program's
+``mean_error`` and rules in one loop body as well):
 
 =========================  =======================  ==============================
 wrapper                    kernel (csrc/solve.cu)   step of ``_relax_core``
@@ -47,10 +49,11 @@ The sharded relaxation (the JAX ``shard_map`` program of
 (``BST_SOLVE_SHARD`` point rows and a mesh of more than one device): the
 rows are split by owner tile over the shards (:class:`ShardedRelaxProblem`),
 each shard runs K11 and K13 on its own rows with every tile's entry (zeros
-for the tiles it does not own), and the shard sum K29 (``ops/shard.py``,
-the ``lax.psum``) adds the shards' moments and error sums; K12 and K14 run
-once a distinct device of the mesh on the replicated state. The sharded
-result is bitwise the one-device one. The intensity CG shards the same way
+for the tiles it does not own), and K12 and K14, once a distinct device of
+the mesh on the replicated state, add the shards' moments and error sums
+as they load them, in the order of the shard sum K29 (``ops/shard.py``, the
+``lax.psum``), which adds the tile origins and the link errors. The
+sharded result is bitwise the one-device one. The intensity CG shards the same way
 (:class:`ShardedCGSystem`, ``shard_map`` at :600). A mesh that spans several
 processes (the JAX package's ``BST_SOLVE_GLOBAL``) and the compile-bucket
 telemetry are not ported yet (ROADMAP.md).
@@ -61,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
+from collections import namedtuple
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,7 +74,7 @@ from .. import config
 from . import _cuda
 from . import models as M
 from .fusion import _require, _stream
-from .shard import shard_sum, shard_sum_plain
+from .shard import check_parts, part_pointers, shard_sum, shard_sum_plain
 
 _EPS_FIT = 1e-9
 N_MOMENTS = 36
@@ -516,17 +520,29 @@ def unshift_plain(m: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
     return torch.cat([a, ((m[:, :, 3] + origin) - ao)[:, :, None]], dim=2)
 
 
-def relax_fit_plain(mom: torch.Tensor, fixed: torch.Tensor,
-                    origin: torch.Tensor, model: str, reg: str, lam: float,
-                    damping: float, state: torch.Tensor | None,
+def _folded(parts, dev: torch.device) -> torch.Tensor:
+    """A tensor as it is; a sequence of the shards' partials summed on
+    ``dev`` in K29's order (:func:`shard_sum_plain`), as the sharded forms
+    of K12 and K14 add them as they load them."""
+    if isinstance(parts, torch.Tensor):
+        return parts
+    return shard_sum_plain(parts, torch.empty(
+        parts[0].shape, dtype=torch.float64, device=dev))
+
+
+def relax_fit_plain(mom, fixed: torch.Tensor, origin: torch.Tensor,
+                    model: str, reg: str, lam: float, damping: float,
+                    state: torch.Tensor | None,
                     cur: torch.Tensor) -> torch.Tensor:
-    """The models fitted to the moments (taken about ``origin`` (T, 3)),
+    """The models fitted to the moments (taken about ``origin`` (T, 3);
+    ``mom`` (T, 36), or the shards' partials of them, summed first),
     blended with the regulariser's ((1 - lam) m + lam r unless ``reg`` is
     NONE) and shifted back to world coordinates; identity where sw <= 0 or
     ``fixed`` (T,) uint8 is set; then ``cur = (1 - damping) cur + damping
     new`` in place."""
     if _finished(state):
         return cur
+    mom = _folded(mom, cur.device)
     new = fit_from_moments_plain(model, mom, origin=origin)
     if reg != M.NONE:
         new = ((1 - lam) * new
@@ -554,22 +570,31 @@ def fit_pair(model: str, reg: str) -> tuple[int, int]:
     return _KIND[model], _KIND[reg]
 
 
-def relax_fit(mom: torch.Tensor, fixed: torch.Tensor, origin: torch.Tensor,
-              model: str, reg: str, lam: float, damping: float,
+def relax_fit(mom, fixed: torch.Tensor, origin: torch.Tensor, model: str,
+              reg: str, lam: float, damping: float,
               state: torch.Tensor | None, cur: torch.Tensor) -> torch.Tensor:
     """K12 (``csrc/solve.cu``) on CUDA, :func:`relax_fit_plain` on the CPU;
-    updates ``cur`` in place."""
+    updates ``cur`` in place. ``mom``: the (T, 36) moments, or a sequence
+    of the S shards' partials of them (the sharded form: each moment their
+    sum in K29's order, taken as K12 loads it; partials on other devices
+    are copied to ``cur``'s first)."""
     if cur.device.type == "cpu":
         return relax_fit_plain(mom, fixed, origin, model, reg, lam, damping,
                                state, cur)
     dev, T = cur.device, int(cur.shape[0])
     model_code, reg_code = fit_pair(model, reg)
-    _require(mom, "moments", dev, _F64, (T, N_MOMENTS))
+    if isinstance(mom, torch.Tensor):
+        _require(mom, "moments", dev, _F64, (T, N_MOMENTS))
+        dense, parts, ptrs, S = mom.data_ptr(), (), None, 0
+    else:
+        check_parts(mom, T * N_MOMENTS, dev)
+        parts, ptrs = part_pointers(mom, dev)
+        dense, S = None, len(parts)
     _require(fixed, "fixed", dev, (torch.uint8,), (T,))
     _require(origin, "origin", dev, _F64, (T, 3))
     _require(cur, "cur", dev, _F64, (T, 3, 4))
     lib = _cuda.load("solve")
-    ret = lib.bst_relax_fit(mom.data_ptr(), fixed.data_ptr(),
+    ret = lib.bst_relax_fit(dense, ptrs, S, fixed.data_ptr(),
                             origin.data_ptr(), T, model_code, reg_code,
                             float(lam), float(damping),
                             _ptr(state), cur.data_ptr(), _stream(dev))
@@ -657,18 +682,20 @@ relax_error.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K14: error history and the convergence rules
+# K14: error history and the convergence rules; K13 + K14 in one launch
 # ---------------------------------------------------------------------------
 
 
-def relax_converge_plain(num: torch.Tensor, den: torch.Tensor,
-                         hist: torch.Tensor, state: torch.Tensor, pw: int,
-                         max_error: float, max_iter: int) -> torch.Tensor:
+def relax_converge_plain(num, den, hist: torch.Tensor, state: torch.Tensor,
+                         pw: int, max_error: float,
+                         max_iter: int) -> torch.Tensor:
     """err = sum(num) / max(sum(den), 1e-12) into ``hist[i]``, then
     ``_relax_core``'s stall, plateau and max-iterations rules on ``state``
-    (int32: iterations, stall count, done, 0), in place."""
+    (int32: iterations, stall count, done, 0), in place. ``num`` and
+    ``den`` (T,), or the shards' partials of them, summed first."""
     if _finished(state):
         return state
+    num, den = _folded(num, hist.device), _folded(den, hist.device)
     i = int(state[0])
     it = i + 1
     err_t = num.sum() / torch.clamp(den.sum(), min=1e-12)
@@ -687,24 +714,37 @@ def relax_converge_plain(num: torch.Tensor, den: torch.Tensor,
     return state
 
 
-def relax_converge(num: torch.Tensor, den: torch.Tensor, hist: torch.Tensor,
-                   state: torch.Tensor, pw: int, max_error: float,
-                   max_iter: int) -> torch.Tensor:
-    """K14 (``csrc/solve.cu``) on CUDA, :func:`relax_converge_plain` on the
-    CPU."""
-    if num.device.type == "cpu":
-        return relax_converge_plain(num, den, hist, state, pw, max_error,
-                                    max_iter)
-    dev, T = num.device, int(num.shape[0])
-    _require(num, "num", dev, _F64, (T,))
-    _require(den, "den", dev, _F64, (T,))
+def _check_converge(hist, state, dev, pw, max_iter):
     _require(hist, "hist", dev, _F64)
     _require(state, "state", dev, _I32, (4,))
     if int(hist.shape[0]) < max_iter:
         raise ValueError(f"hist holds {int(hist.shape[0])} < {max_iter} "
                          "iterations")
+
+
+def relax_converge(num, den, hist: torch.Tensor, state: torch.Tensor,
+                   pw: int, max_error: float, max_iter: int) -> torch.Tensor:
+    """K14 (``csrc/solve.cu``) on CUDA, :func:`relax_converge_plain` on the
+    CPU. ``num`` and ``den``: the (T,) error sums, or sequences of the S
+    shards' partials of them (the sharded relax: each tile's sums added in
+    K29's order as K14 loads them; partials on other devices are copied to
+    ``hist``'s first)."""
+    if hist.device.type == "cpu":
+        return relax_converge_plain(num, den, hist, state, pw, max_error,
+                                    max_iter)
+    dev = hist.device
+    if isinstance(num, torch.Tensor):
+        num, den = [num], [den]
+    T = int(num[0].numel())
+    if len(den) != len(num):
+        raise ValueError(f"{len(num)} num partials, {len(den)} den")
+    check_parts(num, T, dev)
+    check_parts(den, T, dev)
+    _check_converge(hist, state, dev, pw, max_iter)
+    nums, num_ptrs = part_pointers(num, dev)
+    dens, den_ptrs = part_pointers(den, dev)
     lib = _cuda.load("solve")
-    ret = lib.bst_relax_converge(num.data_ptr(), den.data_ptr(), T,
+    ret = lib.bst_relax_converge(num_ptrs, den_ptrs, len(nums), T,
                                  hist.data_ptr(), int(pw), float(max_error),
                                  int(max_iter), state.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "relax_converge")
@@ -715,16 +755,73 @@ def relax_converge(num: torch.Tensor, den: torch.Tensor, hist: torch.Tensor,
 relax_converge.launches = 0
 
 
+def relax_error_converge_plain(pr: RelaxProblem, cur: torch.Tensor,
+                               link_w: torch.Tensor, state: torch.Tensor,
+                               out, hist: torch.Tensor,
+                               ticket: torch.Tensor | None, pw: int,
+                               max_error: float,
+                               max_iter: int) -> torch.Tensor:
+    """:func:`relax_error_plain` over the tiles into ``out`` (num, den),
+    then :func:`relax_converge_plain`; ``ticket`` is the kernel's and
+    unused here."""
+    relax_error_plain(pr, cur, link_w, state, out=out)
+    return relax_converge_plain(out[0], out[1], hist, state, pw, max_error,
+                                max_iter)
+
+
+def relax_error_converge(pr: RelaxProblem, cur: torch.Tensor,
+                         link_w: torch.Tensor, state: torch.Tensor, out,
+                         hist: torch.Tensor, ticket: torch.Tensor | None,
+                         pw: int, max_error: float,
+                         max_iter: int) -> torch.Tensor:
+    """K13 over the tiles with K14 in its last block (``csrc/solve.cu``
+    error_converge_kernel) on CUDA: one launch writes ``out`` (num, den) and
+    the history and state, bitwise K13 then K14;
+    :func:`relax_error_converge_plain` on the CPU. ``ticket``: one int32
+    that is 0 (the launch leaves it 0)."""
+    if cur.device.type == "cpu":
+        return relax_error_converge_plain(pr, cur, link_w, state, out, hist,
+                                          ticket, pw, max_error, max_iter)
+    dev, T = cur.device, pr.n_tiles
+    _require(cur, "cur", dev, _F64, (T, 3, 4))
+    _require(link_w, "link_w", dev, _F64, (pr.n_links,))
+    for t, name in zip(out, ("num", "den")):
+        _require(t, name, dev, _F64, (T,))
+    if ticket is None:
+        raise ValueError("K13 + K14 takes a ticket: one int32 that is 0")
+    _require(ticket, "ticket", dev, _I32, (1,))
+    _check_converge(hist, state, dev, pw, max_iter)
+    lib = _cuda.load("solve")
+    ret = lib.bst_relax_error_converge(
+        pr.local.data_ptr(), pr.target.data_ptr(), pr.other.data_ptr(),
+        pr.w.data_ptr(), pr.link_id.data_ptr(), link_w.data_ptr(),
+        pr.tile_ptr.data_ptr(), T, pr.wpt_tile, cur.data_ptr(),
+        state.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        hist.data_ptr(), int(pw), float(max_error), int(max_iter),
+        ticket.data_ptr(), _stream(dev))
+    _cuda.check(lib, ret, "relax_error_converge")
+    relax_error_converge.launches += 1
+    return state
+
+
+relax_error_converge.launches = 0
+
+
 KERNEL_WRAPPERS = {
     "relax_moments": relax_moments,
     "relax_fit": relax_fit,
     "relax_error": relax_error,
     "relax_converge": relax_converge,
+    "relax_error_converge": relax_error_converge,
 }
 # a relaxation's functions (:class:`RelaxRun`): the kernels, or the twins
-PLAIN = (relax_moments_plain, relax_fit_plain, relax_error_plain,
-         relax_converge_plain, shard_sum_plain)
-KERNELS = (relax_moments, relax_fit, relax_error, relax_converge, shard_sum)
+_RelaxFns = namedtuple("_RelaxFns",
+                       "moments fit error converge shard_sum error_converge")
+PLAIN = _RelaxFns(relax_moments_plain, relax_fit_plain, relax_error_plain,
+                  relax_converge_plain, shard_sum_plain,
+                  relax_error_converge_plain)
+KERNELS = _RelaxFns(relax_moments, relax_fit, relax_error, relax_converge,
+                    shard_sum, relax_error_converge)
 
 
 # ---------------------------------------------------------------------------
@@ -757,11 +854,12 @@ def relax_on_device(
     plateau_width: int,
 ) -> RelaxOutput:
     """Run the relaxation from identity models with translations ``warm_t``
-    (T, 3): K11-K14 per iteration (their twins where the problem lies on
-    the CPU), until K14 sets done. Iterations go in chunks of 8 doubling to
-    64 between two reads of the state; kernels launched after done return
-    at once. A :class:`ShardedRelaxProblem` takes K11 and K13 on each
-    shard and K29 to add them (:class:`RelaxRun`)."""
+    (T, 3): K11, K12 and K13 + K14 per iteration (their twins where the
+    problem lies on the CPU), until K14 sets done. Iterations go in chunks
+    of 8 doubling to 64 between two reads of the state; kernels launched
+    after done return at once. A :class:`ShardedRelaxProblem` takes K11
+    and K13 on each shard and the sharded forms of K12 and K14 to add
+    their sums (:class:`RelaxRun`)."""
     return RelaxRun(KERNELS, problem, link_mask, fixed_mask, warm_t, lam,
                     damping, max_error, max_iterations, model, reg,
                     plateau_width).run()
@@ -774,8 +872,9 @@ def relax_plain(*args) -> RelaxOutput:
 
 class _Replica:
     """The replicated state of a relaxation on one device of the mesh:
-    link weights, fixed tiles, models, history, K14's state, the reduced
-    moments and error sums, the tiles' origins."""
+    link weights, fixed tiles, models, history, K14's state, the moments
+    and error sums (one device), the fused K13's ticket, the tiles'
+    origins."""
 
     def __init__(self, dev, T, link_mask, fixed_mask, warm_t, max_iterations):
         f64 = dict(dtype=torch.float64, device=dev)
@@ -792,18 +891,21 @@ class _Replica:
         self.mom = torch.empty((T, N_MOMENTS), **f64)
         self.nd = torch.empty((2, T), **f64)
         self.num, self.den = self.nd[0], self.nd[1]
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         self.origin = None
 
 
 class RelaxRun:
-    """One relaxation through ``fns`` (K11-K14 and K29, :data:`KERNELS`, or
-    their twins, :data:`PLAIN`): its state and buffers, one :meth:`sweep`
-    and the chunked loop :meth:`run`. One device: K11 -> K12 -> K13 -> K14
-    a sweep, the four calls bound once (the loop is bound by the host's
-    launch time). Sharded: K11 on each shard, K29 of the moments, K12, K13
-    on each shard, K29 of the error sums, K14; the replicated state (and
-    K12, K14, K29) once a distinct device of the mesh, the state read from
-    the first."""
+    """One relaxation through ``fns`` (K11-K14, K29 and K13 + K14,
+    :data:`KERNELS`, or their twins, :data:`PLAIN`): its state and buffers,
+    one :meth:`sweep` and the chunked loop :meth:`run`. One device: K11 ->
+    K12 -> K13 + K14 a sweep, the three calls bound once (the loop is bound
+    by the host's launch time). Sharded: K11 on each shard, K12 adding the
+    shards' moments as it loads them, K13 on each shard, K14 adding the
+    shards' error sums as it loads them; the replicated state (and K12,
+    K14) once a distinct device of the mesh, the state read from the
+    first. K29 adds the shards' tile origins once a solve and their link
+    errors once at the end."""
 
     def __init__(self, fns, problem, link_mask, fixed_mask, warm_t, lam,
                  damping, max_error, max_iterations, model, reg,
@@ -819,7 +921,7 @@ class RelaxRun:
         self.T, self.L = problem.n_tiles, problem.n_links
         self.args = (model, reg, lam, damping, plateau_width, max_error,
                      int(max_iterations))
-        T, sum_fn = self.T, fns[4]
+        T = self.T
         self.reps = {dev: _Replica(dev, T, link_mask, fixed_mask, warm_t,
                                    max_iterations)
                      for dev in distinct_devices(
@@ -831,29 +933,28 @@ class RelaxRun:
                    for sh in self.shards]
             self.mom_out = [torch.empty((T, N_MOMENTS), **f) for f in f64]
             self.nd_out = [torch.empty((2, T), **f) for f in f64]
-            self.nd_pairs = [(nd[0], nd[1]) for nd in self.nd_out]
+            self.num_out = [nd[0] for nd in self.nd_out]
+            self.den_out = [nd[1] for nd in self.nd_out]
             origins = [tile_origin(sh, self.reps[sh.device].link_w)
                        for sh in self.shards]
             for dev, rp in self.reps.items():
                 rp.origin = torch.empty((T, 3), dtype=torch.float64,
                                         device=dev)
                 with self.on(dev):
-                    sum_fn(origins, rp.origin)
+                    fns.shard_sum(origins, rp.origin)
             self.calls = ()
         else:
             rp = self.first
             rp.origin = tile_origin(problem, rp.link_w)
-            moments_fn, fit_fn, error_fn, converge_fn = fns[:4]
             model, reg, lam, damping, pw, max_error, max_iter = self.args
             bind = functools.partial
             self.calls = (
-                bind(moments_fn, problem, rp.cur, rp.link_w, rp.origin,
+                bind(fns.moments, problem, rp.cur, rp.link_w, rp.origin,
                      rp.state, out=rp.mom),
-                bind(fit_fn, rp.mom, rp.fixed, rp.origin, model, reg, lam,
+                bind(fns.fit, rp.mom, rp.fixed, rp.origin, model, reg, lam,
                      damping, rp.state, rp.cur),
-                bind(error_fn, problem, rp.cur, rp.link_w, rp.state,
-                     out=(rp.num, rp.den)),
-                bind(converge_fn, rp.num, rp.den, rp.hist, rp.state, pw,
+                bind(fns.error_converge, problem, rp.cur, rp.link_w,
+                     rp.state, (rp.num, rp.den), rp.hist, rp.ticket, pw,
                      max_error, max_iter))
 
     def sweep(self) -> None:
@@ -862,38 +963,32 @@ class RelaxRun:
             for call in self.calls:
                 call()
             return
-        moments_fn, fit_fn, error_fn, converge_fn, sum_fn = self.fns
+        fns = self.fns
         model, reg, lam, damping, pw, max_error, max_iter = self.args
         reps, on = self.reps.items(), self.on
         for sh, mom in zip(self.shards, self.mom_out):
             rp = self.reps[sh.device]
             with on(sh.device):
-                moments_fn(sh, rp.cur, rp.link_w, rp.origin, rp.state,
-                           out=mom)
+                fns.moments(sh, rp.cur, rp.link_w, rp.origin, rp.state,
+                            out=mom)
         for dev, rp in reps:
             with on(dev):
-                sum_fn(self.mom_out, rp.mom, done=rp.done)
-        for dev, rp in reps:
-            with on(dev):
-                fit_fn(rp.mom, rp.fixed, rp.origin, model, reg, lam,
-                       damping, rp.state, rp.cur)
-        for sh, nd in zip(self.shards, self.nd_pairs):
+                fns.fit(self.mom_out, rp.fixed, rp.origin, model, reg, lam,
+                        damping, rp.state, rp.cur)
+        for sh, num, den in zip(self.shards, self.num_out, self.den_out):
             rp = self.reps[sh.device]
             with on(sh.device):
-                error_fn(sh, rp.cur, rp.link_w, rp.state, out=nd)
+                fns.error(sh, rp.cur, rp.link_w, rp.state, out=(num, den))
         for dev, rp in reps:
             with on(dev):
-                sum_fn(self.nd_out, rp.nd, done=rp.done)
-        for dev, rp in reps:
-            with on(dev):
-                converge_fn(rp.num, rp.den, rp.hist, rp.state, pw,
-                            max_error, max_iter)
+                fns.converge(self.num_out, self.den_out, rp.hist, rp.state,
+                             pw, max_error, max_iter)
 
     def link_errors(self) -> torch.Tensor:
         """The per-link errors under the current models: K13 on each
         shard's A-side rows (a link's lie on its A tile's shard), then
         K29."""
-        error_fn, sum_fn = self.fns[2], self.fns[4]
+        error_fn, sum_fn = self.fns.error, self.fns.shard_sum
         links = []
         for sh in self.shards:
             rp = self.reps[sh.device]

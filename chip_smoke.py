@@ -100,7 +100,9 @@ Phase 7  the solver through the port's CLI entry function. 7a: solver -s
          --solverBackend numpy on the host. K11-K14 alone against their
          twin stages at 7b's and 7c's shapes (rtol 1e-10 / atol 1e-12, the
          rtol of the terms' magnitude where sums cancel), timed with CUDA
-         events; each cell's wall split (match assembly, warm start,
+         events, and K13's fused form (K14 in its last block, the one
+         device sweep's third launch) bitwise K13 then K14, timed beside
+         that pair; each cell's wall split (match assembly, warm start,
          relax, store) and row-iterations/s.
 Phase 8  detect-interestpoints through the port's CLI entry function on
          copies of route A's XML (4 views of 1024x1024x128 uint16, 400
@@ -260,8 +262,11 @@ Phase 15 the sharded global solves on the solve mesh [card] * 4 (4 shards,
          lambda 0.1; 1,216,000 rows, above the default BST_SOLVE_SHARD) on
          one device and sharded, the sharded models, history, iterations
          and link errors bitwise the one-device ones; prints K11 / K13 a
-         shard, K29, K12, K14 launches, both walls and card seconds, and
-         one sweep of each timed alone; 15b solves 10b's large system
+         shard, K29, K12, K14 launches (K29 none a sweep, K14 none on one
+         device), both walls and card seconds, and one sweep of each
+         timed alone; K12's and K14's sharded forms (the shards' partials
+         added as they load them) bitwise K29 then K12 / K14, timed beside
+         those pairs; 15b solves 10b's large system
          (524,288 unknowns) with BST_SOLVE_SHARD=1 on the default mesh
          (one card: one device) and sharded, within rtol / atol 1e-8 of
          each other, the sharded CG against its twin loop and its
@@ -337,6 +342,7 @@ KERNELS = {
     "relax_fit": ("solve.cu", "ops/solve.py:308"),
     "relax_error": ("solve.cu", "ops/solve.py:308"),
     "relax_converge": ("solve.cu", "ops/solve.py:308"),
+    "relax_error_converge": ("solve.cu", "ops/solve.py:308"),
     "dog_blur": ("dog.cu", "ops/dog.py:61"),
     "dog_extrema": ("dog.cu", "ops/dog.py:164"),
     "dog_topk": ("dog.cu", "ops/dog.py:353"),
@@ -447,8 +453,12 @@ ROUTE_KERNELS = {
     "D": ("fuse_block_sep", "convert_intensity", "downsample_batch"),
 }
 PCM_KERNELS = ("pcm_window", "fft_pow2", "pcm_cross_power", "pcm_peaks_topk")
+# one device: K13 with K14 in its last block, K13 alone for the link
+# errors; sharded: K14's sharded form, K29 for the origins and link errors
 RELAX_KERNELS = ("relax_moments", "relax_fit", "relax_error",
-                 "relax_converge")
+                 "relax_error_converge")
+SHARDED_RELAX_KERNELS = ("relax_moments", "relax_fit", "relax_error",
+                         "relax_converge", "shard_sum")
 DET_KERNELS = ("dog_blur", "dog_extrema", "dog_topk", "dog_localize")
 MATCH_KERNELS = ("knn_descriptors", "ratio_match", "ransac_score",
                  "ransac_refit")
@@ -480,7 +490,7 @@ ROUTE_KERNELS.update({
     "14a desc": DET_KERNELS + ("downsample_batch", "knn_descriptors"),
     "14b": ("nonrigid_fuse_batch", "convert_intensity", "downsample_batch"),
     "14c": ("downsample_batch",),
-    "15a one device": RELAX_KERNELS, "15a": RELAX_KERNELS + ("shard_sum",),
+    "15a one device": RELAX_KERNELS, "15a": SHARDED_RELAX_KERNELS,
     "15b one device": ("cg_spmv", "cg_update"),
     "15b": ("cg_spmv_partial", "shard_sum", "cg_update"),
 })
@@ -697,6 +707,11 @@ def print_times(what, r, card):
              else "")
     if "bitwise_vs_saved" in r:
         extra += f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+    if "pair_ms" in r:
+        extra += f"  unfused pair {r['pair_ms']} ms"
+    if r.get("issue_floor_ms") is not None:
+        extra += (f"  at one operation an instruction "
+                  f"{r['issue_floor_ms']:.4f} ms")
     print(f"  {what} [{card}]: max|delta| {r['err']:.3g}  kernel {r['ms']} ms"
           f"  wrapper {r['wrapper_ms']} ms  plain {r['plain_ms']} ms  bound "
           f"{r['bound'][0]:.4f} ms ({r['bound'][1]}){lib}{extra}", flush=True)
@@ -2301,11 +2316,81 @@ def relax_kernel_times(pr, args, what, card):
             reps=10, host=True),
         bound=bound(T * 16 + pw * 8, T * OPS["relax_converge"],
                     F64_OPS_PER_S))
+    res["relax_error_converge"] = error_converge_times(
+        pr, new_p, link_w, pw, max_error, cap, what, nd_p, reset)
     for name, r in res.items():
         r["wrapper_ms"] = r["ms"]
         r["library_ms"] = None
         print_times(f"{name} at {what}", r, card)
     return res
+
+
+def error_converge_times(pr, cur, link_w, pw, max_error, cap, what, nd_p,
+                         reset_ms):
+    """K13's fused form (K14 in its last block) on ``cur``, from K14's
+    first state and from a state 50 iterations in: bitwise K13 then K14
+    (num, den, history, state), the state equal to the twins' and the sums
+    within rtol 1e-10 of theirs; its card time (behind a reset of the
+    state, less the reset's ``reset_ms``) beside K13 + K14 launched back to
+    back the same way (``pair_ms``) and the twins'."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    dev, T = cur.device, pr.n_tiles
+    f64 = dict(dtype=torch.float64, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = 0.0
+    for i in (0, min(50, cap - 1)):
+        sides = []
+        for form in ("fused", "pair", "twins"):
+            hist = torch.zeros(cap, **f64)
+            hist[:i] = float(nd_p[0].sum() / nd_p[1].sum()) + 1.0
+            st = torch.tensor([i, 0, 0, 0], dtype=torch.int32, device=dev)
+            nd = torch.empty((2, T), **f64)
+            if form == "fused":
+                R.relax_error_converge(pr, cur, link_w, st, (nd[0], nd[1]),
+                                       hist, ticket, pw, max_error, cap)
+            elif form == "pair":
+                R.relax_error(pr, cur, link_w, st, out=(nd[0], nd[1]))
+                R.relax_converge(nd[0], nd[1], hist, st, pw, max_error, cap)
+            else:
+                R.relax_error_converge_plain(pr, cur, link_w, st,
+                                             (nd[0], nd[1]), hist, None, pw,
+                                             max_error, cap)
+            sides.append((nd, hist, st))
+        (nd, hist, st), (nd2, hist2, st2), (nd3, _h3, st3) = sides
+        check(torch.equal(nd, nd2) and torch.equal(hist, hist2)
+              and torch.equal(st, st2),
+              f"{what} K13 + K14 fused from iteration {i}: num, den, "
+              f"history and state {st.tolist()} bitwise K13 then K14")
+        check(torch.equal(st, st3) and int(ticket) == 0,
+              f"{what} K13 + K14 fused from iteration {i}: state equal to "
+              "the twins', the ticket back at 0")
+        err = max(err, float((nd - nd3).abs().max()))
+        bad = int(((nd - nd3).abs() > 1e-12 + 1e-10 * nd3.abs()).sum())
+        check(bad == 0, f"{what} K13 + K14 fused: sums within rtol 1e-10 / "
+                        f"atol 1e-12 of the twins' (max|delta| {err:.3g})")
+    st = torch.zeros(4, dtype=torch.int32, device=dev)
+    hist = torch.zeros(cap, **f64)
+    nd = torch.empty((2, T), **f64)
+    fused = time_ms(lambda: (st.zero_(), R.relax_error_converge(
+        pr, cur, link_w, st, (nd[0], nd[1]), hist, ticket, pw, max_error,
+        cap)))
+    pair = time_ms(lambda: (st.zero_(), R.relax_error(
+        pr, cur, link_w, st, out=(nd[0], nd[1])), R.relax_converge(
+            nd[0], nd[1], hist, st, pw, max_error, cap)))
+    L, N = pr.n_links, pr.n_rows
+    sub = (lambda ms: None if ms is None or reset_ms is None
+           else ms - reset_ms)
+    return dict(
+        err=err, ms=sub(fused), pair_ms=sub(pair),
+        plain_ms=time_each(lambda: R.relax_error_converge_plain(
+            pr, cur, link_w, st, (nd[0], nd[1]), hist, None, pw, max_error,
+            cap), lambda: st.zero_(), reps=5, host=True),
+        bound=bound(N * RELAX_ROW_BYTES + L * 8 + T * (96 + 16) + pw * 8,
+                    N * OPS["relax_error"] + T * OPS["relax_converge"],
+                    F64_OPS_PER_S))
 
 
 def phase7c(work, scale, dev, card, launches):
@@ -2990,7 +3075,8 @@ def match_kernel_times(t, card, at_9a=None):
             t["ca"], t["cb"], t["idx"], 5.0, "AFFINE"), reps=1, rounds=1),
         plain_shape="full", library_ms=None,
         bound=bound(m * 24 + iters * (16 + 4 + 48),
-                    iters * m * OPS["ransac_apply"]))
+                    iters * m * OPS["ransac_apply"]),
+        issue_floor_ms=issue_floor_ms(iters * m * OPS["ransac_apply"]))
     res["ransac_refit"] = dict(
         ms=time_ms(lambda: DS.ransac_refit(t["ca"], t["cb"], t["model"], 5.0,
                                            "AFFINE", "RIGID", 0.1)),
@@ -3063,12 +3149,18 @@ def ratio_refined(DS):
     return None if t is None else int(t.item())
 
 
+def issue_floor_ms(ops) -> float:
+    """A float32 kernel's floor at one operation an instruction: ``ops``
+    operations (counted as its bound counts them), each its own
+    instruction (the kernels are built with -fmad=false), at half
+    F32_OPS_PER_S (which counts an FMA as two)."""
+    return ops / (F32_OPS_PER_S / 2) * 1e3
+
+
 def knn_issue_floor_ms(pairs) -> float:
-    """K19's floor at one operation an instruction: its KNN_PAIR_OPS
-    operations a pair, each its own instruction (the kernels are built
-    with -fmad=false), at half F32_OPS_PER_S (which counts an FMA as
-    two)."""
-    return pairs * OPS["knn_pair"] / (F32_OPS_PER_S / 2) * 1e3
+    """K19's floor at one operation an instruction: its OPS["knn_pair"]
+    operations a pair (:func:`issue_floor_ms`)."""
+    return issue_floor_ms(pairs * OPS["knn_pair"])
 
 
 def knn_masked_bucket(scale, seed=2024):
@@ -3699,7 +3791,8 @@ def fit_yardsticks(dev, card, outputs=None, scale="full"):
     for each of FIT_PAIRS (lam 0.1, damping 0.7): held against its twin
     (rtol 1e-10 of fit_scale / atol 1e-12), its card time and its time with
     the host's, its bound; with ``outputs`` the models are saved there or
-    compared bit for bit with another tree's."""
+    compared bit for bit with another tree's. Then K12's sharded form
+    (:func:`sharded_fit_yard`)."""
     import numpy as np
     import torch
 
@@ -3744,7 +3837,148 @@ def fit_yardsticks(dev, card, outputs=None, scale="full"):
                       f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
                       if "bitwise_vs_saved" in r else ""), flush=True)
             out[name] = r
+    out.update(sharded_fit_yard(dev, card, outputs, scale))
     return out
+
+
+def sharded_fit_yard(dev, card, outputs=None, scale="full"):
+    """K12's sharded form at 15a's shape: 4 partials of :func:`fit_moments`
+    at T = 512 (7c's tiles), AFFINE + RIGID. A tree with the form (its
+    ``ops.solve`` has ``relax_error_converge``) hands the partials to K12,
+    an older tree adds them with K29 first; the models saved or compared
+    bitwise across trees (``outputs``), within rtol 1e-10 of the twin; card
+    time, with the host's, and on a tree with the form K29 + K12 beside it
+    (``pair_ms``), bitwise the form."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    T, S, model, reg = (512 if scale == "full" else 45), 4, "AFFINE", "RIGID"
+    rng = np.random.default_rng(T + S)
+    mom, o, fixed = fit_moments(rng, T)
+    parts = [torch.from_numpy(mom * c).to(dev)
+             for c in rng.dirichlet(np.ones(S))]
+    o, fixed = torch.from_numpy(o).to(dev), torch.from_numpy(fixed).to(dev)
+    cur0 = torch.zeros((T, 3, 4), dtype=torch.float64, device=dev)
+    cur0[:, :, :3] = torch.eye(3, dtype=torch.float64, device=dev)
+    summed = torch.empty((T, R.N_MOMENTS), dtype=torch.float64, device=dev)
+    fit = lambda m, c: R.relax_fit(m, fixed, o, model, reg, 0.1, 0.7, None, c)
+    pair = lambda c: (K.shard_sum(parts, summed), fit(summed, c))[1]
+    form = lambda c: fit(parts, c)
+    has = hasattr(R, "relax_error_converge")
+    run = form if has else pair
+    got = run(cur0.clone())
+    ref = R.relax_fit_plain(K.shard_sum_plain(parts, summed.clone()), fixed,
+                            o, model, reg, 0.1, 0.7, None, cur0.clone())
+    scale_ = R.fit_scale(ref, o)
+    name = f"fit sharded {model} {reg} T {T} S {S}"
+    check(bool(((got - ref).abs() <= 1e-12 + 1e-10 * scale_).all()),
+          f"{name}: within rtol 1e-10 (of fit_scale) / atol 1e-12 of the "
+          "twin")
+    scratch = cur0.clone()
+    ops = OPS["fit"][model] + OPS["fit"][reg] + OPS["fit_blend"]
+    r = dict(err=float((got - ref).abs().max()), form=has,
+             ms=time_ms(lambda: run(scratch), reps=50),
+             wrapper_ms=time_ms(lambda: run(scratch), reps=50, host=True),
+             bound=bound(S * T * 288 + T * (24 + 2 * 96 + 1),
+                         T * ops + (S - 1) * T * R.N_MOMENTS, F64_OPS_PER_S))
+    if has:
+        check(torch.equal(got, pair(cur0.clone())),
+              f"{name}: the sharded form bitwise K29 then K12")
+        r["pair_ms"] = time_ms(lambda: pair(scratch), reps=50)
+    hold_outputs(outputs, name, [got], r)
+    print(f"  {name} [{card}]: {'K12 sharded form' if has else 'K29 + K12'}"
+          f" {r['ms']} ms  with the host's time {r['wrapper_ms']} ms"
+          + (f"  K29 + K12 {r['pair_ms']} ms" if has else "")
+          + f"  bound {r['bound'][0]:.5f} ms ({r['bound'][1]})  max|delta| "
+          f"vs twin {r['err']:.3g}" + (
+              f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+              if "bitwise_vs_saved" in r else ""), flush=True)
+    return {name: r}
+
+
+def sharded_converge_yard(dev, card, outputs=None):
+    """K14's sharded form at 15a's shape (4 shards of 512 tiles' num and
+    den, plateau width 40): 60 launches of seeded partials along an error
+    sequence that the stall count stops; a tree with the form hands the
+    partials to K14, an older tree adds them with K29 first; the history
+    and state saved or compared bitwise across trees (``outputs``), the
+    state equal to the twin's; one launch's card time behind a reset of
+    the state (less the reset), and on a tree with the form K29 + K14
+    beside it (``pair_ms``), bitwise the form."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    S, T, cap, pw = 4, 512, 100, 40
+    f64 = dict(dtype=torch.float64, device=dev)
+    has = hasattr(R, "relax_error_converge")
+    nd = torch.empty((2, T), **f64)
+    k = np.arange(cap, dtype=np.float64)
+    errs = np.maximum(10.0 / (1 + k), 10.0 / 41)
+    parts = []  # a launch's (2, T) partials, as the sharded relax's nd_out
+    for j, e in enumerate(errs[:60]):
+        share = torch.from_numpy(np.random.default_rng(j).uniform(
+            0.1, 1.0, (S, T))).to(dev)
+        parts.append([torch.stack([share[d] * e, share[d]])
+                      for d in range(S)])
+
+    def form(nd_parts, hist, st):
+        R.relax_converge([x[0] for x in nd_parts], [x[1] for x in nd_parts],
+                         hist, st, pw, 5.0, cap)
+
+    def pair(nd_parts, hist, st):
+        K.shard_sum(nd_parts, nd)
+        R.relax_converge(nd[0], nd[1], hist, st, pw, 5.0, cap)
+
+    def twin(nd_parts, hist, st):
+        ndp = K.shard_sum_plain(nd_parts, torch.empty_like(nd))
+        R.relax_converge_plain(ndp[0], ndp[1], hist, st, pw, 5.0, cap)
+
+    def launches(fn):
+        hist = torch.zeros(cap, **f64)
+        st = torch.zeros(4, dtype=torch.int32, device=dev)
+        for nd_parts in parts:
+            fn(nd_parts, hist, st)
+        return hist, st
+
+    run = form if has else pair
+    hist, st = launches(run)
+    h3, st3 = launches(twin)
+    err = float((hist - h3).abs().max())
+    name = f"converge sharded T {T} S {S}"
+    check(torch.equal(st, st3) and int(st[2]) == 1
+          and err <= 1e-10 * float(h3.abs().max()),
+          f"{name}: state {st.tolist()} equal to the twin's, history within "
+          f"rtol 1e-10 ({err:.3g})")
+    if has:
+        h2, st2 = launches(pair)
+        check(torch.equal(hist, h2) and torch.equal(st, st2),
+              f"{name}: the sharded form bitwise K29 then K14")
+    r = dict(err=err, form=has,
+             bound=bound(S * T * 16 + pw * 8, S * T * OPS["relax_converge"],
+                         F64_OPS_PER_S))
+    hold_outputs(outputs, name, [hist, st], r)
+    hist = torch.zeros(cap, **f64)
+    st = torch.zeros(4, dtype=torch.int32, device=dev)
+    reset = time_ms(st.zero_)
+    sub = lambda ms: None if ms is None or reset is None else ms - reset
+    timed = lambda fn: sub(time_ms(lambda: (st.zero_(), fn(parts[-1], hist,
+                                                            st))))
+    r["ms"] = timed(run)
+    if has:
+        r["pair_ms"] = timed(pair)
+    print(f"  {name} [{card}]: {'K14 sharded form' if has else 'K29 + K14'}"
+          f" {r['ms']} ms" + (f"  K29 + K14 {r['pair_ms']} ms" if has else "")
+          + f"  bound {r['bound'][0]:.6f} ms ({r['bound'][1]})  max|delta| "
+          f"vs twin {r['err']:.3g}" + (
+              f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+              if "bitwise_vs_saved" in r else ""), flush=True)
+    return {name: r}
 
 
 def hold_outputs(outputs, name, tensors, r):
@@ -4197,12 +4431,14 @@ def linefit_times(a, card):
                                                               eps), reps=2),
              library_ms=None,
              bound=bound(P * N * 12 + P * I * 12 + P * 16,
-                         P * I * N * OPS["linefit"]))
+                         P * I * N * OPS["linefit"]),
+             issue_floor_ms=issue_floor_ms(P * I * N * OPS["linefit"]))
     r["wrapper_ms"] = r["ms"]
     print(f"  linefit_ransac (K23) at {P} cell pairs x {N} samples x {I} "
           f"hypotheses [{card}]: kernel {r['ms']} ms  plain {r['plain_ms']} "
-          f"ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
-          flush=True)
+          f"ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  at one "
+          f"operation an instruction {r['issue_floor_ms']:.4f} ms  library "
+          "none", flush=True)
     return r
 
 
@@ -4585,10 +4821,12 @@ def coeff_times(kind, run, plain, nbytes, ops, card):
     """A K1 or K3 coefficient launch and its twin timed, with the bound."""
     r = dict(coeff_ms=time_ms(run, reps=5),
              coeff_plain_ms=time_ms(plain, reps=2, rounds=1),
-             coeff_bound=bound(nbytes, ops))
+             coeff_bound=bound(nbytes, ops),
+             coeff_issue_floor_ms=issue_floor_ms(ops))
     print(f"  {kind} with coefficients [{card}]: kernel {r['coeff_ms']} ms  "
           f"plain {r['coeff_plain_ms']} ms  bound {r['coeff_bound'][0]:.4f} "
-          f"ms ({r['coeff_bound'][1]})", flush=True)
+          f"ms ({r['coeff_bound'][1]})  at one operation an instruction "
+          f"{r['coeff_issue_floor_ms']:.4f} ms", flush=True)
     return r
 
 
@@ -5004,6 +5242,7 @@ def nonrigid_times(ins, nv, card):
     r = dict(err=err, ms=time_ms(run, reps=10), wrapper_ms=wrapper_ms,
              plain_ms=time_ms(plain, reps=2, rounds=1), library_ms=None,
              bound=bound(nbytes, nv * nb * OPS["nonrigid"]),
+             issue_floor_ms=issue_floor_ms(nv * nb * OPS["nonrigid"]),
              form=resample_form(F, bs, V, tuple(ins[0].shape[1:])))
     print(f"  nonrigid_fuse (K26) form: {r['form']}", flush=True)
     print(f"  nonrigid_fuse (K26) at a {bs} block of {nv} views ({V} "
@@ -5011,7 +5250,8 @@ def nonrigid_times(ins, nv, card):
           f"{tuple(ins[1].shape[1:4])}) [{card}]: max|delta| {err:.3g}  "
           f"kernel {r['ms']} ms  wrapper {wrapper_ms:.4f} ms  plain "
           f"{r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
-          f"({r['bound'][1]})  library none", flush=True)
+          f"({r['bound'][1]}; at one operation an instruction "
+          f"{r['issue_floor_ms']:.4f} ms)  library none", flush=True)
     return r
 
 
@@ -5695,15 +5935,30 @@ def phase15a(scale, dev, card, launches, solve7c):
           f"15a: {o4.iterations} sweeps, history, models and link errors "
           "bitwise the one-device relax's")
     sweeps = got.get("relax_fit", 0)
+    one = runs["15a one device"][4]
+    k29 = got.get("shard_sum", 0)
     print(f"  [solver 15a] {card}: {pr.n_tiles} tiles, {pr.n_rows} rows, "
           f"{o4.iterations} iterations ({sweeps} sweeps launched); launches "
           f"K11 {got.get('relax_moments', 0)} ({got.get('relax_moments', 0) / SOLVE_SHARDS:g} a shard), "
           f"K13 {got.get('relax_error', 0)} ({got.get('relax_error', 0) / SOLVE_SHARDS:g} a shard), "
-          f"K29 {got.get('shard_sum', 0)}, K12 {sweeps}, K14 "
-          f"{got.get('relax_converge', 0)}; wall sharded {w4:.3f}s (relax "
+          f"K29 {k29} ({(k29 - 2) / max(sweeps, 1):g} a sweep past the "
+          f"origins and link errors), K12 {sweeps}, K14 "
+          f"{got.get('relax_converge', 0)}; one device: K11 "
+          f"{one.get('relax_moments', 0)}, K12 {one.get('relax_fit', 0)}, "
+          f"K13 + K14 {one.get('relax_error_converge', 0)}, K13 "
+          f"{one.get('relax_error', 0)}, K14 {one.get('relax_converge', 0)}, "
+          f"K29 {one.get('shard_sum', 0)}; wall sharded {w4:.3f}s (relax "
           f"loop {o4.seconds:.3f}s, card {o4.card_seconds:.4f}s) / one "
           f"device {w1:.3f}s (loop {o1.seconds:.3f}s, card "
           f"{o1.card_seconds:.4f}s)", flush=True)
+    if dev.type == "cuda":
+        check(k29 == 2 and got.get("relax_converge", 0) == sweeps
+              and one.get("relax_converge", 0) == 0
+              and one.get("shard_sum", 0) == 0,
+              f"15a: K29 {k29} launches (the origins and the link errors, "
+              f"none a sweep), K14 {got.get('relax_converge', 0)} sharded "
+              f"(one a sweep) and {one.get('relax_converge', 0)} on one "
+              "device")
     # one sweep alone, each problem (no state reads; the cap out of reach)
     sweep_ms = {}
     for name, a in (("one device", a1), ("sharded", a4)):
@@ -5721,6 +5976,96 @@ def phase15a(scale, dev, card, launches, solve7c):
                           f"15a's moments ({SOLVE_SHARDS} x {pr.n_tiles} x "
                           f"{R.N_MOMENTS})", card)
     res["sweep_ms"] = sweep_ms
+    forms = sharded_form_times(run, card)
+    for name, launched in (("relax_fit", sweeps),
+                           ("relax_converge", got.get("relax_converge", 0))):
+        forms[name]["launches"] = launched
+    return res, forms
+
+
+def sharded_form_times(run, card):
+    """K12's and K14's sharded forms on a sharded RelaxRun's partials (its
+    last sweep's moments and error sums): bitwise K29 then K12 and K29 then
+    K14, the state equal to the twins'; card time of each form beside the
+    pair (``pair_ms``, K29 and the kernel back to back) and the twin.
+    Returns {wrapper name: result}."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+    from bigstitcher_spark_tpu_torch.ops import solve as R
+
+    run.sweep()  # the partials of one more sweep
+    rp, T, S = run.first, run.T, len(run.shards)
+    model, reg, lam, damping, pw, max_error, _mi = run.args
+    dev = rp.cur.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    parts, nd_parts = run.mom_out, run.nd_out
+    num, den = run.num_out, run.den_out
+    mom, nd = torch.empty((T, R.N_MOMENTS), **f64), torch.empty((2, T), **f64)
+    fit = lambda m, c: R.relax_fit(m, rp.fixed, rp.origin, model, reg, lam,
+                                   damping, None, c)
+    got = fit(parts, rp.cur.clone())
+    K.shard_sum(parts, mom)
+    ref = fit(mom, rp.cur.clone())
+    check(torch.equal(got, ref), f"15a K12 sharded form ({S} partials): "
+                                 "models bitwise K29 then K12")
+    twin = R.relax_fit_plain(parts, rp.fixed, rp.origin, model, reg, lam,
+                             damping, None, rp.cur.clone())
+    scale = R.fit_scale(twin, rp.origin)
+    err_fit = float((got - twin).abs().max())
+    check(bool(((got - twin).abs() <= 1e-12 + 1e-10 * scale).all()),
+          f"15a K12 sharded form: within rtol 1e-10 (of fit_scale) / atol "
+          f"1e-12 of its twin (max|delta| {err_fit:.3g})")
+    scratch = rp.cur.clone()
+    fit_ops = (OPS["fit"][model] + OPS["fit"].get(reg, 0) + OPS["fit_blend"])
+    res = {"relax_fit": dict(
+        err=err_fit, ms=time_ms(lambda: fit(parts, scratch)),
+        pair_ms=time_ms(lambda: (K.shard_sum(parts, mom), fit(mom, scratch))),
+        plain_ms=time_ms(lambda: R.relax_fit_plain(
+            parts, rp.fixed, rp.origin, model, reg, lam, damping, None,
+            scratch.clone()), reps=5),
+        bound=bound(S * T * 288 + T * (24 + 2 * 96 + 1),
+                    T * fit_ops + (S - 1) * T * R.N_MOMENTS, F64_OPS_PER_S))}
+    cap = max(pw + 2, 64)
+    sides = []
+    start = float(rp.hist[0]) if int(rp.state[0]) else 1.0
+    for form in ("sharded", "pair", "twin"):
+        hist = torch.zeros(cap, **f64)
+        hist[:50] = start + 1.0
+        st = torch.tensor([50, 0, 0, 0], dtype=torch.int32, device=dev)
+        if form == "sharded":
+            R.relax_converge(num, den, hist, st, pw, max_error, cap)
+        elif form == "pair":
+            K.shard_sum(nd_parts, nd)
+            R.relax_converge(nd[0], nd[1], hist, st, pw, max_error, cap)
+        else:
+            R.relax_converge_plain(num, den, hist, st, pw, max_error, cap)
+        sides.append((hist, st))
+    (h, st), (h2, st2), (h3, st3) = sides
+    check(torch.equal(h, h2) and torch.equal(st, st2),
+          f"15a K14 sharded form ({S} partials): history and state "
+          f"{st.tolist()} bitwise K29 then K14")
+    err_c = float((h - h3).abs().max())
+    check(torch.equal(st, st3) and err_c <= 1e-10 * float(h3.abs().max()),
+          f"15a K14 sharded form: state equal to its twin's, the error "
+          f"within rtol 1e-10 ({err_c:.3g})")
+    st = torch.zeros(4, dtype=torch.int32, device=dev)
+    reset = time_ms(st.zero_)
+    sub = lambda ms: None if ms is None or reset is None else ms - reset
+    res["relax_converge"] = dict(
+        err=err_c, ms=sub(time_ms(lambda: (st.zero_(), R.relax_converge(
+            num, den, h, st, pw, max_error, cap)))),
+        pair_ms=sub(time_ms(lambda: (st.zero_(), K.shard_sum(nd_parts, nd),
+                                     R.relax_converge(nd[0], nd[1], h, st, pw,
+                                                      max_error, cap)))),
+        plain_ms=time_each(lambda: R.relax_converge_plain(
+            num, den, h, st, pw, max_error, cap), lambda: st.zero_(),
+            reps=10, host=True),
+        bound=bound(S * T * 16 + pw * 8, S * T * OPS["relax_converge"],
+                    F64_OPS_PER_S))
+    for name, r in res.items():
+        r["wrapper_ms"] = r["ms"]
+        print_times(f"{name} sharded form at 15a ({S} partials)", r, card)
     return res
 
 
@@ -5833,13 +6178,13 @@ def phase15_sharded_solves(scale, dev, card, launches, solve7c):
     """Phase 15: the sharded global solves on the mesh [dev] * 4."""
     t0 = time.perf_counter()
     print("phase 15 (sharded solves, devices=[card] * 4)", flush=True)
-    k29 = phase15a(scale, dev, card, launches, solve7c)
+    k29, forms = phase15a(scale, dev, card, launches, solve7c)
     res = phase15b(scale, dev, card, launches)
     if res:
         k29.update(prefixed("at_15b_", res["shard_sum_15b"]))
         res = prefixed("partial_", res["cg_spmv_partial"])
     print(f"  phase 15 wall {time.perf_counter() - t0:.1f}s", flush=True)
-    return {"shard_sum": k29}, res
+    return {"shard_sum": k29}, res, forms
 
 
 def main_path(work, scale, dev, card, launches):
@@ -5874,10 +6219,14 @@ def main_path(work, scale, dev, card, launches):
                               proj_c, proj10))
     lap("14", phase14_shard_routes(work, scale, dev, card, launches, a[0],
                                    det_one))
-    k29, partial = lap("15", phase15_sharded_solves(scale, dev, card,
-                                                    launches, solve7c))
+    k29, partial, forms = lap("15", phase15_sharded_solves(
+        scale, dev, card, launches, solve7c))
     if "cg_spmv" in inten:
         inten["cg_spmv"].update(partial)
+    # K12's and K14's sharded forms (15a) as fields of their kernels' entries
+    for name, r in forms.items():
+        if name in relax:
+            relax[name].update(prefixed("sharded_", r))
     print(f"phase walls (s): {walls}", flush=True)
     return a[0].xml_path, a[1], {**relax, **det, **match, **inten,
                                  **nonrigid, **scan, **k29}
@@ -6003,7 +6352,8 @@ def main(argv=None) -> int:
             # (8d)
             **{k: v for k, v in r.items()
                if k.startswith(("halfpixel_", "route_d_", "at_9a_",
-                                "at_15b_", "partial_"))},
+                                "at_15b_", "partial_", "sharded_",
+                                "pair_"))},
             # K24's partial form (phase 15b): its launches; K29: one
             # sweep of 15a alone, sharded and on one device
             **({"partial_launches": launches["cg_spmv_partial"]}
@@ -6029,6 +6379,7 @@ def main(argv=None) -> int:
                 "coeff_ms": coeff[name]["coeff_ms"],
                 "coeff_plain_ms": coeff[name]["coeff_plain_ms"],
                 "coeff_bound_ms": coeff[name]["coeff_bound"][0],
+                "coeff_issue_floor_ms": coeff[name]["coeff_issue_floor_ms"],
                 "coeff_max_abs_err": coeff[name]["coeff_err"]}
                if name in coeff else {}),
         })

@@ -61,7 +61,9 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   512 (7c's tiles) and 4,096 (7b's) for six (model, regulariser) pairs,
   tiles with sw <= 0, fixed tiles and reflections among them: card time,
   time with the host's, bound; with ``--outputs DIR`` the models are saved
-  or compared bitwise;
+  or compared bitwise; then K12's sharded form on 4 partials at T = 512
+  (a tree without it: K29 then K12; the models held bitwise across trees,
+  and on a tree with it K29 + K12 timed beside it);
 - ``ransac_yardsticks``: ``ransac`` is K21 at 9b's shape (10,000
   hypotheses of 4 pairs against 58,274 candidates, 9b's outlier share, an
   AFFINE fit), at 9a's (155 candidates) and at 9b's with sample 1
@@ -94,16 +96,23 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   phase 15a's moments (4 shards of 512 x 36 float64) and at 15b's vectors
   (4 shards of 524,288, the replicated part, p.Ap), each bitwise its twin
   (the dot within rtol 1e-12), beside ``torch.stack(...).sum(0)`` (+
-  ``torch.dot``), and K24's partial form on shard 0 of phase 10b's large
-  system split 4 ways, against its twin;
-- ``loops``: the one-device solve loops, which the host's launch time
-  bounds: 7c's relaxation (its IP grid written and its links assembled as
-  the solver does, AFFINE + RIGID, lambda 0.1) through ``solver.relax``,
-  its wall and its relax seconds a run, and ``ops.solve.relax_on_device``
-  capped at 100 iterations (7c's "ms/iteration" line) and at 1 (a
-  call's fixed cost), and the CG loop
-  of phase 10b's large system through ``ops.solve.cg_on_device``: each
-  repeated 5 times, with the host's seconds and ms per iteration;
+  ``torch.dot``), K24's partial form on shard 0 of phase 10b's large
+  system split 4 ways, against its twin, and K14's sharded form on 4
+  shards of 512 tiles (a tree without it: K29 then K14; 60 launches'
+  history and state held bitwise across trees, and on a tree with it K29
+  + K14 timed beside it);
+- ``loops``: the solve loops, which the host's launch time bounds: 7c's
+  relaxation (its IP grid written and its links assembled as the solver
+  does, AFFINE + RIGID, lambda 0.1) through ``solver.relax``, its wall and
+  its relax seconds a run, on one device and sharded on ``[card] * 4``
+  (phase 15a), one sweep of each alone in card time, and
+  ``ops.solve.relax_on_device`` capped at 100 iterations (7c's
+  "ms/iteration" line) and at 1 (a call's fixed cost), and the CG loop of
+  phase 10b's large system through ``ops.solve.cg_on_device``: each
+  repeated 5 times, with the host's seconds and ms per iteration; with
+  ``--outputs DIR`` the 7c relaxation's models, history and link errors
+  (the sharded ones bitwise the one-device ones) held bitwise across
+  trees;
 - ``intensity``: ``chip_smoke.py``'s phase 10 (10a, 10b, 10c with their
   gates) through the CLI, after every library of the tree is built, so
   that no build lands in a timed window; prints each route's wall split.
@@ -149,7 +158,7 @@ def main(argv=None) -> int:
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
                     help="K3's, K26's, K1's, K12's, K21's, K6's, K24's, "
-                         "K2's, K5's, K28's and K19's outputs "
+                         "K2's, K5's, K28's, K19's and K14's outputs "
                          "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
@@ -267,9 +276,11 @@ def main(argv=None) -> int:
                       f"{res['cg_spmv'].get('bitwise_vs_saved')}", flush=True)
             out.update({k: res[k] for k in ("cg_spmv", "cg_update")})
         if "shard" in only:
-            out.update(shard_yardsticks(dev, card, cfg, CS, R, OI))
+            out.update(shard_yardsticks(dev, card, cfg, CS, R, OI,
+                                        args.outputs))
         if "loops" in only:
-            out["loops"] = loop_times(root, args.scale, dev, card, CS, R, OI)
+            out["loops"] = loop_times(root, args.scale, dev, card, CS, R, OI,
+                                      outputs=args.outputs)
     except CS.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -297,9 +308,10 @@ def cg_step(sysm, dev, R):
     return p_new, ap, d
 
 
-def shard_yardsticks(dev, card, cfg, CS, R, OI):
-    """K29 at phase 15's two shapes and K24's partial form at 15b's shard
-    (module docstring); nothing on a tree without them."""
+def shard_yardsticks(dev, card, cfg, CS, R, OI, outputs=None):
+    """K29 at phase 15's two shapes, K24's partial form at 15b's shard and
+    K14's sharded form (module docstring); nothing on a tree without
+    them."""
     import importlib.util
 
     import torch
@@ -325,14 +337,18 @@ def shard_yardsticks(dev, card, cfg, CS, R, OI):
         vec[:S], vec[S], vec[S + 1], f"15b's vectors ({S} x {n}, rep, dot)",
         card)
     out["cg_spmv_partial"] = CS.cg_partial_times(sysm, card)
+    out.update(CS.sharded_converge_yard(dev, card, outputs))
     return out
 
 
-def loop_times(root, scale, dev, card, CS, R, OI, reps=5):
-    """The one-device relax and CG loops (module docstring): host seconds
-    of each of ``reps`` runs, their median and ms per iteration."""
+def loop_times(root, scale, dev, card, CS, R, OI, reps=5, outputs=None):
+    """The relax and CG loops (module docstring): host seconds of each of
+    ``reps`` runs, their median and ms per iteration; with ``outputs`` the
+    7c relaxation's result (models, history, link errors), on one device
+    and sharded, saved or held bitwise across trees."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from bigstitcher_spark_tpu_torch.io.interestpoints import (
@@ -380,11 +396,19 @@ def loop_times(root, scale, dev, card, CS, R, OI, reps=5):
               f"ms/iteration (host clock; runs "
               f"{', '.join(f'{w:.4f}' for w in walls)} s)", flush=True)
 
-    relax_s = []
+    relax_s, last = [], {}
+
+    def result(r):
+        """A relaxation's models, history and link errors as tensors."""
+        return [torch.from_numpy(np.stack([r.corrections[k] for k in tiles])),
+                torch.from_numpy(np.asarray(r.history)),
+                torch.tensor([r.link_errors[k] for k in sorted(
+                    r.link_errors, key=str)], dtype=torch.float64)]
 
     def relax():
         r = S.relax(links, tiles, fixed, params)
         relax_s.append(r.timings["relax"])
+        last["one device"] = r
         return r.iterations
 
     runs("7c relax (solver.relax)", relax)
@@ -392,6 +416,54 @@ def loop_times(root, scale, dev, card, CS, R, OI, reps=5):
     res["7c relax (solver.relax)"]["relax_timing_s"] = relax_s
     print(f"  [loops] 7c relax timings['relax']: "
           f"{', '.join(f'{v:.4f}' for v in relax_s)} s", flush=True)
+    # 15a: the same relaxation sharded on [card] * 4
+    sharded = dataclasses.replace(params, devices=[dev] * CS.SOLVE_SHARDS)
+    relax4_s = []
+
+    def relax4():
+        r = S.relax(links, tiles, fixed, sharded)
+        CS.check(r.shards == CS.SOLVE_SHARDS,
+                 f"15a relax on {r.shards} shards")
+        relax4_s.append(r.timings["relax"])
+        last["sharded"] = r
+        return r.iterations
+
+    with CS.knobs({} if scale == "full" else {"BST_SOLVE_SHARD": "1"}):
+        runs("15a relax sharded (solver.relax)", relax4)
+        relax4_s = relax4_s[1:]
+        res["15a relax sharded (solver.relax)"]["relax_timing_s"] = relax4_s
+        print(f"  [loops] 15a relax timings['relax']: "
+              f"{', '.join(f'{v:.4f}' for v in relax4_s)} s", flush=True)
+        # one sweep alone of each (no state reads; the cap out of reach)
+        sweep_ms = {}
+        for name, p in (("7c one device", params), ("15a sharded", sharded)):
+            calls, undo = CS.relax_spy()
+            try:
+                S.relax(links, tiles, fixed,
+                        dataclasses.replace(p, max_iterations=1))
+            finally:
+                undo()
+            (a, _k, _o), = calls
+            a = list(a)
+            a[7] = 10 ** 6
+            run = R.RelaxRun(R.KERNELS, *a)
+            sweep_ms[name] = CS.time_ms(run.sweep)
+            if dev.type == "cuda":
+                CS.check(not run.first.state.tolist()[2],
+                         f"{name}: still iterating after the timed sweeps")
+        res["sweep_ms"] = sweep_ms
+        print(f"  [loops] {card}: card time a sweep: " + ", ".join(
+            f"{k} {v} ms" for k, v in sweep_ms.items()), flush=True)
+    one, four = (result(last[k]) for k in ("one device", "sharded"))
+    CS.check(all(torch.equal(a, b) for a, b in zip(one, four)),
+             "15a: the sharded relax's models, history and link errors "
+             "bitwise the one-device relax's")
+    held = {}
+    CS.hold_outputs(outputs, "7c relax", one, held)
+    res["bitwise_vs_saved"] = held.get("bitwise_vs_saved")
+    print(f"  [loops] 7c relax ({last['one device'].iterations} iterations): "
+          f"models, history and link errors vs the saved run: bitwise "
+          f"{res['bitwise_vs_saved']}", flush=True)
     calls, undo = CS.relax_spy()
     try:
         S.relax(links, tiles, fixed,

@@ -21,7 +21,10 @@ against the magnitude of the terms summed (``ops.solve.moment_scale``,
 ``fit_scale``) where they cancel: K11's moments about a tile's origin and
 K12's world-frame translations; whole relaxations under the
 JAX package's device-vs-numpy contract (iterations equal, history rtol 1e-9
-/ atol 1e-9, models and link errors rtol 1e-7 / atol 1e-9). K15 (blur) and
+/ atol 1e-9, models and link errors rtol 1e-7 / atol 1e-9). K13's fused
+form (K14 in its last block) and the sharded forms of K12 and K14 (the
+shards' partials added as they load them) are bitwise their unfused
+pairs (K13 then K14; K29 then K12 or K14). K15 (blur) and
 K16 (response, extrema) take the same float32 operations in the same order
 as their twins: bitwise equal, candidate lists equal as sets with exact
 counts. K17 (top-k): indices and flags equal. K18 (subpixel fit): sub
@@ -938,14 +941,191 @@ def test_relax_on_device_matches_plain(dev, tmp_path, model, reg):
     np.testing.assert_allclose(got.models, ref.models, rtol=1e-7, atol=1e-9)
     np.testing.assert_allclose(got.link_errors, ref.link_errors, rtol=1e-7,
                                atol=1e-9)
-    # chunks of 8, 16, 32, ... iterations; the last chunk may run past done
-    assert counts["relax_converge"] >= got.iterations
+    # chunks of 8, 16, 32, ... iterations; the last chunk may run past done.
+    # K14 runs in the last block of K13's fused form; K13 alone once, for
+    # the link errors
+    assert counts["relax_error_converge"] >= got.iterations
+    assert counts["relax_converge"] == 0
     assert counts["relax_moments"] == counts["relax_fit"] == \
-        counts["relax_converge"] == counts["relax_error"] - 1
+        counts["relax_error_converge"]
+    assert counts["relax_error"] == 1
     # a rerun repeats bit for bit (no atomics)
     again = R.relax_on_device(*args)
     assert np.array_equal(again.models, got.models)
     assert np.array_equal(again.history, got.history)
+
+
+def _tile_problem(T, wpt, dev, seed, rows_per_tile=24):
+    """A relax problem of T tiles on synthetic rows (tile 1 without rows
+    where T > 3), K13's tile segments taken by ``wpt`` warps; models near
+    identity and link weights."""
+    rng = np.random.default_rng(seed)
+    n = T * rows_per_tile
+    own = rng.integers(0, T, n)
+    if T > 3:
+        own[own == 1] = 0
+    L = max(T // 2, 1)
+    local = rng.uniform(-500, 500, (n, 3))
+    target = local + rng.normal(0, 0.5, (n, 3))
+    pr = R._layout(local, target, own, rng.integers(0, T, n),
+                   rng.uniform(0.1, 1.0, n), rng.integers(0, L, n),
+                   rng.random(n) < 0.5, T, L, dev, (wpt, 1))
+    cur = torch.from_numpy(np.eye(3, 4)[None].repeat(T, 0)
+                           + rng.normal(0, 1e-4, (T, 3, 4))).to(dev)
+    return pr, cur, torch.from_numpy(rng.uniform(0.5, 1.0, L)).to(dev)
+
+
+# K14's state before a launch: (iteration i, stall count, hist[:i] as a
+# function of the launch's error) -> done after it
+_K14_CASES = {
+    "fresh": (0, 0, None, 0),
+    "stall fires": (50, 4, lambda e: e, 1),
+    "stall resets": (50, 4, lambda e: e + 1.0, 0),
+    "plateau fires": (50, 0, lambda e: e, 1),
+    "plateau misses": (50, 0, lambda e: e + 1.0 + np.arange(50.0)[::-1],
+                       0),
+    "cap fires": (99, 0, lambda e: e + 10.0, 1),
+    "done": (7, 0, None, None),
+}
+
+
+@pytest.mark.parametrize("T", [1, 31, 256, 257, 512, 4096])
+@pytest.mark.parametrize("wpt", [1, 2, 4, 8])
+def test_relax_error_converge_kernel(dev, T, wpt):
+    """K13's fused form (K14 in its last block) bitwise K13 then K14 on the
+    card: num, den, history and state, from states before and after the
+    stall, plateau and cap rules fire, at plateau widths 1 and 40; the
+    state equal to the twins' and the sums and history within rtol 1e-10;
+    after done nothing is written and the ticket stays 0; two launches in a
+    row leave the ticket at 0."""
+    pr, cur, lw = _tile_problem(T, wpt, dev, T + wpt)
+    f64 = dict(dtype=torch.float64, device=dev)
+    cap = 100
+    num_p, den_p = R.relax_error_plain(pr, cur, lw)
+    err = float(num_p.sum() / den_p.sum())
+    assert err < 5.0
+    for pw in (1, 40):
+        for case, (i, stall, before, want) in _K14_CASES.items():
+            hist0 = torch.full((cap,), 3.0, **f64)
+            if before is not None:
+                hist0[:i] = torch.as_tensor(before(err) * np.ones(i), **f64)
+            state0 = torch.tensor([i, stall, int(case == "done"), 0],
+                                  dtype=torch.int32, device=dev)
+            nd0 = torch.full((2, T), 7.0, **f64)
+            sides = []
+            for form in ("fused", "pair", "twins"):
+                hist, state, nd = hist0.clone(), state0.clone(), nd0.clone()
+                ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+                ops.reset_launch_counts()
+                if form == "fused":
+                    R.relax_error_converge(pr, cur, lw, state, (nd[0], nd[1]),
+                                           hist, ticket, pw, 5.0, cap)
+                    assert ops.launch_counts()["relax_error_converge"] == 1
+                elif form == "pair":
+                    R.relax_error(pr, cur, lw, state, out=(nd[0], nd[1]))
+                    R.relax_converge(nd[0], nd[1], hist, state, pw, 5.0, cap)
+                else:
+                    R.relax_error_converge_plain(pr, cur, lw, state,
+                                                 (nd[0], nd[1]), hist, None,
+                                                 pw, 5.0, cap)
+                assert int(ticket) == 0
+                sides.append((nd, hist, state))
+            (nd, hist, state), (nd2, hist2, state2), (nd3, hist3, state3) = \
+                sides
+            what = f"{case} pw {pw}"
+            assert torch.equal(nd, nd2) and torch.equal(hist, hist2), what
+            assert torch.equal(state, state2), what
+            assert torch.equal(state, state3), what
+            if want is None:
+                assert torch.equal(state, state0) and torch.equal(nd, nd0)
+                assert torch.equal(hist, hist0), what
+                continue
+            assert int(state[2]) == want and int(state[0]) == i + 1, what
+            _close(nd, nd3)
+            _close(hist, hist3)
+    # two launches in a row: both counted, the ticket back at 0
+    hist = torch.zeros(cap, **f64)
+    state = torch.zeros(4, dtype=torch.int32, device=dev)
+    nd = torch.empty((2, T), **f64)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        R.relax_error_converge(pr, cur, lw, state, (nd[0], nd[1]), hist,
+                               ticket, 40, 5.0, cap)
+    assert state.tolist()[:1] == [2] and int(ticket) == 0
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 64])
+def test_relax_sharded_forms_kernel(dev, S):
+    """K12's and K14's sharded forms (the shards' partials added as they
+    load them) on partials of a [cuda:0] * S mesh: bitwise K29 then K12,
+    and K29 then K14, each one launch and no K29; within rtol 1e-10 of
+    the twins; after done nothing is written."""
+    from bigstitcher_spark_tpu_torch.ops import shard as K
+
+    T = 512
+    rng = np.random.default_rng(S)
+    share = rng.dirichlet(np.ones(S))
+    base = _fit_moments(rng, T)
+    parts = [torch.from_numpy(base * c).to(dev) for c in share]
+    origin = torch.from_numpy(rng.uniform(-5, 5, (T, 3))).to(dev)
+    fixed = torch.zeros(T, dtype=torch.uint8, device=dev)
+    fixed[2] = 1
+    cur0 = torch.from_numpy(np.eye(3, 4)[None].repeat(T, 0)
+                            + rng.normal(0, 0.01, (T, 3, 4))).to(dev)
+    mom = torch.empty((T, R.N_MOMENTS), dtype=torch.float64, device=dev)
+    K.shard_sum(parts, mom)
+    for model, reg in (("AFFINE", "RIGID"), ("TRANSLATION", "NONE"),
+                       ("RIGID", "AFFINE")):
+        ref = R.relax_fit(mom, fixed, origin, model, reg, 0.1, 0.7, None,
+                          cur0.clone())
+        ops.reset_launch_counts()
+        got = R.relax_fit(parts, fixed, origin, model, reg, 0.1, 0.7, None,
+                          cur0.clone())
+        counts = ops.launch_counts()
+        assert counts["relax_fit"] == 1 and counts["shard_sum"] == 0
+        assert torch.equal(got, ref), (model, reg)
+        twin = R.relax_fit_plain(parts, fixed, origin, model, reg, 0.1, 0.7,
+                                 None, cur0.clone())
+        _close_scaled(got, twin, R.fit_scale(twin, origin))
+        kept = cur0.clone()
+        R.relax_fit(parts, fixed, origin, model, reg, 0.1, 0.7,
+                    torch.tensor([0, 0, 1, 0], dtype=torch.int32,
+                                 device=dev), kept)
+        assert torch.equal(kept, cur0), "a launch after done writes"
+    # K14: 60 launches of the stall-limited error sequence
+    T, cap = 300, 100
+    k = np.arange(cap, dtype=np.float64)
+    errs = np.maximum(10.0 / (1 + k), 10.0 / 41)
+    sides = []
+    for form in ("sharded", "pair", "twin"):
+        hist = torch.zeros(cap, dtype=torch.float64, device=dev)
+        state = torch.zeros(4, dtype=torch.int32, device=dev)
+        ops.reset_launch_counts()
+        for j, e in enumerate(errs[:60]):
+            g = np.random.default_rng(j)
+            share = torch.from_numpy(g.uniform(0.1, 1.0, (S, T))).to(dev)
+            num = [share[d] * e for d in range(S)]
+            den = [share[d].clone() for d in range(S)]
+            if form == "sharded":
+                R.relax_converge(num, den, hist, state, 40, 5.0, cap)
+            elif form == "pair":
+                nd = torch.empty((2, T), dtype=torch.float64, device=dev)
+                K.shard_sum([torch.stack([a, b]) for a, b in zip(num, den)],
+                            nd)
+                R.relax_converge(nd[0], nd[1], hist, state, 40, 5.0, cap)
+            else:
+                R.relax_converge_plain(num, den, hist, state, 40, 5.0, cap)
+        if form == "sharded":
+            counts = ops.launch_counts()
+            assert counts["relax_converge"] == 60 and counts["shard_sum"] == 0
+        sides.append((hist, state))
+    (h, st), (h2, st2), (h3, st3) = sides
+    assert torch.equal(h, h2) and torch.equal(st, st2)
+    assert torch.equal(st, st3) and int(st[2]) == 1
+    _close(h, h3)
+    kept = h.clone()
+    R.relax_converge(num, den, h, st, 40, 5.0, cap)
+    assert torch.equal(h, kept), "a launch after done writes"
 
 
 # --------------------------------------------------------------- K15-K18
@@ -2497,8 +2677,8 @@ def test_cg_partial_kernel(dev, store, n_views, dims, n_matches):
 def test_sharded_relax_on_the_card(dev, tmp_path):
     """The sharded relax on [cuda] * 4 (4 shards, one distinct device):
     bitwise the one-device relax on the card; K11 and K13 a shard, K12 and
-    K14 once a sweep, K29 twice a sweep plus the origins and the link
-    errors."""
+    K14 once a sweep (adding the shards' partials as they load them), K29
+    for the origins and the link errors only."""
     tiles, links, rows = _relax_graph(tmp_path, 60)
     T = len(tiles)
     one = R.prepare_relax(rows, T, dev)
@@ -2522,7 +2702,8 @@ def test_sharded_relax_on_the_card(dev, tmp_path):
     assert counts["relax_moments"] == 4 * sweeps
     assert counts["relax_error"] == 4 * sweeps + 4
     assert counts["relax_converge"] == sweeps
-    assert counts["shard_sum"] == 2 * sweeps + 2
+    assert counts["relax_error_converge"] == 0
+    assert counts["shard_sum"] == 2
     ref = R.relax_plain(sh, *args)
     assert ref.iterations == b.iterations
     np.testing.assert_allclose(b.history, ref.history, rtol=1e-9, atol=1e-9)
