@@ -37,19 +37,40 @@
 //   and the mirror repeats.
 //
 // K16 dog_extrema (dog_block :184-217, the halo core :344-352, count
-//   :361): pass 1 dog = (b1 - b2) * scale[b] (scale = (1/(k-1)) * the
-//   gated 1/(max-min), computed by the wrapper). Pass 2, per voxel: the
-//   tie-break hash of its absolute coordinates (uint32 arithmetic, the
-//   low 10 bits of JAX's wrapping int32 hash) times 2^-30; a maximum when
-//   dog > threshold and dog + tb >= every neighbour's dog + tb of the 3x3x3
+//   :361): dog = (b1 - b2) * scale[b] (scale = (1/(k-1)) * the gated
+//   1/(max-min), computed by the wrapper) and, per voxel, the tie-break
+//   hash of its absolute coordinates (uint32 arithmetic, the low 10 bits
+//   of JAX's wrapping int32 hash) times 2^-30; a maximum when dog >
+//   threshold and dog + tb >= every neighbour's dog + tb of the 3x3x3
 //   window inside the block (the -inf padding), a minimum when dog <
 //   -threshold and dog - tb <= every neighbour's. Only voxels past the
-//   threshold read their window. A voxel that is an extremum inside the
-//   halo core is either written to the dense mask, or appended to the
-//   block's candidate list (flat index, |dog|) through an atomic counter,
-//   whose final value is the exact count; the list holds a whole block, so
-//   it never overflows, and its order is arbitrary. Bound: bytes (b1, b2
-//   read once, dog written once; the list is sparse).
+//   threshold read their window, and stop at the first neighbour past
+//   them (the same answer: fmaxf over the window, NaNs skipped, then >=).
+//   A voxel that is an extremum inside the halo core is either written to
+//   the dense mask, or appended to the block's candidate list (flat
+//   index, |dog|) through an atomic counter, whose final value is the
+//   exact count; the list holds a whole block, so it never overflows, and
+//   its order is arbitrary. Bound: bytes (b1, b2 read once, dog written
+//   once; the list is sparse). The first form took two passes, the
+//   response (a grid-stride scalar pass), then the extrema reading dog
+//   back from DRAM (0.64 ms at 8a's bucket against a 0.29 ms bound). Now
+//   one pass (ops/dog.py extrema_plan): a block owns a (y, z) tile of one
+//   batch entry (12 rows of whole z rows at 8a's bucket) and a chunk of x
+//   planes (about 30), and marches along x. For each plane it loads b1 and
+//   b2 over the tile and a one-voxel y / z halo into registers (float4s
+//   along z where Z and the pointers allow; the halo rows come through L2,
+//   as neighbouring tiles read them too), computes dog with the twin's two
+//   roundings, keeps it in a ring of four planes in shared memory and
+//   stores the tile's own voxels to dog once; each thread notes which of
+//   its own voxels are past the threshold. The next plane's loads are in
+//   flight while the block tests the plane behind: each warp gathers its
+//   voxels past the threshold into a queue in shared memory and its lanes
+//   take them one each, reading the 26 neighbours from the ring, so that
+//   a bead's voxels or a noisy block's spread over the lanes instead of
+//   one thread walking four windows. Where a neighbour lies outside the
+//   block it is skipped, as before; a tile's edge is not a block's. Small
+//   tiles won (12 rows over 26): the ring's shared memory is taken from
+//   the L1 that holds the loads in flight.
 //
 // K17 dog_topk (lax.top_k :353-359): one thread block per batch entry
 //   keeps the K smallest 64-bit keys (~order(|dog|) << 32 | flat index:
@@ -285,89 +306,246 @@ cudaError_t launch_blur(const void* xv, int B, int X, int Y, int Z, int axis,
 
 // ----------------------------------------------------------------- K16
 
-__global__ void dog_kernel(const float* __restrict__ b1,
-                           const float* __restrict__ b2, int64_t vol,
-                           const float* __restrict__ scale,
-                           float* __restrict__ dog) {
-  const int b = blockIdx.y;
-  const float sc = scale[b];
-  const int64_t off = b * vol;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < vol; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    dog[off + e] = (b1[off + e] - b2[off + e]) * sc;
+constexpr int kExThreads = 256;
+constexpr int kExItems = 4;        // loaded items a thread a plane, at most
+constexpr int kExBlocksPerSM = 3;  // ops/dog.py EXTREMA_BLOCKS_PER_SM
+constexpr int kExRing = 4;         // planes of dog in shared memory
+constexpr int kExWarpQueue = 32 * kExItems * 4;  // a warp's own voxels
+
+__device__ __forceinline__ uint32_t tb_hash(int ax, int ay, int az) {
+  return static_cast<uint32_t>(ax) * 73856093u +
+         static_cast<uint32_t>(ay) * 19349663u +
+         static_cast<uint32_t>(az) * 83492791u;
 }
 
-__device__ __forceinline__ float tiebreak(int ax, int ay, int az) {
-  const uint32_t h = static_cast<uint32_t>(ax) * 73856093u +
-                     static_cast<uint32_t>(ay) * 19349663u +
-                     static_cast<uint32_t>(az) * 83492791u;
+__device__ __forceinline__ float tb_of(uint32_t h) {
   return static_cast<float>(h & 1023u) * 9.313225746154785e-10f;  // 2^-30
 }
 
-// the 3x3x3 window of (i, j, k) inside the block: the largest (sign 1) or
-// smallest (sign -1) of dog + sign * tb
-__device__ __forceinline__ float window_extremum(const float* __restrict__ D,
-                                                 int X, int Y, int Z, int i,
-                                                 int j, int k, int ox, int oy,
-                                                 int oz, float sign) {
-  float best = sign > 0.0f ? -INFINITY : INFINITY;
+template <int V>
+__device__ __forceinline__ void load_v(const float* __restrict__ p,
+                                       float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// b1 and b2 of plane offset po at this thread's items (goff < 0: outside
+// the block) and its z-halo voxel
+template <int V>
+__device__ __forceinline__ void load_plane(
+    const float* __restrict__ B1, const float* __restrict__ B2, int64_t po,
+    const int (&goff)[kExItems], int hoff, float (&r1)[kExItems][V],
+    float (&r2)[kExItems][V], float& h1, float& h2) {
+#pragma unroll
+  for (int k = 0; k < kExItems; ++k)
+    if (goff[k] >= 0) {
+      load_v<V>(B1 + po + goff[k], r1[k]);
+      load_v<V>(B2 + po + goff[k], r2[k]);
+    }
+  if (hoff >= 0) {
+    h1 = __ldg(B1 + po + hoff);
+    h2 = __ldg(B2 + po + hoff);
+  }
+}
+
+// Whether d (the voxel's dog + sign * tb) is the largest (sign 1) or
+// smallest (sign -1) of dog + sign * tb over its 3x3x3 window inside the
+// block: no neighbour beyond it. so is the voxel's (i, j, k) offset in
+// its plane's ring slot; ring slots are SS floats apart, rows SP.
+template <int SIGN>
+__device__ __forceinline__ bool window_holds(const float* __restrict__ ring,
+                                             int SS, int SP, int X, int Y,
+                                             int Z, int i, int j, int k,
+                                             int so, int ox, int oy, int oz,
+                                             float d) {
   for (int dx = -1; dx <= 1; ++dx) {
     const int xi = i + dx;
     if (xi < 0 || xi >= X) continue;
+    const float* P = ring + (xi & (kExRing - 1)) * SS + so;
+    const uint32_t hx = static_cast<uint32_t>(ox + xi) * 73856093u;
     for (int dy = -1; dy <= 1; ++dy) {
       const int yi = j + dy;
       if (yi < 0 || yi >= Y) continue;
-      const float* row = D + (static_cast<int64_t>(xi) * Y + yi) * Z;
+      const float* row = P + dy * SP;
+      const uint32_t hxy = hx + static_cast<uint32_t>(oy + yi) * 19349663u;
       for (int dz = -1; dz <= 1; ++dz) {
         const int zi = k + dz;
         if (zi < 0 || zi >= Z) continue;
-        const float tb = tiebreak(ox + xi, oy + yi, oz + zi);
-        if (sign > 0.0f)
-          best = fmaxf(best, row[zi] + tb);
-        else
-          best = fminf(best, row[zi] - tb);
+        const float tb =
+            tb_of(hxy + static_cast<uint32_t>(oz + zi) * 83492791u);
+        if (SIGN > 0 ? row[dz] + tb > d : row[dz] - tb < d) return false;
       }
     }
   }
-  return best;
+  return true;
 }
 
-__global__ void extrema_kernel(const float* __restrict__ dog, int X, int Y,
-                               int Z, const float* __restrict__ thr,
-                               const int* __restrict__ origins, int find_max,
-                               int find_min, int halo,
-                               uint8_t* __restrict__ mask,
-                               int* __restrict__ cand_idx,
-                               float* __restrict__ cand_score,
-                               int* __restrict__ count) {
+template <int V>
+__global__ void __launch_bounds__(kExThreads, kExBlocksPerSM)
+    extrema_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
+                   int X, int Y, int Z, int TY, int TZ, int XC, int ntz,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ thr,
+                   const int* __restrict__ origins, int find_max,
+                   int find_min, int halo, float* __restrict__ dog,
+                   uint8_t* __restrict__ mask, int* __restrict__ cand_idx,
+                   float* __restrict__ cand_score, int* __restrict__ count) {
+  extern __shared__ float4 ring4[];
+  float* ring = reinterpret_cast<float*>(ring4);
+  const int SP = ((TZ + 3) & ~3) + 8;  // a row: z0 - 1 at 3, z0 at 4
+  const int SS = (TY + 2) * SP;        // a plane: rows y0 - 1 .. y0 + TY
+  // after the ring: each warp's queue of its voxels past the threshold in
+  // the plane under test (their ring offsets)
+  uint16_t* wq = reinterpret_cast<uint16_t*>(ring + kExRing * SS) +
+                 (threadIdx.x >> 5) * kExWarpQueue;
+  const int b = blockIdx.z;
+  const int tyi = blockIdx.x / ntz;
+  const int y0 = tyi * TY, z0 = (blockIdx.x - tyi * ntz) * TZ;
+  const int ny = min(TY, Y - y0), nz = min(TZ, Z - z0);
+  const int xs = blockIdx.y * XC, xe = min(X, xs + XC);
   const int yz = Y * Z;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= yz) return;
-  const int i = blockIdx.y, b = blockIdx.z;
-  const int j = t / Z, k = t - j * Z;
   const int64_t vol = static_cast<int64_t>(X) * yz;
-  const float* D = dog + b * vol;
-  const int flat = i * yz + t;
-  const float v = D[flat];
-  const float th = thr[b];
+  const float* B1 = b1 + b * vol;
+  const float* B2 = b2 + b * vol;
+  float* Dg = dog + b * vol;
+  const float sc = scale[b], th = thr[b];
   const int ox = origins[3 * b], oy = origins[3 * b + 1],
             oz = origins[3 * b + 2];
-  bool m = false;
-  if (find_max && v > th) {
-    const float d = v + tiebreak(ox + i, oy + j, oz + k);
-    m = d >= window_extremum(D, X, Y, Z, i, j, k, ox, oy, oz, 1.0f);
+  const int nzv = nz / V;  // items a row
+  const int lane = threadIdx.x & 31;
+  // this thread's items of a plane (the same in every plane): offset in
+  // the plane (-1 outside the block), offset in a ring slot, and whether
+  // it is the tile's own (not its halo): the items this thread tests
+  int goff[kExItems], soff[kExItems];
+  bool own[kExItems];
+#pragma unroll
+  for (int k = 0; k < kExItems; ++k) {
+    const int it = threadIdx.x + k * kExThreads;
+    goff[k] = -1;
+    soff[k] = 0;
+    own[k] = false;
+    if (it < (ny + 2) * nzv) {
+      const int r = it / nzv, c = it - r * nzv, y = y0 - 1 + r;
+      if (y >= 0 && y < Y) {
+        goff[k] = y * Z + z0 + c * V;
+        soff[k] = r * SP + 4 + c * V;
+        own[k] = r >= 1 && r <= ny;
+      }
+    }
   }
-  if (!m && find_min && v < -th) {
-    const float d = v - tiebreak(ox + i, oy + j, oz + k);
-    m = d <= window_extremum(D, X, Y, Z, i, j, k, ox, oy, oz, -1.0f);
+  int hoff = -1, hsoff = 0;
+  if (threadIdx.x < 2 * (ny + 2)) {
+    const int r = threadIdx.x >> 1, y = y0 - 1 + r;
+    const int z = (threadIdx.x & 1) ? z0 + nz : z0 - 1;
+    if (y >= 0 && y < Y && z >= 0 && z < Z) {
+      hoff = y * Z + z;
+      hsoff = r * SP + 4 + (z - z0);
+    }
   }
-  m = m && i >= halo && i < X - halo && j >= halo && j < Y - halo &&
-      k >= halo && k < Z - halo;
-  if (mask != nullptr) mask[b * vol + flat] = m ? 1 : 0;
-  if (m && cand_idx != nullptr) {
-    const int slot = atomicAdd(&count[b], 1);
-    cand_idx[b * vol + slot] = flat;
-    cand_score[b * vol + slot] = fabsf(v);
+  float r1[kExItems][V], r2[kExItems][V], h1 = 0.0f, h2 = 0.0f;
+  // bit 4 k + u: voxel u of own item k is past the threshold, in the plane
+  // just computed and in the one behind it (under test)
+  unsigned past = 0, past_behind = 0;
+  const int xa = max(0, xs - 1), xb = min(X - 1, xe);
+  load_plane<V>(B1, B2, static_cast<int64_t>(xa) * yz, goff, hoff, r1, r2,
+                h1, h2);
+  for (int x = xa; x <= xe; ++x) {
+    if (x <= xb) {
+      // plane x: dog into its ring slot and, for the tile's own voxels of
+      // this chunk's planes, to DRAM; then the next plane's loads
+      float* slot = ring + (x & (kExRing - 1)) * SS;
+      const bool mine = x >= xs && x < xe;
+      const int64_t po = static_cast<int64_t>(x) * yz;
+#pragma unroll
+      for (int k = 0; k < kExItems; ++k)
+        if (goff[k] >= 0) {
+          float d[V];
+#pragma unroll
+          for (int u = 0; u < V; ++u) d[u] = (r1[k][u] - r2[k][u]) * sc;
+          if constexpr (V == 4) {
+            const float4 d4 = make_float4(d[0], d[1], d[2], d[3]);
+            *reinterpret_cast<float4*>(slot + soff[k]) = d4;
+            if (mine && own[k])
+              *reinterpret_cast<float4*>(Dg + po + goff[k]) = d4;
+          } else {
+            slot[soff[k]] = d[0];
+            if (mine && own[k]) Dg[po + goff[k]] = d[0];
+          }
+          if (mine && own[k]) {
+            // the voxels past the threshold will read their window; the
+            // dense mask is 0 elsewhere (and there until they are tested)
+#pragma unroll
+            for (int u = 0; u < V; ++u)
+              if ((find_max && d[u] > th) || (find_min && d[u] < -th))
+                past |= 1u << (4 * k + u);
+            if (mask != nullptr) {
+              uint8_t* mo = mask + b * vol + po + goff[k];
+              if constexpr (V == 4)
+                *reinterpret_cast<uchar4*>(mo) = make_uchar4(0, 0, 0, 0);
+              else
+                mo[0] = 0;
+            }
+          }
+        }
+      if (hoff >= 0) slot[hsoff] = (h1 - h2) * sc;
+      if (x < xb)
+        load_plane<V>(B1, B2, po + yz, goff, hoff, r1, r2, h1, h2);
+    }
+    __syncthreads();
+    const int i = x - 1;  // the plane behind: its window is in the ring
+    const unsigned mine_past = past_behind;
+    past_behind = past;
+    past = 0;
+    if (i < xs || !__any_sync(0xffffffffu, mine_past != 0u)) continue;
+    // the warp's voxels of plane i past the threshold into its queue, then
+    // a lane a voxel: its window from the ring
+    const float* C = ring + (i & (kExRing - 1)) * SS;
+    const int pi = i * yz;
+    const int n = __popc(mine_past);
+    int incl = n;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int nq = __shfl_sync(0xffffffffu, incl, 31);
+    int pos = incl - n;
+#pragma unroll
+    for (int k = 0; k < kExItems; ++k)
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        if ((mine_past >> (4 * k + u)) & 1u)
+          wq[pos++] = static_cast<uint16_t>(soff[k] + u);
+    __syncwarp();
+    for (int e = lane; e < nq; e += 32) {
+      const int so = wq[e];
+      const int rr = so / SP, j = y0 - 1 + rr, kz = z0 - 4 + (so - rr * SP);
+      const float v = C[so];
+      bool m = false;
+      if (find_max && v > th)
+        m = window_holds<1>(ring, SS, SP, X, Y, Z, i, j, kz, so, ox, oy, oz,
+                            v + tb_of(tb_hash(ox + i, oy + j, oz + kz)));
+      if (!m && find_min && v < -th)
+        m = window_holds<-1>(ring, SS, SP, X, Y, Z, i, j, kz, so, ox, oy, oz,
+                             v - tb_of(tb_hash(ox + i, oy + j, oz + kz)));
+      m = m && i >= halo && i < X - halo && j >= halo && j < Y - halo &&
+          kz >= halo && kz < Z - halo;
+      if (!m) continue;
+      const int flat = pi + j * Z + kz;
+      if (mask != nullptr) mask[b * vol + flat] = 1;
+      if (cand_idx != nullptr) {
+        const int slot = atomicAdd(count + b, 1);
+        cand_idx[b * vol + slot] = flat;
+        cand_score[b * vol + slot] = fabsf(v);
+      }
+    }
   }
 }
 
@@ -602,26 +780,70 @@ extern "C" int bst_dog_blur(const void* x, int in_dtype, int B, int X, int Y,
   }
 }
 
+template <int V>
+static cudaError_t launch_extrema(const float* b1, const float* b2, int B,
+                                  int X, int Y, int Z, int ty, int tz, int xc,
+                                  const float* scale, const float* thr,
+                                  const int* origins, int find_max,
+                                  int find_min, int halo, float* dog,
+                                  uint8_t* mask, int* cand_idx,
+                                  float* cand_score, int* count,
+                                  cudaStream_t s) {
+  const int ntz = (Z + tz - 1) / tz;
+  const int64_t tiles = static_cast<int64_t>((Y + ty - 1) / ty) * ntz;
+  const int chunks = (X + xc - 1) / xc;
+  const size_t smem =
+      sizeof(float) * kExRing * (ty + 2) *
+          static_cast<size_t>(((tz + 3) & ~3) + 8) +
+      sizeof(uint16_t) * kExWarpQueue * (kExThreads / 32);
+  if (tiles > 2147483647LL || chunks > 65535 || smem > 232448)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      extrema_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned int>(tiles), chunks, B);
+  extrema_kernel<V><<<grid, kExThreads, smem, s>>>(
+      b1, b2, X, Y, Z, ty, tz, xc, ntz, scale, thr, origins, find_max,
+      find_min, halo, dog, mask, cand_idx, cand_score, count);
+  return cudaGetLastError();
+}
+
+// The launch plan (vec, ty, tz, xc) is ops/dog.py extrema_plan's: vec
+// loads float4s along z (Z % 4 == 0, b1, b2, dog 16-byte and the mask
+// 4-byte aligned); a tile of ty x tz voxels and its halo is at most
+// kExItems loads a thread, and a ring slot's offsets fit 16 bits (the
+// warps' queues).
 extern "C" int bst_dog_extrema(const float* b1, const float* b2, int B, int X,
                                int Y, int Z, const float* scale,
                                const float* thr, const int* origins,
-                               int find_max, int find_min, int halo,
-                               float* dog, uint8_t* mask, int* cand_idx,
+                               int find_max, int find_min, int halo, int vec,
+                               int ty, int tz, int xc, float* dog,
+                               uint8_t* mask, int* cand_idx,
                                float* cand_score, int* count, void* stream) {
   const int64_t vol = static_cast<int64_t>(X) * Y * Z;
-  if (B < 1 || B > 65535 || X < 1 || X > 65535 || Y < 1 || Z < 1 ||
-      vol > 2147483647LL || halo < 0 ||
-      (cand_idx != nullptr && (cand_score == nullptr || count == nullptr)))
+  const int V = vec ? 4 : 1;
+  if (B < 1 || B > 65535 || X < 1 || Y < 1 || Z < 1 || vol > 2147483647LL ||
+      halo < 0 ||
+      (cand_idx != nullptr && (cand_score == nullptr || count == nullptr)) ||
+      ty < 1 || tz < 1 || xc < 1 || tz % V != 0 ||
+      static_cast<int64_t>(ty + 2) * (tz / V) > kExItems * kExThreads ||
+      2 * (ty + 2) > kExThreads ||
+      static_cast<int64_t>(ty + 2) * (((tz + 3) & ~3) + 8) > 65535 ||
+      (vec && (Z % 4 != 0 ||
+               ((reinterpret_cast<uintptr_t>(b1) |
+                 reinterpret_cast<uintptr_t>(b2) |
+                 reinterpret_cast<uintptr_t>(dog)) & 15) ||
+               (reinterpret_cast<uintptr_t>(mask) & 3))))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nb = (vol + bst::kThreads * 4 - 1) / (bst::kThreads * 4);
-  dog_kernel<<<dim3(static_cast<unsigned int>(nb < 4096 ? nb : 4096), B),
-               bst::kThreads, 0, s>>>(b1, b2, vol, scale, dog);
-  const dim3 grid((Y * Z + bst::kThreads - 1) / bst::kThreads, X, B);
-  extrema_kernel<<<grid, bst::kThreads, 0, s>>>(
-      dog, X, Y, Z, thr, origins, find_max, find_min, halo, mask, cand_idx,
-      cand_score, count);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      vec ? launch_extrema<4>(b1, b2, B, X, Y, Z, ty, tz, xc, scale, thr,
+                              origins, find_max, find_min, halo, dog, mask,
+                              cand_idx, cand_score, count, s)
+          : launch_extrema<1>(b1, b2, B, X, Y, Z, ty, tz, xc, scale, thr,
+                              origins, find_max, find_min, halo, dog, mask,
+                              cand_idx, cand_score, count, s));
 }
 
 extern "C" int bst_dog_topk(const int* cand_idx, const float* cand_score,

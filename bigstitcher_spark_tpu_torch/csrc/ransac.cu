@@ -41,18 +41,29 @@
 //   the scoring blocks (each split refits its group) beat a separate fit
 //   launch at 9a's and 9b's shapes (H100 SXM).
 //
-// K22 ransac_refit (_ransac_kernel :399-408): one block of 256 threads.
-//   Given a model (double), each thread strides over the candidates,
-//   marks inliers (e2 < eps^2 in double) and, when fitting, sums the raw
-//   weighted moments of its inliers in double (sw, sum p, sum q, sum pp^T,
-//   sum pq^T). Warp shuffles and one thread then reduce them in a fixed
-//   order (no atomics: a repeat gives the same bits), centre them (A =
-//   spp - sp pc^T, H = spq - sp qc^T) and fit fit_interpolated(kind, reg,
-//   lam) in double. It runs twice per RANSAC call (the two consensus
-//   refits) and once more without the fit for the final inlier mask.
-//   Bound: bytes (the candidates read once).
+// K22 ransac_refit (_ransac_kernel :399-408): given a model (double),
+//   mark the inliers (e2 < eps^2 in double) and, when fitting, sum the raw
+//   weighted moments of the inliers in double (sw, sum p, sum q, sum pp^T,
+//   sum pq^T), centre them (A = spp - sp pc^T, H = spq - sp qc^T) and fit
+//   fit_interpolated(kind, reg, lam) in double. It runs twice per RANSAC
+//   call (the two consensus refits) and once more without the fit for the
+//   final inlier mask. Bound: bytes (the candidates read once, the mask
+//   written once); the first form, one block of 256 threads, walked 9b's
+//   58,274 candidates on one SM of 132 (0.0913 ms against a 0.0004 ms
+//   bound). Now a grid of blocks (ops/descriptors.py refit_plan: one block
+//   where M is small, else up to one an SM, each a contiguous run of
+//   per_block candidates). A block's threads take its rows r0 + t, r0 + t
+//   + 256, ... and sum their moments in that order; each warp's
+//   shuffle-down tree, then the warps in order, give the block's partial,
+//   which it stores with its count. The last block to arrive (a ticket,
+//   reduce.cuh last_block_arrived) loads every partial into shared memory
+//   at once, adds them in block order (a thread a moment) and fits. So one launch a call, and a repeat gives the
+//   same bits; with one block the order, and so every bit, is the first
+//   form's. The per-row arithmetic is the first form's: the masks are
+//   bitwise its (and the twin's) for any grid.
 #include "fit3d.cuh"
 #include "fusion_common.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -67,6 +78,11 @@ constexpr int kScoreBlocksPerSM = 2;
 constexpr int kRefitThreads = 256;
 constexpr int kMaxSample = 8;
 constexpr int kMoments = 22;  // sw, sp[3], sq[3], spp[6], spq[9]
+// a block's partial: the moments, then its inlier count (exact in double)
+constexpr int kPartial = kMoments + 1;
+// blocks a launch at most (the last block holds every partial in shared
+// memory; ops/descriptors.py REFIT_MAX_BLOCKS)
+constexpr int kRefitMaxBlocks = 192;
 
 static_assert(kSlots <= kScoreWarps, "a warp fits one slot");
 static_assert(kTile % 4 == 0, "tiles start on whole float4s");
@@ -261,15 +277,18 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void refit_kernel(const float* __restrict__ pa,
-                             const float* __restrict__ pb, int M,
-                             const double* __restrict__ model_in, double eps2,
-                             int fit, int kind, int reg, double lam,
-                             uint8_t* __restrict__ mask,
-                             int* __restrict__ count,
-                             double* __restrict__ model_out) {
-  __shared__ double sh[kRefitThreads / 32][kMoments];
-  __shared__ int shc[kRefitThreads / 32];
+__global__ void __launch_bounds__(kRefitThreads)
+refit_kernel(const float* __restrict__ pa, const float* __restrict__ pb,
+             int M, int per_block, const double* __restrict__ model_in,
+             double eps2, int fit, int kind, int reg, double lam,
+             uint8_t* __restrict__ mask, int* __restrict__ count,
+             double* __restrict__ model_out, double* __restrict__ partials,
+             int* __restrict__ ticket) {
+  constexpr int kWarps = kRefitThreads / 32;
+  __shared__ double sh[kWarps][kMoments];
+  __shared__ int shc[kWarps];
+  __shared__ double mo[kMoments];
+  __shared__ int total;
   double m[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) m[i] = model_in[i];
@@ -277,7 +296,9 @@ __global__ void refit_kernel(const float* __restrict__ pa,
 #pragma unroll
   for (int v = 0; v < kMoments; ++v) acc[v] = 0.0;
   int cnt = 0;
-  for (int r = threadIdx.x; r < M; r += blockDim.x) {
+  const int r0 = blockIdx.x * per_block;
+  const int r1 = min(M, r0 + per_block);
+  for (int r = r0 + threadIdx.x; r < r1; r += kRefitThreads) {
     double p[3], q[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -314,26 +335,63 @@ __global__ void refit_kernel(const float* __restrict__ pa,
       for (int j = 0; j < 3; ++j) acc[13 + 3 * i + j] += p[i] * q[j];
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (fit) {
 #pragma unroll
-  for (int v = 0; v < kMoments; ++v) {
-    const double s = warp_sum(acc[v]);
-    if (lane == 0) sh[warp][v] = s;
+    for (int v = 0; v < kMoments; ++v) {
+      const double s = warp_sum(acc[v]);
+      if (lane == 0) sh[warp][v] = s;
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     cnt += __shfl_down_sync(0xffffffffu, cnt, off);
   if (lane == 0) shc[warp] = cnt;
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  int total = 0;
-  double mo[kMoments];
-#pragma unroll
-  for (int v = 0; v < kMoments; ++v) mo[v] = 0.0;
-  for (int w = 0; w < kRefitThreads / 32; ++w) {
-    total += shc[w];
-#pragma unroll
-    for (int v = 0; v < kMoments; ++v) mo[v] += sh[w][v];
+  // the block's sums, the warps in order: thread v < kMoments moment v,
+  // thread kMoments the count
+  double part = 0.0;
+  int n = 0;
+  if (threadIdx.x < kMoments && fit) {
+    for (int w = 0; w < kWarps; ++w) part += sh[w][threadIdx.x];
+  } else if (threadIdx.x == kMoments) {
+    for (int w = 0; w < kWarps; ++w) n += shc[w];
   }
+  if (gridDim.x > 1) {
+    double* own = partials + static_cast<int64_t>(blockIdx.x) * kPartial;
+    if (threadIdx.x < kMoments && fit)
+      own[threadIdx.x] = part;
+    else if (threadIdx.x == kMoments)
+      own[kMoments] = static_cast<double>(n);
+    __threadfence();
+    if (!bst::last_block_arrived(ticket)) return;
+    // the last block: every block's partial (its count alone without the
+    // fit) into shared memory at once, then each sum in block order
+    __shared__ double parts[kRefitMaxBlocks * kPartial];
+    const int blocks = static_cast<int>(gridDim.x);
+    if (fit) {
+      for (int e = threadIdx.x; e < blocks * kPartial; e += kRefitThreads)
+        parts[e] = __ldcg(partials + e);
+    } else {
+      for (int e = threadIdx.x; e < blocks; e += kRefitThreads)
+        parts[e * kPartial + kMoments] =
+            __ldcg(partials + e * kPartial + kMoments);
+    }
+    __syncthreads();
+    part = 0.0;
+    n = 0;
+    if (threadIdx.x < kMoments && fit) {
+#pragma unroll 8
+      for (int b = 0; b < blocks; ++b) part += parts[b * kPartial + threadIdx.x];
+    } else if (threadIdx.x == kMoments) {
+#pragma unroll 8
+      for (int b = 0; b < blocks; ++b)
+        n += static_cast<int>(parts[b * kPartial + kMoments]);
+    }
+  }
+  if (threadIdx.x < kMoments) mo[threadIdx.x] = part;
+  if (threadIdx.x == kMoments) total = n;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
   count[0] = total;
   if (!fit) return;
   const double sw = mo[0];
@@ -396,15 +454,21 @@ extern "C" int bst_ransac_score(const float* pa, const float* pb, int M,
 
 extern "C" int bst_ransac_refit(const float* pa, const float* pb, int M,
                                 const double* model_in, double eps, int fit,
-                                int kind, int reg, double lam, uint8_t* mask,
-                                int* count, double* model_out, void* stream) {
+                                int kind, int reg, double lam, int blocks,
+                                int per_block, uint8_t* mask, int* count,
+                                double* model_out, double* partials,
+                                int* ticket, void* stream) {
   if (M < 1 || kind < bst::FIT_TRANSLATION || kind > bst::FIT_IDENTITY ||
       reg < bst::FIT_NONE || reg > bst::FIT_IDENTITY ||
-      (fit && model_out == nullptr))
+      (fit && model_out == nullptr) || blocks < 1 ||
+      blocks > kRefitMaxBlocks ||
+      per_block < 1 || static_cast<int64_t>(blocks) * per_block < M ||
+      static_cast<int64_t>(blocks - 1) * per_block >= M ||
+      (blocks > 1 && (partials == nullptr || ticket == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  refit_kernel<<<1, kRefitThreads, 0, s>>>(pa, pb, M, model_in, eps * eps,
-                                           fit, kind, reg, lam, mask, count,
-                                           model_out);
+  refit_kernel<<<blocks, kRefitThreads, 0, s>>>(
+      pa, pb, M, per_block, model_in, eps * eps, fit, kind, reg, lam, mask,
+      count, model_out, partials, ticket);
   return static_cast<int>(cudaGetLastError());
 }

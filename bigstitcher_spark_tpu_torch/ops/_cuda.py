@@ -94,7 +94,7 @@ _SIGNATURES = {
     },
     "dog": {
         "bst_dog_blur": [_VP] + [_I] * 6 + [_VP] + [_I] * 6 + [_VP, _VP],
-        "bst_dog_extrema": [_VP, _VP] + [_I] * 4 + [_VP] * 3 + [_I] * 3
+        "bst_dog_extrema": [_VP, _VP] + [_I] * 4 + [_VP] * 3 + [_I] * 7
                            + [_VP] * 6,
         "bst_dog_topk": [_VP] * 3 + [_I] * 6 + [_VP] * 3,
         "bst_dog_localize": [_VP] + [_I] * 4 + [_VP, _VP, _I, _VP, _VP, _VP],
@@ -110,8 +110,8 @@ _SIGNATURES = {
     "ransac": {
         "bst_ransac_score": [_VP, _VP, _I, _VP, _I, _I, _I, _F] + [_I] * 4
                             + [_VP] * 5,
-        "bst_ransac_refit": [_VP, _VP, _I, _VP, _D, _I, _I, _I, _D]
-                            + [_VP] * 4,
+        "bst_ransac_refit": [_VP, _VP, _I, _VP, _D, _I, _I, _I, _D, _I, _I]
+                            + [_VP] * 6,
     },
     "intensity": {
         "bst_linefit_ransac": [_VP, _VP, _VP, _I, _I, _VP, _I, _F]

@@ -88,6 +88,15 @@ RANSAC_GROUP = 128
 RANSAC_TILE = 256
 RANSAC_BLOCKS_PER_SM = 2
 RansacPlan = namedtuple("RansacPlan", "groups splits per_split vec")
+# K22's launch (csrc/ransac.cu): threads a block, the fewest candidates a
+# block takes where there are several, the most blocks an SM; its last
+# block's partials (22 moments and the count, float64) a block
+REFIT_THREADS = 256
+REFIT_MIN_ROWS = 512
+REFIT_BLOCKS_PER_SM = 1
+REFIT_MAX_BLOCKS = 192
+REFIT_PARTIAL = 23
+RefitPlan = namedtuple("RefitPlan", "blocks per_block")
 # the twins' work tiles: at most this many float32 entries a step
 _TWIN_ENTRIES = 1 << 24
 
@@ -489,6 +498,30 @@ def ransac_plan(M: int, I: int, sms: int = 132,
     return RansacPlan(groups, _cdiv(M, per), per, int(addr) % 16 == 0)
 
 
+def refit_plan(M: int, sms: int = 132) -> RefitPlan:
+    """K22's launch for ``M`` candidates on a card of ``sms``
+    multiprocessors: ``blocks`` blocks of REFIT_THREADS threads, each a
+    contiguous run of ``per_block`` candidates (the last one shorter, none
+    empty). One block up to 2 x REFIT_MIN_ROWS - 1 candidates (then the
+    kernel is the one-block form, bit for bit); beyond, a block every
+    REFIT_MIN_ROWS candidates, up to REFIT_BLOCKS_PER_SM x ``sms`` and
+    REFIT_MAX_BLOCKS (the partials the last block holds)."""
+    M = int(M)
+    if M < 1:
+        raise ValueError(f"K22 needs candidates, got M {M}")
+    blocks = max(1, min(REFIT_BLOCKS_PER_SM * int(sms), REFIT_MAX_BLOCKS,
+                        M // REFIT_MIN_ROWS))
+    per = _cdiv(M, blocks)
+    return RefitPlan(_cdiv(M, per), per)
+
+
+@functools.lru_cache(maxsize=64)
+def _refit_ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """K22's last-block ticket for launches on ``stream`` (one int32, 0
+    between launches: the last block resets it), allocated at first use."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 @functools.lru_cache(maxsize=8)
 def _sms(device: torch.device) -> int:
     return int(torch.cuda.get_device_properties(device).multi_processor_count)
@@ -640,7 +673,8 @@ def ransac_refit(pa: torch.Tensor, pb: torch.Tensor, model: torch.Tensor,
     """K22 on CUDA, :func:`ransac_refit_plain` on the CPU: the inliers
     (M,) bool of ``model`` (3, 4) float64, their count (int32 scalar
     tensor) and, with ``fit``, ``fit_interpolated(kind, reg, lam)`` of
-    them as a (3, 4) float64 model (None without)."""
+    them as a (3, 4) float64 model (None without). One launch over
+    :func:`refit_plan`'s grid."""
     code, rcode = M.fit_code(kind), M.fit_code(reg)
     if code < 0:
         raise ValueError("RANSAC needs a model, not NONE")
@@ -654,13 +688,19 @@ def ransac_refit(pa: torch.Tensor, pb: torch.Tensor, model: torch.Tensor,
     mask = torch.empty(Mc, dtype=torch.uint8, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     out = torch.empty((3, 4), dtype=torch.float64, device=dev) if fit else None
+    plan = refit_plan(Mc, _sms(dev))
+    partials = ticket = None
+    if plan.blocks > 1:
+        partials = torch.empty(plan.blocks * REFIT_PARTIAL,
+                               dtype=torch.float64, device=dev)
+        ticket = _refit_ticket(dev, _stream(dev))
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _cuda.load("ransac")
     ret = lib.bst_ransac_refit(pa.data_ptr(), pb.data_ptr(), Mc,
                                model.data_ptr(), float(eps), int(bool(fit)),
-                               code, rcode, float(lam), mask.data_ptr(),
-                               count.data_ptr(),
-                               None if out is None else out.data_ptr(),
-                               _stream(dev))
+                               code, rcode, float(lam), *plan,
+                               mask.data_ptr(), count.data_ptr(), ptr(out),
+                               ptr(partials), ptr(ticket), _stream(dev))
     _cuda.check(lib, ret, "ransac_refit")
     ransac_refit.launches += 1
     return mask.bool(), count, out

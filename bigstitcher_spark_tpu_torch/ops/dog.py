@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .descriptors import block_descriptors_batch, knn_descriptors_plain
+from .descriptors import _sms, block_descriptors_batch, knn_descriptors_plain
 from .downsample import downsample_batch, downsample_block_plain
 from .fusion import _IN_CODE, _require, _stream
 
@@ -74,6 +74,25 @@ BLUR_CHUNK = 480
 BLUR_ROW_WARPS = 8
 _BLUR_ROUTES = {"run": 0, "row": 1}
 BlurPlan = namedtuple("BlurPlan", "route grid chunk")
+# K16's launch plan (csrc/dog.cu): threads a block, loads a thread a plane
+# at most, blocks an SM (its __launch_bounds__), the ring's planes of dog,
+# the warps' queues' bytes (512 16-bit offsets a warp), the shared memory
+# of the ring and the queues at most (three blocks an SM,
+# the rest of the SM's 256 KB left to L1, which holds the loads in flight),
+# the widest z tile (float4 and scalar loads), the tallest y tile, the most
+# and the fewest planes a chunk of x (H100 80GB HBM3 at 700 W, 8a's bucket:
+# 12 rows and 24-30 planes were the fastest of 6-26 and 16-59)
+EXTREMA_THREADS = 256
+EXTREMA_ITEMS = 4
+EXTREMA_BLOCKS_PER_SM = 3
+EXTREMA_RING = 4
+EXTREMA_QUEUES = 8 * 512 * 2
+EXTREMA_SMEM = 75 * 1024
+EXTREMA_MAX_TZ = (128, 256)
+EXTREMA_MAX_TY = 12
+EXTREMA_PLANES = 30
+EXTREMA_MIN_PLANES = 8
+ExtremaPlan = namedtuple("ExtremaPlan", "vec ty tz xc grid")
 _TB_SCALE = 2.0 ** -30
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
@@ -388,6 +407,42 @@ def blur_plan(B: int, X: int, Y: int, Z: int, axis: int, r: int) -> BlurPlan:
                             _cdiv(n, BLUR_RUN), B), 0)
 
 
+def extrema_plan(B: int, X: int, Y: int, Z: int, sms: int = 132,
+                 addr: int = 0) -> ExtremaPlan:
+    """K16's launch for a (B, X, Y, Z) batch on a card of ``sms``
+    multiprocessors. ``vec``: float4 loads along z (Z a multiple of 4 and
+    the arrays 16-byte aligned: ``addr``, their addresses or'd together).
+    A block owns a (y, z) tile of ``ty`` x ``tz`` voxels of one batch entry
+    (z whole up to EXTREMA_MAX_TZ, else cut into near-equal tiles, whole
+    float4s with ``vec``; y as tall as EXTREMA_ITEMS loads a thread and
+    EXTREMA_SMEM of ring and queues allow for the tile and its one-voxel
+    halo, at most EXTREMA_MAX_TY, evened out) and a chunk of ``xc`` x
+    planes: x is cut into chunks of at most EXTREMA_PLANES planes, and into
+    more where the blocks would not fill the card's EXTREMA_BLOCKS_PER_SM x
+    ``sms`` block slots, none shorter than EXTREMA_MIN_PLANES (a chunk
+    computes the plane on each side again). ``grid``: (y tiles x z tiles,
+    chunks, B)."""
+    B, X, Y, Z = (int(v) for v in (B, X, Y, Z))
+    if min(B, X, Y, Z) < 1:
+        raise ValueError(f"K16 needs a non-empty batch, got {(B, X, Y, Z)}")
+    vec = Z % 4 == 0 and int(addr) % 16 == 0
+    V = 4 if vec else 1
+    nz = _cdiv(Z, EXTREMA_MAX_TZ[vec])
+    tz = _cdiv(_cdiv(Z, nz), V) * V
+    nz = _cdiv(Z, tz)
+    rows = EXTREMA_ITEMS * EXTREMA_THREADS // (tz // V) - 2
+    sp = _cdiv(tz, 4) * 4 + 8
+    fits = (EXTREMA_SMEM - EXTREMA_QUEUES) // (4 * EXTREMA_RING * sp) - 2
+    ny = _cdiv(Y, min(EXTREMA_MAX_TY, rows, fits))
+    ty = _cdiv(Y, ny)
+    ny = _cdiv(Y, ty)
+    slots = EXTREMA_BLOCKS_PER_SM * int(sms)
+    chunks = max(_cdiv(X, EXTREMA_PLANES), slots // (ny * nz * B))
+    chunks = max(1, min(chunks, X // EXTREMA_MIN_PLANES))
+    xc = _cdiv(X, chunks)
+    return ExtremaPlan(vec, ty, tz, xc, (ny * nz, _cdiv(X, xc), B))
+
+
 def dog_blur(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """K15 (``csrc/dog.cu``) on CUDA, :func:`blur_plain` on the CPU: one
     mirrored 1-D Gaussian pass along ``axis`` of a (B, X, Y, Z) batch of
@@ -423,7 +478,8 @@ def dog_extrema(b1, b2, scale, threshold, origins, find_max=True,
     ``origins`` (B, 3) int32 absolute voxel offsets of the blocks. Returns
     (dog, mask) or, with ``candidates``, (dog, cand_idx, cand_score,
     count): the extrema inside the halo core in arbitrary order, with
-    |dog|, and their exact count per block."""
+    |dog|, and their exact count per block. One launch over
+    :func:`extrema_plan`'s grid."""
     if b1.device.type == "cpu":
         return extrema_plain(b1, b2, scale, threshold, origins, find_max,
                              find_min, halo, candidates)
@@ -445,12 +501,17 @@ def dog_extrema(b1, b2, scale, threshold, origins, find_max=True,
         mask = torch.empty((B, X, Y, Z), dtype=torch.bool, device=dev)
         cand_idx = cand_score = count = None
     ptr = lambda t: None if t is None else t.data_ptr()
+    addr = b1.data_ptr() | b2.data_ptr() | dog.data_ptr()
+    if mask is not None and mask.data_ptr() % 4:
+        addr |= 1  # the mask's 4-byte stores need 4-byte alignment
+    plan = extrema_plan(B, X, Y, Z, _sms(dev), addr)
     lib = _cuda.load("dog")
     ret = lib.bst_dog_extrema(
         b1.data_ptr(), b2.data_ptr(), B, X, Y, Z, scale.data_ptr(),
         threshold.data_ptr(), origins.data_ptr(), int(bool(find_max)),
-        int(bool(find_min)), int(halo), dog.data_ptr(), ptr(mask),
-        ptr(cand_idx), ptr(cand_score), ptr(count), _stream(dev))
+        int(bool(find_min)), int(halo), int(plan.vec), plan.ty, plan.tz,
+        plan.xc, dog.data_ptr(), ptr(mask), ptr(cand_idx), ptr(cand_score),
+        ptr(count), _stream(dev))
     _cuda.check(lib, ret, "dog_extrema")
     dog_extrema.launches += 1
     if candidates:

@@ -387,13 +387,17 @@ BATCH_ROWS = 16  # route A's batch: --devices 4 x per_dev 4
 # test and blend ramp and the combine; per output voxel the finalize and
 # conversion (two divides, the clamp and the rounding). K14:
 # two sums per tile. K16: an add and a max per neighbour of the 27-voxel
-# window of each voxel past the threshold; K18: per round of a candidate
+# window of each voxel past the threshold (counted whole: the one-pass
+# kernel stops at the first neighbour past the voxel, which could only
+# lower an operations bound that bytes exceed); K18: per round of a candidate
 # ~90 (gradient, Hessian, the pivoted 3x3 LU and solve, clip, value).
 # K19: per pair of points 3 differences, 3 products, 2 sums; K20: per pair
 # of descriptors of D values, D products and D - 1 sums (dot), 2 sums, a
 # product and a max; K21: per hypothesis and candidate 18 for the apply,
 # 3 differences, 5 for the squared norm and a compare; K22 (float64): per
-# candidate the same 27 and 31 for the moments of an inlier. K23: per
+# candidate the same 27 and 31 for the moments of an inlier (its grid's
+# block partials, 22 adds a block, are the launch's, not counted; the mask
+# alone, fit=False, the 27). K23: per
 # hypothesis and sample a multiply and an add (the prediction), a
 # subtract, an absolute value, a compare and the valid test. K1's
 # coefficient branch: what the separable function needs per voxel, the z
@@ -1692,6 +1696,11 @@ def peak_bytes(dev):
     return torch.cuda.max_memory_allocated()
 
 
+# each counted route's launches, by kernel (K22's line splits its launches
+# by shape: 9b's candidates against route A's small pairs in 9a and 9c)
+ROUTE_LAUNCHES = {}
+
+
 def counted(route, launches, dev, fn, exclusive=False):
     """Run ``fn`` (one route's main path) with every launch count set to 0
     just before it and read just after it; on the card the route's kernels
@@ -1702,6 +1711,7 @@ def counted(route, launches, dev, fn, exclusive=False):
     ops.reset_launch_counts()
     out = fn()
     got = {**ops.launch_counts(), **ops.coeff_launch_counts()}
+    ROUTE_LAUNCHES[route] = got
     print(f"  route {route} launches: {got}", flush=True)
     for k in ROUTE_KERNELS[route] if dev.type == "cuda" else ():
         check(got[k] > 0, f"route {route}: kernel {k} launched {got[k]} "
@@ -3084,6 +3094,15 @@ def match_kernel_times(t, card, at_9a=None):
             t["ca"], t["cb"], t["model"], 5.0, "AFFINE", "RIGID", 0.1)),
         plain_shape="full", library_ms=None,
         bound=bound(m * 25, m * OPS["refit_row"], F64_OPS_PER_S))
+    # K22's third launch a RANSAC: the mask alone (no moments, no fit)
+    args22 = (t["ca"], t["cb"], t["model"], 5.0, "AFFINE", "RIGID", 0.1)
+    nofit = lambda: DS.ransac_refit(*args22, fit=False)
+    res["ransac_refit"].update(
+        nofit_ms=time_ms(nofit), nofit_wrapper_ms=time_ms(nofit, host=True),
+        nofit_plain_ms=time_ms(lambda: DS.ransac_refit_plain(
+            *args22, fit=False)),
+        nofit_bound_ms=bound(m * 25, m * OPS["ransac_apply"],
+                             F64_OPS_PER_S)[0])
     shapes = {"knn_descriptors": f"{n} points (and {nb})",
               "ratio_match": f"{len(da)} x {len(db)} descriptors of 9",
               "ransac_score": f"{iters} hypotheses x {m} candidates",
@@ -3106,12 +3125,36 @@ def match_kernel_times(t, card, at_9a=None):
               f"{r['at_9a_ms']} ms  with the host's time "
               f"{r['at_9a_wrapper_ms']} ms  plain {r['at_9a_plain_ms']} ms  "
               f"bound {r['at_9a_bound_ms']:.5f} ms", flush=True)
+        # K22 at 9a's pair from K21's best model there: both forms
+        r = res["ransac_refit"]
+        a22 = (at_9a["ca"], at_9a["cb"], at_9a["model"], 5.0, "AFFINE",
+               "RIGID", 0.1)
+        for key, fit in (("at_9a", True), ("at_9a_nofit", False)):
+            run = lambda fit=fit: DS.ransac_refit(*a22, fit=fit)
+            r.update({f"{key}_ms": time_ms(run, reps=50),
+                      f"{key}_wrapper_ms": time_ms(run, reps=50, host=True),
+                      f"{key}_plain_ms": time_ms(
+                          lambda fit=fit: DS.ransac_refit_plain(*a22,
+                                                                fit=fit))})
+        r.update(at_9a_bound_ms=bound(m9 * 25, m9 * OPS["refit_row"],
+                                      F64_OPS_PER_S)[0],
+                 at_9a_shape=f"{m9} candidates")
+        print(f"  ransac_refit at 9a's {m9} candidates [{card}]: kernel "
+              f"{r['at_9a_ms']} ms (mask alone {r['at_9a_nofit_ms']} ms)  "
+              f"with the host's time {r['at_9a_wrapper_ms']} ms  plain "
+              f"{r['at_9a_plain_ms']} ms  bound {r['at_9a_bound_ms']:.5f} ms",
+              flush=True)
     for name, r in res.items():
         r.setdefault("wrapper_ms", r["ms"])
         print(f"  {name} at 9b's {shapes[name]} [{card}]: kernel {r['ms']} "
               f"ms  plain {r['plain_ms']} ms ({r['plain_shape']})  bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  library none",
               flush=True)
+    r = res["ransac_refit"]
+    print(f"  ransac_refit at 9b, the mask alone (fit=False) [{card}]: "
+          f"kernel {r['nofit_ms']} ms  with the host's time "
+          f"{r['nofit_wrapper_ms']} ms  plain {r['nofit_plain_ms']} ms  "
+          f"bound {r['nofit_bound_ms']:.4f} ms", flush=True)
     print(f"  knn_descriptors at 9b: the floor at one operation an "
           f"instruction {res['knn_descriptors']['issue_floor_ms']:.4f} ms",
           flush=True)
@@ -4091,6 +4134,8 @@ def ransac_yardsticks(dev, card, outputs=None, scale="full"):
             r["plan"] = str(DS.ransac_plan(m, iters, DS._sms(dev),
                                            pa.data_ptr() | pb.data_ptr()))
         hold_outputs(outputs, "ransac " + name, got, r)
+        out[f"ransac_refit {name}"] = refit_yard(pa, pb, got[3], kind, name,
+                                                 card, outputs)
         print(f"  ransac_score {name} ({iters} x {m}, sample {sample}) "
               f"[{card}]: kernel {r['ms']} ms  with the host's time "
               f"{r['wrapper_ms']} ms  bound {r['bound'][0]:.4f} ms "
@@ -4100,6 +4145,189 @@ def ransac_yardsticks(dev, card, outputs=None, scale="full"):
               + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
                  if "bitwise_vs_saved" in r else ""), flush=True)
         out[f"ransac_score {name}"] = r
+    return out
+
+
+def hold_close(outputs, name, t, r, rtol=1e-9, atol=1e-9):
+    """With ``outputs``: ``t`` (a small tensor) saved as ``<name>.pt`` by the
+    first tree's run and held by later runs within ``rtol`` / ``atol``
+    (``r["close_vs_saved"]``, beside ``r["bitwise_vs_saved"]``); also saved
+    a tree (the port's path in the name), so that a tree's second run is
+    held to its first bit for bit (``r["bitwise_vs_same_tree"]``)."""
+    import hashlib
+
+    import torch
+
+    import bigstitcher_spark_tpu_torch as port
+
+    if not outputs:
+        return
+    os.makedirs(outputs, exist_ok=True)
+    base = os.path.join(outputs, name.replace(" ", "_").replace("/", "_"))
+    tree = hashlib.sha1(port.__file__.encode()).hexdigest()[:8]
+    mine = t.detach().cpu()
+    for path, key in ((base + ".pt", "vs_saved"),
+                      (f"{base}.{tree}.pt", "vs_same_tree")):
+        if not os.path.exists(path):
+            torch.save(mine, path)
+            continue
+        other = torch.load(path)
+        r["bitwise_" + key] = bool(torch.equal(mine.view(torch.int64),
+                                               other.view(torch.int64)))
+        if key == "vs_saved":
+            r["close_vs_saved"] = bool(torch.allclose(
+                mine, other, rtol=rtol, atol=atol, equal_nan=True))
+
+
+def refit_yard(pa, pb, model, kind, name, card, outputs=None):
+    """K22 at a RANSAC yard's candidates from K21's best model there (eps
+    5, the kind and a RIGID regulariser at lambda 0.1 as ``ransac`` takes
+    them): its fit (fit=True) and the mask alone (fit=False), each against
+    the twin (masks and counts equal, the model within rtol 1e-9 / atol
+    1e-9), timed in card time and with the host's; with ``outputs`` the
+    masks and counts held bit for bit across trees, the models within the
+    twin's tolerance across trees and bit for bit between one tree's runs
+    (:func:`hold_close`)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import descriptors as DS
+
+    m = int(pa.shape[0])
+    args = (pa, pb, model, 5.0, kind, "RIGID", 0.1)
+    r = {"shape": f"{m} candidates"}
+    if hasattr(DS, "refit_plan") and pa.device.type == "cuda":
+        r["plan"] = str(DS.refit_plan(m, DS._sms(pa.device)))
+    held = []
+    for key, fit in (("fit", True), ("nofit", False)):
+        run = lambda fit=fit: DS.ransac_refit(*args, fit=fit)
+        got = run()
+        ref = DS.ransac_refit_plain(*args, fit=fit)
+        same = torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+        if fit:
+            torch.testing.assert_close(got[2], ref[2], rtol=1e-9, atol=1e-9,
+                                       equal_nan=True)
+        check(same, f"K22 {name} ({m} candidates, fit={fit}): mask and count "
+                    f"({int(got[1])}) the twin's"
+                    + (", the model within rtol 1e-9 / atol 1e-9" if fit
+                       else ""))
+        reps = 50 if m < 1000 else 20
+        r[f"{key}_ms"] = time_ms(run, reps=reps)
+        r[f"{key}_wrapper_ms"] = time_ms(run, reps=reps, host=True)
+        h = {}
+        hold_outputs(outputs, f"ransac_refit {name} {key}", got[:2], h)
+        held.append(h)
+        if fit:
+            h = {}
+            hold_close(outputs, f"ransac_refit {name} model", got[2], h)
+            r.update({f"model_{k}": v for k, v in h.items()})
+    r.update(saved_all(held))
+    r["count"] = int(got[1])
+    r["bound"] = bound(m * 25, m * OPS["refit_row"], F64_OPS_PER_S)
+    r["ms"], r["wrapper_ms"] = r["fit_ms"], r["fit_wrapper_ms"]
+    print(f"  ransac_refit {name} ({m} candidates, {r['count']} inliers) "
+          f"[{card}]: fit {r['fit_ms']} ms (with the host's time "
+          f"{r['fit_wrapper_ms']} ms), mask alone {r['nofit_ms']} ms ("
+          f"{r['nofit_wrapper_ms']} ms)  bound {r['bound'][0]:.5f} ms"
+          + (f"  plan {r['plan']}" if "plan" in r else "")
+          + (f"  masks and counts vs the saved run: bitwise "
+             f"{r['bitwise_vs_saved']}" if "bitwise_vs_saved" in r else "")
+          + (f"; model vs the saved run: bitwise "
+             f"{r['model_bitwise_vs_saved']}, within 1e-9 "
+             f"{r['model_close_vs_saved']}"
+             if "model_bitwise_vs_saved" in r else "")
+          + (f"; vs this tree's first run: bitwise "
+             f"{r['model_bitwise_vs_same_tree']}"
+             if "model_bitwise_vs_same_tree" in r else ""), flush=True)
+    return r
+
+
+def dog_yardsticks(dev, card, outputs=None, scale="full"):
+    """K16 at 8a's bucket (2 x 528 x 528 x 144 float32; ``scale`` tiny: 2 x
+    40 x 36 x 20): blurs by K15 of 100 + N(0, 3) with point beads of 5,000
+    (from a seed on the card), min / max scaled, threshold 0.008 (the
+    detection default), maxima (8a's), origins straddling zero. "beads":
+    450 beads a block (8a: 1,723 points in 4 blocks), the candidates form
+    (8a's route) and the dense mask form (dog_block); "noise": no bead, so
+    that the min / max scaling puts ~18 % of the voxels past the threshold,
+    the candidates form. Each against the twin (dog bitwise, candidate
+    sets, scores and counts, the mask equal), timed in card time and with
+    the host's; with ``outputs`` dog, the sorted candidate lists, the
+    counts and the mask held bit for bit across trees."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+
+    shape = (2, 528, 528, 144) if scale == "full" else (2, 40, 36, 20)
+    B = shape[0]
+    out = {}
+    for case, n_beads, forms in (("beads", 450, (True, False)),
+                                 ("noise", 0, (True,))):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1616)
+        x = 100.0 + 3.0 * torch.randn(shape, generator=g, device=dev)
+        n_beads = n_beads if scale == "full" else n_beads // 20
+        at = torch.randint(0, x[0].numel(), (B, n_beads), generator=g,
+                           device=dev)
+        x.view(B, -1).scatter_add_(1, at, torch.full((B, n_beads), 5000.0,
+                                                     device=dev))
+        b1, b2 = G._blurs(G.KERNELS, x, 1.8)
+        sc = G.dog_scale(x.amin((1, 2, 3)), x.amax((1, 2, 3)))
+        del x
+        thr = torch.full((B,), 0.008, device=dev)
+        org = torch.tensor([[0, 0, 0], [512, -9, 120]], dtype=torch.int32,
+                           device=dev)
+        n = int(b1[0].numel())
+        past = int(((b1 - b2) * sc.view(B, 1, 1, 1) > thr.view(B, 1, 1, 1))
+                   .sum())
+        for cand in forms:
+            form = f"{case} {'candidates' if cand else 'dense'}"
+            args = (b1, b2, sc, thr, org, True, False, 0, cand)
+            got = G.dog_extrema(*args)
+            ref = G.extrema_plain(*args)
+            if cand:
+                sets = []
+                for b, k in enumerate(got[3].tolist()):
+                    o = torch.argsort(got[1][b, :k])
+                    sets += [got[1][b, :k][o], got[2][b, :k][o]]
+                same = (torch.equal(got[0], ref[0])
+                        and torch.equal(got[3], ref[3])
+                        and all(torch.equal(sets[2 * b], ref[1][b, :k])
+                                and torch.equal(sets[2 * b + 1],
+                                                ref[2][b, :k])
+                                for b, k in enumerate(got[3].tolist())))
+                kept = [got[0], got[3], *sets]
+                nb = 12 * B * n + 8 * int(got[3].sum())
+            else:
+                same = (torch.equal(got[0], ref[0])
+                        and torch.equal(got[1], ref[1]))
+                kept = list(got)
+                nb = 13 * B * n
+            check(same, f"K16 {form} at {shape}: dog bitwise, "
+                        + ("candidate sets, scores and counts "
+                           f"{got[3].tolist()}" if cand else "the mask")
+                        + " the twin's")
+            del ref
+            run = lambda args=args: G.dog_extrema(*args)
+            r = dict(ms=time_ms(run, reps=10),
+                     wrapper_ms=time_ms(run, reps=10, host=True),
+                     bound=bound(nb, 3 * B * n + OPS["dog_window"] * past),
+                     shape=shape, past=past, twin_bitwise=same)
+            if hasattr(G, "extrema_plan") and dev.type == "cuda":
+                r["plan"] = str(G.extrema_plan(*shape, G._sms(dev)))
+            if cand:
+                r["counts"] = got[3].tolist()
+            hold_outputs(outputs, f"dog_extrema {form}", kept, r)
+            del got, kept
+            print(f"  dog_extrema {form} at {shape} [{card}]: kernel "
+                  f"{r['ms']} ms  with the host's time {r['wrapper_ms']} ms  "
+                  f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  past the "
+                  f"threshold {past}"
+                  + (f"  counts {r['counts']}" if cand else "")
+                  + (f"  plan {r['plan']}" if "plan" in r else "")
+                  + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+                     if "bitwise_vs_saved" in r else ""), flush=True)
+            out[f"dog_extrema {form}"] = r
+        del b1, b2
     return out
 
 
@@ -6359,6 +6587,12 @@ def main(argv=None) -> int:
             **({"partial_launches": launches["cg_spmv_partial"]}
                if name == "cg_spmv" else {}),
             **({"sweep_ms": r["sweep_ms"]} if "sweep_ms" in r else {}),
+            # K22: the mask alone (fit=False) at 9b; launches by shape
+            **({**{k: v for k, v in r.items() if k.startswith("nofit_")},
+                "launches_9b": ROUTE_LAUNCHES.get("9b", {}).get(name, 0),
+                "launches_small_pairs": launches[name] - ROUTE_LAUNCHES.get(
+                    "9b", {}).get(name, 0)}
+               if name == "ransac_refit" else {}),
             **({"masked_launches": masked["launches"],
                 "masked_ms": masked["ms"],
                 "masked_plain_ms": masked["plain_ms"],

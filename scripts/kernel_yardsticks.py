@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """K8 (FFT), K24 (CG product) and K29 (shard sum) beside their library
-yardsticks, and K20 (ratio test), K15 (blur pass), K3 (gather), K26
-(nonrigid), K1 (composite), K12 (relax fits), K21 (RANSAC scores), K6
-(downsampling), K2 (shift), K5 (separable), K28 (block epilogue), K19
-(kNN descriptors) and K24's partial form beside their bounds, and phase
-10's walls, on one GPU.
+yardsticks, and K20 (ratio test), K15 (blur pass), K16 (DoG extrema), K3
+(gather), K26 (nonrigid), K1 (composite), K12 (relax fits), K21 (RANSAC
+scores), K22 (refits), K6 (downsampling), K2 (shift), K5 (separable), K28
+(block epilogue), K19 (kNN descriptors) and K24's partial form beside
+their bounds, and phase 10's walls, on one GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
         [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
-                downsample|blocks|intensity|shard|loops|knn[,...]]
+                downsample|blocks|intensity|shard|loops|knn|dog[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -69,7 +69,16 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   AFFINE fit), at 9a's (155 candidates) and at 9b's with sample 1
   (TRANSLATION) and 3 (RIGID): each held bitwise against its twin, card
   time, time with the host's, bound; with ``--outputs DIR`` counts,
-  models, best and best model saved or compared bitwise;
+  models, best and best model saved or compared bitwise; then K22 at each
+  yard from K21's best model there, its fit and the mask alone (fit=False)
+  each against its twin and timed; with ``--outputs DIR`` masks and counts
+  held bitwise across trees, models within rtol 1e-9 / atol 1e-9 across
+  trees and bitwise between one tree's runs;
+- ``dog_yardsticks``: ``dog`` is K16 at 8a's bucket (2 x 528 x 528 x 144:
+  K15's blurs of seeded point beads on noise), its candidates form and
+  its dense mask form, each bitwise against its twin (candidate lists as
+  sets), card time, time with the host's, bound; with ``--outputs DIR``
+  dog, the sorted candidate lists, counts and the mask held bitwise;
 - ``downsample_yardsticks``: ``downsample`` is K6's level form at route
   A's first pyramid step (1952x1952x132 uint16), its batch form at the
   downsample stage's boxes (4 x 256x256x128 / (2,2,2)) and at route D's
@@ -152,13 +161,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
                          "nonrigid, composite, fit, ransac, downsample, "
-                         "blocks, intensity, shard, loops, knn (default "
-                         "fft,cg)")
+                         "blocks, intensity, shard, loops, knn, dog "
+                         "(default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
-                    help="K3's, K26's, K1's, K12's, K21's, K6's, K24's, "
-                         "K2's, K5's, K28's, K19's and K14's outputs "
+                    help="K3's, K26's, K1's, K12's, K21's, K22's, K6's, "
+                         "K24's, K2's, K5's, K28's, K19's, K14's and K16's "
+                         "outputs "
                          "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
@@ -169,7 +179,7 @@ def main(argv=None) -> int:
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
              "fit", "ransac", "downsample", "blocks", "intensity", "shard",
-             "loops", "knn")
+             "loops", "knn", "dog")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -234,6 +244,9 @@ def main(argv=None) -> int:
                                            args.outputs))
         if "knn" in only:
             out.update(CS.knn_yardsticks(dev, card, args.outputs,
+                                         args.scale))
+        if "dog" in only:
+            out.update(CS.dog_yardsticks(dev, card, args.outputs,
                                          args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,

@@ -1208,16 +1208,17 @@ def test_dog_blur_kernel_long_radius(dev, shape, dtype):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("find_max,find_min", [(True, False), (False, True),
-                                               (True, True)])
-@pytest.mark.parametrize("halo", [0, 5])
-def test_dog_extrema_kernel(dev, find_max, find_min, halo):
-    """K16 against its twin: the response bitwise, the dense mask equal,
-    the candidate lists equal as sets (the kernel's order is its atomics')
-    with their exact counts; origins straddle zero (negative hashes)."""
-    rng = np.random.default_rng(41)
-    x = _beads(rng, 3, (40, 36, 28)).to(dev)
-    if find_min and not find_max:
+# K16's tile walk: a whole-z tile as float4s (40, 36, 28), Z % 4 != 0
+# (the scalar path), X of 1 and 2, y tiles that do not divide Y, z cut into
+# tiles on both paths (130: scalar, 300: float4s), several x chunks
+DOG_EXTREMA_SHAPES = [(40, 36, 28), (40, 36, 27), (1, 40, 44), (2, 41, 43),
+                      (9, 45, 130), (3, 70, 300)]
+
+
+def _dog_extrema_case(dev, shape, find_min_only, seed=41):
+    rng = np.random.default_rng(seed)
+    x = _beads(rng, 3, shape, n=max(12, int(np.prod(shape)) // 4000)).to(dev)
+    if find_min_only:
         x = 2000.0 - x
     b1, b2 = G._blurs(G.KERNELS, x, 1.8)
     scale = G.dog_scale(torch.zeros(3, device=dev),
@@ -1225,16 +1226,52 @@ def test_dog_extrema_kernel(dev, find_max, find_min, halo):
     thr = torch.tensor([0.005, 0.002, 0.005], device=dev)
     org = torch.tensor([[-9, -9, -9], [512, -9, 120], [0, 0, 0]],
                        dtype=torch.int32, device=dev)
-    args = (b1, b2, scale, thr, org, find_max, find_min, halo)
+    return b1, b2, scale, thr, org
+
+
+def _dog_extrema_agree(args):
     dog, mask = G.dog_extrema(*args)
     pdog, pmask = G.extrema_plain(*args)
     assert torch.equal(dog, pdog) and torch.equal(mask, pmask)
-    assert int(mask.sum()) > 3
-    got = _cand_sets(*G.dog_extrema(*args, candidates=True)[1:])
-    ref = _cand_sets(*G.extrema_plain(*args, candidates=True)[1:])
-    for (gi, gs), (ri, rs) in zip(got, ref):
-        assert np.array_equal(gi, ri) and np.array_equal(gs, rs)
-    assert [len(g[0]) for g in got] == [int(m.sum()) for m in mask]
+    got = G.dog_extrema(*args, candidates=True)
+    ref = G.extrema_plain(*args, candidates=True)
+    assert torch.equal(got[0], pdog)
+    gs, rs = _cand_sets(*got[1:]), _cand_sets(*ref[1:])
+    for (gi, gsc), (ri, rsc) in zip(gs, rs):
+        assert np.array_equal(gi, ri) and np.array_equal(gsc, rsc)
+    assert got[3].tolist() == ref[3].tolist() == [int(m.sum()) for m in mask]
+    return mask
+
+
+@pytest.mark.parametrize("shape", DOG_EXTREMA_SHAPES, ids=str)
+@pytest.mark.parametrize("find_max,find_min", [(True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("halo", [0, 5])
+def test_dog_extrema_kernel(dev, shape, find_max, find_min, halo):
+    """K16 against its twin: the response bitwise, the dense mask equal,
+    the candidate lists equal as sets (the kernel's order is its warps'
+    atomics) with |dog| scores and exact counts; origins straddle zero
+    (negative hashes); B = 3, at each of the tile walk's edge shapes."""
+    args = (*_dog_extrema_case(dev, shape, find_min and not find_max),
+            find_max, find_min, halo)
+    mask = _dog_extrema_agree(args)
+    if min(shape) > 2 * halo + 2:
+        assert int(mask.sum()) > 3
+
+
+def test_dog_extrema_kernel_unaligned(dev):
+    """Arrays not 16-byte aligned take the scalar path, Z % 4 == 0 or not
+    (the plan's ``vec`` from their addresses), with the same results."""
+    shape = (6, 40, 44)
+    b1, b2, scale, thr, org = _dog_extrema_case(dev, shape, False)
+    n = b1.numel()
+    off = [torch.empty(n + 1, device=dev) for _ in range(2)]
+    u1, u2 = (o[1:].view(b.shape) for o, b in zip(off, (b1, b2)))
+    u1.copy_(b1)
+    u2.copy_(b2)
+    assert not G.extrema_plan(3, *shape, addr=u1.data_ptr()).vec
+    for fmax, fmin in ((True, False), (True, True)):
+        _dog_extrema_agree((u1, u2, scale, thr, org, fmax, fmin, 1))
 
 
 @pytest.mark.parametrize("n,k", [(0, 16), (7, 16), (900, 4), (50_000, 4096),
@@ -1673,12 +1710,16 @@ def test_ransac_score_kernel_ties(dev):
     assert int(got[2][0]) == 0 and bool((got[0] == got[0][0]).all())
 
 
+@pytest.mark.parametrize("m", [1, 255, 256, 257, 1024, 20000, 58274],
+                         ids=str)
 @pytest.mark.parametrize("kind,reg,lam", [
     ("AFFINE", "RIGID", 0.1), ("RIGID", "NONE", 0.0),
     ("TRANSLATION", "IDENTITY", 0.3)])
-def test_ransac_refit_kernel(dev, kind, reg, lam):
+def test_ransac_refit_kernel(dev, kind, reg, lam, m):
+    """K22 against its twin: masks and counts equal, models within rtol
+    1e-9 / atol 1e-9 (NaN where both fit NaN: one inlier), from one block
+    (M < 1,024) to a grid of them (refit_plan); a repeat bitwise."""
     rng = np.random.default_rng(26)
-    m = 20000
     a = rng.uniform(0, 900, (m, 3))
     b = a + np.array([3.0, -2.0, 1.0]) + rng.normal(0, 1.0, a.shape)
     b[: m // 4] += rng.uniform(-30, 30, (m // 4, 3))
@@ -1690,8 +1731,13 @@ def test_ransac_refit_kernel(dev, kind, reg, lam):
         got = DS.ransac_refit(pa, pb, model, 2.5, kind, reg, lam, fit)
         ref = DS.ransac_refit_plain(pa, pb, model, 2.5, kind, reg, lam, fit)
         assert torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+        again = DS.ransac_refit(pa, pb, model, 2.5, kind, reg, lam, fit)
+        assert torch.equal(again[0], got[0]) and int(again[1]) == int(got[1])
         if fit:
-            torch.testing.assert_close(got[2], ref[2], rtol=1e-9, atol=1e-9)
+            torch.testing.assert_close(got[2], ref[2], rtol=1e-9, atol=1e-9,
+                                       equal_nan=True)
+            assert torch.equal(got[2].view(torch.int64),
+                               again[2].view(torch.int64))
 
 
 def test_matching_wrappers_count_and_refuse(dev):
