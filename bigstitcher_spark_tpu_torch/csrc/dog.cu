@@ -72,15 +72,22 @@
 //   tiles won (12 rows over 26): the ring's shared memory is taken from
 //   the L1 that holds the loads in flight.
 //
-// K17 dog_topk (lax.top_k :353-359): one thread block per batch entry
-//   keeps the K smallest 64-bit keys (~order(|dog|) << 32 | flat index:
-//   |dog| descending, then the lower index first, lax.top_k's order) of
-//   its candidate list: its first K slots hold the running best, the rest
-//   of a power-of-two buffer in shared memory takes the next chunk of the
-//   list, and a bitonic sort of the whole buffer follows, until the list
-//   is done. Any count is handled; the order of the list does not matter.
-//   Rows past the count are invalid and hold flat index 0. Bound: the
-//   list read once (launch latency in practice).
+// K17 dog_topk (lax.top_k :353-359): the K smallest 64-bit keys
+//   (~order(|dog|) << 32 | flat index: |dog| descending, then the lower
+//   index first, lax.top_k's order) of each block's candidate list, in
+//   order, in one launch whose plan (ops/dog.py topk_plan) depends on K and
+//   B only: the count stays on the device. Rows past the count are invalid
+//   and hold flat index 0. Any count and any order of the list are
+//   handled. Bound: the list read once (launch latency in practice). The
+//   first form, one block an entry, bitonic-sorted a power-of-two buffer
+//   of at least 2K keys whatever the count (8,192 at K = 4,096: 0.0847 ms
+//   for ~430 candidates), once for every K keys of the list. Now a block
+//   of 256 threads for every 256 rows of the answer: each builds the same
+//   array of the min(count, K) best keys in shared memory (the list itself
+//   when count <= K, the usual case; else a radix select of the K-th key,
+//   a histogram of one 8-bit digit a round, and the keys at or below it
+//   compacted in list order), then ranks its share of the array (the keys
+//   smaller, equal keys by position) and writes each to its row.
 //
 // K18 dog_localize (_localize_quadratic_device :259): one thread per
 //   candidate, up to 4 rounds: gradient and Hessian by central
@@ -95,7 +102,8 @@
 
 namespace {
 
-constexpr int kTopkThreads = 1024;
+constexpr int kTopkThreads = 256;  // K17's block
+constexpr int kTopkMaxK = 8192;    // ops/dog.py MAX_TOPK
 
 __device__ __forceinline__ int reflect(int i, int n) {
   if (n == 1) return 0;
@@ -560,55 +568,176 @@ __device__ __forceinline__ uint64_t topk_key(float v, uint32_t idx) {
   return (static_cast<uint64_t>(~ord) << 32) | idx;
 }
 
-__device__ void bitonic_sort(uint64_t* s, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint64_t a = s[i], c = s[ixj];
-          if ((a > c) == ((i & k) == 0)) {
-            s[i] = c;
-            s[ixj] = a;
-          }
+__device__ __forceinline__ uint64_t cand_key(const int* __restrict__ ci,
+                                             const float* __restrict__ cs,
+                                             int64_t i) {
+  return topk_key(cs[i], static_cast<uint32_t>(ci[i]));
+}
+
+// The n keys' exclusive prefix of a per-thread value v over the block
+// (kTopkThreads threads, thread order), and the block's total; sh holds
+// kTopkThreads / 32 + 1 values. Every thread calls it.
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* sh,
+                                               uint32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t o = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += o;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t t = 0;
+    for (int w = 0; w < kTopkThreads / 32; ++w) {
+      const uint32_t c = sh[w];
+      sh[w] = t;
+      t += c;
+    }
+    sh[kTopkThreads / 32] = t;
+  }
+  __syncthreads();
+  const uint32_t pre = sh[warp] + x - v;
+  *total = sh[kTopkThreads / 32];
+  __syncthreads();
+  return pre;
+}
+
+// The G blocks of batch entry b (grid (G, B), G kTopkThreads >= K) each
+// build the same array s of its m = min(n, K) best keys: the list itself
+// when n <= K; else a radix select of the K-th smallest key (8-bit digits
+// from the top, every block reading the list, stopping where a digit's
+// bucket is taken whole), then the keys below it and as many equal to it
+// as make K, compacted in list order by a block scan. Block g ranks s's
+// entries g kTopkThreads + t (the keys before it, equal keys by position)
+// and writes each to its row; rows m..K-1 of its share are invalid.
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_kernel(const int* __restrict__ cand_idx,
+                const float* __restrict__ cand_score,
+                const int* __restrict__ count, int64_t cap, int K, int Y,
+                int Z, int* __restrict__ idx_out,
+                uint8_t* __restrict__ valid_out) {
+  extern __shared__ uint64_t s[];
+  __shared__ uint32_t hist[256];
+  __shared__ uint32_t sh[kTopkThreads / 32 + 1];
+  __shared__ uint32_t pick[2];
+  const int b = blockIdx.y;
+  const int64_t c = count[b];
+  const int64_t n = c < 0 ? 0 : (c < cap ? c : cap);
+  const int m = n < K ? static_cast<int>(n) : K;
+  const int* ci = cand_idx + b * cap;
+  const float* cs = cand_score + b * cap;
+  if (n <= K) {
+    for (int i = threadIdx.x; i < m; i += kTopkThreads)
+      s[i] = cand_key(ci, cs, i);
+  } else {
+    uint64_t prefix = 0;
+    uint32_t need = static_cast<uint32_t>(K);  // rank among the matching
+    int shift = 64;
+    while (shift > 0) {
+      shift -= 8;
+      const uint64_t hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+      for (int i = threadIdx.x; i < 256; i += kTopkThreads) hist[i] = 0;
+      __syncthreads();
+      for (int64_t i = threadIdx.x; i < n; i += kTopkThreads) {
+        const uint64_t x = cand_key(ci, cs, i);
+        if (((x ^ prefix) & hi) == 0)
+          atomicAdd(&hist[static_cast<uint32_t>(x >> shift) & 255u], 1u);
+      }
+      __syncthreads();
+      if (threadIdx.x < 32) {  // the digit whose bucket holds the need-th
+        const int lane = threadIdx.x;
+        uint32_t own = 0;
+#pragma unroll
+        for (int d = 0; d < 8; ++d) own += hist[8 * lane + d];
+        uint32_t inc = own;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const uint32_t o = __shfl_up_sync(0xffffffffu, inc, d);
+          if (lane >= d) inc += o;
+        }
+        const uint32_t before = inc - own;
+        if (before < need && need <= inc) {
+          uint32_t below = before;
+          int d = 0;
+          while (below + hist[8 * lane + d] < need) below += hist[8 * lane + d++];
+          pick[0] = 8 * lane + d;
+          pick[1] = below;
         }
       }
       __syncthreads();
+      const uint32_t digit = pick[0];
+      prefix |= static_cast<uint64_t>(digit) << shift;
+      need -= pick[1];
+      const bool whole = hist[digit] == need;
+      __syncthreads();
+      if (whole) break;
+    }
+    // keys whose top 64 - shift bits are below prefix's: all; equal: the
+    // first `need` in list order
+    const uint64_t top = ~0ull << shift;
+    constexpr int E = 8;
+    uint32_t lt_base = 0, eq_base = 0;
+    for (int64_t c0 = 0; c0 < n; c0 += static_cast<int64_t>(kTopkThreads) * E) {
+      const int64_t i0 = c0 + static_cast<int64_t>(threadIdx.x) * E;
+      uint64_t x[E];
+      uint32_t cls = 0, lt = 0, eq = 0;  // cls: 2 bits an entry
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        x[e] = ~0ull;
+        if (i0 + e < n) {
+          x[e] = cand_key(ci, cs, i0 + e);
+          const uint64_t t = x[e] & top;
+          if (t < prefix) {
+            cls |= 1u << (2 * e);
+            ++lt;
+          } else if (t == prefix) {
+            cls |= 2u << (2 * e);
+            ++eq;
+          }
+        }
+      }
+      uint32_t total;
+      const uint32_t pre = block_scan(lt | (eq << 16), sh, &total);
+      uint32_t lb = lt_base + (pre & 0xffffu), eb = eq_base + (pre >> 16);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const uint32_t k = (cls >> (2 * e)) & 3u;
+        if (k == 1u) {
+          s[lb + (eb < need ? eb : need)] = x[e];
+          ++lb;
+        } else if (k == 2u) {
+          if (eb < need) s[lb + eb] = x[e];
+          ++eb;
+        }
+      }
+      lt_base += total & 0xffffu;
+      eq_base += total >> 16;
     }
   }
-}
-
-__global__ void topk_kernel(const int* __restrict__ cand_idx,
-                            const float* __restrict__ cand_score,
-                            const int* __restrict__ count, int64_t cap,
-                            int K, int S, int Y, int Z,
-                            int* __restrict__ idx_out,
-                            uint8_t* __restrict__ valid_out) {
-  extern __shared__ uint64_t s[];
-  const int b = blockIdx.x;
-  const int64_t n = count[b] < cap ? count[b] : cap;
-  const int* ci = cand_idx + b * cap;
-  const float* cs = cand_score + b * cap;
-  for (int e = threadIdx.x; e < K; e += blockDim.x) s[e] = ~0ull;
   __syncthreads();
-  const int room = S - K;
-  for (int64_t c0 = 0; c0 < n; c0 += room) {
-    for (int e = threadIdx.x; e < room; e += blockDim.x)
-      s[K + e] = c0 + e < n ? topk_key(cs[c0 + e],
-                                       static_cast<uint32_t>(ci[c0 + e]))
-                            : ~0ull;
-    __syncthreads();
-    bitonic_sort(s, S);
-  }
-  for (int e = threadIdx.x; e < K; e += blockDim.x) {
-    const uint64_t key = s[e];
-    const bool ok = key != ~0ull;
-    const int f = ok ? static_cast<int>(key & 0xffffffffu) : 0;
-    int* o = idx_out + (static_cast<int64_t>(b) * K + e) * 3;
-    o[0] = f / (Y * Z);
-    o[1] = (f / Z) % Y;
-    o[2] = f % Z;
-    valid_out[static_cast<int64_t>(b) * K + e] = ok ? 1 : 0;
+  const int i = blockIdx.x * kTopkThreads + threadIdx.x;
+  if (i < K) {
+    int f = 0;
+    if (i < m) {
+      const uint64_t x = s[i];
+      int r = 0;
+      for (int j = 0; j < m; ++j) {
+        const uint64_t y = s[j];
+        r += (y < x) | ((y == x) & (j < i));
+      }
+      f = static_cast<int>(x & 0xffffffffu);
+      int* o = idx_out + (static_cast<int64_t>(b) * K + r) * 3;
+      o[0] = f / (Y * Z);
+      o[1] = (f / Z) % Y;
+      o[2] = f % Z;
+      valid_out[static_cast<int64_t>(b) * K + r] = 1;
+    } else {
+      int* o = idx_out + (static_cast<int64_t>(b) * K + i) * 3;
+      o[0] = o[1] = o[2] = 0;
+      valid_out[static_cast<int64_t>(b) * K + i] = 0;
+    }
   }
 }
 
@@ -846,22 +975,25 @@ extern "C" int bst_dog_extrema(const float* b1, const float* b2, int B, int X,
                               cand_idx, cand_score, count, s));
 }
 
+// The launch plan is ops/dog.py topk_plan's: grid (ceil(K /
+// kTopkThreads), B), K keys of dynamic shared memory.
 extern "C" int bst_dog_topk(const int* cand_idx, const float* cand_score,
                             const int* count, int B, int X, int Y, int Z,
-                            int K, int S, int* idx_out, uint8_t* valid_out,
+                            int K, int G, int* idx_out, uint8_t* valid_out,
                             void* stream) {
   const int64_t vol = static_cast<int64_t>(X) * Y * Z;
   if (B < 1 || B > 65535 || X < 1 || Y < 1 || Z < 1 || vol > 2147483647LL ||
-      K < 1 || K > vol || S < 2 * K || (S & (S - 1)) != 0 || S > 16384)
+      K < 1 || K > vol || K > kTopkMaxK ||
+      G != (K + kTopkThreads - 1) / kTopkThreads)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(S) * sizeof(uint64_t);
+  const size_t smem = static_cast<size_t>(K) * sizeof(uint64_t);
   cudaError_t e = cudaFuncSetAttribute(
       topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  topk_kernel<<<B, kTopkThreads, smem, s>>>(cand_idx, cand_score, count, vol,
-                                            K, S, Y, Z, idx_out, valid_out);
+  topk_kernel<<<dim3(G, B), kTopkThreads, smem, s>>>(
+      cand_idx, cand_score, count, vol, K, Y, Z, idx_out, valid_out);
   return static_cast<int>(cudaGetLastError());
 }
 

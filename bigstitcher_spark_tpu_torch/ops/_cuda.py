@@ -78,7 +78,7 @@ _SIGNATURES = {
     "pcm": {
         "bst_pcm_window": [_VP] + [_I] * 5 + [_VP, _VP, _I, _VP, _VP, _VP],
         "bst_pcm_cross_power": [_VP, _VP, _I, _I64, _I, _VP, _VP, _VP],
-        "bst_pcm_peaks_topk": [_VP] + [_I] * 6 + [_VP, _VP, _VP],
+        "bst_pcm_peaks_topk": [_VP] + [_I] * 8 + [_VP] * 5,
     },
     "fft": {
         "bst_fft_pow2": [_VP, _VP, _VP, _I, _I, _I64, _I64, _I, _F, _VP],

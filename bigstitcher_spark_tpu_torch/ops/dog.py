@@ -61,8 +61,12 @@ from .downsample import downsample_batch, downsample_block_plain
 from .fusion import _IN_CODE, _require, _stream
 
 DOG_K = float(2.0 ** (1.0 / 4.0))
-# K17 keeps at most this many candidates per block (its shared buffer)
+# K17 keeps at most this many candidates per block (its shared array);
+# its launch plan (csrc/dog.cu): a block of TOPK_THREADS threads ranks that
+# many of the answer's rows
 MAX_TOPK = 8192
+TOPK_THREADS = 256
+TopkPlan = namedtuple("TopkPlan", "grid smem")
 # K15's launch plan (csrc/dog.cu): the run form walks BLUR_RUN outputs a
 # thread along a line (BLUR_RUN_THREADS threads a block), x and y, and z
 # where the radius exceeds BLUR_CHUNK; the row form stages at most
@@ -522,19 +526,26 @@ def dog_extrema(b1, b2, scale, threshold, origins, find_max=True,
 dog_extrema.launches = 0
 
 
-def _topk_buffer(k: int) -> int:
-    """K17's shared buffer: a power of two >= 2k, at least 2048 keys."""
-    s = 2048
-    while s < 2 * k:
-        s *= 2
-    return s
+def topk_plan(B: int, k: int) -> TopkPlan:
+    """K17's launch for a batch of ``B`` candidate lists and ``k``: a block
+    of TOPK_THREADS threads for every TOPK_THREADS rows of the answer,
+    ``grid`` (blocks a list, B), each holding ``smem`` bytes of keys (k of
+    8 bytes). The count is not known here: the same plan serves any count,
+    which the kernel reads on the device."""
+    B, k = int(B), int(k)
+    if not 1 <= B <= 65535:
+        raise ValueError(f"K17 takes 1 to 65535 lists, got {B}")
+    if not 1 <= k <= MAX_TOPK:
+        raise ValueError(f"k={k}: K17 keeps 1 to {MAX_TOPK} candidates")
+    return TopkPlan((_cdiv(k, TOPK_THREADS), B), 8 * k)
 
 
 def dog_topk(cand_idx, cand_score, count, k: int, shape):
     """K17 on CUDA, :func:`topk_plain` on the CPU: the ``k`` best of each
     block's candidates (|dog| descending, then the lower flat index) as
     idx (B, k, 3) int32 and valid (B, k) bool. ``shape`` is the block's
-    (X, Y, Z); ``k`` is at most :data:`MAX_TOPK`."""
+    (X, Y, Z); ``k`` is at most :data:`MAX_TOPK`. One launch over
+    :func:`topk_plan`'s grid; ``count`` stays on the device."""
     X, Y, Z = (int(s) for s in shape)
     k = int(k)
     if not 1 <= k <= min(MAX_TOPK, X * Y * Z):
@@ -547,11 +558,12 @@ def dog_topk(cand_idx, cand_score, count, k: int, shape):
     _require(cand_idx, "cand_idx", dev, _I32, (B, X * Y * Z))
     _require(cand_score, "cand_score", dev, _F32, (B, X * Y * Z))
     _require(count, "count", dev, _I32, (B,))
+    plan = topk_plan(B, k)
     idx = torch.empty((B, k, 3), dtype=torch.int32, device=dev)
     valid = torch.empty((B, k), dtype=torch.bool, device=dev)
     lib = _cuda.load("dog")
     ret = lib.bst_dog_topk(cand_idx.data_ptr(), cand_score.data_ptr(),
-                           count.data_ptr(), B, X, Y, Z, k, _topk_buffer(k),
+                           count.data_ptr(), B, X, Y, Z, k, plan.grid[0],
                            idx.data_ptr(), valid.data_ptr(), _stream(dev))
     _cuda.check(lib, ret, "dog_topk")
     dog_topk.launches += 1

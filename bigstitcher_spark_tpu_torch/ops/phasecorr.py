@@ -34,12 +34,15 @@ models/stitching.py).
 
 from __future__ import annotations
 
+import functools
 import math
+from collections import namedtuple
 
 import numpy as np
 import torch
 
 from . import _cuda
+from .descriptors import _sms
 from .fusion import _require, _stream
 
 # FFT lengths one K8 block holds (8192 complex: 1024 threads of 8 values)
@@ -49,8 +52,12 @@ MAX_PEAKS = 256
 
 _PCM_IN = {torch.uint16: 1, torch.float32: 3}   # fusion_common.cuh InDtype
 _FFT_MODE = {"c2c": 0, "r2c": 1, "c2r": 2}
-# voxels one K10 candidate block sorts (must match pcm.cu)
-_TOPK_TILE = 2048
+# K10's launch plan (csrc/pcm.cu): threads a block, y rows of a warp's unit
+# (kPeakRows), blocks an SM holds (kPeakBlocksPerSm, its __launch_bounds__)
+PEAKS_THREADS = 256
+PEAKS_ROWS = 4
+PEAKS_BLOCKS_PER_SM = 2
+PeaksPlan = namedtuple("PeaksPlan", "J xc grid")
 _F32 = (torch.float32,)
 _C64 = (torch.complex64,)
 _I32 = (torch.int32,)
@@ -345,9 +352,61 @@ def pcm_peaks_topk_plain(pcm: torch.Tensor, n_peaks: int) -> torch.Tensor:
     return _flat_to_xyz(order[:, :n_peaks], tuple(pcm.shape[1:]))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+@functools.lru_cache(maxsize=256)
+def peaks_plan(B: int, X: int, Y: int, Z: int, n_peaks: int,
+               sms: int = 132) -> PeaksPlan:
+    """K10's launch for a (B, X, Y, Z) PCM and ``n_peaks`` on a card of
+    ``sms`` multiprocessors. ``J``: a warp keeps N = 32 J >= n_peaks keys
+    (J a power of two). A unit is PEAKS_ROWS y rows x 32 z lanes of one
+    pair along a chunk of ``xc`` x planes, marched by one warp (loading
+    the plane on each side of its chunk too). The pair's warps are those
+    the card holds at once (PEAKS_BLOCKS_PER_SM blocks an SM, shared by
+    the B pairs); ``xc`` is the chunk whose units' longest march, in
+    planes (units a warp, each xc + 2 planes), is the shortest. ``grid``:
+    (P blocks a pair, B), one for every eight units at most."""
+    B, X, Y, Z, n = (int(v) for v in (B, X, Y, Z, n_peaks))
+    if min(B, X, Y, Z) < 1 or B > 65535:
+        raise ValueError(f"K10 needs a non-empty batch, got {(B, X, Y, Z)}")
+    if not 1 <= n <= min(MAX_PEAKS, X * Y * Z):
+        raise ValueError(f"n_peaks {n}: K10 keeps 1 to min({MAX_PEAKS}, "
+                         "voxels)")
+    if X * Y * Z >= 2 ** 31:
+        raise ValueError(f"pcm {(X, Y, Z)}: K10's flat indices are 31-bit")
+    J = 1
+    while 32 * J < n:
+        J *= 2
+    cols = _cdiv(Y, PEAKS_ROWS) * _cdiv(Z, 32)
+    warps = max(8, PEAKS_BLOCKS_PER_SM * int(sms) * 8 // B)
+    march, xc = None, X
+    for chunks in range(1, X + 1):
+        c = _cdiv(X, chunks)
+        if _cdiv(X, c) != chunks:
+            continue
+        planes = _cdiv(cols * chunks, warps) * (c + 2)
+        if march is None or planes < march:
+            march, xc = planes, c
+    units = cols * _cdiv(X, xc)
+    P = min(_cdiv(units, 8), warps // 8, 65535)
+    return PeaksPlan(J, xc, (P, B))
+
+
+@functools.lru_cache(maxsize=64)
+def _peaks_ticket(device: torch.device, stream: int, B: int):
+    """K10's per-pair ticket (int32, 0) and MAX_PEAKS threshold slots
+    (uint64 as int64, ~0) for launches of ``B`` pairs on ``stream``, as
+    they stand between launches (each pair's last block resets its own),
+    allocated at first use."""
+    return (torch.zeros(B, dtype=torch.int32, device=device),
+            torch.full((B, MAX_PEAKS), -1, dtype=torch.int64, device=device))
+
+
 def pcm_peaks_topk(pcm: torch.Tensor, n_peaks: int) -> torch.Tensor:
-    """K10 (``csrc/pcm.cu``, a candidate pass and a merge pass) on CUDA,
-    the plain version on the CPU. pcm (B, X, Y, Z) float32 ->
+    """K10 (``csrc/pcm.cu``, one launch over :func:`peaks_plan`'s grid) on
+    CUDA, the plain version on the CPU. pcm (B, X, Y, Z) float32 ->
     (B, n_peaks, 3) int32; ``n_peaks`` <= 256."""
     n_peaks = int(n_peaks)
     if not 1 <= n_peaks <= MAX_PEAKS:
@@ -357,16 +416,20 @@ def pcm_peaks_topk(pcm: torch.Tensor, n_peaks: int) -> torch.Tensor:
                          f"at least {n_peaks} voxels")
     if pcm.device.type == "cpu":
         return pcm_peaks_topk_plain(pcm, n_peaks)
-    _require(pcm, "pcm", pcm.device, _F32)
+    dev = pcm.device
+    _require(pcm, "pcm", dev, _F32)
     B, X, Y, Z = (int(s) for s in pcm.shape)
-    tiles = -(-(X * Y * Z) // _TOPK_TILE)
-    cand = torch.empty((B, tiles, n_peaks), dtype=torch.int64,
-                       device=pcm.device)
-    out = torch.empty((B, n_peaks, 3), dtype=torch.int32, device=pcm.device)
+    plan = peaks_plan(B, X, Y, Z, n_peaks, _sms(dev))
+    lists = torch.empty((B, plan.grid[0], n_peaks), dtype=torch.int64,
+                        device=dev)
+    out = torch.empty((B, n_peaks, 3), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    ticket, slots = _peaks_ticket(dev, stream, B)
     lib = _cuda.load("pcm")
-    ret = lib.bst_pcm_peaks_topk(pcm.data_ptr(), B, X, Y, Z, n_peaks, tiles,
-                                 cand.data_ptr(), out.data_ptr(),
-                                 _stream(pcm.device))
+    ret = lib.bst_pcm_peaks_topk(pcm.data_ptr(), B, X, Y, Z, n_peaks,
+                                 plan.J, plan.xc, plan.grid[0],
+                                 lists.data_ptr(), ticket.data_ptr(),
+                                 slots.data_ptr(), out.data_ptr(), stream)
     _cuda.check(lib, ret, "pcm_peaks_topk")
     pcm_peaks_topk.launches += 1
     return out

@@ -35,7 +35,9 @@ Phase 1  holds each kernel against its plain-torch twin on the card and
          window and K9 cross power (rtol 1e-5 / atol 1e-6), K8 FFT
          (max|delta| <= 2e-5 x max|X| per pair against torch.fft, whose
          rfftn + irfftn is its library yardstick; its six passes timed
-         alone too), K10 top-k (indices equal).
+         alone too), K10 top-k (indices equal to the twin's at n = 5 and
+         n = 256, and at both on a PCM of one maximum a pair, fewer than
+         n: the -inf fill by ascending index; timed at n = 5 and 256).
 Phase 2  route A, composite + pyramid epilogue: a synthetic 2x2x1 project
          of 1024x1024x128 uint16 tiles (the 2x2-binned frame of a 2048^2
          sCMOS light-sheet camera; ~10 % overlap, sub-pixel translations,
@@ -70,7 +72,8 @@ Phase 6  stitching through the port's CLI entry function: route A's
          K7-K10) is held stage by stage on its own stacks, at phase 1's
          tolerances: K7 against its twin, K8's rfftn / irfftn against
          torch.fft, K9 against its twin, K10 on the twins' PCM with
-         indices equal to the twin's top-k. The kernels' peaks must equal
+         indices equal to the twin's top-k (and K10 timed at each
+         bucket). The kernels' peaks must equal
          the twins' peaks computed on the card from the same stacks (or be
          a near tie of the twins' PCM values), and the stored shifts and r
          must equal those refined from the twins' peaks; on route A every
@@ -117,6 +120,8 @@ Phase 8  detect-interestpoints through the port's CLI entry function on
          must equal their twins bitwise, K16's response bitwise with equal
          candidate sets and counts, K17's indices and flags equal to its
          twin's and its index set equal to torch.topk's on the dense score,
+         at the run's k and at half the largest block's count (the
+         truncation path),
          K18 within 1e-5 px / rtol 1e-6, and the run's outputs equal the
          twins' program. Gates from the reference's own tests: at 8b each
          view detects at least 0.7 of the true beads 6 px inside it, and
@@ -128,7 +133,8 @@ Phase 8  detect-interestpoints through the port's CLI entry function on
          IO included) and the split (min/max, read, H2D, kernels by CUDA
          events, D2H, host tail, store). K15-K18 are timed at 8a's bucket
          beside their bounds (K15 also each of its six passes alone), K17
-         beside torch.topk on the dense score.
+         beside torch.topk on the dense score and on the candidate list's
+         scores, and at half the largest block's count (truncated).
          8d, 8a's arguments through detect_interest_points with
          extract_descriptors (K15-K18, then K19's masked form on each
          block's 4,096 candidate slots): points and values identical to
@@ -311,6 +317,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -429,6 +436,7 @@ SCALES = {
                  level_shape=(1952, 1952, 132), batch_box=(256, 256, 128),
                  sep_patch=(288, 288, 128), levels_a=5,
                  batch_box_d=(256, 256, 45), pcm_bucket=(2, 64, 512, 128),
+                 pcm_bucket_6=(2, 128, 1024, 256),
                  grid_g=(32, 32, 4), grid_bad=8, ip_grid=(16, 16, 2),
                  ip_pairs=500, solve_tile=(2048, 2048, 512), det_block=None,
                  det_block_c=(192, 192, 128), cloud=100_000,
@@ -439,6 +447,7 @@ SCALES = {
                  level_shape=(180, 148, 26), batch_box=(64, 64, 32),
                  sep_patch=(96, 96, 24), levels_a=2,
                  batch_box_d=(64, 64, 9), pcm_bucket=(2, 16, 64, 32),
+                 pcm_bucket_6=(2, 32, 64, 32),
                  grid_g=(8, 8, 2), grid_bad=2, ip_grid=(3, 3, 2),
                  ip_pairs=30, solve_tile=(256, 256, 64),
                  det_block=(32, 32, 16), det_block_c=(32, 32, 16),
@@ -1223,6 +1232,24 @@ def check_fft(got, ref, what):
                              f"2e-5 x {m:.4g}")
 
 
+def pcm_crops(rng, c, bucket):
+    """A stitching bucket's stacks: B pairs of X x Y x Z uint16 crops
+    (random in a true extent a little below the bucket's, zero beyond),
+    each b a's copy rolled by (2, -3, 1); returns (a, b, ext) through
+    ``c``."""
+    import numpy as np
+
+    B, X, Y, Z = bucket
+    ext = np.array([[X - X // 5 - k, Y - 2 - k, Z] for k in range(B)],
+                   np.int32)
+    a = np.zeros(bucket, np.uint16)
+    for k in range(B):
+        e = ext[k]
+        a[k, :e[0], :e[1], :e[2]] = rng.integers(90, 4000, tuple(e))
+    b = np.roll(a, (2, -3, 1), axis=(1, 2, 3))
+    return c(a), c(b), c(ext)
+
+
 def pcm_times(rng, c, bucket):
     """K7-K10 at one stitching bucket (B pairs of X x Y x Z uint16 crops,
     each b a shifted copy of its a) against their twins, with times and
@@ -1233,14 +1260,7 @@ def pcm_times(rng, c, bucket):
     from bigstitcher_spark_tpu_torch.ops import phasecorr as P
 
     B, X, Y, Z = bucket
-    ext = np.array([[X - X // 5 - k, Y - 2 - k, Z] for k in range(B)],
-                   np.int32)
-    a = np.zeros(bucket, np.uint16)
-    for k in range(B):
-        e = ext[k]
-        a[k, :e[0], :e[1], :e[2]] = rng.integers(90, 4000, tuple(e))
-    b = np.roll(a, (2, -3, 1), axis=(1, 2, 3))
-    a, b, ext = c(a), c(b), c(ext)
+    a, b, ext = pcm_crops(rng, c, bucket)
     n, m = B * X * Y * Z, B * X * Y * (Z // 2 + 1)
     res = {}
 
@@ -1294,8 +1314,49 @@ def pcm_times(rng, c, bucket):
     res["pcm_peaks_topk"] = dict(
         err=0.0, ms=ms10, wrapper_ms=ms10,
         plain_ms=time_ms(lambda: P.pcm_peaks_topk_plain(pcm, 5), reps=5),
-        library_ms=None, bound=bound(n * 4, n * OPS["topk"]))
+        library_ms=None, bound=bound(n * 4, n * OPS["topk"]),
+        **peaks_more(pcm))
     return res
+
+
+def fill_pcm(shape, device):
+    """A PCM with fewer local maxima than K10's n: one smooth periodic bump
+    a pair (a single maximum, plateau-free), so the answer is the maximum,
+    then the -inf of non-maxima by ascending flat index."""
+    import torch
+
+    B, X, Y, Z = shape
+    g = [torch.arange(s, dtype=torch.float32, device=device) for s in
+         (X, Y, Z)]
+    bump = sum(torch.cos(2 * math.pi * (v - 1.0 - k) / s).view(
+        [-1 if a == ax else 1 for a in range(3)])
+        for ax, (v, s, k) in enumerate(zip(g, (X, Y, Z), (3, 2, 1))))
+    return torch.stack([bump * (1.0 + b) for b in range(B)]).contiguous()
+
+
+def peaks_more(pcm):
+    """K10 beyond phase 1's n = 5: at n = 256 (its largest) against its
+    twin and timed, and on :func:`fill_pcm` at n = 5 and 256 against its
+    twin (the -inf fill by ascending index)."""
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    shape = tuple(pcm.shape)
+    n = 256 if pcm[0].numel() >= 256 else int(pcm[0].numel())
+    check(torch.equal(P.pcm_peaks_topk(pcm, n), P.pcm_peaks_topk_plain(pcm, n)),
+          f"K10 top-{n} of {shape}: indices equal to the twin's")
+    fill = fill_pcm(shape, pcm.device)
+    for m in (5, n):
+        check(torch.equal(P.pcm_peaks_topk(fill, m),
+                          P.pcm_peaks_topk_plain(fill, m)),
+              f"K10 top-{m} of {shape} with one maximum a pair (the -inf "
+              "fill): indices equal to the twin's")
+    return dict(n256_ms=time_ms(lambda: P.pcm_peaks_topk(pcm, n)),
+                n256_wrapper_ms=time_ms(lambda: P.pcm_peaks_topk(pcm, n),
+                                        host=True),
+                n256_plain_ms=time_ms(lambda: P.pcm_peaks_topk_plain(pcm, n),
+                                      reps=5))
 
 
 def phase1_kernels(dev, scale, card):
@@ -1933,6 +1994,10 @@ def check_close(got, ref, what, rtol=1e-5, atol=1e-6):
           f"(max|delta| {max_abs(got, ref):.3g}, {bad} outside)")
 
 
+# K10 at each bucket phase 6 sent it: {bucket, n, ms, bound_ms}
+PHASE6_PEAKS = []
+
+
 def check_bucket(what, a, b, ea, eb, n_peaks):
     """One stitching bucket's stacks through K7-K10 stage by stage, each
     held against its plain twin (K8 against torch.fft) at phase 1's
@@ -1963,6 +2028,13 @@ def check_bucket(what, a, b, ea, eb, n_peaks):
     check(torch.equal(P.pcm_peaks_topk(pcm, n_peaks), peaks),
           f"{what} K10 top-{n_peaks} of the twins' PCM: indices equal to "
           "the twin's")
+    if torch.cuda.is_available():
+        ms = time_ms(lambda: P.pcm_peaks_topk(pcm, n_peaks))
+        b = bound(pcm.numel() * 4, pcm.numel() * OPS["topk"])[0]
+        PHASE6_PEAKS.append(dict(bucket=list(pcm.shape), n=n_peaks, ms=ms,
+                                 bound_ms=b))
+        print(f"  {what} K10 top-{n_peaks}: kernel {ms} ms  bound {b:.4f} "
+              "ms (bytes)", flush=True)
     return peaks, pcm
 
 
@@ -2497,10 +2569,9 @@ def phase7_solver(work, scale, proj_a, dev, card, launches):
 def check_det_bucket(what, rec, dev):
     """K6 and K15-K18 against their twins, run on the card from one batch
     the detection run sent: K6 and each of the six blur passes bitwise,
-    K16's response bitwise with equal candidate sets and counts, K17's
-    indices and flags equal to its twin's from the same candidates and its
-    index set equal to torch.topk's on the dense score (unless the K-th
-    score is tied), K18 within 1e-5 px / rtol 1e-6 of its twin, and the
+    K16's response bitwise with equal candidate sets and counts, K17 at the
+    run's k and at half the largest block's count (:func:`topk_against`),
+    K18 within 1e-5 px / rtol 1e-6 of its twin, and the
     whole program against the twins' program. Returns max |delta| per
     kernel."""
     import numpy as np
@@ -2543,28 +2614,16 @@ def check_det_bucket(what, rec, dev):
           f"{what}: K16 response bitwise, candidate sets and counts "
           f"{cnt.tolist()} equal to the twin's")
     shape = tuple(int(s) for s in dog.shape[1:])
-    idx, valid = G.dog_topk(ci, cs, cnt, k, shape)
-    pidx, pvalid = G.topk_plain(ci, cs, cnt, k, shape)
-    check(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
-          f"{what}: K17 indices and flags equal to the twin's (k={k})")
-    err["dog_topk"] = float((idx != pidx).sum() + (valid != pvalid).sum())
     _d, mask = G.extrema_plain(*args[:-1], False)
     score = torch.where(mask, dog.abs(), -np.inf).reshape(dog.shape[0], -1)
     del _d, mask
-    top = torch.topk(score, min(k + 1, score.shape[1]), dim=1)
-    for b in range(dog.shape[0]):
-        n = int(cnt[b])
-        if n > k and float(top.values[b, k - 1]) == float(top.values[b, k]):
-            print(f"  {what} block {b}: the K-th score is tied; torch.topk "
-                  "may keep another of the tied", flush=True)
-            continue
-        f = (idx[b, :, 0].long() * shape[1] + idx[b, :, 1]) * shape[2] \
-            + idx[b, :, 2]
-        lib = top.indices[b, :k][top.values[b, :k] > -np.inf]
-        check(set(f[valid[b]].tolist()) == set(lib.tolist()),
-              f"{what} block {b}: K17's index set equals torch.topk's on the "
-              f"dense score ({min(n, k)} of {n})")
-    del score, top
+    idx, valid = topk_against(what, ci, cs, cnt, k, shape, score)
+    err["dog_topk"] = 0.0
+    # the truncation path on the card: a k below the largest block's count
+    kt = max(1, int(cnt.max()) // 2)
+    if kt < int(cnt.max()):
+        topk_against(what, ci, cs, cnt, kt, shape, score)
+    del score
     sub, val = G.dog_localize(dog, idx, valid)
     psub, pval = G.localize_plain(dog, idx, valid)
     err["dog_localize"] = max_abs(sub, psub)
@@ -2583,10 +2642,57 @@ def check_det_bucket(what, rec, dev):
     return err
 
 
+def topk_against(what, ci, cs, cnt, k, shape, score):
+    """K17 on one batch's candidates at ``k``: indices and flags equal to
+    its twin's, and each block's index set equal to torch.topk's on the
+    dense score (B, voxels; -inf off the candidates) unless the k-th score
+    is tied. Returns (idx, valid)."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+
+    idx, valid = G.dog_topk(ci, cs, cnt, k, shape)
+    pidx, pvalid = G.topk_plain(ci, cs, cnt, k, shape)
+    cut = [b for b, n in enumerate(cnt.tolist()) if n > k]
+    check(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
+          f"{what}: K17 indices and flags equal to the twin's (k={k}; "
+          f"blocks truncated: {cut})")
+    top = torch.topk(score, min(k + 1, score.shape[1]), dim=1)
+    for b in range(score.shape[0]):
+        n = int(cnt[b])
+        if n > k and float(top.values[b, k - 1]) == float(top.values[b, k]):
+            print(f"  {what} block {b} (k={k}): the K-th score is tied; "
+                  "torch.topk may keep another of the tied", flush=True)
+            continue
+        f = (idx[b, :, 0].long() * shape[1] + idx[b, :, 1]) * shape[2] \
+            + idx[b, :, 2]
+        lib = top.indices[b, :k][top.values[b, :k] > -np.inf]
+        check(set(f[valid[b]].tolist()) == set(lib.tolist()),
+              f"{what} block {b}: K17's index set equals torch.topk's on the "
+              f"dense score (k={k}: {min(n, k)} of {n})")
+    return idx, valid
+
+
+def list_scores(cs, cnt):
+    """The candidate lists' scores as one (B, max count) tensor, -inf past
+    each block's count: what torch.topk reads for the same selection as
+    K17 (up to ties)."""
+    import numpy as np
+    import torch
+
+    m = max(int(cnt.max()), 1)
+    cols = torch.arange(m, device=cs.device)
+    return torch.where(cols[None, :] < cnt[:, None].long(), cs[:, :m],
+                       -np.inf).contiguous()
+
+
 def det_kernel_times(rec, card):
     """K15-K18 alone at one recorded batch (8a's bucket), timed with CUDA
     events beside their twins, their bounds and, for K17, torch.topk on the
-    dense score (the library yardstick, used nowhere in the port)."""
+    dense score and on the candidate list's scores (the library
+    yardsticks, used nowhere in the port), and K17 at half the largest
+    block's count (truncated)."""
     import numpy as np
     import torch
 
@@ -2629,11 +2735,21 @@ def det_kernel_times(rec, card):
         library_ms=None,
         bound=bound(12 * B * n + 8 * cand, 3 * B * n + OPS["dog_window"]
                     * past))
+    lst = list_scores(cs, cnt)
+    kl = min(k, lst.shape[1])
+    kt = max(1, int(cnt.max()) // 2)
     res["dog_topk"] = dict(
         ms=time_ms(lambda: G.dog_topk(ci, cs, cnt, k, shape)),
         plain_ms=time_ms(lambda: G.topk_plain(ci, cs, cnt, k, shape)),
         library_ms=time_ms(lambda: torch.topk(score, k, dim=1)),
+        library_list_ms=time_ms(lambda: torch.topk(lst, kl, dim=1)),
+        truncated_k=kt,
+        truncated_ms=time_ms(lambda: G.dog_topk(ci, cs, cnt, kt, shape)),
+        truncated_plain_ms=time_ms(lambda: G.topk_plain(ci, cs, cnt, kt,
+                                                        shape)),
+        truncated_library_list_ms=time_ms(lambda: torch.topk(lst, kt, dim=1)),
         bound=bound(8 * cand + 13 * B * k, cand))
+    del lst
     # K18: one round a valid candidate (4 B per gather, 12 + 1 in, 16 out)
     res["dog_localize"] = dict(
         ms=time_ms(lambda: G.dog_localize(dog, idx, valid)),
@@ -2658,8 +2774,13 @@ def det_kernel_times(rec, card):
               f"candidates, {nvalid} kept) [{card}]: kernel {r['ms']} ms  "
               f"plain {r['plain_ms']} ms  bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})" + (f"  library {r['library_ms']} ms"
-                                      if r["library_ms"] is not None else ""),
-              flush=True)
+                                      if r["library_ms"] is not None else "")
+              + (f" (on the list's scores {r['library_list_ms']} ms); "
+                 f"truncated at k {r['truncated_k']}: kernel "
+                 f"{r['truncated_ms']} ms  plain {r['truncated_plain_ms']} ms"
+                 f"  library on the list "
+                 f"{r['truncated_library_list_ms']} ms"
+                 if "library_list_ms" in r else ""), flush=True)
     return res
 
 
@@ -4328,6 +4449,110 @@ def dog_yardsticks(dev, card, outputs=None, scale="full"):
                      if "bitwise_vs_saved" in r else ""), flush=True)
             out[f"dog_extrema {form}"] = r
         del b1, b2
+    return out
+
+
+def peaks_yardsticks(dev, card, outputs=None, scale="full"):
+    """K10 at phase 1's stitching bucket (2 x 64 x 512 x 128) at n = 5 and
+    256 and on :func:`fill_pcm` (one maximum a pair) at n = 5, and at
+    phase 6's largest bucket at n = 5 (the stitching default), on the PCM
+    the twins make of :func:`pcm_crops`' stacks (torch.fft for K8: the
+    same input for every tree). Each bitwise its twin's, card time, time
+    with the host's, bound; with ``outputs`` the peaks held bit for bit
+    across trees."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    cfg = SCALES[scale]
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    out = {}
+    for bucket, ns in ((cfg["pcm_bucket"], (5, 256)),
+                       (cfg["pcm_bucket_6"], (5,))):
+        a, b, ext = pcm_crops(np.random.default_rng(2024), c, bucket)
+        pcm = P.pcm_peaks_plain(a, b, ext, ext, 5, return_pcm=True)[1]
+        pcm = pcm.contiguous()
+        del a, b
+        cases = [(str(n), pcm, n) for n in ns]
+        if bucket == cfg["pcm_bucket"]:
+            cases.append(("5 fill", fill_pcm(bucket, dev), 5))
+        for label, x, n in cases:
+            name = f"pcm_peaks_topk {','.join(map(str, bucket))} n {label}"
+            got = P.pcm_peaks_topk(x, n)
+            check(torch.equal(got, P.pcm_peaks_topk_plain(x, n)),
+                  f"{name}: indices equal to the twin's")
+            run = lambda x=x, n=n: P.pcm_peaks_topk(x, n)
+            r = dict(ms=time_ms(run), wrapper_ms=time_ms(run, host=True),
+                     bound=bound(x.numel() * 4, x.numel() * OPS["topk"]))
+            if hasattr(P, "peaks_plan") and dev.type == "cuda":
+                r["plan"] = str(P.peaks_plan(*x.shape, n, P._sms(dev)))
+            hold_outputs(outputs, name, [got], r)
+            print(f"  {name} [{card}]: kernel {r['ms']} ms  with the host's "
+                  f"time {r['wrapper_ms']} ms  bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]})"
+                  + (f"  plan {r['plan']}" if "plan" in r else "")
+                  + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+                     if "bitwise_vs_saved" in r else ""), flush=True)
+            out[name] = r
+        del pcm, cases
+    return out
+
+
+def topk_yardsticks(dev, card, outputs=None, scale="full"):
+    """K17 at 8a's bucket (2 blocks of 528 x 528 x 144, k 4,096; ``scale``
+    tiny: 40 x 36 x 20, k 256) on candidate lists from a seed (distinct
+    flat indices in random order, scores as |dog| past 8a's threshold):
+    "8a", 430 and 431 candidates (8a's ~430 a block); "truncated", 50,000
+    a block (tiny: 1,000). Each against its twin (indices and flags
+    bitwise) and torch.topk's index sets on the dense score; card time,
+    time with the host's, the twin, torch.topk on the dense score and on
+    the list's scores (:func:`list_scores`), bound; with ``outputs``
+    indices and flags held bit for bit across trees."""
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import dog as G
+
+    full = scale == "full"
+    shape = (528, 528, 144) if full else (40, 36, 20)
+    vol, k, B = int(np.prod(shape)), 4096 if full else 256, 2
+    out = {}
+    for label, counts in (("8a", (430, 431) if full else (20, 21)),
+                          ("truncated", (50_000,) * 2 if full else (1000,) * 2)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1717)
+        ci = torch.zeros((B, vol), dtype=torch.int32, device=dev)
+        cs = torch.zeros((B, vol), dtype=torch.float32, device=dev)
+        dense = torch.full((B, vol), -np.inf, device=dev)
+        for b, m in enumerate(counts):
+            ci[b, :m] = torch.randperm(vol, generator=g, device=dev)[:m].int()
+            cs[b, :m] = 0.008 + torch.rand(m, generator=g, device=dev)
+            dense[b, ci[b, :m].long()] = cs[b, :m]
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        name = f"dog_topk {label}"
+        idx, valid = topk_against(f"{name} at {B} x {shape}", ci, cs, cnt, k,
+                                  shape, dense)
+        lst = list_scores(cs, cnt)
+        run = lambda: G.dog_topk(ci, cs, cnt, k, shape)
+        cand = sum(counts)
+        r = dict(ms=time_ms(run), wrapper_ms=time_ms(run, host=True),
+                 plain_ms=time_ms(lambda: G.topk_plain(ci, cs, cnt, k, shape),
+                                  reps=5),
+                 library_ms=time_ms(lambda: torch.topk(dense, k, dim=1)),
+                 library_list_ms=time_ms(lambda: torch.topk(
+                     lst, min(k, lst.shape[1]), dim=1)),
+                 bound=bound(8 * cand + 13 * B * k, cand), counts=counts, k=k)
+        hold_outputs(outputs, name, [idx, valid], r)
+        print(f"  {name} at {B} x {shape} (k {k}, counts {counts}) [{card}]: "
+              f"kernel {r['ms']} ms  with the host's time {r['wrapper_ms']} "
+              f"ms  plain {r['plain_ms']} ms  library {r['library_ms']} ms "
+              f"(on the list's scores {r['library_list_ms']} ms)  bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})"
+              + (f"  vs the saved run: bitwise {r['bitwise_vs_saved']}"
+                 if "bitwise_vs_saved" in r else ""), flush=True)
+        out[name] = r
+        del ci, cs, dense, lst
     return out
 
 
@@ -6581,7 +6806,10 @@ def main(argv=None) -> int:
             **{k: v for k, v in r.items()
                if k.startswith(("halfpixel_", "route_d_", "at_9a_",
                                 "at_15b_", "partial_", "sharded_",
-                                "pair_"))},
+                                "pair_", "n256_", "truncated_",
+                                "library_list_"))},
+            # K10 at each bucket phase 6 sent it
+            **({"at_6": PHASE6_PEAKS} if name == "pcm_peaks_topk" else {}),
             # K24's partial form (phase 15b): its launches; K29: one
             # sweep of 15a alone, sharded and on one device
             **({"partial_launches": launches["cg_spmv_partial"]}

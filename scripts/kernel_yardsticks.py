@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""K8 (FFT), K24 (CG product) and K29 (shard sum) beside their library
-yardsticks, and K20 (ratio test), K15 (blur pass), K16 (DoG extrema), K3
-(gather), K26 (nonrigid), K1 (composite), K12 (relax fits), K21 (RANSAC
-scores), K22 (refits), K6 (downsampling), K2 (shift), K5 (separable), K28
-(block epilogue), K19 (kNN descriptors) and K24's partial form beside
-their bounds, and phase 10's walls, on one GPU.
+"""K8 (FFT), K24 (CG product), K29 (shard sum) and K17 (DoG top-k) beside
+their library yardsticks, and K20 (ratio test), K15 (blur pass), K16 (DoG
+extrema), K3 (gather), K26 (nonrigid), K1 (composite), K12 (relax fits),
+K21 (RANSAC scores), K22 (refits), K6 (downsampling), K2 (shift), K5
+(separable), K28 (block epilogue), K19 (kNN descriptors), K10 (PCM peaks)
+and K24's partial form beside their bounds, and phase 10's walls, on one
+GPU.
 
     python3 scripts/kernel_yardsticks.py [--root TREE] [--scale full|tiny]
         [--buckets B,X,Y,Z;...] [--lanes G,G,...]
         [--only fft|cg|ratio|blur|gather|nonrigid|composite|fit|ransac|
-                downsample|blocks|intensity|shard|loops|knn|dog[,...]]
+                downsample|blocks|intensity|shard|loops|knn|dog|peaks|
+                topk[,...]]
         [--sigmas S,S,...] [--outputs DIR] [--build-times LIB,LIB,...]
 
 Imports the port from ``--root`` (default: the checkout this script lives
@@ -79,6 +81,20 @@ its own ``fft`` and ``cg`` libraries. The timing and the checks are
   its dense mask form, each bitwise against its twin (candidate lists as
   sets), card time, time with the host's, bound; with ``--outputs DIR``
   dog, the sorted candidate lists, counts and the mask held bitwise;
+- ``peaks_yardsticks``: ``peaks`` is K10 at phase 1's bucket (2 x 64 x
+  512 x 128) at n = 5 and 256 and with one maximum a pair (the -inf fill)
+  at n = 5, and at phase 6's largest bucket at n = 5, on the twins' PCM of
+  seeded crops: each bitwise its twin's, card time, time with the host's,
+  bound; with ``--outputs DIR`` the peaks saved or compared bitwise. On a
+  tree whose K10 is the two-pass form (a candidate kernel, then a merge
+  kernel) each pass is also timed alone at phase 1's bucket: the tree's
+  ``csrc/pcm.cu`` is built again with two launchers added, one a pass;
+- ``topk_yardsticks``: ``topk`` is K17 at 8a's bucket (2 blocks of 528 x
+  528 x 144, k 4,096) on seeded candidate lists, 430 / 431 candidates
+  (8a's) and 50,000 a block (truncated): each bitwise its twin's and
+  holding torch.topk's index sets, card time, time with the host's, the
+  twin, torch.topk on the dense score and on the list's scores, bound;
+  with ``--outputs DIR`` indices and flags saved or compared bitwise;
 - ``downsample_yardsticks``: ``downsample`` is K6's level form at route
   A's first pyramid step (1952x1952x132 uint16), its batch form at the
   downsample stage's boxes (4 x 256x256x128 / (2,2,2)) and at route D's
@@ -161,14 +177,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated: fft, cg, ratio, blur, gather, "
                          "nonrigid, composite, fit, ransac, downsample, "
-                         "blocks, intensity, shard, loops, knn, dog "
-                         "(default fft,cg)")
+                         "blocks, intensity, shard, loops, knn, dog, peaks, "
+                         "topk (default fft,cg)")
     ap.add_argument("--sigmas", default="1.8",
                     help="K15's blur sigmas, S,S,... (default 1.8)")
     ap.add_argument("--outputs", default=None,
                     help="K3's, K26's, K1's, K12's, K21's, K22's, K6's, "
-                         "K24's, K2's, K5's, K28's, K19's, K14's and K16's "
-                         "outputs "
+                         "K24's, K2's, K5's, K28's, K19's, K14's, K16's, "
+                         "K10's and K17's outputs "
                          "saved here, or "
                          "compared bitwise with those an earlier run saved "
                          "here")
@@ -179,7 +195,7 @@ def main(argv=None) -> int:
     only = tuple(args.only.split(",")) if args.only else ("fft", "cg")
     kinds = ("fft", "cg", "ratio", "blur", "gather", "nonrigid", "composite",
              "fit", "ransac", "downsample", "blocks", "intensity", "shard",
-             "loops", "knn", "dog")
+             "loops", "knn", "dog", "peaks", "topk")
     if any(k not in kinds for k in only):
         ap.error(f"--only takes {', '.join(kinds)}")
     root = os.path.abspath(args.root)
@@ -248,6 +264,14 @@ def main(argv=None) -> int:
         if "dog" in only:
             out.update(CS.dog_yardsticks(dev, card, args.outputs,
                                          args.scale))
+        if "peaks" in only:
+            out.update(CS.peaks_yardsticks(dev, card, args.outputs,
+                                           args.scale))
+            if dev.type == "cuda":
+                out.update(two_pass_times(root, cfg["pcm_bucket"], card, CS))
+        if "topk" in only:
+            out.update(CS.topk_yardsticks(dev, card, args.outputs,
+                                          args.scale))
         if "gather" in only or "nonrigid" in only:
             out.update(CS.resample_yardsticks(only, dev, card, args.outputs,
                                               args.scale))
@@ -319,6 +343,93 @@ def cg_step(sysm, dev, R):
     p_new, ap = torch.empty(sysm.n, **f64), torch.empty(sysm.n, **f64)
     R.cg_spmv(sysm, r, p_old, p_new, ap, d, i)
     return p_new, ap, d
+
+
+# launchers of each pass of the two-pass K10 alone (appended to that
+# form's csrc/pcm.cu, whose kernels they launch as its launcher does)
+_TWO_PASS = r'''
+extern "C" int bst_k10_pass1(const float* pcm, int B, int X, int Y, int Z,
+                             int n_peaks, int tiles, uint64_t* cand,
+                             void* stream) {
+  topk_candidates_kernel<<<dim3(tiles, B), bst::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      pcm, X, Y, Z, n_peaks, tiles, cand);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int bst_k10_pass2(const uint64_t* cand, int B, int n_peaks,
+                             int tiles, int Y, int Z, int* out,
+                             void* stream) {
+  topk_merge_kernel<<<B, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      cand, static_cast<int64_t>(tiles) * n_peaks, n_peaks, Y, Z, out);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+
+def two_pass_times(root, bucket, card, CS):
+    """On a tree whose K10 is the two-pass form (``topk_merge_kernel`` in
+    its csrc/pcm.cu): each pass alone at ``bucket``, n = 5 and 256, in card
+    time, on the twins' PCM of :func:`chip_smoke.pcm_crops`' stacks; the
+    pair's outputs checked against the twin's. Built from the tree's
+    source with the two launchers of ``_TWO_PASS`` added, by its own nvcc
+    flags, in ``smoke_work/`` of the tree (removed after). {} on other
+    trees."""
+    import ctypes
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from bigstitcher_spark_tpu_torch.ops import _cuda
+    from bigstitcher_spark_tpu_torch.ops import phasecorr as P
+
+    with open(os.path.join(_cuda.CSRC, "pcm.cu")) as f:
+        src = f.read()
+    if "topk_merge_kernel" not in src:
+        return {}
+    work = os.path.join(root, "smoke_work", "k10_passes")
+    os.makedirs(work, exist_ok=True)
+    try:
+        cu = os.path.join(work, "pcm_passes.cu")
+        with open(cu, "w") as f:
+            f.write(src + _TWO_PASS)
+        so = os.path.join(work, "libpcm_passes.so")
+        subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-I", _cuda.CSRC,
+                        "-o", so, cu], check=True, capture_output=True)
+        lib = ctypes.CDLL(so)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.bst_k10_pass1.argtypes = [vp] + [i] * 6 + [vp, vp]
+        lib.bst_k10_pass2.argtypes = [vp] + [i] * 5 + [vp, vp]
+        dev = torch.device("cuda", 0)
+        c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        a, b, ext = CS.pcm_crops(np.random.default_rng(2024), c, bucket)
+        pcm = P.pcm_peaks_plain(a, b, ext, ext, 5, return_pcm=True)[1]
+        pcm = pcm.contiguous()
+        B, X, Y, Z = bucket
+        tiles = -(-(X * Y * Z) // 2048)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = {}
+        for n in (5, 256):
+            cand = torch.empty((B, tiles, n), dtype=torch.int64, device=dev)
+            res = torch.empty((B, n, 3), dtype=torch.int32, device=dev)
+            one = lambda n=n, cand=cand: lib.bst_k10_pass1(
+                pcm.data_ptr(), B, X, Y, Z, n, tiles, cand.data_ptr(), stream)
+            two = lambda n=n, cand=cand, res=res: lib.bst_k10_pass2(
+                cand.data_ptr(), B, n, tiles, Y, Z, res.data_ptr(), stream)
+            one()
+            two()
+            CS.check(torch.equal(res, P.pcm_peaks_topk_plain(pcm, n)),
+                     f"two-pass K10 at {bucket}, n {n}, pass by pass: "
+                     "indices equal to the twin's")
+            r = dict(pass1_ms=CS.time_ms(one), pass2_ms=CS.time_ms(two),
+                     both_ms=CS.time_ms(lambda: (one(), two())))
+            print(f"  pcm_peaks_topk two-pass form at {bucket} n {n} "
+                  f"[{card}]: pass 1 {r['pass1_ms']} ms  pass 2 "
+                  f"{r['pass2_ms']} ms  both {r['both_ms']} ms", flush=True)
+            out[f"pcm_peaks_topk passes n {n}"] = r
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def shard_yardsticks(dev, card, cfg, CS, R, OI, outputs=None):

@@ -623,6 +623,70 @@ def test_pcm_peaks_topk_kernel(dev, shape, n):
                        P.pcm_peaks_topk_plain(pcm, n))
 
 
+def _spikes(shape, at, base=None):
+    """(B, X, Y, Z) float32: a smooth periodic floor (one maximum a pair,
+    at the origin, or ``base``) with spikes of 10 + k at the points ``at``
+    (pair, x, y, z) -> local maxima exactly there and at the floor's."""
+    B, X, Y, Z = shape
+    g = np.meshgrid(*[np.cos(2 * np.pi * np.arange(s) / s) for s in
+                      (X, Y, Z)], indexing="ij")
+    floor = (sum(g) if base is None else base).astype(np.float32)
+    pcm = np.repeat(floor[None], B, 0)
+    for k, (b, x, y, z) in enumerate(at):
+        pcm[b, x, y, z] = 10.0 + k
+    return torch.from_numpy(pcm)
+
+
+@pytest.mark.parametrize("case", ["one_block", "fewer_spread", "axis_1",
+                                  "axis_2", "b5", "n256_ties",
+                                  "after_skips"])
+def test_pcm_peaks_topk_plans(dev, case):
+    """K10's one-launch plan at its edges, bitwise its twin: every maximum
+    of a pair inside one block's units (the others' lists hold only -inf
+    keys); fewer maxima than n spread over blocks (the -inf fill by
+    ascending index); axes of length 1 and 2 (the wrap lands on the voxel
+    itself); B = 5 pairs; n = 256 on integer values (ties); at phase 1's
+    bucket, spikes that set the threshold early, then, after planes the
+    threshold lets pass untested, spikes beside lower ones in the same
+    plane and the plane before (their 3x3 maxima taken afresh)."""
+    rng = np.random.default_rng(24)
+    if case == "one_block":
+        shape, n = (2, 64, 64, 32), 9
+        plan = P.peaks_plan(*shape, n, DS._sms(dev))
+        assert plan.grid[0] > 8
+        pcm = _spikes(shape, [(b, 1, 2 + 2 * k, 5) for b in range(2)
+                              for k in range(3)])
+    elif case == "fewer_spread":
+        shape, n = (2, 64, 64, 32), 40
+        pcm = _spikes(shape, [(b, x, y, 7) for b in range(2)
+                              for x, y in ((5, 60), (33, 2), (60, 31))])
+    elif case == "axis_1":
+        shape, n = (3, 1, 48, 1), 20
+        pcm = torch.from_numpy(rng.integers(0, 9, shape).astype(np.float32))
+    elif case == "axis_2":
+        shape, n = (2, 2, 33, 2), 17
+        pcm = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    elif case == "b5":
+        shape, n = (5, 16, 40, 24), 5
+        pcm = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    elif case == "n256_ties":
+        shape, n = (2, 32, 64, 130), 256
+        pcm = torch.from_numpy(rng.integers(0, 40, shape).astype(np.float32))
+    else:
+        shape, n = (2, 64, 512, 128), 5
+        x = rng.random(shape).astype(np.float32)
+        for k in range(12):
+            x[:, 1 + k % 3, 5 * k, 7 * k] = 5.0 + 0.01 * k
+        for p in (20, 33, 61):
+            x[:, p, 6, 10], x[:, p, 6, 11] = 9.5 + p * 1e-3, 9.4 + p * 1e-3
+            x[:, p + 1, 9, 40], x[:, p, 9, 40] = 9.0, 8.9
+        pcm = torch.from_numpy(x)
+    pcm = pcm.to(dev)
+    got = P.pcm_peaks_topk(pcm, n)
+    assert torch.equal(got, P.pcm_peaks_topk_plain(pcm, n))
+    assert torch.equal(P.pcm_peaks_topk(pcm, n), got)  # tickets reset
+
+
 def test_pcm_peaks_batch_kernels(dev):
     """The composition: K7, K8, K9, K10 against the plain twins on the same
     stacks. The peaks are equal index by index, except where the two
@@ -1304,6 +1368,39 @@ def test_dog_topk_kernel(dev, n, k):
     flat = (idx[1, :, 0] * shape[1] + idx[1, :, 1]) * shape[2] + idx[1, :, 2]
     assert set(flat[valid[1]].tolist()) == set(
         top.indices[top.values > -np.inf].tolist())
+
+
+@pytest.mark.parametrize("case", ["count_0", "count_k", "count_k_plus_1",
+                                  "ties_at_k"])
+def test_dog_topk_counts(dev, case):
+    """K17 around k (600: three blocks a list) against its twin: no
+    candidate, exactly k, k + 1 (the truncation path), and more than k
+    with the k-th score tied among entries far apart in the list (in
+    different blocks' shares), where the lower flat indices win."""
+    rng = np.random.default_rng(45)
+    shape, k = (48, 40, 32), 600
+    vol = int(np.prod(shape))
+    counts = {"count_0": [0, 0], "count_k": [k, k - 1],
+              "count_k_plus_1": [k + 1, k], "ties_at_k": [3000, 1700]}[case]
+    cand_idx = torch.zeros((2, vol), dtype=torch.int32)
+    cand_score = torch.zeros((2, vol), dtype=torch.float32)
+    for b, m in enumerate(counts):
+        cand_idx[b, :m] = torch.from_numpy(rng.permutation(vol)[:m].astype(
+            np.int32))
+        score = rng.permutation(m) + 1.0
+        if case == "ties_at_k":  # 500 above, then 400 equal, spread out
+            score = np.full(m, 7.0)
+            top = rng.permutation(m)
+            score[top[:500]] = 100.0 + np.arange(500)
+            score[top[500:900]] = 50.0
+        cand_score[b, :m] = torch.from_numpy(score.astype(np.float32))
+    count = torch.tensor(counts, dtype=torch.int32)
+    args = [t.to(dev) for t in (cand_idx, cand_score, count)]
+    idx, valid = G.dog_topk(*args, k, shape)
+    pidx, pvalid = G.topk_plain(*args, k, shape)
+    assert torch.equal(idx, pidx) and torch.equal(valid, pvalid)
+    assert valid.sum(1).tolist() == [min(k, m) for m in counts]
+    assert int(idx[~valid].abs().sum()) == 0
 
 
 def test_dog_localize_kernel(dev):
